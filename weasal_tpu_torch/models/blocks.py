@@ -1,0 +1,388 @@
+"""Network blocks on the dense sphere-batch layout, inference only.
+
+Counterpart of weasal_tpu/models/blocks.py. Tensors are [B, N_l, C] with
+a [B, N_l] mask; blocks take (x, batch) and read their level's tensors by
+`layer_ind`. Module attributes carry the flax names (`unary1.mlp`,
+`batch_norm.{scale,bias,mean,var}`, `KPConv.weights`,
+`KPConv.kernel_points`, `gamma`), so that weasal_tpu_torch/interop.py maps
+a flax variable tree onto `state_dict` by renaming alone.
+
+Fresh parameters come from an explicit `torch.Generator`; kernel-point
+poses come from the crc32 pose seed of the JAX package (blocks.py:291-306)
+and equal its `constants`. Training mode is not ported: BatchNorm raises
+when the module is in training mode.
+"""
+
+from __future__ import annotations
+
+import math
+import zlib
+from typing import Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from weasal_tpu_torch.kernels.kernel_points import load_kernels
+from weasal_tpu_torch.ops import kpconv as ops
+
+LEAKY_SLOPE = 0.1
+
+
+def leaky_relu(x):
+    return torch.nn.functional.leaky_relu(x, negative_slope=LEAKY_SLOPE)
+
+
+def _uniform(shape, bound: float, generator: torch.Generator):
+    return nn.Parameter(
+        (torch.rand(shape, generator=generator) * 2.0 - 1.0) * bound)
+
+
+class Linear(nn.Module):
+    """Bias-free linear map with torch's [out, in] `weight` layout (the
+    flax `mlp` kernel transposed); init uniform(+-1/sqrt(in))."""
+
+    def __init__(self, in_dim: int, out_dim: int,
+                 generator: torch.Generator):
+        super().__init__()
+        self.weight = _uniform((out_dim, in_dim), 1.0 / math.sqrt(in_dim),
+                               generator)
+
+    def forward(self, x):
+        return x @ self.weight.t()
+
+
+class MaskedBatchNorm(nn.Module):
+    """Eval-mode BatchNorm with running statistics (`scale`, `bias`,
+    buffers `mean`, `var`), or a learned bias when use_bn is False."""
+
+    def __init__(self, features: int, use_bn: bool, eps: float = 1e-5):
+        super().__init__()
+        self.use_bn = use_bn
+        self.eps = eps
+        self.bias = nn.Parameter(torch.zeros(features))
+        if use_bn:
+            self.scale = nn.Parameter(torch.ones(features))
+            self.register_buffer("mean", torch.zeros(features))
+            self.register_buffer("var", torch.ones(features))
+
+    def forward(self, x, mask=None):
+        if not self.use_bn:
+            return x + self.bias
+        if self.training:
+            raise NotImplementedError(
+                "training-mode BatchNorm is not ported; call model.eval()")
+        inv = torch.rsqrt(self.var + self.eps) * self.scale
+        return (x - self.mean) * inv + self.bias
+
+
+class UnaryBlock(nn.Module):
+    """Linear (no bias) + BN + LeakyReLU."""
+
+    def __init__(self, in_dim: int, out_dim: int, use_bn: bool,
+                 generator: torch.Generator, no_relu: bool = False):
+        super().__init__()
+        self.mlp = Linear(in_dim, out_dim, generator)
+        self.batch_norm = MaskedBatchNorm(out_dim, use_bn)
+        self.no_relu = no_relu
+
+    def forward(self, x, mask):
+        x = self.batch_norm(self.mlp(x), mask)
+        return x if self.no_relu else leaky_relu(x)
+
+
+class KPConv(nn.Module):
+    """Rigid kernel point convolution: `weights` [Kp, Cin, Cout] and a
+    `kernel_points` [Kp, 3] buffer posed from `pose_seed`."""
+
+    def __init__(self, kernel_size: int, p_dim: int, in_channels: int,
+                 out_channels: int, kp_extent: float, radius: float,
+                 generator: torch.Generator, layer_ind: int, strided: bool,
+                 fixed_kernel_points: str = "center",
+                 influence: str = "linear", aggregation: str = "sum",
+                 pose_seed: int = 0):
+        super().__init__()
+        self.params = ops.KPConvParams(kp_extent=kp_extent,
+                                       influence=influence,
+                                       aggregation=aggregation)
+        self.layer_ind = layer_ind
+        self.strided = strided
+        self.weights = _uniform((kernel_size, in_channels, out_channels),
+                                1.0 / math.sqrt(in_channels * out_channels),
+                                generator)
+        kp = load_kernels(radius, kernel_size, p_dim, fixed_kernel_points,
+                          rng=np.random.default_rng(pose_seed))
+        self.register_buffer("kernel_points", torch.from_numpy(kp))
+
+    def forward(self, q_pts, s_pts, neighb_inds, x):
+        return ops.kpconv(q_pts, s_pts, neighb_inds, x, self.kernel_points,
+                          self.weights, self.params)
+
+
+def conv_inputs(strided: bool, layer_ind: int, batch):
+    """(query points, support points, neighbor rows, output mask) of a
+    conv at `layer_ind`; a strided conv goes from level l to l+1."""
+    if strided:
+        return (batch.points[layer_ind + 1], batch.points[layer_ind],
+                batch.pools[layer_ind], batch.masks[layer_ind + 1])
+    return (batch.points[layer_ind], batch.points[layer_ind],
+            batch.neighbors[layer_ind], batch.masks[layer_ind])
+
+
+def _make_kpconv(cfg, block_name: str, in_dim: int, out_dim: int,
+                 radius: float, layer_ind: int, path: Tuple[str, ...],
+                 generator: torch.Generator) -> KPConv:
+    if "deform" in block_name:
+        raise NotImplementedError("deformable KPConv is not ported")
+    seed = zlib.crc32(
+        ("/".join(path) + "|"
+         + f"{block_name}|{in_dim}|{out_dim}|{radius:.6f}|{layer_ind}"
+         ).encode())
+    return KPConv(cfg.num_kernel_points, cfg.in_points_dim, in_dim, out_dim,
+                  radius * cfg.KP_extent / cfg.conv_radius, radius,
+                  generator, layer_ind, "strided" in block_name,
+                  fixed_kernel_points=cfg.fixed_kernel_points,
+                  influence=cfg.KP_influence,
+                  aggregation=cfg.aggregation_mode,
+                  pose_seed=seed & 0x7FFFFFFF)
+
+
+class _ConvBlock(nn.Module):
+    """Shared fields of conv-carrying blocks; `path` is the flax module
+    path, which seeds the kernel-point poses."""
+
+    def __init__(self, block_name, in_dim, out_dim, radius, layer_ind,
+                 config, path: Tuple[str, ...]):
+        super().__init__()
+        self.block_name = block_name
+        self.in_dim = in_dim
+        self.out_dim = out_dim
+        self.radius = radius
+        self.layer_ind = layer_ind
+        self.config = config
+        self.path = tuple(path)
+
+    def _conv(self, in_dim, out_dim, generator):
+        return _make_kpconv(self.config, self.block_name, in_dim, out_dim,
+                            self.radius, self.layer_ind, self.path,
+                            generator)
+
+    def _sub(self, cls, name, generator, **kw):
+        args = dict(block_name=self.block_name, in_dim=self.in_dim,
+                    out_dim=self.out_dim, radius=self.radius,
+                    layer_ind=self.layer_ind, config=self.config)
+        args.update(kw)
+        return cls(path=self.path + (name,), generator=generator, **args)
+
+    def _unary(self, in_dim, out_dim, generator, no_relu=False):
+        return UnaryBlock(in_dim, out_dim, self.config.use_batch_norm,
+                          generator, no_relu=no_relu)
+
+
+class SimpleBlock(_ConvBlock):
+    """KPConv(out_dim // 2) + BN + LeakyReLU."""
+    width_div = 2
+
+    def __init__(self, generator, **kw):
+        super().__init__(**kw)
+        width = self.out_dim // self.width_div
+        self.KPConv = self._conv(self.in_dim, width, generator)
+        self.batch_norm = MaskedBatchNorm(width, self.config.use_batch_norm)
+
+    def forward(self, x, batch):
+        q_pts, s_pts, neighb, out_mask = conv_inputs(
+            self.KPConv.strided, self.layer_ind, batch)
+        x = self.KPConv(q_pts, s_pts, neighb, x)
+        return leaky_relu(self.batch_norm(x, out_mask))
+
+
+class SimpleBlock2(SimpleBlock):
+    """SimpleBlock with the full out_dim."""
+    width_div = 1
+
+
+class ResnetBottleneckBlock(_ConvBlock):
+    """unary -> KPConv -> unary with a (max-pooled) shortcut."""
+
+    def __init__(self, generator, **kw):
+        super().__init__(**kw)
+        mid = self.out_dim // 4
+        self.unary1 = (self._unary(self.in_dim, mid, generator)
+                       if self.in_dim != mid else None)
+        self.KPConv = self._conv(mid, mid, generator)
+        self.batch_norm_conv = MaskedBatchNorm(mid,
+                                               self.config.use_batch_norm)
+        self.unary2 = self._unary(mid, self.out_dim, generator, no_relu=True)
+        self.unary_shortcut = (
+            self._unary(self.in_dim, self.out_dim, generator, no_relu=True)
+            if self.in_dim != self.out_dim else None)
+
+    def forward(self, features, batch):
+        strided = self.KPConv.strided
+        q_pts, s_pts, neighb, out_mask = conv_inputs(
+            strided, self.layer_ind, batch)
+        x = features
+        if self.unary1 is not None:
+            x = self.unary1(x, batch.masks[self.layer_ind])
+        x = self.KPConv(q_pts, s_pts, neighb, x)
+        x = leaky_relu(self.batch_norm_conv(x, out_mask))
+        x = self.unary2(x, out_mask)
+        shortcut = ops.max_pool(features, neighb) if strided else features
+        if self.unary_shortcut is not None:
+            shortcut = self.unary_shortcut(shortcut, out_mask)
+        return leaky_relu(x + shortcut)
+
+
+class NearestUpsampleBlock(nn.Module):
+    """Closest-neighbor upsampling from level layer_ind onto layer_ind-1."""
+
+    def __init__(self, layer_ind: int):
+        super().__init__()
+        self.layer_ind = layer_ind
+
+    def forward(self, x, batch):
+        return ops.closest_pool(x, batch.upsamples[self.layer_ind - 1])
+
+
+class GlobalAverageBlock(nn.Module):
+    """Per-sphere masked mean at the last level."""
+
+    def forward(self, x, batch):
+        return ops.global_average(x, batch.masks[-1])
+
+
+def _zero_padded(x, mask):
+    return x * mask.to(x.dtype)[..., None]
+
+
+class SpatialAttention(_ConvBlock):
+    """Point-to-point self-attention per sphere; returns (merged, xn)."""
+
+    def __init__(self, generator, **kw):
+        super().__init__(**kw)
+        d = self.out_dim
+        self.simple1 = self._sub(SimpleBlock2, "simple1", generator)
+        self.unary1 = self._unary(d, d // 8, generator)
+        self.unary2 = self._unary(d, d // 8, generator)
+        self.unary3 = self._unary(d, d, generator)
+        self.gamma = nn.Parameter(torch.zeros(1))
+        self.simple2 = self._sub(SimpleBlock2, "simple2", generator)
+
+    def forward(self, features, batch):
+        mask = batch.masks[self.layer_ind]
+        features = self.simple1(features, batch)
+        x1 = self.unary1(features, mask)
+        x2 = self.unary2(features, mask)
+        x3 = self.unary3(features, mask)
+        energy = torch.einsum("bnc,bmc->bnm", x1, x2)
+        energy = energy.masked_fill(~mask[:, None, :], -math.inf)
+        att = torch.einsum("bnm,bmc->bnc", torch.softmax(energy, dim=-1), x3)
+        counts = mask.sum(dim=1).clamp(min=1).to(att.dtype)
+        xn = att / counts[:, None, None]
+        merged = self.simple2(self.gamma * att + features, batch)
+        return merged, xn
+
+
+class ChannelAttention(_ConvBlock):
+    """C x C channel attention per sphere."""
+
+    def __init__(self, generator, **kw):
+        super().__init__(**kw)
+        d8 = self.out_dim // 8
+        self.simple1 = self._sub(SimpleBlock2, "simple1", generator,
+                                 out_dim=d8)
+        self.unary1 = self._unary(d8, d8, generator)
+        self.unary2 = self._unary(d8, d8, generator)
+        self.gamma = nn.Parameter(torch.zeros(1))
+        self.simple2 = self._sub(SimpleBlock2, "simple2", generator,
+                                 in_dim=d8)
+
+    def forward(self, features, batch):
+        mask = batch.masks[self.layer_ind]
+        features = self.simple1(features, batch)
+        q = _zero_padded(self.unary1(features, mask), mask)
+        k = _zero_padded(self.unary2(features, mask), mask)
+        energy = torch.einsum("bnc,bnd->bcd", q, k)
+        energy_new = energy.amax(dim=-1, keepdim=True) - energy
+        att = torch.einsum("bnc,bcd->bnd", features,
+                           torch.softmax(energy_new, dim=-1))
+        return self.simple2(self.gamma * att + features, batch)
+
+
+class ElevationAttention(_ConvBlock):
+    """Attention keyed on (reduced height, absolute height)."""
+
+    def __init__(self, generator, **kw):
+        super().__init__(**kw)
+        d = self.out_dim
+        self.unary1 = self._unary(2, d, generator)
+        self.unary2 = self._unary(2, d, generator)
+        self.gamma = nn.Parameter(torch.zeros(1))
+        self.simple2 = self._sub(SimpleBlock2, "simple2", generator,
+                                 in_dim=d)
+
+    def forward(self, features, h, batch):
+        mask = batch.masks[self.layer_ind]
+        o_z = batch.center_pts[:, 2][:, None, None]
+        ele_f = torch.cat([h, h + o_z], dim=-1)              # [B, N, 2]
+        q = _zero_padded(self.unary1(ele_f, mask), mask)
+        k = _zero_padded(self.unary2(ele_f, mask), mask)
+        energy = torch.einsum("bnc,bnd->bcd", q, k)
+        att = torch.einsum("bnc,bcd->bnd", features,
+                           torch.softmax(energy, dim=-1))
+        return self.simple2(self.gamma * att + features, batch)
+
+
+class MultiPathAttention(_ConvBlock):
+    """MPRM 4-path head; returns per-point class maps (sa, ca, no, pa)."""
+
+    def __init__(self, generator, **kw):
+        super().__init__(**kw)
+        c = self.config.num_classes
+        d = self.out_dim
+        self.sa_f = self._sub(SpatialAttention, "sa_f", generator)
+        self.ca_f = self._sub(ChannelAttention, "ca_f", generator)
+        self.simple1 = self._sub(SimpleBlock2, "simple1", generator,
+                                 in_dim=self.in_dim + d)
+        self.sa_unary = self._unary(d, c, generator)
+        self.ca_unary = self._unary(d, c, generator)
+        self.no_unary = self._unary(self.in_dim, c, generator)
+        self.pa_unary = self._unary(d, c, generator)
+
+    def forward(self, features, batch):
+        mask = batch.masks[self.layer_ind]
+        sa, sa_xn = self.sa_f(features, batch)
+        ca = self.ca_f(features, batch)
+        pa = self.simple1(torch.cat([features, sa_xn], dim=-1), batch)
+        return (self.sa_unary(sa, mask), self.ca_unary(ca, mask),
+                self.no_unary(features, mask), self.pa_unary(pa, mask))
+
+
+_SIMPLE = ("simple", "simple_strided")
+_RESNETB = ("resnetb", "resnetb_strided")
+
+
+def block_decider(block_name: str, radius: float, in_dim: int, out_dim: int,
+                  layer_ind: int, config, path: Tuple[str, ...],
+                  generator: torch.Generator) -> nn.Module:
+    """Map an architecture-DSL block name to its module. Deformable,
+    invariant, equivariant and max-pool blocks are not ported."""
+    kw = dict(block_name=block_name, in_dim=in_dim, out_dim=out_dim,
+              radius=radius, layer_ind=layer_ind, config=config, path=path,
+              generator=generator)
+    if block_name == "unary":
+        return UnaryBlock(in_dim, out_dim, config.use_batch_norm, generator)
+    if block_name in _SIMPLE:
+        return SimpleBlock(**kw)
+    if block_name in _RESNETB:
+        return ResnetBottleneckBlock(**kw)
+    if block_name == "global_average":
+        return GlobalAverageBlock()
+    if block_name == "nearest_upsample":
+        return NearestUpsampleBlock(layer_ind)
+    raise ValueError(f"Unknown or unported block name: {block_name}")
+
+
+def kpconv_modules(model: nn.Module):
+    """(name, KPConv) pairs of a model, in registration order."""
+    return [(n, m) for n, m in model.named_modules() if isinstance(m, KPConv)]
