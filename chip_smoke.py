@@ -3,25 +3,37 @@
     python3 chip_smoke.py [--out report.json]
 
 Phases, in order; any failure exits non-zero:
-1. setup: card name and power limit (nvidia-smi), build of both CUDA
-   kernels with nvcc (sm_90a), the Vaihingen3D weak-label model at full
-   width with weights from a seeded torch.Generator, a shape plan
-   calibrated on synthetic spheres, and the level-0 batches;
-2. kernels against their plain PyTorch versions on the card, at every
-   shape one forward gives them: the 7 radius-search edges (kernel A,
-   indices equal) and the 12 KPConvs (kernel B, f32 tolerance below),
+1. setup: card name and power limit (nvidia-smi), build of the four CUDA
+   kernels with nvcc (sm_90a, one process per source, in parallel), the
+   Vaihingen3D weak-label model at full width with weights from a seeded
+   torch.Generator, a shape plan calibrated on synthetic spheres, and the
+   level-0 batches;
+2. kernels A and B against their plain PyTorch versions on the card, at
+   every shape one forward gives them: the 7 radius-search edges (kernel
+   A, indices equal) and the 12 KPConvs (kernel B, f32 tolerance below),
    with kernel and plain times (CUDA events, median of 10 after warm-up)
    and each kernel's bound;
-3. the main path: `eval_step` on each batch, launch counts read around
-   it, probabilities checked, and one batch's forward compared with the
-   same forward on the plain versions.
-The last line is {"ok": true, "device": {...}}; the line before it holds
-the kernels' numbers as JSON. Imports nothing of JAX or weasal_tpu.
+3. the inference path: `eval_step` on each batch, launch counts read
+   around it, probabilities checked, and one batch's forward compared
+   with the same forward on the plain versions;
+4. kernels C and D against their plain versions at every shape one
+   training step gives them: the 12 KPConv backwards (seeded random
+   inputs and output gradients) and the 2 strided-shortcut max-pool
+   backwards (integer-valued features, so that ties and maxima of 0
+   shared with shadows occur), timed as in phase 2;
+5. the training path: `train_step` for 4 steps, launch counts read around
+   them, losses, parameters and BatchNorm statistics checked, then one
+   step with the kernels against one step on the plain versions from one
+   shared state and pyramid (loss, every gradient, the updated state).
+Phases 3 and 5 end with a profile of one step. The last line is
+{"ok": true, "device": {...}}; the line before it holds the kernels'
+numbers as JSON. Imports nothing of JAX or weasal_tpu.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import statistics
@@ -42,9 +54,25 @@ F32_OPS_PER_S = 67e12
 # so outputs agree to f32 rounding accumulated over Kp*K + Kp*Cin terms.
 KPCONV_RTOL = 1e-4
 KPCONV_ATOL_REL = 1e-5       # times max |plain output|
+# Kernel D vs its plain version: the same shares, added to a support by
+# atomics in another order
+MAXPOOL_RTOL = 1e-6
+MAXPOOL_ATOL_REL = 1e-6      # times max |plain dX|
 # Whole forward, kernels vs plain versions on one shared pyramid
 PROBS_ATOL = 1e-4
+# One training step, kernels vs plain versions from one state and pyramid:
+# the losses to LOSS_RTOL. The gradients at full width are ill-conditioned
+# in f32 (BatchNorm on batch statistics, a saturated softmax): the plain
+# f32 step itself sits up to ~1e-2 (relative L2) from an f64 step, and the
+# two f32 steps' errors there differ by up to ~2x from run to run. So each
+# gradient and each change of the state is held to the f64 step: the
+# kernel step's L2 error may be F64_FLOOR times the f64 tensor's norm plus
+# F64_RATIO times the plain f32 step's own error.
+LOSS_RTOL = 1e-5
+F64_RATIO = 4.0
+F64_FLOOR = 1e-3
 N_BATCHES = 3
+N_TRAIN_STEPS = 4
 SEED = 0
 
 
@@ -177,7 +205,278 @@ def check_kpconv(model, batch, log, seed):
                       bound_by=bound_ms(bytes_t, ops_t)[1])
 
 
-def profile_step(step, log, top: int = 12):
+def _assert_close(what, got, want, rtol, atol):
+    if not torch.allclose(got, want, rtol=rtol, atol=atol):
+        err = float((got - want).abs().max())
+        raise AssertionError(f"{what}: max abs err {err:.3e} (rtol {rtol}, "
+                             f"atol {atol:.3e})")
+
+
+def first_conv(model):
+    """Name of the KPConv whose input is the raw features: on the main
+    path its backward skips dX."""
+    from weasal_tpu_torch.models.blocks import kpconv_modules
+    return kpconv_modules(model)[0][0]
+
+
+def check_kpconv_bwd(model, batch, log, seed):
+    from weasal_tpu_torch.models.blocks import conv_inputs, kpconv_modules
+    from weasal_tpu_torch.ops.cuda.kpconv_bwd import (kpconv_bwd,
+                                                      kpconv_bwd_plain)
+    from weasal_tpu_torch.ops.cuda.kpconv_fwd import kpconv_fwd_plain_with_y
+    gen = torch.Generator(device=batch.features.device).manual_seed(seed)
+    rows, t_k, t_p, t_b, ops_t, bytes_t = [], 0.0, 0.0, 0.0, 0.0, 0.0
+    worst = 0.0
+    skip_dx = first_conv(model)
+    for name, conv in kpconv_modules(model):
+        q, s, nb, q_mask = conv_inputs(conv.strided, conv.layer_ind, batch)
+        kp, w = conv.kernel_points, conv.weights.detach()
+        n_kp, cin, cout = w.shape
+        x = torch.randn((s.shape[0], s.shape[1], cin), generator=gen,
+                        device=s.device)
+        g = torch.randn((q.shape[0], q.shape[1], cout), generator=gen,
+                        device=s.device)
+        ext, infl = conv.params.kp_extent, conv.params.influence
+        _, y = kpconv_fwd_plain_with_y(q, s, nb, x, kp, w, ext, infl)
+        # Checked with dX at every conv; timed as the main path calls it
+        args = (q, s, nb, y, kp, w, g, ext, infl)
+        got = kpconv_bwd(*args)
+        ref = kpconv_bwd_plain(*args)
+        torch.cuda.synchronize()
+        errs = []
+        for what, a, b in (("dX", got[0], ref[0]), ("dW", got[1], ref[1])):
+            scale = float(b.abs().max())
+            _assert_close(f"kpconv_bwd {name} {what}", a, b, KPCONV_RTOL,
+                          KPCONV_ATOL_REL * max(scale, 1e-30))
+            errs.append(float((a - b).abs().max()))
+        worst = max(worst, *errs)
+        need_dx = name != skip_dx
+        ms = cuda_ms(lambda: kpconv_bwd(*args, need_dx=need_dx))
+        plain = cuda_ms(lambda: kpconv_bwd_plain(*args, need_dx=need_dx))
+        pairs = float((nb < s.shape[1]).sum())
+        rows_valid = float(q_mask.sum())
+        gemm_ops = 2.0 * rows_valid * n_kp * cin * cout
+        # inputs y, W, g and output dW; with dX also q, s, nb, kp and dX
+        n_ops = gemm_ops
+        n_bytes = 4.0 * (y.numel() + w.numel() + g.numel() + w.numel())
+        if need_dx:
+            n_ops = 2 * gemm_ops + pairs * n_kp * (14 + 2 * cin)
+            n_bytes += 4.0 * (q.numel() + s.numel() + nb.numel()
+                              + kp.numel() + x.numel())
+        b_ms, b_by = bound_ms(n_bytes, n_ops)
+        t_k, t_p, t_b = t_k + ms, t_p + plain, t_b + b_ms
+        ops_t, bytes_t = ops_t + n_ops, bytes_t + n_bytes
+        rows.append(dict(conv=name, shape=[*q.shape[:2], s.shape[1],
+                                           nb.shape[2], cin, cout],
+                         need_dx=need_dx, max_abs_err_dx=errs[0],
+                         max_abs_err_dw=errs[1], ms=ms, plain_ms=plain,
+                         bound_ms=b_ms, bound_by=b_by))
+        log(f"  C {name}: q{list(q.shape[:2])} Ns={s.shape[1]} "
+            f"K={nb.shape[2]} {cin}->{cout}: err dX {errs[0]:.2e} dW "
+            f"{errs[1]:.2e}, kernel {ms:.3f} ms, plain {plain:.3f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}){'' if need_dx else ', no dX'}")
+    return rows, dict(ms=t_k, plain_ms=t_p, bound_ms=t_b, max_abs_err=worst,
+                      bound_by=bound_ms(bytes_t, ops_t)[1])
+
+
+def strided_pools(model):
+    """(name, level, channels) of each max-pooled strided shortcut."""
+    from weasal_tpu_torch.models.blocks import ResnetBottleneckBlock
+    return [(n, m.layer_ind, m.in_dim) for n, m in model.named_modules()
+            if isinstance(m, ResnetBottleneckBlock) and m.KPConv.strided]
+
+
+def check_maxpool_bwd(model, batch, log, seed):
+    from weasal_tpu_torch.ops.cuda.maxpool_bwd import (maxpool_bwd,
+                                                       maxpool_bwd_plain)
+    gen = torch.Generator(device=batch.features.device).manual_seed(seed)
+    rows, t_k, t_p, t_b, bytes_t, worst = [], 0.0, 0.0, 0.0, 0.0, 0.0
+    for name, level, c in strided_pools(model):
+        nb = batch.pools[level]
+        b, ns = batch.points[level].shape[:2]
+        # Integer values force ties; channel 0 is never positive, so its
+        # maximum is often a 0 shared with the shadow slots
+        x = torch.randint(-3, 3, (b, ns, c), generator=gen,
+                          device=nb.device).float()
+        x[:, :, 0].clamp_(max=0.0)
+        g = torch.randn((b, nb.shape[1], c), generator=gen, device=nb.device)
+        got = maxpool_bwd(x, nb, g)
+        ref = maxpool_bwd_plain(x, nb, g)
+        torch.cuda.synchronize()
+        scale = float(ref.abs().max())
+        _assert_close(f"maxpool_bwd {name}", got, ref, MAXPOOL_RTOL,
+                      MAXPOOL_ATOL_REL * max(scale, 1e-30))
+        err = float((got - ref).abs().max())
+        worst = max(worst, err)
+        ms = cuda_ms(lambda: maxpool_bwd(x, nb, g))
+        plain = cuda_ms(lambda: maxpool_bwd_plain(x, nb, g))
+        n_bytes = 4.0 * (x.numel() + nb.numel() + g.numel() + got.numel())
+        b_ms, b_by = bound_ms(n_bytes, 0.0)
+        t_k, t_p, t_b = t_k + ms, t_p + plain, t_b + b_ms
+        bytes_t += n_bytes
+        rows.append(dict(pool=name, shape=[b, nb.shape[1], ns, nb.shape[2],
+                                           c],
+                         max_abs_err=err, ms=ms, plain_ms=plain,
+                         bound_ms=b_ms, bound_by=b_by))
+        log(f"  D {name}: nb{list(nb.shape)} Ns={ns} C={c}: err {err:.2e} "
+            f"(scale {scale:.2e}), kernel {ms:.3f} ms, plain {plain:.3f} "
+            f"ms, bound {b_ms:.4f} ms ({b_by})")
+    return rows, dict(ms=t_k, plain_ms=t_p, bound_ms=t_b, max_abs_err=worst,
+                      bound_by="bytes")
+
+
+def clone_state(model, opt_state):
+    return ({k: v.clone() for k, v in model.state_dict().items()},
+            {k: v.clone() for k, v in opt_state.items()})
+
+
+def compare_train_steps(model, opt_state, batch, config, log):
+    """One step with the kernels and one on the plain versions (f32), from
+    the same state and pyramid, each held to the same step on the plain
+    versions in f64. The model is left after the plain f32 step. Returns
+    the errors."""
+    import copy
+    import dataclasses
+    from weasal_tpu_torch.train.step import step_on_batch
+    from weasal_tpu_torch.utils.device import plain_ops
+    state0, opt0 = clone_state(model, opt_state)
+    f64 = dataclasses.replace(
+        batch, points=tuple(p.double() for p in batch.points),
+        features=batch.features.double(), center_pts=batch.center_pts.double(),
+        cloud_lb=batch.cloud_lb.double(), region_lb=batch.region_lb.double())
+    model64 = copy.deepcopy(model).double()
+    runs = {}
+    for label, net, data, dtype in (("f64", model64, f64, torch.float64),
+                                    ("kernels", model, batch, None),
+                                    ("plain", model, batch, None)):
+        net.load_state_dict({k: v.to(dtype or v.dtype)
+                             if v.is_floating_point() else v
+                             for k, v in state0.items()})
+        opt = {k: v.to(dtype or v.dtype, copy=True) for k, v in opt0.items()}
+        with contextlib.ExitStack() as stack:
+            if label != "kernels":
+                stack.enter_context(plain_ops())
+            loss, _ = step_on_batch(net, opt, data, config,
+                                    config.learning_rate)
+        grads = {n: p.grad.double() for n, p in net.named_parameters()}
+        moved = {k: v.double() - state0[k].double()
+                 for k, v in net.state_dict().items() if v.is_floating_point()}
+        runs[label] = (float(loss), grads, moved)
+    del model64
+    loss_k, loss_p = runs["kernels"][0], runs["plain"][0]
+    if not abs(loss_k - loss_p) <= LOSS_RTOL * abs(loss_p):
+        raise AssertionError(f"train step loss {loss_k} vs plain {loss_p}")
+    worst = dict(kernel_rel=0.0, plain_rel=0.0, ratio=0.0)
+    for part, what in ((1, "gradient"), (2, "state change")):
+        truth = runs["f64"][part]
+        for name, ref in truth.items():
+            norm = float(ref.norm())
+            err_k = float((runs["kernels"][part][name] - ref).norm())
+            err_p = float((runs["plain"][part][name] - ref).norm())
+            if not err_k <= F64_RATIO * err_p + F64_FLOOR * norm:
+                raise AssertionError(
+                    f"{what} {name}: L2 error to the f64 step {err_k:.3e} "
+                    f"with kernels, {err_p:.3e} on the plain versions "
+                    f"(norm {norm:.3e})")
+            if norm > 0:
+                worst["kernel_rel"] = max(worst["kernel_rel"], err_k / norm)
+                worst["plain_rel"] = max(worst["plain_rel"], err_p / norm)
+            if err_p > 0:
+                worst["ratio"] = max(worst["ratio"], err_k / err_p)
+    log(f"train step from one state and pyramid: loss {loss_k:.7f} with "
+        f"kernels, {loss_p:.7f} plain, {runs['f64'][0]:.7f} plain f64; "
+        f"worst relative L2 error to f64 over gradients and state changes: "
+        f"{worst['kernel_rel']:.2e} with kernels, {worst['plain_rel']:.2e} "
+        f"plain; worst ratio {worst['ratio']:.2f}")
+    return dict(loss=loss_k, loss_plain=loss_p, loss_f64=runs["f64"][0],
+                **worst)
+
+
+def run_training(config, plan, batches, dev, counted, expected, log):
+    """N_TRAIN_STEPS of `train_step` from a fresh seeded model, with the
+    launch counts of `counted` set to 0 before and read after; checks the
+    counts per step against `expected`, the losses, the parameters and the
+    BatchNorm statistics. Returns (model, opt_state, launches, step ms,
+    losses)."""
+    from weasal_tpu_torch import KPFCNN_mprm, init_opt_state, train_step
+    model = KPFCNN_mprm(config, tuple(range(config.num_classes)), (),
+                        generator=torch.Generator().manual_seed(SEED))
+    model = model.to(dev)
+    opt_state = init_opt_state(model)
+    state0, _ = clone_state(model, opt_state)
+    for fn in counted:
+        fn.launches = 0
+    step_ms, losses, points = [], [], []
+    for i in range(N_TRAIN_STEPS):
+        arrays = batches[i % len(batches)]
+        points.append(int(arrays["mask0"].sum()))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _acc, drops = train_step(model, opt_state, arrays, config,
+                                       plan, config.learning_rate,
+                                       device=dev)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        if float(drops.abs().sum()) != 0.0:
+            raise AssertionError("train_step reported dropped neighbors")
+    launches = {fn.__name__: fn.launches for fn in counted}
+    for name, per_step in expected.items():
+        if launches[name] != per_step * N_TRAIN_STEPS:
+            raise AssertionError(
+                f"{name}: {launches[name]} launches in {N_TRAIN_STEPS} "
+                f"training steps, expected {per_step} per step")
+    log(f"launches: {launches} over {N_TRAIN_STEPS} training steps")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training losses {losses}")
+    state = model.state_dict()
+    if not all(bool(torch.isfinite(v).all()) for v in state.values()):
+        raise AssertionError("non-finite parameters after training")
+    stats = [k for k in state if k.endswith((".mean", ".var"))]
+    frozen = [k for k in stats if torch.equal(state[k], state0[k])]
+    if frozen:
+        raise AssertionError(f"BatchNorm statistics did not move: {frozen}")
+    steady = statistics.mean(step_ms[1:])
+    log(f"train_step ms per step: {[round(v, 3) for v in step_ms]}; "
+        f"losses {[round(v, 5) for v in losses]}; mean of steps 2..: "
+        f"{steady:.3f} ms, real points/s "
+        f"{statistics.mean(points[1:]) * 1e3 / steady:.0f}")
+    return model, opt_state, launches, step_ms, losses
+
+
+# Kernel families of a step's device time: (label, substrings of the
+# kernel name); the first match wins, anything else is "other".
+FAMILIES = (
+    ("A radius_search", ("radius_search_kernel",)),
+    ("B aggregate", ("aggregate_kernel",)),
+    ("B sgemm y@W", ("sgemm_kernel<false, false>",)),
+    ("C sgemm g@W^T", ("sgemm_kernel<false, true>",)),
+    ("C scatter_dx", ("scatter_dx_kernel",)),
+    ("C sgemm y^T@g", ("sgemm_kernel<true, false>",)),
+    ("D maxpool_bwd", ("maxpool_bwd_kernel",)),
+    ("cuBLAS/CUTLASS GEMMs", ("gemm", "cutlass", "cublas")),
+    ("reductions", ("reduce_kernel",)),
+    ("softmax", ("SoftMax",)),
+    ("gathers, scatters, index", ("gather", "scatter", "index")),
+    ("sorts", ("sort", "Sort", "radix")),
+    ("copies, fills", ("Memcpy", "Memset", "copy", "fill")),
+    ("elementwise", ("elementwise",)),
+)
+
+
+def kernel_families(rows):
+    """[(family, launches, device ms)] of profile rows, largest first."""
+    sums = {}
+    for name, count, ms in rows:
+        label = next((lab for lab, keys in FAMILIES
+                      if any(k in name for k in keys)), "other")
+        n, t = sums.get(label, (0, 0.0))
+        sums[label] = (n + count, t + ms)
+    return sorted(((k, n, t) for k, (n, t) in sums.items()),
+                  key=lambda r: -r[2])
+
+
+def profile_step(step, log, label: str, top: int = 12):
     """Device time of one call of `step` by kernel name (torch.profiler);
     returns (rows, busy ms, wall ms). Busy is the sum of kernel self
     times, so the idle share is 1 - busy / wall."""
@@ -195,10 +494,13 @@ def profile_step(step, log, top: int = 12):
                    and e.self_device_time_total > 0),
                   key=lambda r: -r[2])
     busy = sum(r[2] for r in rows)
-    log(f"profile of one eval_step: wall {wall:.3f} ms, device busy "
+    log(f"profile of one {label}: wall {wall:.3f} ms, device busy "
         f"{busy:.3f} ms ({100 * busy / wall:.1f}%), {len(rows)} kernels")
     for name, count, ms in rows[:top]:
         log(f"  {ms:9.3f} ms {count:4d}x  {name[:90]}")
+    log(f"by family ({sum(r[1] for r in rows)} launches):")
+    for family, count, ms in kernel_families(rows):
+        log(f"  {ms:9.3f} ms {count:5d}x  {100 * ms / busy:5.1f}%  {family}")
     return rows, busy, wall
 
 
@@ -213,13 +515,16 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from weasal_tpu_torch import KPFCNN_mprm, VaihingenWLConfig, eval_step
+    from weasal_tpu_torch import (KPFCNN_mprm, VaihingenWLConfig, eval_step,
+                                  train_step)
     from weasal_tpu_torch.data.batching import calibrate_shape_plan
     from weasal_tpu_torch.data.demo import demo_sphere, thin_payload
     from weasal_tpu_torch.data.level0 import assemble_level0
     from weasal_tpu_torch.infer import to_device
     from weasal_tpu_torch.ops.cuda import build
+    from weasal_tpu_torch.ops.cuda.kpconv_bwd import kpconv_bwd
     from weasal_tpu_torch.ops.cuda.kpconv_fwd import kpconv_fwd
+    from weasal_tpu_torch.ops.cuda.maxpool_bwd import maxpool_bwd
     from weasal_tpu_torch.ops.cuda.radius_search import radius_search
     from weasal_tpu_torch.ops.pyramid import batch_from_device_pyramid
     from weasal_tpu_torch.utils.device import configure_precision, plain_ops
@@ -267,7 +572,7 @@ def main(argv=None) -> int:
         a_rows, a_sum = check_radius_search(ref_batch, config, plan, log)
         b_rows, b_sum = check_kpconv(model, ref_batch, log, SEED)
 
-    # ---- phase 3: the main path
+    # ---- phase 3: the inference path
     log("phase 3: eval_step on the card")
     radius_search.launches = 0
     kpconv_fwd.launches = 0
@@ -288,16 +593,16 @@ def main(argv=None) -> int:
         if not torch.allclose(valid.sum(-1), torch.ones_like(valid[:, 0]),
                               atol=1e-5):
             raise AssertionError("probabilities do not sum to 1")
-    launches = {"radius_search": radius_search.launches,
-                "kpconv_fwd": kpconv_fwd.launches}
+    eval_launches = {"radius_search": radius_search.launches,
+                     "kpconv_fwd": kpconv_fwd.launches}
     expected = {"radius_search": 3 * plan.num_layers - 2,
                 "kpconv_fwd": len(b_rows)}
     for name, per_batch in expected.items():
-        if launches[name] != per_batch * len(batches):
+        if eval_launches[name] != per_batch * len(batches):
             raise AssertionError(
-                f"{name}: {launches[name]} launches in {len(batches)} "
+                f"{name}: {eval_launches[name]} launches in {len(batches)} "
                 f"batches, expected {per_batch} per batch")
-    log(f"launches: {launches} over {len(batches)} batches")
+    log(f"launches: {eval_launches} over {len(batches)} batches")
     steady_ms = statistics.mean(step_ms[1:] or step_ms)
     log(f"eval_step ms per batch: {[round(v, 3) for v in step_ms]}; "
         f"real points/s (batches 2..): "
@@ -313,25 +618,71 @@ def main(argv=None) -> int:
     if not diff <= PROBS_ATOL:
         raise AssertionError("kernel forward disagrees with the plain one")
     prof_rows, busy, wall = profile_step(
-        lambda: eval_step(model, batches[-1], config, plan, device=dev), log)
+        lambda: eval_step(model, batches[-1], config, plan, device=dev), log,
+        "eval_step")
+
+    # ---- phase 4: kernels C and D against their plain versions
+    log("phase 4: backward kernels vs plain versions")
+    c_rows, c_sum = check_kpconv_bwd(model, ref_batch, log, SEED)
+    d_rows, d_sum = check_maxpool_bwd(model, ref_batch, log, SEED)
+
+    # ---- phase 5: the training path
+    log(f"phase 5: train_step on the card, {N_TRAIN_STEPS} steps")
+    counted = (radius_search, kpconv_fwd, kpconv_bwd, maxpool_bwd)
+    expected = {"radius_search": 3 * plan.num_layers - 2,
+                "kpconv_fwd": len(b_rows), "kpconv_bwd": len(b_rows),
+                "maxpool_bwd": len(d_rows)}
+    train_model, opt_state, launches, train_ms, losses = run_training(
+        config, plan, batches, dev, counted, expected, log)
+    t = to_device(batches[0], dev)
+    with torch.no_grad():
+        shared = batch_from_device_pyramid(
+            t["points0"], t["mask0"], t["features"], t["labels"], config,
+            plan, t["center_pts"], rotations=t["rotations"],
+            cloud_lb=t["cloud_lb"], region_inds=t["region_inds"],
+            region_masks=t["region_masks"],
+            region_point_masks=t["region_point_masks"],
+            region_lb=t["region_lb"])
+    comparison = compare_train_steps(train_model, opt_state, shared, config,
+                                     log)
+    tprof_rows, tbusy, twall = profile_step(
+        lambda: train_step(train_model, opt_state, batches[1], config, plan,
+                           config.learning_rate, device=dev), log,
+        "train_step")
 
     kernels = [
         dict(name="radius_search", route="cuda",
              source="weasal_tpu_torch/csrc/radius_search.cu",
              replaces="weasal_tpu/ops/pallas/radius_pallas.py:196",
-             launches=launches["radius_search"], library_ms=None, **a_sum),
+             launches=eval_launches["radius_search"]
+             + launches["radius_search"], library_ms=None, **a_sum),
         dict(name="kpconv_fwd", route="cuda",
              source="weasal_tpu_torch/csrc/kpconv_fwd.cu",
              replaces="weasal_tpu/ops/pallas/kpconv_banded.py:478",
-             launches=launches["kpconv_fwd"], library_ms=None, **b_sum),
+             launches=eval_launches["kpconv_fwd"] + launches["kpconv_fwd"],
+             library_ms=None, **b_sum),
+        dict(name="kpconv_bwd", route="cuda",
+             source="weasal_tpu_torch/csrc/kpconv_bwd.cu",
+             replaces="weasal_tpu/ops/pallas/kpconv_banded.py:550",
+             launches=launches["kpconv_bwd"], library_ms=None, **c_sum),
+        dict(name="maxpool_bwd", route="cuda",
+             source="weasal_tpu_torch/csrc/maxpool_bwd.cu",
+             replaces="weasal_tpu/ops/pallas/maxpool_banded.py:159",
+             launches=launches["maxpool_bwd"], library_ms=None, **d_sum),
     ]
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(card=card, plan=vars(plan), step_ms=step_ms,
                            radius_search=a_rows, kpconv_fwd=b_rows,
+                           kpconv_bwd=c_rows, maxpool_bwd=d_rows,
                            kernels=kernels, probs_max_diff=diff,
+                           eval_launches=eval_launches,
+                           train_launches=launches, train_ms=train_ms,
+                           train_losses=losses, train_compare=comparison,
                            profile=dict(wall_ms=wall, busy_ms=busy,
-                                        rows=prof_rows)), f,
+                                        rows=prof_rows),
+                           train_profile=dict(wall_ms=twall, busy_ms=tbusy,
+                                              rows=tprof_rows)), f,
                       indent=1)
     log(card)
     print(json.dumps({"kernels": kernels}))

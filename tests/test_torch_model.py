@@ -48,6 +48,13 @@ class TinyConfig(Config):
     architecture = ["simple", "resnetb", "resnetb_strided", "resnetb",
                     "resnetb_strided", "resnetb",
                     "nearest_upsample", "nearest_upsample"]
+    batch_norm_momentum = 0.02
+    loss_type = "region_mprm_loss"
+    learning_rate = 0.01
+    momentum = 0.98
+    weight_decay = 1e-3
+    grad_clip_norm = 1.0
+    class_w = []
 
 
 def _as_dicts(tree):
@@ -151,15 +158,25 @@ def test_eval_step_matches_graft_entry_forward(setup):
     np.testing.assert_allclose(got.numpy()[mask0].sum(-1), 1.0, atol=1e-5)
 
 
-def test_training_mode_is_refused(setup):
+def test_training_mode_forward_updates_running_stats(setup):
     *_, arrays, _, plan, model = setup
+    t = to_device(arrays, "cpu")
+    batch = batch_from_device_pyramid(
+        t["points0"], t["mask0"], t["features"], t["labels"],
+        TinyConfig(), plan, t["center_pts"], rotations=t["rotations"])
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    stats = [k for k in before if k.endswith((".mean", ".var"))]
     model.train()
     try:
-        t = to_device(arrays, "cpu")
-        batch = batch_from_device_pyramid(
-            t["points0"], t["mask0"], t["features"], t["labels"],
-            TinyConfig(), plan, t["center_pts"], rotations=t["rotations"])
-        with pytest.raises(NotImplementedError):
-            model(batch)
+        with torch.no_grad():
+            logits, cla_logits, cam = model(batch)
+        after = {k: v.clone() for k, v in model.state_dict().items()}
     finally:
+        model.load_state_dict(before)
         model.eval()
+    assert np.isfinite(logits.numpy()[batch.masks[0].numpy()]).all()
+    assert len(cla_logits) == len(cam) == 4
+    assert len(stats) > 40
+    assert all(not torch.equal(after[k], before[k]) for k in stats)
+    assert all(torch.equal(after[k], before[k]) for k in before
+               if k not in stats)

@@ -1,14 +1,20 @@
 """PyTorch/CUDA port of weasal_tpu for NVIDIA Hopper.
 
-The inference path: level-0 arrays -> device pyramid (kernel A, radius
-search) -> KPFCNN_mprm (kernel B, KPConv forward) -> class probabilities.
-Entry point: `eval_step`. See README.md, section "PyTorch/CUDA port".
+Inference: level-0 arrays -> device pyramid (kernel A, radius search) ->
+KPFCNN_mprm (kernel B, KPConv forward) -> class probabilities; entry
+point `eval_step`. Training: the same forward in training mode, the
+weak-label loss, a backward through kernels C (KPConv backward) and D
+(max-pool backward), and an SGD update; entry point `train_step` with
+`init_opt_state`. See README.md, section "PyTorch/CUDA port".
 """
 
 from weasal_tpu_torch.config import Config, VaihingenWLConfig
 from weasal_tpu_torch.infer import eval_step
-from weasal_tpu_torch.interop import from_jax_variables
+from weasal_tpu_torch.interop import from_jax_opt_state, from_jax_variables
 from weasal_tpu_torch.models.architectures import KPFCNN_mprm
+from weasal_tpu_torch.train.optim import init_opt_state
+from weasal_tpu_torch.train.step import train_step
 
 __all__ = ["Config", "VaihingenWLConfig", "KPFCNN_mprm", "eval_step",
-           "from_jax_variables"]
+           "train_step", "init_opt_state", "from_jax_variables",
+           "from_jax_opt_state"]

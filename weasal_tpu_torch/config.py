@@ -1,4 +1,4 @@
-"""Configuration: the attributes the inference path reads.
+"""Configuration: the attributes the inference and training steps read.
 
 Counterpart of weasal_tpu/config.py (the `Config` parameter bag). Datasets
 subclass `Config` and override attributes; `num_layers` and
@@ -24,6 +24,7 @@ class Config:
     architecture: List[str] = []
     first_features_dim = 64
     use_batch_norm = True
+    batch_norm_momentum = 0.99       # torch convention: weight of the batch
 
     # KPConv
     num_kernel_points = 15
@@ -41,6 +42,15 @@ class Config:
 
     # Precision of the feature products; only float32 is ported
     compute_dtype = "float32"
+
+    # Training (optimizer of weasal_tpu/train/trainer.py:88-105)
+    learning_rate = 1e-3
+    momentum = 0.9
+    grad_clip_norm = 100.0
+    weight_decay = 1e-3
+    class_w: List[float] = []
+    deform_lr_factor = 0.1
+    loss_type = "region_mprm_loss"   # or 'class_logits_loss'
 
     def __init__(self):
         self.num_layers = len(
@@ -82,5 +92,14 @@ class VaihingenWLConfig(Config):
     first_features_dim = 64
     in_features_dim = 4
     use_batch_norm = True
+    batch_norm_momentum = 0.02
     batch_num = 3
     augment_scale_max = 1.2
+
+    # Training (train_Vaihingen3D_WeakLabel.py:56-90)
+    learning_rate = 0.01
+    momentum = 0.98
+    grad_clip_norm = 1
+    class_w = [1, 1, 1, 1, 1, 1, 1, 1, 1]
+    deform_lr_factor = 0.1
+    loss_type = "region_mprm_loss"

@@ -5,7 +5,9 @@
 `state_dict`. The port names its modules after the flax ones, so the map
 is a rename (`encoder_blocks_3/unary1/...` -> `encoder_blocks.3.unary1...`)
 plus one layout change: the flax `mlp` kernel [in, out] becomes the
-`mlp.weight` [out, in] of the port's Linear.
+`mlp.weight` [out, in] of the port's Linear. `from_jax_opt_state` maps an
+optax momentum trace the same way onto the port's optimizer state
+(train/optim.py).
 """
 
 from __future__ import annotations
@@ -40,9 +42,23 @@ def from_jax_variables(variables_np: Mapping) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
     for collection in ("params", "batch_stats", "constants"):
         for path, value in _walk(variables_np.get(collection) or {}):
-            arr = np.asarray(value, dtype=np.float32)
+            arr = np.array(value, dtype=np.float32)
             key = _torch_key(path)
             if collection == "params" and path[-1] == "mlp":
                 arr, key = arr.T, key + ".weight"
             out[key] = torch.from_numpy(np.ascontiguousarray(arr))
     return out
+
+
+def from_jax_opt_state(opt_state_np) -> Dict[str, torch.Tensor]:
+    """The momentum trace of the JAX package's optimizer state, as the
+    port's `opt_state` ({parameter name: buffer}).
+
+    :param opt_state_np: the optax chain state of `make_optimizer`
+        (weasal_tpu/train/trainer.py:88) with its leaves as numpy arrays;
+        it holds one `TraceState`
+    """
+    found = [s.trace for s in opt_state_np if hasattr(s, "trace")]
+    if len(found) != 1:
+        raise ValueError("expected an optax chain state with one TraceState")
+    return from_jax_variables({"params": found[0]})

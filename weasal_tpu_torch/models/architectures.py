@@ -91,6 +91,8 @@ class KPFCNN_mprm(nn.Module):
                              "config.num_classes classes")
         if generator is None:
             generator = torch.Generator().manual_seed(0)
+        self.lbl_values = tuple(lbl_values)
+        self.ign_lbls = tuple(ign_lbls)
         enc, _skips, skip_dims, _in, out_dim, layer, r = _encoder_plan(config)
         self.encoder_blocks = nn.ModuleList([
             block_decider(b, rr, di, do, li, config,

@@ -1,4 +1,4 @@
-"""Network blocks on the dense sphere-batch layout, inference only.
+"""Network blocks on the dense sphere-batch layout.
 
 Counterpart of weasal_tpu/models/blocks.py. Tensors are [B, N_l, C] with
 a [B, N_l] mask; blocks take (x, batch) and read their level's tensors by
@@ -9,8 +9,8 @@ a flax variable tree onto `state_dict` by renaming alone.
 
 Fresh parameters come from an explicit `torch.Generator`; kernel-point
 poses come from the crc32 pose seed of the JAX package (blocks.py:291-306)
-and equal its `constants`. Training mode is not ported: BatchNorm raises
-when the module is in training mode.
+and equal its `constants`. In training mode (`model.train()`) BatchNorm
+normalizes with masked batch statistics and updates its running ones.
 """
 
 from __future__ import annotations
@@ -53,12 +53,22 @@ class Linear(nn.Module):
 
 
 class MaskedBatchNorm(nn.Module):
-    """Eval-mode BatchNorm with running statistics (`scale`, `bias`,
-    buffers `mean`, `var`), or a learned bias when use_bn is False."""
+    """BatchNorm over the real rows of a padded batch (`scale`, `bias`,
+    buffers `mean`, `var`), or a learned bias when use_bn is False.
 
-    def __init__(self, features: int, use_bn: bool, eps: float = 1e-5):
+    Counterpart of weasal_tpu/models/blocks.py:59-114. In training mode
+    it normalizes with the batch mean and biased variance over the rows
+    where `mask` is set (count = max(sum(mask), 1)), and each call updates
+    the running statistics with the torch-convention `momentum`
+    (running = (1 - momentum) * running + momentum * batch), the running
+    variance taking the unbiased var * count / max(count - 1, 1). In eval
+    mode it normalizes with the running statistics."""
+
+    def __init__(self, features: int, use_bn: bool, momentum: float,
+                 eps: float = 1e-5):
         super().__init__()
         self.use_bn = use_bn
+        self.momentum = momentum
         self.eps = eps
         self.bias = nn.Parameter(torch.zeros(features))
         if use_bn:
@@ -70,20 +80,32 @@ class MaskedBatchNorm(nn.Module):
         if not self.use_bn:
             return x + self.bias
         if self.training:
-            raise NotImplementedError(
-                "training-mode BatchNorm is not ported; call model.eval()")
-        inv = torch.rsqrt(self.var + self.eps) * self.scale
-        return (x - self.mean) * inv + self.bias
+            m = (torch.ones(x.shape[:-1], dtype=x.dtype, device=x.device)
+                 if mask is None else mask.to(x.dtype))[..., None]
+            dims = tuple(range(x.dim() - 1))
+            count = m.sum().clamp(min=1.0)
+            mean = (x * m).sum(dim=dims) / count
+            var = (((x - mean) ** 2) * m).sum(dim=dims) / count
+            with torch.no_grad():
+                mom = self.momentum
+                self.mean.copy_((1 - mom) * self.mean + mom * mean)
+                unbiased = var * count / (count - 1.0).clamp(min=1.0)
+                self.var.copy_((1 - mom) * self.var + mom * unbiased)
+        else:
+            mean, var = self.mean, self.var
+        inv = torch.rsqrt(var + self.eps) * self.scale
+        return (x - mean) * inv + self.bias
 
 
 class UnaryBlock(nn.Module):
     """Linear (no bias) + BN + LeakyReLU."""
 
     def __init__(self, in_dim: int, out_dim: int, use_bn: bool,
-                 generator: torch.Generator, no_relu: bool = False):
+                 bn_momentum: float, generator: torch.Generator,
+                 no_relu: bool = False):
         super().__init__()
         self.mlp = Linear(in_dim, out_dim, generator)
-        self.batch_norm = MaskedBatchNorm(out_dim, use_bn)
+        self.batch_norm = MaskedBatchNorm(out_dim, use_bn, bn_momentum)
         self.no_relu = no_relu
 
     def forward(self, x, mask):
@@ -176,7 +198,12 @@ class _ConvBlock(nn.Module):
 
     def _unary(self, in_dim, out_dim, generator, no_relu=False):
         return UnaryBlock(in_dim, out_dim, self.config.use_batch_norm,
-                          generator, no_relu=no_relu)
+                          self.config.batch_norm_momentum, generator,
+                          no_relu=no_relu)
+
+    def _bn(self, features):
+        return MaskedBatchNorm(features, self.config.use_batch_norm,
+                               self.config.batch_norm_momentum)
 
 
 class SimpleBlock(_ConvBlock):
@@ -187,7 +214,7 @@ class SimpleBlock(_ConvBlock):
         super().__init__(**kw)
         width = self.out_dim // self.width_div
         self.KPConv = self._conv(self.in_dim, width, generator)
-        self.batch_norm = MaskedBatchNorm(width, self.config.use_batch_norm)
+        self.batch_norm = self._bn(width)
 
     def forward(self, x, batch):
         q_pts, s_pts, neighb, out_mask = conv_inputs(
@@ -210,8 +237,7 @@ class ResnetBottleneckBlock(_ConvBlock):
         self.unary1 = (self._unary(self.in_dim, mid, generator)
                        if self.in_dim != mid else None)
         self.KPConv = self._conv(mid, mid, generator)
-        self.batch_norm_conv = MaskedBatchNorm(mid,
-                                               self.config.use_batch_norm)
+        self.batch_norm_conv = self._bn(mid)
         self.unary2 = self._unary(mid, self.out_dim, generator, no_relu=True)
         self.unary_shortcut = (
             self._unary(self.in_dim, self.out_dim, generator, no_relu=True)
@@ -371,7 +397,8 @@ def block_decider(block_name: str, radius: float, in_dim: int, out_dim: int,
               radius=radius, layer_ind=layer_ind, config=config, path=path,
               generator=generator)
     if block_name == "unary":
-        return UnaryBlock(in_dim, out_dim, config.use_batch_norm, generator)
+        return UnaryBlock(in_dim, out_dim, config.use_batch_norm,
+                          config.batch_norm_momentum, generator)
     if block_name in _SIMPLE:
         return SimpleBlock(**kw)
     if block_name in _RESNETB:

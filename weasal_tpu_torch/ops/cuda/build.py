@@ -1,7 +1,8 @@
 """Build and load the hand-written Hopper kernels.
 
-Each source `weasal_tpu_torch/csrc/<name>.cu` has a plain C interface and
-is compiled by `nvcc` for `sm_90a` into `weasal_tpu_torch/_build/
+Each source `weasal_tpu_torch/csrc/<name>.cu` has a plain C interface
+(device code shared between sources lives in `csrc/*.cuh`) and is
+compiled by `nvcc` for `sm_90a` into `weasal_tpu_torch/_build/
 lib<name>.so` (a directory git ignores), then loaded with `ctypes`.
 Nothing includes PyTorch's headers, so a build takes seconds. A library
 is built at first use, or by `build_all()`, which runs one `nvcc` per
@@ -22,7 +23,7 @@ from typing import Dict
 _PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR / "_build"
-SOURCES = ("radius_search", "kpconv_fwd")
+SOURCES = ("radius_search", "kpconv_fwd", "kpconv_bwd", "maxpool_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -46,8 +47,14 @@ def _paths(name: str):
 
 
 def _stale(name: str) -> bool:
+    """True when the library is missing or older than its source or any
+    shared header (`csrc/*.cuh`)."""
     src, lib = _paths(name)
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    if not lib.exists():
+        return True
+    newest = max(p.stat().st_mtime
+                 for p in (src, *CSRC_DIR.glob("*.cuh")))
+    return lib.stat().st_mtime < newest
 
 
 def _start(name: str, verbose: bool):

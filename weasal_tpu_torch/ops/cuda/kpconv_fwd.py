@@ -69,21 +69,73 @@ def influence_weights(sq_distances: torch.Tensor, kp_extent: float,
     return w.transpose(-1, -2)
 
 
-def kpconv_fwd_plain(q_pts, s_pts, neighb_inds, x, kernel_points, weights,
-                     kp_extent: float, influence: str = "linear"):
-    """Rigid sum-aggregation KPConv: [B, Nq, Cout]."""
+def neighbor_influences(q_pts, s_pts, neighb_inds, kernel_points,
+                        kp_extent: float, influence: str) -> torch.Tensor:
+    """[B, Nq, Kp, K] influences h_p(s[nb_k] - q) from direct differences
+    s - q - kp_p (each axis rounded separately); a shadow neighbor sits at
+    the far-away pad coordinate."""
     neighbors = gather_neighbors(s_pts, neighb_inds, SHADOW_COORD)
     neighbors = neighbors - q_pts[:, :, None, :]
     diffs = neighbors[:, :, :, None, :] - kernel_points[None, None, None]
     sq = diffs * diffs
     sq_distances = sq[..., 0] + sq[..., 1] + sq[..., 2]     # [B,Nq,K,Kp]
-    all_weights = influence_weights(sq_distances, kp_extent, influence)
+    return influence_weights(sq_distances, kp_extent, influence)
+
+
+def kpconv_fwd_plain_with_y(q_pts, s_pts, neighb_inds, x, kernel_points,
+                            weights, kp_extent: float,
+                            influence: str = "linear"):
+    """Rigid sum-aggregation KPConv: (out [B, Nq, Cout], y [B*Nq, Kp*Cin]),
+    y the per-kernel-point aggregate that the backward's dW reads."""
+    all_weights = neighbor_influences(q_pts, s_pts, neighb_inds,
+                                      kernel_points, kp_extent, influence)
     neighb_x = gather_neighbors(x, neighb_inds, 0.0)         # [B,Nq,K,Cin]
     weighted = torch.einsum("bqpk,bqkc->bqpc", all_weights, neighb_x)
     b, nq = weighted.shape[:2]
     kp, cin, cout = weights.shape
-    out = weighted.reshape(b * nq, kp * cin) @ weights.reshape(kp * cin, cout)
-    return out.reshape(b, nq, cout)
+    y = weighted.reshape(b * nq, kp * cin)
+    out = y @ weights.reshape(kp * cin, cout)
+    return out.reshape(b, nq, cout), y
+
+
+def kpconv_fwd_plain(q_pts, s_pts, neighb_inds, x, kernel_points, weights,
+                     kp_extent: float, influence: str = "linear"):
+    """Rigid sum-aggregation KPConv: [B, Nq, Cout]."""
+    return kpconv_fwd_plain_with_y(q_pts, s_pts, neighb_inds, x,
+                                   kernel_points, weights, kp_extent,
+                                   influence)[0]
+
+
+def check_kpconv_inputs(what: str, tensors, q_pts, s_pts, neighb_inds,
+                       kernel_points, weights, cin: int) -> None:
+    """Raise unless every (name, tensor, dtype) of `tensors` lies on
+    q_pts's device with that dtype, contiguous, and the shapes are
+    q [B,Nq,3], s [B,Ns,3], nb [B,Nq,K], kp [Kp,3], W [Kp,Cin,Cout] with
+    1 <= Kp <= MAX_KP and K small enough for the influence tile."""
+    for name, t, dtype in tensors:
+        if t.device != q_pts.device:
+            raise ValueError(f"{name} is on {t.device}, q_pts on "
+                             f"{q_pts.device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{what} takes {name} as {dtype} only, "
+                            f"got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    b, nq, _ = q_pts.shape
+    kp, _, _ = weights.shape
+    k = neighb_inds.shape[2]
+    if (q_pts.shape[2] != 3 or s_pts.shape[0] != b or s_pts.shape[2] != 3
+            or tuple(neighb_inds.shape[:2]) != (b, nq)
+            or tuple(kernel_points.shape) != (kp, 3)
+            or weights.shape[1] != cin):
+        raise ValueError("expected q [B,Nq,3], s [B,Ns,3], nb [B,Nq,K], "
+                         "x [B,Ns,Cin], kp [Kp,3], W [Kp,Cin,Cout]")
+    if not 1 <= kp <= MAX_KP:
+        raise ValueError(f"{what} takes 1..{MAX_KP} kernel points, "
+                         f"got {kp}")
+    if (kp * k + k) * 4 > 48 * 1024:
+        raise ValueError(f"neighbor width {k} too large for {kp} kernel "
+                         "points")
 
 
 def _launch(q_pts, s_pts, neighb_inds, x, kernel_points, weights,
@@ -92,40 +144,24 @@ def _launch(q_pts, s_pts, neighb_inds, x, kernel_points, weights,
     ns, cin = x.shape[1:]
     kp, _, cout = weights.shape
     k = neighb_inds.shape[2]
-    for name, t, dtype in (("q_pts", q_pts, torch.float32),
-                           ("s_pts", s_pts, torch.float32),
-                           ("neighb_inds", neighb_inds, torch.int32),
-                           ("x", x, torch.float32),
-                           ("kernel_points", kernel_points, torch.float32),
-                           ("weights", weights, torch.float32)):
-        if t.device != q_pts.device:
-            raise ValueError(f"{name} is on {t.device}, q_pts on "
-                             f"{q_pts.device}")
-        if t.dtype != dtype:
-            raise TypeError(f"kpconv_fwd takes {name} as {dtype} only, "
-                            f"got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if (q_pts.shape[2] != 3 or tuple(s_pts.shape) != (b, ns, 3)
-            or tuple(neighb_inds.shape[:2]) != (b, nq) or x.shape[0] != b
-            or tuple(kernel_points.shape) != (kp, 3)
-            or weights.shape[1] != cin):
-        raise ValueError("expected q [B,Nq,3], s [B,Ns,3], nb [B,Nq,K], "
-                         "x [B,Ns,Cin], kp [Kp,3], W [Kp,Cin,Cout]")
     if influence not in INFLUENCES:
         raise ValueError(f"Unknown KP influence: {influence}")
-    if not 1 <= kp <= MAX_KP:
-        raise ValueError(f"kpconv_fwd takes 1..{MAX_KP} kernel points, "
-                         f"got {kp}")
-    if (kp * k + k) * 4 > 48 * 1024:
-        raise ValueError(f"neighbor width {k} too large for {kp} kernel "
-                         "points")
+    check_kpconv_inputs(
+        "kpconv_fwd", (("q_pts", q_pts, torch.float32),
+                       ("s_pts", s_pts, torch.float32),
+                       ("neighb_inds", neighb_inds, torch.int32),
+                       ("x", x, torch.float32),
+                       ("kernel_points", kernel_points, torch.float32),
+                       ("weights", weights, torch.float32)),
+        q_pts, s_pts, neighb_inds, kernel_points, weights, cin)
+    if tuple(x.shape[:2]) != (b, ns):
+        raise ValueError("expected x [B,Ns,Cin]")
     out = torch.empty((b, nq, cout), dtype=torch.float32,
                       device=q_pts.device)
-    if b * nq == 0:
-        return out
     y = torch.empty((b * nq, kp * cin), dtype=torch.float32,
                     device=q_pts.device)
+    if b * nq == 0:
+        return out, y
     lib = load_library("kpconv_fwd")
     fn = lib.kpconv_fwd_launch
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
@@ -137,7 +173,23 @@ def _launch(q_pts, s_pts, neighb_inds, x, kernel_points, weights,
              y.data_ptr(), out.data_ptr(),
              torch.cuda.current_stream(q_pts.device).cuda_stream),
           "kpconv_fwd")
-    return out
+    return out, y
+
+
+def kpconv_fwd_with_y(q_pts, s_pts, neighb_inds, x, kernel_points, weights,
+                      kp_extent: float, influence: str = "linear"):
+    """(out [B, Nq, Cout], y [B*Nq, Kp*Cin]) of the rigid KPConv forward.
+    A CPU tensor runs `kpconv_fwd_plain_with_y`; a CUDA tensor launches
+    the kernel or raises."""
+    if q_pts.device.type == "cpu":
+        return kpconv_fwd_plain_with_y(q_pts, s_pts, neighb_inds, x,
+                                       kernel_points, weights, kp_extent,
+                                       influence)
+    if not q_pts.is_cuda:
+        raise ValueError(f"kpconv_fwd runs on cpu or cuda tensors, got "
+                         f"{q_pts.device}")
+    return _launch(q_pts, s_pts, neighb_inds, x, kernel_points, weights,
+                   kp_extent, influence)
 
 
 def kpconv_fwd(q_pts, s_pts, neighb_inds, x, kernel_points, weights,
@@ -153,16 +205,11 @@ def kpconv_fwd(q_pts, s_pts, neighb_inds, x, kernel_points, weights,
     A CPU tensor runs `kpconv_fwd_plain`; a CUDA tensor launches the
     kernel or raises. band, tile and pblk_skip are ignored.
     """
+    out, _ = kpconv_fwd_with_y(q_pts, s_pts, neighb_inds, x, kernel_points,
+                               weights, kp_extent, influence)
     oob = torch.zeros(q_pts.shape[0], dtype=torch.float32,
                       device=q_pts.device)
-    if q_pts.device.type == "cpu":
-        return kpconv_fwd_plain(q_pts, s_pts, neighb_inds, x, kernel_points,
-                                weights, kp_extent, influence), oob
-    if not q_pts.is_cuda:
-        raise ValueError(f"kpconv_fwd runs on cpu or cuda tensors, got "
-                         f"{q_pts.device}")
-    return _launch(q_pts, s_pts, neighb_inds, x, kernel_points, weights,
-                   kp_extent, influence), oob
+    return out, oob
 
 
 kpconv_fwd.launches = 0

@@ -1,0 +1,89 @@
+"""Weak-label training step: level-0 arrays in, one SGD update out.
+
+Counterpart of the weak-mode branch of `step_core`
+(weasal_tpu/train/trainer.py:257-365) for a level-0 batch without
+`flat_inds` (the non-resident input, the same one `eval_step` takes): the
+pyramid is built on the device, `KPFCNN_mprm` runs in training mode
+(BatchNorm on batch statistics, running statistics updated), the loss is
+`region_mprm_loss` (or `class_logits_loss`, by `config.loss_type`), the
+backward runs kernels C and D, and `sgd_step` applies the update.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Tuple
+
+import torch
+
+from weasal_tpu_torch.infer import to_device
+from weasal_tpu_torch.models import losses
+from weasal_tpu_torch.ops.pyramid import batch_from_device_pyramid
+from weasal_tpu_torch.train.optim import sgd_step
+from weasal_tpu_torch.utils.device import configure_precision, resolve_device
+
+
+def step_on_batch(model, opt_state: Dict[str, torch.Tensor], batch, config,
+                  lr: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One update of `model` on a PyramidBatch; returns (loss, accuracy) as
+    0-d tensors. The parameters' `.grad` keep this step's gradients."""
+    model.train()
+    model.zero_grad(set_to_none=True)
+    logits, cla_logits, cam = model(batch)
+    class_w = (torch.tensor(config.class_w, dtype=torch.float32,
+                            device=logits.device)
+               if len(config.class_w) else None)
+    loss_type = config.loss_type
+    if loss_type == "region_mprm_loss":
+        loss = losses.region_mprm_loss(
+            cam, batch.region_inds, batch.region_masks,
+            batch.region_point_masks, batch.region_lb, class_w)
+    elif loss_type == "class_logits_loss":
+        loss = losses.class_logits_loss(cla_logits, batch.cloud_lb, class_w)
+    else:
+        raise ValueError(f"Unknown weak-label loss_type: {loss_type}")
+    table = torch.as_tensor(
+        losses.valid_label_mapper(model.lbl_values, model.ign_lbls),
+        device=logits.device)
+    acc = losses.accuracy(logits.detach(),
+                          losses.label_targets(batch.labels, table),
+                          batch.masks[0])
+    loss.backward()
+    sgd_step(model, opt_state, config, lr)
+    return loss.detach(), acc
+
+
+def train_step(model, opt_state: Dict[str, torch.Tensor], arrays: Mapping,
+               config, plan, lr: float, device=None
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One weak-label training step on a level-0 batch.
+
+    :param model: a KPFCNN_mprm whose parameters lie on `device`
+    :param opt_state: its momentum buffers (`init_opt_state`), updated in
+        place like the parameters and the BatchNorm running statistics
+    :param arrays: assemble_level0 output (numpy arrays or tensors)
+    :param lr: the learning rate of this step
+    :param device: default ``cuda``; raises where CUDA is absent
+    :return: (loss, accuracy, drops) as tensors on `device`; drops is the
+        [(2L-1) + (3L-2)] dropped-neighbor vector of the JAX step, all
+        zero because the port's kernels drop nothing
+    """
+    device = resolve_device(device)
+    configure_precision()
+    param = next(model.parameters())
+    if param.device != device:
+        raise ValueError(f"model parameters are on {param.device}, the "
+                         f"step runs on {device}; move the model first")
+    t = to_device(arrays, device)
+    with torch.no_grad():
+        batch = batch_from_device_pyramid(
+            t["points0"], t["mask0"], t["features"], t["labels"], config,
+            plan, t["center_pts"], rotations=t.get("rotations"),
+            cloud_lb=t.get("cloud_lb"), region_inds=t.get("region_inds"),
+            region_masks=t.get("region_masks"),
+            region_point_masks=t.get("region_point_masks"),
+            region_lb=t.get("region_lb"))
+    loss, acc = step_on_batch(model, opt_state, batch, config, lr)
+    n_layers = plan.num_layers
+    drops = torch.zeros((2 * n_layers - 1) + (3 * n_layers - 2),
+                        dtype=torch.float32, device=device)
+    return loss, acc, drops
