@@ -12,7 +12,11 @@ Phases, in order; any failure exits non-zero:
    every shape one forward gives them: the 7 radius-search edges (kernel
    A, indices equal) and the 12 KPConvs (kernel B, f32 tolerance below),
    with kernel and plain times (CUDA events, median of 10 after warm-up)
-   and each kernel's bound;
+   and each kernel's bound. For B also the time of its GEMM part (by
+   kernel name, torch.profiler) beside cuBLAS f32 on the same product
+   (`torch.matmul` without TF32, a yardstick the port never calls) and
+   that product's f32 and 3xTF32 bounds; then the GEMM core's mean error
+   on positive operands (its accumulation must not drift one way);
 3. the inference path: `eval_step` on each batch, launch counts read
    around it, probabilities checked, and one batch's forward compared
    with the same forward on the plain versions;
@@ -20,14 +24,29 @@ Phases, in order; any failure exits non-zero:
    training step gives them: the 12 KPConv backwards (seeded random
    inputs and output gradients) and the 2 strided-shortcut max-pool
    backwards (integer-valued features, so that ties and maxima of 0
-   shared with shadows occur), timed as in phase 2;
+   shared with shadows occur), timed as in phase 2, C's two GEMM parts
+   as B's;
 5. the training path: `train_step` for 4 steps, launch counts read around
    them, losses, parameters and BatchNorm statistics checked, then one
-   step with the kernels against one step on the plain versions from one
-   shared state and pyramid (loss, every gradient, the updated state).
-Phases 3 and 5 end with a profile of one step. The last line is
-{"ok": true, "device": {...}}; the line before it holds the kernels'
-numbers as JSON. Imports nothing of JAX or weasal_tpu.
+   step with the kernels against one step on the plain versions, both
+   held to an f64 step, from the seeded initial state and one shared
+   pyramid (loss, every gradient, the updated state).
+Phases 3 and 5 end with a profile of one step, by kernel family. Checks
+of agreement (each kernel against its plain version, the GEMM core's
+drift, the forward and the training step against their references)
+report their readings and fail the run at its end, so that a failing run
+still reads every phase; checks of shapes, launch counts and finite
+values fail it at once. The last line is {"ok": true, "device": {...}};
+the line before it holds the kernels' numbers as JSON, each kernel's
+bound counting its GEMM operations at the 3xTF32 rate of the tensor
+cores and the rest at the f32 rate (`f32_bound_ms`: all at the f32
+rate). Imports nothing of JAX or weasal_tpu.
+
+Kernels B and C run their three products (y @ W; g @ W^T and y^T @ g)
+through one GEMM core, weasal_tpu_torch/csrc/kpconv_common.cuh: wgmma
+TF32 on the tensor cores with each f32 operand split as big + small
+(3xTF32, f32-grade error), 128-row tiles 32 deep fed by a cp.async ring,
+and split-K with a workspace where the schedule gains from it.
 """
 
 from __future__ import annotations
@@ -44,16 +63,26 @@ import time
 import numpy as np
 import torch
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s and f32
-# operations/s outside the tensor cores; both kernels run f32 on the
-# CUDA cores.
+# H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, f32
+# operations/s outside the tensor cores and dense TF32 operations/s on the
+# tensor cores. A kernel's bound counts each operation at the rate of the
+# unit that runs it: the GEMM core of B and C runs 3 TF32 products for each
+# f32 one (3xTF32), so its 2MNK operations count as 3 x 2MNK at the TF32
+# rate; everything else runs on the CUDA cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12
 # Kernel B vs its plain version: both sum in f32 but in different orders
 # (gather-then-FMA per channel and a tiled GEMM against einsum + cuBLAS),
 # so outputs agree to f32 rounding accumulated over Kp*K + Kp*Cin terms.
 KPCONV_RTOL = 1e-4
 KPCONV_ATOL_REL = 1e-5       # times max |plain output|
+# The GEMM core of B and C on positive operands at the widest conv: mean
+# relative error to f64 (cuBLAS f32: ~1e-9; this core: ~2e-7; one
+# truncating tensor-core accumulator over each split of the depth, as
+# emulated in tests/test_torch_gemm_split.py: -1.4e-5 for y @ W and
+# -3.1e-5 for y^T @ g on an H100)
+GEMM_BIAS_MAX = 1e-6
 # Kernel D vs its plain version: the same shares, added to a support by
 # atomics in another order
 MAXPOOL_RTOL = 1e-6
@@ -67,13 +96,26 @@ PROBS_ATOL = 1e-4
 # two f32 steps' errors there differ by up to ~2x from run to run. So each
 # gradient and each change of the state is held to the f64 step: the
 # kernel step's L2 error may be F64_FLOOR times the f64 tensor's norm plus
-# F64_RATIO times the plain f32 step's own error.
+# F64_RATIO times the plain f32 step's own error. The steps start from the
+# seeded initial state: the training steps before them add f32 atomics in
+# another order on every run (kernels C and D, index_add_), and from the
+# states they end in, the outcome of this check varied from run to run,
+# with an f32 FFMA GEMM in kernels B and C as much as with the 3xTF32 one.
 LOSS_RTOL = 1e-5
 F64_RATIO = 4.0
 F64_FLOOR = 1e-3
 N_BATCHES = 3
 N_TRAIN_STEPS = 4
 SEED = 0
+# Failed checks of agreement, reported at once and failing the run at its
+# end (see the module docstring)
+FAILED: list = []
+
+
+def expect(ok: bool, msg: str) -> None:
+    if not ok:
+        print(f"chip_smoke: FAILED {msg}", file=sys.stderr, flush=True)
+        FAILED.append(msg)
 
 
 def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -93,11 +135,32 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def bound_ms(n_bytes: float, n_ops: float):
+def bound_ms(n_bytes: float, n_ops: float, n_gemm_ops: float = 0.0):
+    """(least ms, "bytes" or "operations") of work that moves n_bytes and
+    does n_ops f32 operations on the CUDA cores and n_gemm_ops f32 GEMM
+    operations through the 3xTF32 core on the tensor cores."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    t_ops = (n_ops / F32_OPS_PER_S + 3 * n_gemm_ops / TF32_OPS_PER_S) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
                                  "operations")
+
+
+def gemm_product(m: float, n: float, k: float, ms: float,
+                 cublas_ms: float) -> dict:
+    """One product of the GEMM core: its time, cuBLAS f32's on the same
+    product, and the product's f32 bound and 3xTF32 tensor-core bound
+    (3 x 2MNK / 495 TFLOP/s), M counting the valid rows."""
+    n_bytes, n_ops = 4.0 * (m * k + k * n + m * n), 2.0 * m * n * k
+    f32_bound, by = bound_ms(n_bytes, n_ops)
+    return dict(ms=ms, cublas_ms=cublas_ms, f32_bound_ms=f32_bound,
+                f32_bound_by=by,
+                tf32x3_bound_ms=bound_ms(n_bytes, 0.0, n_ops)[0])
+
+
+def gemm_text(label: str, p: dict) -> str:
+    return (f"{label} {p['ms']:.3f} ms (cuBLAS f32 {p['cublas_ms']:.3f}, "
+            f"bound f32 {p['f32_bound_ms']:.4f} / 3xTF32 "
+            f"{p['tf32x3_bound_ms']:.4f})")
 
 
 def card_line() -> str:
@@ -134,9 +197,8 @@ def check_radius_search(batch, config, plan, log):
         ref = radius_search_plain(q, s, qm, sm, r, k)
         torch.cuda.synchronize()
         mismatch = int((got != ref).sum())
-        if mismatch:
-            raise AssertionError(f"radius_search {name}: {mismatch} indices "
-                                 "differ from the plain version")
+        expect(mismatch == 0, f"radius_search {name}: {mismatch} indices "
+               "differ from the plain version")
         ms = cuda_ms(lambda: radius_search(q, s, qm, sm, r, k))
         plain = cuda_ms(lambda: radius_search_plain(q, s, qm, sm, r, k))
         pairs = float((qm.sum(1).double() * sm.sum(1).double()).sum())
@@ -159,10 +221,11 @@ def check_radius_search(batch, config, plan, log):
 def check_kpconv(model, batch, log, seed):
     from weasal_tpu_torch.models.blocks import conv_inputs, kpconv_modules
     from weasal_tpu_torch.ops.cuda.kpconv_fwd import (kpconv_fwd,
-                                                      kpconv_fwd_plain)
+                                                      kpconv_fwd_plain,
+                                                      kpconv_fwd_with_y)
     gen = torch.Generator(device=batch.features.device).manual_seed(seed)
-    rows, t_k, t_p, t_b, ops_t, bytes_t = [], 0.0, 0.0, 0.0, 0.0, 0.0
-    worst = 0.0
+    rows, t_k, t_p, t_b, t_f32 = [], 0.0, 0.0, 0.0, 0.0
+    ops_t, gemm_t, bytes_t, worst = 0.0, 0.0, 0.0, 0.0
     for name, conv in kpconv_modules(model):
         q, s, nb, q_mask = conv_inputs(conv.strided, conv.layer_ind, batch)
         kp, w = conv.kernel_points, conv.weights.detach()
@@ -175,10 +238,10 @@ def check_kpconv(model, batch, log, seed):
         torch.cuda.synchronize()
         err = float((got - ref).abs().max())
         scale = float(ref.abs().max())
-        if not torch.allclose(got, ref, rtol=KPCONV_RTOL,
-                              atol=KPCONV_ATOL_REL * max(scale, 1e-30)):
-            raise AssertionError(f"kpconv_fwd {name}: max abs err {err} at "
-                                 f"output scale {scale}")
+        expect(torch.allclose(got, ref, rtol=KPCONV_RTOL,
+                              atol=KPCONV_ATOL_REL * max(scale, 1e-30)),
+               f"kpconv_fwd {name}: max abs err {err} at output scale "
+               f"{scale}")
         worst = max(worst, err)
         ms = cuda_ms(lambda: kpconv_fwd(q, s, nb, x, kp, w, ext, infl))
         plain = cuda_ms(lambda: kpconv_fwd_plain(q, s, nb, x, kp, w, ext,
@@ -186,30 +249,93 @@ def check_kpconv(model, batch, log, seed):
         n_kp, _, cout = w.shape
         pairs = float((nb < s.shape[1]).sum())
         rows_valid = float(q_mask.sum())
-        n_ops = (pairs * n_kp * (14 + 2 * cin)
-                 + rows_valid * 2.0 * n_kp * cin * cout)
+        # the aggregation on the CUDA cores, y @ W on the tensor cores
+        n_ops = pairs * n_kp * (14 + 2 * cin)
+        gemm_ops = rows_valid * 2.0 * n_kp * cin * cout
         n_bytes = 4.0 * (q.numel() + s.numel() + nb.numel() + x.numel()
                          + kp.numel() + w.numel() + got.numel())
-        b_ms, b_by = bound_ms(n_bytes, n_ops)
+        b_ms, b_by = bound_ms(n_bytes, n_ops, gemm_ops)
+        f32_ms = bound_ms(n_bytes, n_ops + gemm_ops)[0]
         t_k, t_p, t_b = t_k + ms, t_p + plain, t_b + b_ms
-        ops_t, bytes_t = ops_t + n_ops, bytes_t + n_bytes
+        t_f32 += f32_ms
+        ops_t, gemm_t = ops_t + n_ops, gemm_t + gemm_ops
+        bytes_t += n_bytes
+        y = kpconv_fwd_with_y(q, s, nb, x, kp, w, ext, infl)[1]
+        w2 = w.reshape(n_kp * cin, cout)
+        gemm = gemm_product(
+            rows_valid, cout, n_kp * cin,
+            gemm_part_ms(lambda: kpconv_fwd(q, s, nb, x, kp, w, ext, infl),
+                         GEMM_FAMILIES[:1])[GEMM_FAMILIES[0]],
+            cuda_ms(lambda: torch.matmul(y, w2)))
         rows.append(dict(conv=name, shape=[*q.shape[:2], s.shape[1],
                                            nb.shape[2], cin, cout],
                          max_abs_err=err, ms=ms, plain_ms=plain,
-                         bound_ms=b_ms, bound_by=b_by))
+                         bound_ms=b_ms, bound_by=b_by, f32_bound_ms=f32_ms,
+                         gemm_y_w=gemm))
         log(f"  B {name}: q{list(q.shape[:2])} Ns={s.shape[1]} "
             f"K={nb.shape[2]} {cin}->{cout}: err {err:.2e} (scale "
             f"{scale:.2e}), kernel {ms:.3f} ms, plain {plain:.3f} ms, "
-            f"bound {b_ms:.4f} ms ({b_by})")
+            f"bound {b_ms:.4f} ms ({b_by}; all f32 {f32_ms:.4f}); "
+            f"{gemm_text('GEMM y@W', gemm)}")
     return rows, dict(ms=t_k, plain_ms=t_p, bound_ms=t_b, max_abs_err=worst,
-                      bound_by=bound_ms(bytes_t, ops_t)[1])
+                      bound_by=bound_ms(bytes_t, ops_t, gemm_t)[1],
+                      f32_bound_ms=t_f32)
 
 
-def _assert_close(what, got, want, rtol, atol):
-    if not torch.allclose(got, want, rtol=rtol, atol=atol):
-        err = float((got - want).abs().max())
-        raise AssertionError(f"{what}: max abs err {err:.3e} (rtol {rtol}, "
-                             f"atol {atol:.3e})")
+def _expect_close(what, got, want, rtol, atol):
+    err = float((got - want).abs().max())
+    expect(torch.allclose(got, want, rtol=rtol, atol=atol),
+           f"{what}: max abs err {err:.3e} (rtol {rtol}, atol {atol:.3e})")
+
+
+def check_gemm_bias(log, seed):
+    """Mean signed and rms relative error to f64 of the GEMM core's y @ W
+    (kernel B) and y^T @ g (kernel C) at the main path's widest conv
+    (3 x 5712 rows, K 34, 512 -> 256) on positive operands, over the
+    outputs above a tenth of the largest, beside cuBLAS f32 on the same
+    products. On positive operands a sum that drops low bits always the
+    same way (the tensor cores' accumulation truncates) shows as a mean
+    error; it must stay below GEMM_BIAS_MAX."""
+    from weasal_tpu_torch.ops.cuda.kpconv_bwd import kpconv_bwd
+    from weasal_tpu_torch.ops.cuda.kpconv_fwd import kpconv_fwd_with_y
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b, n, k, n_kp, cin, cout = 3, 5712, 34, 15, 512, 256
+    s = torch.rand((b, n, 3), generator=gen, device=dev) * 4 - 2
+    q = s + 0.05
+    nb = torch.randint(0, n, (b, n, k), generator=gen, device=dev,
+                       dtype=torch.int32)
+    kp = torch.rand((n_kp, 3), generator=gen, device=dev) - 0.5
+    x = torch.rand((b, n, cin), generator=gen, device=dev)
+    w = torch.rand((n_kp, cin, cout), generator=gen, device=dev)
+    g = torch.rand((b, n, cout), generator=gen, device=dev)
+    out, y = kpconv_fwd_with_y(q, s, nb, x, kp, w, 1.5, "linear")
+    dw = kpconv_bwd(q, s, nb, y, kp, w, g, 1.5, "linear", need_dx=False)[1]
+    w2, g2 = w.reshape(-1, cout), g.reshape(-1, cout)
+    result = {}
+    for name, got, cublas, ref in (
+            ("y@W", out.reshape(-1, cout), y @ w2,
+             y.double() @ w2.double()),
+            ("y^T@g", dw.reshape(-1, cout), y.t() @ g2,
+             y.double().t() @ g2.double())):
+        big = ref.abs() > 0.1 * ref.abs().max()
+        stats = {}
+        for who, t in (("core", got), ("cublas_f32", cublas)):
+            rel = ((t.double() - ref) / ref)[big]
+            stats[who] = dict(mean=float(rel.mean()),
+                              rms=float(rel.square().mean().sqrt()))
+        result[name] = stats
+        log(f"  GEMM core {name} on positive operands, depth "
+            f"{y.shape[1] if name == 'y@W' else y.shape[0]}: relative "
+            f"error to f64 mean {stats['core']['mean']:+.2e}, rms "
+            f"{stats['core']['rms']:.2e} (cuBLAS f32 "
+            f"{stats['cublas_f32']['mean']:+.2e}, "
+            f"{stats['cublas_f32']['rms']:.2e})")
+        expect(abs(stats["core"]["mean"]) <= GEMM_BIAS_MAX,
+               f"GEMM core {name}: mean relative error "
+               f"{stats['core']['mean']:.2e} on positive operands (limit "
+               f"{GEMM_BIAS_MAX})")
+    return result
 
 
 def first_conv(model):
@@ -225,8 +351,8 @@ def check_kpconv_bwd(model, batch, log, seed):
                                                       kpconv_bwd_plain)
     from weasal_tpu_torch.ops.cuda.kpconv_fwd import kpconv_fwd_plain_with_y
     gen = torch.Generator(device=batch.features.device).manual_seed(seed)
-    rows, t_k, t_p, t_b, ops_t, bytes_t = [], 0.0, 0.0, 0.0, 0.0, 0.0
-    worst = 0.0
+    rows, t_k, t_p, t_b, t_f32 = [], 0.0, 0.0, 0.0, 0.0
+    ops_t, gemm_t, bytes_t, worst = 0.0, 0.0, 0.0, 0.0
     skip_dx = first_conv(model)
     for name, conv in kpconv_modules(model):
         q, s, nb, q_mask = conv_inputs(conv.strided, conv.layer_ind, batch)
@@ -246,7 +372,7 @@ def check_kpconv_bwd(model, batch, log, seed):
         errs = []
         for what, a, b in (("dX", got[0], ref[0]), ("dW", got[1], ref[1])):
             scale = float(b.abs().max())
-            _assert_close(f"kpconv_bwd {name} {what}", a, b, KPCONV_RTOL,
+            _expect_close(f"kpconv_bwd {name} {what}", a, b, KPCONV_RTOL,
                           KPCONV_ATOL_REL * max(scale, 1e-30))
             errs.append(float((a - b).abs().max()))
         worst = max(worst, *errs)
@@ -255,28 +381,50 @@ def check_kpconv_bwd(model, batch, log, seed):
         plain = cuda_ms(lambda: kpconv_bwd_plain(*args, need_dx=need_dx))
         pairs = float((nb < s.shape[1]).sum())
         rows_valid = float(q_mask.sum())
+        # dW (and dr) on the tensor cores, the dX scatter on the CUDA
+        # cores; inputs y, W, g and output dW; with dX also q, s, nb, kp
+        # and dX
         gemm_ops = 2.0 * rows_valid * n_kp * cin * cout
-        # inputs y, W, g and output dW; with dX also q, s, nb, kp and dX
-        n_ops = gemm_ops
+        n_ops = 0.0
         n_bytes = 4.0 * (y.numel() + w.numel() + g.numel() + w.numel())
         if need_dx:
-            n_ops = 2 * gemm_ops + pairs * n_kp * (14 + 2 * cin)
+            gemm_ops *= 2
+            n_ops = pairs * n_kp * (14 + 2 * cin)
             n_bytes += 4.0 * (q.numel() + s.numel() + nb.numel()
                               + kp.numel() + x.numel())
-        b_ms, b_by = bound_ms(n_bytes, n_ops)
+        b_ms, b_by = bound_ms(n_bytes, n_ops, gemm_ops)
+        f32_ms = bound_ms(n_bytes, n_ops + gemm_ops)[0]
         t_k, t_p, t_b = t_k + ms, t_p + plain, t_b + b_ms
-        ops_t, bytes_t = ops_t + n_ops, bytes_t + n_bytes
+        t_f32 += f32_ms
+        ops_t, gemm_t = ops_t + n_ops, gemm_t + gemm_ops
+        bytes_t += n_bytes
+        parts = gemm_part_ms(lambda: kpconv_bwd(*args, need_dx=need_dx),
+                             GEMM_FAMILIES[1 if need_dx else 2:])
+        g2, w2 = g.reshape(-1, cout), w.reshape(n_kp * cin, cout)
+        gemms = dict(gemm_yt_g=gemm_product(
+            n_kp * cin, cout, rows_valid, parts[GEMM_FAMILIES[2]],
+            cuda_ms(lambda: torch.matmul(y.t(), g2))))
+        if need_dx:
+            gemms["gemm_g_wt"] = gemm_product(
+                rows_valid, n_kp * cin, cout, parts[GEMM_FAMILIES[1]],
+                cuda_ms(lambda: torch.matmul(g2, w2.t())))
         rows.append(dict(conv=name, shape=[*q.shape[:2], s.shape[1],
                                            nb.shape[2], cin, cout],
                          need_dx=need_dx, max_abs_err_dx=errs[0],
                          max_abs_err_dw=errs[1], ms=ms, plain_ms=plain,
-                         bound_ms=b_ms, bound_by=b_by))
+                         bound_ms=b_ms, bound_by=b_by, f32_bound_ms=f32_ms,
+                         **gemms))
+        texts = [gemm_text(label, gemms[key]) for key, label in
+                 (("gemm_g_wt", "GEMM g@W^T"), ("gemm_yt_g", "GEMM y^T@g"))
+                 if key in gemms]
         log(f"  C {name}: q{list(q.shape[:2])} Ns={s.shape[1]} "
             f"K={nb.shape[2]} {cin}->{cout}: err dX {errs[0]:.2e} dW "
             f"{errs[1]:.2e}, kernel {ms:.3f} ms, plain {plain:.3f} ms, "
-            f"bound {b_ms:.4f} ms ({b_by}){'' if need_dx else ', no dX'}")
+            f"bound {b_ms:.4f} ms ({b_by}; all f32 {f32_ms:.4f})"
+            f"{'' if need_dx else ', no dX'}; " + "; ".join(texts))
     return rows, dict(ms=t_k, plain_ms=t_p, bound_ms=t_b, max_abs_err=worst,
-                      bound_by=bound_ms(bytes_t, ops_t)[1])
+                      bound_by=bound_ms(bytes_t, ops_t, gemm_t)[1],
+                      f32_bound_ms=t_f32)
 
 
 def strided_pools(model):
@@ -304,7 +452,7 @@ def check_maxpool_bwd(model, batch, log, seed):
         ref = maxpool_bwd_plain(x, nb, g)
         torch.cuda.synchronize()
         scale = float(ref.abs().max())
-        _assert_close(f"maxpool_bwd {name}", got, ref, MAXPOOL_RTOL,
+        _expect_close(f"maxpool_bwd {name}", got, ref, MAXPOOL_RTOL,
                       MAXPOOL_ATOL_REL * max(scale, 1e-30))
         err = float((got - ref).abs().max())
         worst = max(worst, err)
@@ -364,30 +512,35 @@ def compare_train_steps(model, opt_state, batch, config, log):
         runs[label] = (float(loss), grads, moved)
     del model64
     loss_k, loss_p = runs["kernels"][0], runs["plain"][0]
-    if not abs(loss_k - loss_p) <= LOSS_RTOL * abs(loss_p):
-        raise AssertionError(f"train step loss {loss_k} vs plain {loss_p}")
-    worst = dict(kernel_rel=0.0, plain_rel=0.0, ratio=0.0)
+    expect(abs(loss_k - loss_p) <= LOSS_RTOL * abs(loss_p),
+           f"train step loss {loss_k} vs plain {loss_p}")
+    worst = dict(kernel_rel=0.0, plain_rel=0.0, ratio=0.0, ratio_of="",
+                 share=0.0, share_of="")
     for part, what in ((1, "gradient"), (2, "state change")):
         truth = runs["f64"][part]
         for name, ref in truth.items():
             norm = float(ref.norm())
             err_k = float((runs["kernels"][part][name] - ref).norm())
             err_p = float((runs["plain"][part][name] - ref).norm())
-            if not err_k <= F64_RATIO * err_p + F64_FLOOR * norm:
-                raise AssertionError(
-                    f"{what} {name}: L2 error to the f64 step {err_k:.3e} "
-                    f"with kernels, {err_p:.3e} on the plain versions "
-                    f"(norm {norm:.3e})")
+            allowed = F64_RATIO * err_p + F64_FLOOR * norm
+            about = (f"{what} {name} (L2 errors {err_k:.3e} with kernels, "
+                     f"{err_p:.3e} plain, norm {norm:.3e})")
+            expect(err_k <= allowed,
+                   f"L2 error to the f64 step too large: {about}")
             if norm > 0:
                 worst["kernel_rel"] = max(worst["kernel_rel"], err_k / norm)
                 worst["plain_rel"] = max(worst["plain_rel"], err_p / norm)
-            if err_p > 0:
-                worst["ratio"] = max(worst["ratio"], err_k / err_p)
+            if err_p > 0 and err_k / err_p > worst["ratio"]:
+                worst.update(ratio=err_k / err_p, ratio_of=about)
+            if allowed > 0 and err_k / allowed > worst["share"]:
+                worst.update(share=err_k / allowed, share_of=about)
     log(f"train step from one state and pyramid: loss {loss_k:.7f} with "
         f"kernels, {loss_p:.7f} plain, {runs['f64'][0]:.7f} plain f64; "
         f"worst relative L2 error to f64 over gradients and state changes: "
         f"{worst['kernel_rel']:.2e} with kernels, {worst['plain_rel']:.2e} "
-        f"plain; worst ratio {worst['ratio']:.2f}")
+        f"plain; worst ratio {worst['ratio']:.2f}, {worst['ratio_of']}; "
+        f"largest share of the allowed error {worst['share']:.3f}, "
+        f"{worst['share_of']}")
     return dict(loss=loss_k, loss_plain=loss_p, loss_f64=runs["f64"][0],
                 **worst)
 
@@ -396,14 +549,15 @@ def run_training(config, plan, batches, dev, counted, expected, log):
     """N_TRAIN_STEPS of `train_step` from a fresh seeded model, with the
     launch counts of `counted` set to 0 before and read after; checks the
     counts per step against `expected`, the losses, the parameters and the
-    BatchNorm statistics. Returns (model, opt_state, launches, step ms,
-    losses)."""
+    BatchNorm statistics. Returns (model, opt_state, the model's and the
+    optimizer's state before the first step, launches, step ms, losses)."""
     from weasal_tpu_torch import KPFCNN_mprm, init_opt_state, train_step
     model = KPFCNN_mprm(config, tuple(range(config.num_classes)), (),
                         generator=torch.Generator().manual_seed(SEED))
     model = model.to(dev)
     opt_state = init_opt_state(model)
-    state0, _ = clone_state(model, opt_state)
+    start = clone_state(model, opt_state)
+    state0 = start[0]
     for fn in counted:
         fn.launches = 0
     step_ms, losses, points = [], [], []
@@ -441,18 +595,25 @@ def run_training(config, plan, batches, dev, counted, expected, log):
         f"losses {[round(v, 5) for v in losses]}; mean of steps 2..: "
         f"{steady:.3f} ms, real points/s "
         f"{statistics.mean(points[1:]) * 1e3 / steady:.0f}")
-    return model, opt_state, launches, step_ms, losses
+    return model, opt_state, start, launches, step_ms, losses
 
 
+# The GEMM core's three products, named by the operand layouts <A K-major,
+# B K-major> of the tile kernel; a split-K sum belongs to the tile kernel
+# launched before it (see `profiled_kernels`).
+GEMM_FAMILIES = ("B GEMM y@W (3xTF32)", "C GEMM g@W^T (3xTF32)",
+                 "C GEMM y^T@g (3xTF32)")
+SPLITK_SUM = "splitk_sum_kernel"
 # Kernel families of a step's device time: (label, substrings of the
-# kernel name); the first match wins, anything else is "other".
+# kernel name); the first match wins, anything else is "other". The
+# GEMM core comes before the generic "gemm" match.
 FAMILIES = (
     ("A radius_search", ("radius_search_kernel",)),
     ("B aggregate", ("aggregate_kernel",)),
-    ("B sgemm y@W", ("sgemm_kernel<false, false>",)),
-    ("C sgemm g@W^T", ("sgemm_kernel<false, true>",)),
+    (GEMM_FAMILIES[0], ("tf32x3_gemm_kernel<true, false,",)),
+    (GEMM_FAMILIES[1], ("tf32x3_gemm_kernel<true, true,",)),
     ("C scatter_dx", ("scatter_dx_kernel",)),
-    ("C sgemm y^T@g", ("sgemm_kernel<true, false>",)),
+    (GEMM_FAMILIES[2], ("tf32x3_gemm_kernel<false, false,",)),
     ("D maxpool_bwd", ("maxpool_bwd_kernel",)),
     ("cuBLAS/CUTLASS GEMMs", ("gemm", "cutlass", "cublas")),
     ("reductions", ("reduce_kernel",)),
@@ -464,35 +625,105 @@ FAMILIES = (
 )
 
 
+def family(name: str) -> str:
+    """The FAMILIES label of a kernel name."""
+    return next((lab for lab, keys in FAMILIES
+                 if any(k in name for k in keys)), "other")
+
+
 def kernel_families(rows):
     """[(family, launches, device ms)] of profile rows, largest first."""
     sums = {}
     for name, count, ms in rows:
-        label = next((lab for lab, keys in FAMILIES
-                      if any(k in name for k in keys)), "other")
+        label = family(name)
         n, t = sums.get(label, (0, 0.0))
         sums[label] = (n + count, t + ms)
     return sorted(((k, n, t) for k, (n, t) in sums.items()),
                   key=lambda r: -r[2])
 
 
-def profile_step(step, log, label: str, top: int = 12):
-    """Device time of one call of `step` by kernel name (torch.profiler);
-    returns (rows, busy ms, wall ms). Busy is the sum of kernel self
-    times, so the idle share is 1 - busy / wall."""
+def profiled_kernels(fn, reps: int = 1):
+    """([(kernel name, launches, device ms)] largest first, wall ms) of
+    `reps` calls of fn() under torch.profiler. A split-K sum launch is
+    named after the GEMM core's tile kernel that ran before it."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step()
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    rows = sorted(((e.key, e.count, e.self_device_time_total / 1e3)
-                   for e in prof.key_averages()
-                   if str(e.device_type).endswith("CUDA")
-                   and e.self_device_time_total > 0),
+    events = sorted((e for e in prof.events()
+                     if str(e.device_type).endswith("CUDA")
+                     and e.self_device_time_total > 0),
+                    key=lambda e: e.time_range.start)
+    sums, tile = {}, ""
+    for e in events:
+        name = e.key
+        if "tf32x3_gemm_kernel" in name:
+            tile = name
+        elif SPLITK_SUM in name:
+            name = f"{SPLITK_SUM} after {tile}"
+        n, t = sums.get(name, (0, 0.0))
+        sums[name] = (n + 1, t + e.self_device_time_total / 1e3)
+    rows = sorted(((k, n, t) for k, (n, t) in sums.items()),
                   key=lambda r: -r[2])
+    return rows, wall
+
+
+def gemm_part_ms(fn, families, reps: int = 5, tries: int = 3) -> dict:
+    """Device ms of one call of fn() in each of `families` (GEMM_FAMILIES
+    that fn launches): the mean time of its tile launch plus, where fn
+    makes one, of its split-K sum launch, over `reps` calls under
+    torch.profiler after a warm-up call. On an H100 the profiler has lost
+    some of a profile's kernel events, and once all of a call's GEMM
+    kernels: so means count only the launches it kept, and a profile that
+    kept no tile launch of a family is taken again, up to `tries` times."""
+    fn()
+    for _ in range(tries):
+        rows, _ = profiled_kernels(fn, reps)
+        kept = {}
+        for name, count, ms in rows:
+            key = (family(name), name.startswith(SPLITK_SUM))
+            n, t = kept.get(key, (0, 0.0))
+            kept[key] = (n + count, t + ms)
+        if all((f, False) in kept for f in families):
+            break
+    return {f: sum(t / n for (fam, _), (n, t) in kept.items() if fam == f)
+            for f in families}
+
+
+def log_gemm_sums(rows, keys, log, wide_cin: int = 256) -> dict:
+    """Sums over the convs of each product's GEMM-part time, cuBLAS time
+    and bounds, over all convs and over the wide ones (Cin >= wide_cin);
+    fails where a product's GEMM part was not found in the profile."""
+    sums = {}
+    for key in keys:
+        parts = [(r["shape"][4] >= wide_cin, r[key]) for r in rows
+                 if key in r]
+        if not all(p["ms"] > 0 for _, p in parts):
+            raise AssertionError(f"{key}: GEMM part missing from a profile")
+        for scope in ("all", "wide"):
+            chosen = [p for wide, p in parts if scope == "all" or wide]
+            sums[f"{key}_{scope}"] = {
+                f: sum(p[f] for p in chosen)
+                for f in ("ms", "cublas_ms", "f32_bound_ms",
+                          "tf32x3_bound_ms")}
+            t = sums[f"{key}_{scope}"]
+            log(f"  {key} summed over {len(chosen)} convs ({scope}): "
+                f"{t['ms']:.3f} ms, cuBLAS f32 {t['cublas_ms']:.3f} ms, "
+                f"bound f32 {t['f32_bound_ms']:.3f} / 3xTF32 "
+                f"{t['tf32x3_bound_ms']:.3f} ms")
+    return sums
+
+
+def profile_step(step, log, label: str, top: int = 12):
+    """Device time of one call of `step` by kernel name (torch.profiler);
+    returns (rows, busy ms, wall ms). Busy is the sum of kernel self
+    times, so the idle share is 1 - busy / wall."""
+    rows, wall = profiled_kernels(step)
     busy = sum(r[2] for r in rows)
     log(f"profile of one {label}: wall {wall:.3f} ms, device busy "
         f"{busy:.3f} ms ({100 * busy / wall:.1f}%), {len(rows)} kernels")
@@ -571,6 +802,8 @@ def main(argv=None) -> int:
     with torch.no_grad():
         a_rows, a_sum = check_radius_search(ref_batch, config, plan, log)
         b_rows, b_sum = check_kpconv(model, ref_batch, log, SEED)
+    gemm_sums = log_gemm_sums(b_rows, ("gemm_y_w",), log)
+    gemm_bias = check_gemm_bias(log, SEED)
 
     # ---- phase 3: the inference path
     log("phase 3: eval_step on the card")
@@ -615,8 +848,7 @@ def main(argv=None) -> int:
     diff = float((probs_k - probs_p)[ref_batch.masks[0]].abs().max())
     log(f"forward, kernels vs plain versions on one pyramid: max |dprobs| "
         f"{diff:.2e} (atol {PROBS_ATOL})")
-    if not diff <= PROBS_ATOL:
-        raise AssertionError("kernel forward disagrees with the plain one")
+    expect(diff <= PROBS_ATOL, "kernel forward disagrees with the plain one")
     prof_rows, busy, wall = profile_step(
         lambda: eval_step(model, batches[-1], config, plan, device=dev), log,
         "eval_step")
@@ -625,6 +857,7 @@ def main(argv=None) -> int:
     log("phase 4: backward kernels vs plain versions")
     c_rows, c_sum = check_kpconv_bwd(model, ref_batch, log, SEED)
     d_rows, d_sum = check_maxpool_bwd(model, ref_batch, log, SEED)
+    gemm_sums.update(log_gemm_sums(c_rows, ("gemm_g_wt", "gemm_yt_g"), log))
 
     # ---- phase 5: the training path
     log(f"phase 5: train_step on the card, {N_TRAIN_STEPS} steps")
@@ -632,7 +865,7 @@ def main(argv=None) -> int:
     expected = {"radius_search": 3 * plan.num_layers - 2,
                 "kpconv_fwd": len(b_rows), "kpconv_bwd": len(b_rows),
                 "maxpool_bwd": len(d_rows)}
-    train_model, opt_state, launches, train_ms, losses = run_training(
+    train_model, opt_state, start, launches, train_ms, losses = run_training(
         config, plan, batches, dev, counted, expected, log)
     t = to_device(batches[0], dev)
     with torch.no_grad():
@@ -643,7 +876,8 @@ def main(argv=None) -> int:
             region_masks=t["region_masks"],
             region_point_masks=t["region_point_masks"],
             region_lb=t["region_lb"])
-    comparison = compare_train_steps(train_model, opt_state, shared, config,
+    train_model.load_state_dict(start[0])
+    comparison = compare_train_steps(train_model, start[1], shared, config,
                                      log)
     tprof_rows, tbusy, twall = profile_step(
         lambda: train_step(train_model, opt_state, batches[1], config, plan,
@@ -675,7 +909,9 @@ def main(argv=None) -> int:
             json.dump(dict(card=card, plan=vars(plan), step_ms=step_ms,
                            radius_search=a_rows, kpconv_fwd=b_rows,
                            kpconv_bwd=c_rows, maxpool_bwd=d_rows,
-                           kernels=kernels, probs_max_diff=diff,
+                           kernels=kernels, gemm_sums=gemm_sums,
+                           gemm_bias=gemm_bias,
+                           probs_max_diff=diff,
                            eval_launches=eval_launches,
                            train_launches=launches, train_ms=train_ms,
                            train_losses=losses, train_compare=comparison,
@@ -684,6 +920,9 @@ def main(argv=None) -> int:
                            train_profile=dict(wall_ms=twall, busy_ms=tbusy,
                                               rows=tprof_rows)), f,
                       indent=1)
+    if FAILED:
+        print(f"chip_smoke: {len(FAILED)} checks failed", file=sys.stderr)
+        return 1
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

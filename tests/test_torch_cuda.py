@@ -2,17 +2,29 @@
 with shadows, masks, ties (a maximum of 0 shared with shadows for D) and
 all three influences, and the autograd Functions that launch C and D.
 Tolerances: B and C rtol 1e-4, atol 1e-5 x output scale (f32 sums in
-another order); D rtol 1e-6, atol 1e-6 x scale (atomics add the shares of
-one support in another order). Needs an NVIDIA GPU with nvcc; skips
-elsewhere. On the machine with the card (which has no JAX) run
+another order; the GEMM core's 3xTF32 products are f32-grade); D rtol
+1e-6, atol 1e-6 x scale (atomics add the shares of one support in another
+order). The GEMM core of B and C is also held to f64 products at shapes
+that reach each of its edges and at the main path's widest conv, and,
+on positive operands there, to a mean relative error below 1e-6; and
+B's and C's launches write nothing outside their buffers (guard bands of
+a sentinel around each) and refuse a split-K workspace too short. Needs
+an NVIDIA GPU with nvcc; skips elsewhere. On the machine with the card
+(which has no JAX) run
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
+
+import ctypes
+import math
 
 import pytest
 import torch
 
 from weasal_tpu_torch.ops import kpconv as ops
+from weasal_tpu_torch.ops.cuda import kpconv_bwd as bwd_lib
+from weasal_tpu_torch.ops.cuda import kpconv_fwd as fwd_lib
+from weasal_tpu_torch.ops.cuda.build import load_library
 from weasal_tpu_torch.ops.cuda.kpconv_bwd import kpconv_bwd, kpconv_bwd_plain
 from weasal_tpu_torch.ops.cuda.kpconv_fwd import (kpconv_fwd,
                                                   kpconv_fwd_plain,
@@ -165,3 +177,155 @@ def test_autograd_functions_launch_kernels_c_and_d(dev):
     assert maxpool_bwd.launches == d0 + 1
     _close(dw, dwp, 1e-3, 1e-5)
     _close(dx, dxp, 1e-3, 1e-5)
+
+
+# Shapes that reach every edge of the GEMM core (csrc/kpconv_common.cuh):
+# rows B*Nq not a multiple of its 128-row tile, Kp*Cin = 60 (not a
+# multiple of its 32-deep stage) and 360, Cout 32 and 40 (narrower than
+# the 128-wide tile) and 256, Cin 512 (depth 7680), an odd Cin and Cout
+# (4-byte copies instead of 16-byte ones), and the main path's widest
+# conv (multi_att.simple1: 3 spheres of 5712 rows, K = 34, 512 -> 256).
+GEMM_CASES = {
+    "kpcin60-cout32": dict(b=2, nq=300, ns=500, k=20, cin=4, cout=32),
+    "kpcin360-cout40": dict(b=2, nq=300, ns=500, k=20, cin=24, cout=40),
+    "kpcin360-cout256": dict(b=3, nq=421, ns=600, k=20, cin=24, cout=256),
+    "cin512-cout256": dict(b=2, nq=333, ns=400, k=16, cin=512, cout=256),
+    "odd-strides": dict(b=2, nq=129, ns=200, k=9, cin=5, cout=7),
+    "widest": dict(b=3, nq=5712, ns=5712, k=34, cin=512, cout=256),
+}
+
+
+def _f64(*tensors):
+    return [t.double() for t in tensors]
+
+
+@pytest.mark.parametrize("case", list(GEMM_CASES))
+def test_kpconv_fwd_gemm_core_matches_f64(dev, case):
+    q, s, nb, x, kpts, w, _ = _conv_problem(dev, 6, **GEMM_CASES[case])
+    out, y = kpconv_fwd_with_y(q, s, nb, x, kpts, w, 0.8, "linear")
+    _, y64 = kpconv_fwd_plain_with_y(*_f64(q, s), nb, *_f64(x, kpts, w),
+                                     0.8, "linear")
+    kp, cin, cout = w.shape
+    want = (y.double() @ w.double().reshape(kp * cin, cout)).reshape(
+        out.shape)
+    torch.cuda.synchronize()
+    _close(y.double(), y64, 1e-4, 1e-5)
+    _close(out.double(), want, 1e-4, 1e-5)
+
+
+@pytest.mark.parametrize("need_dx", [True, False])
+@pytest.mark.parametrize("case", list(GEMM_CASES))
+def test_kpconv_bwd_gemm_core_matches_f64(dev, case, need_dx):
+    q, s, nb, x, kpts, w, grad = _conv_problem(dev, 7, **GEMM_CASES[case])
+    _, y = kpconv_fwd_with_y(q, s, nb, x, kpts, w, 0.8, "linear")
+    dx, dw = kpconv_bwd(q, s, nb, y, kpts, w, grad, 0.8, "linear",
+                        need_dx=need_dx)
+    kp, cin, cout = w.shape
+    want_dw = (y.double().t() @ grad.double().reshape(-1, cout)).reshape(
+        kp, cin, cout)
+    torch.cuda.synchronize()
+    _close(dw.double(), want_dw, 1e-4, 1e-5)
+    if not need_dx:
+        assert dx is None
+        return
+    want_dx, _ = kpconv_bwd_plain(*_f64(q, s), nb, *_f64(y, kpts, w, grad),
+                                  0.8, "linear")
+    _close(dx.double(), want_dx, 1e-4, 1e-5)
+
+
+def test_gemm_core_sums_do_not_drift(dev):
+    """The tensor cores truncate as they accumulate; the core adds each
+    32-deep stage's sum in f32 round-to-nearest, so on positive operands
+    (where truncation always errs one way) y @ W and y^T @ g at the
+    widest conv keep a mean relative error to f64 below 1e-6."""
+    q, s, nb, x, kpts, w, grad = _conv_problem(dev, 8,
+                                               **GEMM_CASES["widest"])
+    x, w, grad = x.abs(), w.abs(), grad.abs()
+    out, y = kpconv_fwd_with_y(q, s, nb, x, kpts, w, 1.5, "linear")
+    _, dw = kpconv_bwd(q, s, nb, y, kpts, w, grad, 1.5, "linear",
+                       need_dx=False)
+    kp, cin, cout = w.shape
+    for got, want in (
+            (out.reshape(-1, cout),
+             y.double() @ w.double().reshape(kp * cin, cout)),
+            (dw.reshape(-1, cout),
+             y.double().t() @ grad.double().reshape(-1, cout))):
+        big = want.abs() > 0.1 * want.abs().max()
+        rel = ((got.double() - want) / want)[big]
+        assert abs(float(rel.mean())) < 1e-6
+
+
+GUARD = 4096           # floats of sentinel on either side of a buffer
+SENTINEL = -7.25
+INVALID_VALUE = 1      # cudaErrorInvalidValue
+
+
+def _guarded(shape, dev):
+    """(buffer, view of `shape`) with GUARD sentinel floats on either side
+    of the view."""
+    n = math.prod(shape)
+    buf = torch.full((n + 2 * GUARD,), SENTINEL, device=dev)
+    return buf, buf[GUARD:GUARD + n].view(shape)
+
+
+def _guards_hold(buffers):
+    torch.cuda.synchronize()
+    return [name for name, (buf, _) in buffers.items()
+            if not bool((buf[:GUARD] == SENTINEL).all()
+                        and (buf[-GUARD:] == SENTINEL).all())]
+
+
+@pytest.mark.parametrize("case", list(GEMM_CASES))
+def test_kpconv_launches_write_only_their_buffers(dev, case):
+    """Kernels B and C write nothing outside y, out, dr, dX, dW and the
+    split-K workspace (each between guard bands), and refuse a workspace
+    one float shorter than the schedule needs."""
+    q, s, nb, x, kpts, w, grad = _conv_problem(dev, 9, **GEMM_CASES[case])
+    b, nq, _ = q.shape
+    ns, k = s.shape[1], nb.shape[2]
+    kp, cin, cout = w.shape
+    rows, kdim = b * nq, kp * cin
+    den = fwd_lib.gaussian_denominator(0.8)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    head = [t.data_ptr() for t in (q, s, nb)]
+    scalars = [b, nq, ns, k, kp, cin, cout, 0.8, 1, den]
+
+    lib = load_library("kpconv_fwd")
+    n_ws = fwd_lib.workspace_floats(lib, "kpconv_fwd", rows, kdim, cout)
+    fwd = {name: _guarded(shape, dev) for name, shape in (
+        ("y", (rows, kdim)), ("out", (b, nq, cout)), ("ws", (max(n_ws, 1),)))}
+    fn = lib.kpconv_fwd_launch
+    fn.argtypes, fn.restype = fwd_lib._ARGTYPES, ctypes.c_int
+
+    def launch_fwd(ws_floats):
+        return fn(*head, x.data_ptr(), kpts.data_ptr(), w.data_ptr(), *scalars,
+                  fwd["y"][1].data_ptr(), fwd["out"][1].data_ptr(),
+                  fwd["ws"][1].data_ptr(), ws_floats, stream)
+
+    if n_ws:
+        assert launch_fwd(n_ws - 1) == INVALID_VALUE
+    assert launch_fwd(n_ws) == 0
+    assert _guards_hold(fwd) == []
+    y = fwd["y"][1]
+    want = y.double() @ w.double().reshape(kdim, cout)
+    _close(fwd["out"][1].reshape(rows, cout).double(), want, 1e-4, 1e-5)
+
+    lib = load_library("kpconv_bwd")
+    n_ws = fwd_lib.workspace_floats(lib, "kpconv_bwd", rows, kdim, cout, 1)
+    bwd = {name: _guarded(shape, dev) for name, shape in (
+        ("dr", (rows, kdim)), ("dx", (b, ns, cin)), ("dw", (kp, cin, cout)),
+        ("ws", (max(n_ws, 1),)))}
+    fn = lib.kpconv_bwd_launch
+    fn.argtypes, fn.restype = bwd_lib._ARGTYPES, ctypes.c_int
+
+    def launch_bwd(ws_floats):
+        outs = [bwd[n][1].data_ptr() for n in ("dr", "dx", "dw", "ws")]
+        return fn(*head, y.data_ptr(), kpts.data_ptr(), w.data_ptr(),
+                  grad.data_ptr(), *scalars, 1, *outs, ws_floats, stream)
+
+    if n_ws:
+        assert launch_bwd(n_ws - 1) == INVALID_VALUE
+    assert launch_bwd(n_ws) == 0
+    assert _guards_hold(bwd) == []
+    want_dw = y.double().t() @ grad.double().reshape(rows, cout)
+    _close(bwd["dw"][1].reshape(kdim, cout).double(), want_dw, 1e-4, 1e-5)

@@ -1,0 +1,175 @@
+"""The numeric design of the GEMM core of kernels B and C, on the CPU.
+
+The core (weasal_tpu_torch/csrc/kpconv_common.cuh) runs the KPConv
+products y @ W, g @ W^T and y^T @ g on the tensor cores through the 3xTF32
+split: each f32 operand is cut into big = tf32(a) and small = tf32(a - big)
+by `cvt.rna.tf32.f32` (round to 10 explicit mantissa bits, half away from
+zero), and a @ b is summed as small_a big_b + big_a small_b + big_a big_b
+into f32 accumulators, one MMA of depth 8 after another. This file
+emulates that arithmetic in numpy and holds it, at the main path's depths,
+to the kernels' tolerance against an f64 product: rtol 1e-4, atol 1e-5 x
+the output's largest magnitude (the tolerance of chip_smoke.py and
+tests/test_torch_cuda.py). It also shows that single-pass TF32 misses that
+tolerance, which is why the core does not use it.
+
+The tensor cores add each MMA's products to the accumulator with
+truncation (round toward zero), which on operands of one sign makes the
+sum drift: the emulation models that, takes each MMA's 8 products
+exactly (a TF32 product fits in f32), and, as the core does, starts each
+32-deep stage from zero and adds the stage's sum to the running f32 sum
+rounded to nearest. It shows that this keeps the drift at f32 level,
+where one truncating accumulator over the depth does not.
+"""
+
+import numpy as np
+import pytest
+
+STAGE_STEPS = 4  # steps of depth 8 in one 32-deep stage of the core
+
+
+def rna_tf32(x: np.ndarray) -> np.ndarray:
+    """cvt.rna.tf32.f32 on finite f32 values: the low 13 mantissa bits
+    rounded half away from zero, then cleared."""
+    bits = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def split_tf32(x: np.ndarray):
+    """(big, small), both TF32 values, with x = big + small + r and
+    |r| <= 2^-22 |x|."""
+    x = np.asarray(x, dtype=np.float32)
+    big = rna_tf32(x)
+    return big, rna_tf32(x - big)
+
+
+def round_toward_zero(exact: np.ndarray) -> np.ndarray:
+    """f64 values to f32, rounded toward zero."""
+    r = exact.astype(np.float32)
+    over = np.abs(r.astype(np.float64)) > np.abs(exact)
+    r[over] = np.nextafter(r[over], np.float32(0))
+    return r
+
+
+def mma_product(pairs, depth: int, stage_steps: int = STAGE_STEPS):
+    """sum over `pairs` of a @ b, in the order of the core: per 8-deep
+    step one MMA per pair in order, each adding its 8 exact products to
+    the stage accumulator with truncation; every `stage_steps` steps the
+    stage's sum goes into the running sum, rounded to nearest."""
+    m, n = pairs[0][0].shape[0], pairs[0][1].shape[1]
+    steps = -(-depth // 8)
+    slabs = []
+    for a, b in pairs:
+        pad = steps * 8 - depth
+        a = np.pad(a.astype(np.float64), ((0, 0), (0, pad)))
+        b = np.pad(b.astype(np.float64), ((0, pad), (0, 0)))
+        slabs.append(np.einsum("msk,skn->smn", a.reshape(m, steps, 8),
+                               b.reshape(steps, 8, n)))
+    total = np.zeros((m, n), dtype=np.float32)
+    acc = np.zeros((m, n), dtype=np.float32)
+    for s in range(steps):
+        if s % stage_steps == 0:
+            total = (total.astype(np.float64) + acc).astype(np.float32)
+            acc = np.zeros((m, n), dtype=np.float32)
+        for slab in slabs:
+            acc = round_toward_zero(acc.astype(np.float64) + slab[s])
+    return (total.astype(np.float64) + acc).astype(np.float32)
+
+
+def tf32x3(a: np.ndarray, b: np.ndarray,
+           stage_steps: int = STAGE_STEPS) -> np.ndarray:
+    a_big, a_small = split_tf32(a)
+    b_big, b_small = split_tf32(b)
+    return mma_product([(a_small, b_big), (a_big, b_small), (a_big, b_big)],
+                       a.shape[1], stage_steps)
+
+
+def tf32x1(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    return mma_product([(rna_tf32(a), rna_tf32(b))], a.shape[1])
+
+
+def within_kernel_tolerance(got: np.ndarray, ref: np.ndarray) -> bool:
+    atol = 1e-5 * float(np.abs(ref).max())
+    return bool(np.all(np.abs(got.astype(np.float64) - ref)
+                       <= atol + 1e-4 * np.abs(ref)))
+
+
+# (f32 bits in, TF32 bits out): exact values, below and above half an
+# ulp of TF32, ties (away from zero, where ties-to-even would round down),
+# negative values, a carry into the exponent and a subnormal.
+RNA_CASES = [
+    (0x3F800000, 0x3F800000),
+    (0x3F800FFF, 0x3F800000),
+    (0x3F801000, 0x3F802000),
+    (0xBF801000, 0xBF802000),
+    (0x3F803000, 0x3F804000),
+    (0x3F801001, 0x3F802000),
+    (0xC0A02FFF, 0xC0A02000),
+    (0x3FFFF000, 0x40000000),
+    (0x00001000, 0x00002000),
+    (0x00000000, 0x00000000),
+]
+
+
+@pytest.mark.parametrize("bits_in,bits_out", RNA_CASES,
+                         ids=[f"{a:08x}" for a, _ in RNA_CASES])
+def test_rna_tf32_bit_patterns(bits_in, bits_out):
+    x = np.array([bits_in], dtype=np.uint32).view(np.float32)
+    assert int(rna_tf32(x).view(np.uint32)[0]) == bits_out
+
+
+def test_split_keeps_22_bits():
+    rng = np.random.default_rng(0)
+    x = (rng.standard_normal(100_000)
+         * np.exp2(rng.integers(-60, 60, 100_000))).astype(np.float32)
+    big, small = split_tf32(x)
+    for part in (big, small):
+        assert np.all(part.view(np.uint32) & np.uint32(0x1FFF) == 0)
+    rest = x.astype(np.float64) - big.astype(np.float64) - small
+    assert np.all(np.abs(rest) <= np.exp2(-22) * np.abs(x.astype(np.float64)))
+
+
+def _operands(product: str, depth: int, seed: int):
+    """Operands of one main-path product, cut to a few output rows and
+    columns: y is an aggregate of activations (>= 0), W a zero-mean init
+    of scale depth^-1/2, g a zero-mean output gradient."""
+    rng = np.random.default_rng(seed)
+    if product == "y@W":
+        a = np.abs(rng.standard_normal((48, depth)))
+        b = rng.standard_normal((depth, 32)) / np.sqrt(depth)
+    else:  # y^T @ g over the rows: the depth is the number of rows
+        a = np.abs(rng.standard_normal((depth, 48))).T
+        b = rng.standard_normal((depth, 32))
+    return a.astype(np.float32), b.astype(np.float32)
+
+
+# Depths of the main path (full-width Vaihingen WL model, 3 spheres):
+# Kp*Cin = 15 x 256 and 15 x 512 for y @ W, 3 x 5712 rows for y^T @ g
+PRODUCTS = [("y@W", 3840), ("y@W", 7680), ("y^T@g", 17136)]
+
+
+@pytest.mark.parametrize("product,depth", PRODUCTS)
+def test_tf32x3_meets_the_kernel_tolerance(product, depth):
+    a, b = _operands(product, depth, seed=depth)
+    ref = a.astype(np.float64) @ b.astype(np.float64)
+    assert within_kernel_tolerance(tf32x3(a, b), ref)
+
+
+@pytest.mark.parametrize("product,depth", PRODUCTS)
+def test_single_pass_tf32_misses_the_kernel_tolerance(product, depth):
+    a, b = _operands(product, depth, seed=depth)
+    ref = a.astype(np.float64) @ b.astype(np.float64)
+    assert not within_kernel_tolerance(tf32x1(a, b), ref)
+
+
+@pytest.mark.parametrize("depth", [960, 7680])
+def test_stage_sums_stop_the_truncation_drift(depth):
+    # positive operands: every truncation errs the same way
+    rng = np.random.default_rng(depth + 1)
+    a = np.abs(rng.standard_normal((48, depth))).astype(np.float32)
+    b = np.abs(rng.standard_normal((depth, 32))).astype(np.float32)
+    ref = a.astype(np.float64) @ b.astype(np.float64)
+    staged = float(((tf32x3(a, b) - ref) / ref).mean())
+    one_chain = float(((tf32x3(a, b, stage_steps=depth) - ref) / ref).mean())
+    assert abs(staged) < 1e-6
+    assert one_chain < -5e-6

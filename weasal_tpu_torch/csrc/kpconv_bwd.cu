@@ -22,14 +22,19 @@
 // kernel B wrote in the forward (the autograd Function keeps it).
 //
 // What bounds it on the H100: the two contractions, 2 x 2 * rows * Kp*Cin
-// * Cout f32 operations, at the wide levels; the scatter's atomics (rows *
+// * Cout operations, at the wide levels; the scatter's atomics (rows *
 // K * Cin at most) at level 0. Launches on one stream:
-//  1. dr = g @ W^T: the tiled f32 GEMM with B transposed;
-//  2. zero dX, then `scatter_dx` (skipped when x needs no gradient);
-//  3. zero dW, then dW = y^T @ g: the tiled GEMM with A transposed and the
-//     long depth (rows) split over blocks that add their partial sums
-//     with atomics, so that a small output still fills the card.
-// f32 only.
+//  1. dr = g @ W^T by the GEMM core of kpconv_common.cuh (3xTF32 on the
+//     tensor cores, both operands K-major);
+//  2. zero dX, then `scatter_dx` (1 and 2 are skipped when x needs no
+//     gradient);
+//  3. dW = y^T @ g by the same core, y read M-major as it lies. Its depth
+//     (rows, 17k-49k) is long and its output small (<= 7680 x 256, at
+//     most 240 tiles for 264 resident blocks), so plan_gemm splits the
+//     depth over enough blocks to fill the card; the blocks write partial
+//     sums to the caller's workspace and a second launch adds them in a
+//     fixed order, so dW is deterministic.
+// f32 in and out.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -39,9 +44,6 @@
 namespace {
 
 using kpconv_common::kMaxKp;
-
-// Blocks the split-K dW product aims for (about 8 per SM of an H100).
-constexpr int kTargetBlocks = 1056;
 
 __global__ void scatter_dx_kernel(const float* __restrict__ q,
                                   const float* __restrict__ s,
@@ -82,11 +84,27 @@ __global__ void scatter_dx_kernel(const float* __restrict__ q,
 
 }  // namespace
 
+// Floats of workspace that kpconv_bwd_launch needs for its split-K GEMMs
+// at these sizes (0: none); the two products run in turn and share it.
+extern "C" long long kpconv_bwd_workspace(long long rows, int kdim, int cout,
+                                          int need_dx) {
+  if (rows <= 0) return 0;
+  long long ws = kpconv_common::plan_gemm(kdim, cout, (int)rows).ws_floats;
+  if (need_dx) {
+    const long long dr =
+        kpconv_common::plan_gemm((int)rows, kdim, cout).ws_floats;
+    if (dr > ws) ws = dr;
+  }
+  return ws;
+}
+
 // q [B,Nq,3], s [B,Ns,3], nb [B,Nq,K] i32, y [B*Nq, Kp*Cin] (kernel B's
 // aggregate), kp [Kp,3], w [Kp,Cin,Cout], g [B,Nq,Cout]; scratch dr
-// [B*Nq, Kp*Cin]; outputs dx [B,Ns,Cin] (written only when need_dx) and
-// dw [Kp,Cin,Cout]. f32, contiguous. influence: 0 constant, 1 linear,
-// 2 gaussian. Returns cudaGetLastError() after the last launch.
+// [B*Nq, Kp*Cin] and ws (ws_floats floats, at least kpconv_bwd_workspace);
+// outputs dx [B,Ns,Cin] (written only when need_dx) and dw [Kp,Cin,Cout].
+// f32, contiguous. influence: 0 constant, 1 linear, 2 gaussian. Returns
+// cudaGetLastError() after the last launch, cudaErrorInvalidValue for a
+// workspace too short.
 extern "C" int kpconv_bwd_launch(const float* q, const float* s,
                                  const int32_t* nb, const float* y,
                                  const float* kp, const float* w,
@@ -94,7 +112,8 @@ extern "C" int kpconv_bwd_launch(const float* q, const float* s,
                                  int k, int n_kp, int cin, int cout,
                                  float ext, int influence, float gauss_den,
                                  int need_dx, float* dr, float* dx,
-                                 float* dw, void* stream) {
+                                 float* dw, float* ws, long long ws_floats,
+                                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n_kp < 1 || n_kp > kMaxKp || k < 1 || cin < 1 || cout < 1)
     return (int)cudaErrorInvalidValue;
@@ -109,8 +128,8 @@ extern "C" int kpconv_bwd_launch(const float* q, const float* s,
                                st);
     if (err) return err;
     if (rows > 0) {
-      err = kpconv_common::sgemm<false, true>(g, w, dr, (int)rows, kdim,
-                                              cout, 1, st);
+      err = kpconv_common::gemm_tf32x3<true, true>(
+          g, w, dr, ws, ws_floats, (int)rows, kdim, cout, st);
       if (err) return err;
       int threads = ((cin + 31) / 32) * 32;
       threads = threads < 32 ? 32 : (threads > 256 ? 256 : threads);
@@ -121,18 +140,7 @@ extern "C" int kpconv_bwd_launch(const float* q, const float* s,
       if (err) return err;
     }
   }
-
-  err = (int)cudaMemsetAsync(dw, 0, (size_t)kdim * cout * sizeof(float), st);
-  if (err) return err;
-  if (rows == 0) return 0;
-  const long long tiles = (long long)((kdim + kpconv_common::kBM - 1) /
-                                      kpconv_common::kBM) *
-                          ((cout + kpconv_common::kBN - 1) /
-                           kpconv_common::kBN);
-  long long splits = (kTargetBlocks + tiles - 1) / tiles;
-  const long long max_splits = (rows + kpconv_common::kBK - 1) /
-                               kpconv_common::kBK;
-  if (splits > max_splits) splits = max_splits;
-  return kpconv_common::sgemm<true, false>(y, g, dw, kdim, cout, (int)rows,
-                                           (int)splits, st);
+  // With rows = 0 the depth is empty and the core writes zeros.
+  return kpconv_common::gemm_tf32x3<false, false>(
+      y, g, dw, ws, ws_floats, kdim, cout, (int)rows, st);
 }

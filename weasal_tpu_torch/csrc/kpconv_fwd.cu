@@ -15,9 +15,10 @@
 // it is exact, and `oob` is always zero.
 //
 // What bounds it on the H100: the contraction y @ W, 2 * rows * Kp*Cin *
-// Cout f32 operations, dominates at the wide levels; the aggregation step
-// reads K neighbor rows of Cin floats per query and does 2*Kp*K*Cin
-// operations. Design, two launches on one stream:
+// Cout operations, dominates at the wide levels (up to 67 GFLOP at
+// multi_att.simple1, 512 -> 256); the aggregation step reads K neighbor
+// rows of Cin floats per query and does 2*Kp*K*Cin operations. Design,
+// two steps on one stream:
 //  1. `aggregate`: one block per query row. The block computes the Kp x K
 //     influences into shared memory (kpconv_common.cuh: direct differences
 //     s - q - kp_p, each axis rounded separately, no fused multiply-add, as
@@ -25,10 +26,13 @@
 //     Kp partial sums in registers, so every gathered x[nb_k, c] is read
 //     once and used Kp times. It writes y [rows, Kp*Cin] (kernel point
 //     major), which the autograd Function keeps for kernel C's dW.
-//  2. `sgemm` (kpconv_common.cuh): a shared-memory-tiled f32 GEMM, 64x64
-//     output tiles, depth 16 per stage, 4x4 outputs per thread:
-//     out = y @ W, W [Kp*Cin, Cout].
-// f32 only; bf16 inputs with wgmma are later work.
+//  2. out = y @ W, W [Kp*Cin, Cout] read N-major as it lies, by the GEMM
+//     core of kpconv_common.cuh: 3xTF32 on the tensor cores (wgmma tf32),
+//     128 x 64 tiles, 2 blocks per SM. At rows 17136 and Cout 256 the 536
+//     tiles leave a last wave of 8 on the 264 resident blocks, so the
+//     depth is split (plan_gemm) and the partial sums, written to the
+//     caller's workspace, are added by a second launch.
+// f32 in and out; bf16 inputs are later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -79,16 +83,26 @@ __global__ void aggregate_kernel(const float* __restrict__ q,
 
 }  // namespace
 
+// Floats of workspace that kpconv_fwd_launch needs for its split-K GEMM
+// at these sizes (0: none).
+extern "C" long long kpconv_fwd_workspace(long long rows, int kdim,
+                                          int cout) {
+  if (rows <= 0) return 0;
+  return kpconv_common::plan_gemm((int)rows, cout, kdim).ws_floats;
+}
+
 // q [B,Nq,3], s [B,Ns,3], nb [B,Nq,K] i32, x [B,Ns,Cin], kp [Kp,3],
-// w [Kp,Cin,Cout], scratch y [B*Nq, Kp*Cin], out [B,Nq,Cout]; f32,
-// contiguous. influence: 0 constant, 1 linear, 2 gaussian.
-// Returns cudaGetLastError() after both launches.
+// w [Kp,Cin,Cout], scratch y [B*Nq, Kp*Cin] and ws (ws_floats floats, at
+// least kpconv_fwd_workspace), out [B,Nq,Cout]; f32, contiguous.
+// influence: 0 constant, 1 linear, 2 gaussian. Returns cudaGetLastError()
+// after the launches, cudaErrorInvalidValue for a workspace too short.
 extern "C" int kpconv_fwd_launch(const float* q, const float* s,
                                  const int32_t* nb, const float* x,
                                  const float* kp, const float* w, int b,
                                  int nq, int ns, int k, int n_kp, int cin,
                                  int cout, float ext, int influence,
                                  float gauss_den, float* y, float* out,
+                                 float* ws, long long ws_floats,
                                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n_kp < 1 || n_kp > kMaxKp || k < 1 || cin < 1 || cout < 1)
@@ -103,6 +117,6 @@ extern "C" int kpconv_fwd_launch(const float* q, const float* s,
       q, s, nb, x, kp, nq, ns, k, n_kp, cin, ext, influence, gauss_den, y);
   const int err = (int)cudaGetLastError();
   if (err) return err;
-  return kpconv_common::sgemm<false, false>(y, w, out, (int)rows, cout,
-                                            n_kp * cin, 1, st);
+  return kpconv_common::gemm_tf32x3<true, false>(
+      y, w, out, ws, ws_floats, (int)rows, cout, n_kp * cin, st);
 }

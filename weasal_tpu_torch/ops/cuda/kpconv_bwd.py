@@ -15,8 +15,11 @@ kpconv_banded.py:562-566. The TPU kernel summed dX over a window of
 sorted supports and could drop neighbors outside it (counted in the
 forward's `oob`); this kernel scatters into the exact neighbor rows.
 
-What bounds it on the H100: the two f32 contractions at the wide levels,
-the scatter's atomics at level 0; the source describes the launches.
+What bounds it on the H100: the two contractions at the wide levels
+(operations; both run on the tensor cores through the 3xTF32 split of
+csrc/kpconv_common.cuh), the scatter's atomics at level 0; the source
+describes the launches. The wrapper allocates the GEMMs' split-K
+workspace, whose size the library computes (`kpconv_bwd_workspace`).
 
 `kpconv_bwd_plain` is the same function written out in plain PyTorch
 (influences, gathers, einsums, `index_add_`), not autograd of the
@@ -34,11 +37,11 @@ import torch
 from weasal_tpu_torch.ops.cuda.build import check, load_library
 from weasal_tpu_torch.ops.cuda.kpconv_fwd import (
     INFLUENCES, check_kpconv_inputs, gaussian_denominator,
-    neighbor_influences)
+    neighbor_influences, workspace, workspace_args)
 
 _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
              + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int]
-             + [ctypes.c_void_p] * 4)
+             + [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_void_p])
 
 
 def scatter_rows(values: torch.Tensor, inds: torch.Tensor,
@@ -101,6 +104,8 @@ def _launch(q_pts, s_pts, neighb_inds, y, kernel_points, weights, g,
           if need_dx else None)
     dw = torch.empty((kp, cin, cout), dtype=torch.float32, device=dev)
     lib = load_library("kpconv_bwd")
+    ws = workspace(lib, "kpconv_bwd", b * nq, kp * cin, cout, int(need_dx),
+                   device=dev)
     fn = lib.kpconv_bwd_launch
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     kpconv_bwd.launches += 1
@@ -110,7 +115,7 @@ def _launch(q_pts, s_pts, neighb_inds, y, kernel_points, weights, g,
              INFLUENCES[influence], gaussian_denominator(kp_extent),
              int(need_dx), dr.data_ptr() if need_dx else None,
              dx.data_ptr() if need_dx else None, dw.data_ptr(),
-             torch.cuda.current_stream(dev).cuda_stream),
+             *workspace_args(ws), torch.cuda.current_stream(dev).cuda_stream),
           "kpconv_bwd")
     return dx, dw
 

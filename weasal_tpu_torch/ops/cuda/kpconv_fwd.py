@@ -9,8 +9,11 @@ and `oob` is always zero. `band`, `tile` and `pblk_skip` are accepted and
 ignored.
 
 What bounds it on the H100: at the wide levels the contraction
-[rows, Kp*Cin] @ [Kp*Cin, Cout] (f32 operations); at level 0 the gather of
-K neighbor rows. The source describes the two-launch design.
+[rows, Kp*Cin] @ [Kp*Cin, Cout] (operations; it runs on the tensor cores
+through the 3xTF32 split of csrc/kpconv_common.cuh, f32-grade error); at
+level 0 the gather of K neighbor rows. The source describes the design.
+The wrapper allocates the GEMM's split-K workspace, whose size the
+library computes (`kpconv_fwd_workspace`).
 
 `kpconv_fwd_plain` is the same function in plain PyTorch: the chain of
 weasal_tpu/ops/kpconv.py:171-237 (gather with a far-away / zero pad row,
@@ -32,7 +35,31 @@ INFLUENCES = {"constant": 0, "linear": 1, "gaussian": 2}
 MAX_KP = 16
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
              + [ctypes.c_float, ctypes.c_int, ctypes.c_float]
-             + [ctypes.c_void_p] * 3)
+             + [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_void_p])
+
+
+def workspace_floats(lib, name: str, *sizes) -> int:
+    """Floats of split-K workspace that the library's
+    `<name>_workspace(*sizes)` asks for (0: none)."""
+    fn = getattr(lib, f"{name}_workspace")
+    fn.argtypes = ([ctypes.c_longlong]
+                   + [ctypes.c_int] * (len(sizes) - 1))
+    fn.restype = ctypes.c_longlong
+    return int(fn(*sizes))
+
+
+def workspace(lib, name: str, *sizes, device) -> torch.Tensor | None:
+    """The split-K workspace of `workspace_floats`, or None when it needs
+    none."""
+    n = workspace_floats(lib, name, *sizes)
+    return (torch.empty(n, dtype=torch.float32, device=device)
+            if n > 0 else None)
+
+
+def workspace_args(ws: torch.Tensor | None):
+    """(pointer, length in floats) of a workspace, as the launches take
+    it."""
+    return (None, 0) if ws is None else (ws.data_ptr(), ws.numel())
 
 
 def gather_neighbors(values: torch.Tensor, inds: torch.Tensor,
@@ -163,6 +190,8 @@ def _launch(q_pts, s_pts, neighb_inds, x, kernel_points, weights,
     if b * nq == 0:
         return out, y
     lib = load_library("kpconv_fwd")
+    ws = workspace(lib, "kpconv_fwd", b * nq, kp * cin, cout,
+                   device=q_pts.device)
     fn = lib.kpconv_fwd_launch
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     kpconv_fwd.launches += 1
@@ -170,7 +199,7 @@ def _launch(q_pts, s_pts, neighb_inds, x, kernel_points, weights,
              x.data_ptr(), kernel_points.data_ptr(), weights.data_ptr(),
              b, nq, ns, k, kp, cin, cout, float(kp_extent),
              INFLUENCES[influence], gaussian_denominator(kp_extent),
-             y.data_ptr(), out.data_ptr(),
+             y.data_ptr(), out.data_ptr(), *workspace_args(ws),
              torch.cuda.current_stream(q_pts.device).cuda_stream),
           "kpconv_fwd")
     return out, y
