@@ -10,10 +10,14 @@ Phases, in order; any failure exits non-zero:
    level-0 batches;
 2. kernels A and B against their plain PyTorch versions on the card, at
    every shape one forward gives them: the 7 radius-search edges (kernel
-   A, indices equal) and the 12 KPConvs (kernel B, f32 tolerance below),
-   with kernel and plain times (CUDA events, median of 10 after warm-up)
-   and each kernel's bound. For B also the time of its GEMM part (by
-   kernel name, torch.profiler) beside cuBLAS f32 on the same product
+   A, indices equal, the same on a second call, and equal to the
+   PyTorch emulation of its column rule, whose count of the candidates
+   per query is reported beside them) and the 12 KPConvs (kernel B, f32
+   tolerance below), with kernel and plain times (CUDA events, median of
+   10 after warm-up) and each kernel's bound (A's from its in-radius
+   pairs, with the figure of an all-pairs search beside it). For B also
+   the time of its GEMM part (by kernel name, torch.profiler) beside
+   cuBLAS f32 on the same product
    (`torch.matmul` without TF32, a yardstick the port never calls) and
    that product's f32 and 3xTF32 bounds; then the GEMM core's mean error
    on positive operands (its accumulation must not drift one way);
@@ -47,6 +51,13 @@ through one GEMM core, weasal_tpu_torch/csrc/kpconv_common.cuh: wgmma
 TF32 on the tensor cores with each f32 operand split as big + small
 (3xTF32, f32-grade error), 128-row tiles 32 deep fed by a cp.async ring,
 and split-K with a workspace where the schedule gains from it.
+
+Kernel A is two launches: a binning of each sphere's supports into
+columns of a 2-D grid (one block per sphere, counts, scan and scatter in
+shared memory), then one thread per query testing only the columns its
+reach overlaps, with a margin that keeps every in-radius support, and
+keeping the K best by (d2, index). Kernel D runs one warp per pooled
+row, its lanes across channels, and gathers each value once.
 """
 
 from __future__ import annotations
@@ -135,6 +146,20 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def host_ms(fn, calls: int = 50) -> float:
+    """Mean host time of one call of fn() in ms, over `calls` calls issued
+    back to back without waiting for the card: the wrapper's own work
+    (checks, allocations, ctypes, launches)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    elapsed = (time.perf_counter() - t0) * 1e3 / calls
+    torch.cuda.synchronize()
+    return elapsed
+
+
 def bound_ms(n_bytes: float, n_ops: float, n_gemm_ops: float = 0.0):
     """(least ms, "bytes" or "operations") of work that moves n_bytes and
     does n_ops f32 operations on the CUDA cores and n_gemm_ops f32 GEMM
@@ -170,52 +195,73 @@ def card_line() -> str:
         text=True).stdout.strip().splitlines()[0]
 
 
-def search_edges(batch, config, plan):
-    """(name, query level, support level, radius, K) of the 3L-2 edges,
-    in the pyramid's order."""
-    from weasal_tpu_torch.data.batching import layer_radii
-    conv_r, pool_r, up_r = layer_radii(config)
-    L = plan.num_layers
-    edges = []
-    for l in range(L):
-        edges.append((f"conv{l}", l, l, conv_r[l], plan.conv_neighbors[l]))
-        if l < L - 1:
-            edges.append((f"pool{l}", l + 1, l, pool_r[l],
-                          plan.pool_neighbors[l]))
-            edges.append((f"up{l}", l, l + 1, up_r[l], plan.up_neighbors))
-    return edges
-
-
 def check_radius_search(batch, config, plan, log):
+    """Kernel A against its plain version at each edge, with its time, its
+    bound and the candidates per valid query that the PyTorch emulation of
+    its column rule counts (`emulated_candidates_*`: the emulation's count
+    of the columns it gives a query, not a count taken in the kernel;
+    only its output indices are held to the kernel's). The bound is the
+    least work of any exact search: the bytes of the points, masks and
+    K-wide rows (a point set or mask that is both queries and supports
+    counted once), and 8 f32 operations for each in-radius pair,
+    untruncated (each has to be ranked); `allpairs_bound_ms` counts 8
+    operations for every valid pair, the bound of an all-pairs search."""
+    from weasal_tpu_torch.data.batching import search_edges
     from weasal_tpu_torch.ops.cuda.radius_search import (
-        radius_search, radius_search_plain)
-    rows, t_k, t_p, t_b, ops_t, bytes_t = [], 0.0, 0.0, 0.0, 0.0, 0.0
-    for name, lq, ls, r, k in search_edges(batch, config, plan):
+        count_in_radius, radius_search, radius_search_binned_reference,
+        radius_search_plain)
+    rows, t_k, t_p, t_b, t_all = [], 0.0, 0.0, 0.0, 0.0
+    ops_t, bytes_t, t_host = 0.0, 0.0, 0.0
+    for name, lq, ls, r, k in search_edges(config, plan):
         q, s = batch.points[lq], batch.points[ls]
         qm, sm = batch.masks[lq], batch.masks[ls]
         got = radius_search(q, s, qm, sm, r, k)[0]
+        again = radius_search(q, s, qm, sm, r, k)[0]
         ref = radius_search_plain(q, s, qm, sm, r, k)
+        emulated, cand = radius_search_binned_reference(q, s, qm, sm, r, k)
         torch.cuda.synchronize()
         mismatch = int((got != ref).sum())
         expect(mismatch == 0, f"radius_search {name}: {mismatch} indices "
                "differ from the plain version")
+        expect(torch.equal(again, got), f"radius_search {name}: a second "
+               "call gave other indices")
+        expect(torch.equal(emulated, ref), f"radius_search {name}: the "
+               "emulated column rule differs from the plain version")
         ms = cuda_ms(lambda: radius_search(q, s, qm, sm, r, k))
         plain = cuda_ms(lambda: radius_search_plain(q, s, qm, sm, r, k))
+        host = host_ms(lambda: radius_search(q, s, qm, sm, r, k))
+        in_radius = float(count_in_radius(q, s, qm, sm, r))
         pairs = float((qm.sum(1).double() * sm.sum(1).double()).sum())
-        n_ops = 8.0 * pairs
-        n_bytes = (q.numel() * 4 + s.numel() * 4 + qm.numel() + sm.numel()
-                   + got.numel() * 4)
-        b_ms, b_by = bound_ms(n_bytes, n_ops)
+        n_bytes = q.numel() * 4 + qm.numel() + got.numel() * 4
+        if s.data_ptr() != q.data_ptr():
+            n_bytes += s.numel() * 4
+        if sm.data_ptr() != qm.data_ptr():
+            n_bytes += sm.numel()
+        b_ms, b_by = bound_ms(n_bytes, 8.0 * in_radius)
+        all_ms = bound_ms(n_bytes, 8.0 * pairs)[0]
+        valid = cand[qm].double()
         t_k, t_p, t_b = t_k + ms, t_p + plain, t_b + b_ms
-        ops_t, bytes_t = ops_t + n_ops, bytes_t + n_bytes
+        t_all += all_ms
+        t_host += host
+        ops_t, bytes_t = ops_t + 8.0 * in_radius, bytes_t + n_bytes
         row = dict(edge=name, shape=[*q.shape[:2], s.shape[1], k], ms=ms,
-                   plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
+                   host_ms=host, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                   allpairs_bound_ms=all_ms, in_radius_pairs=in_radius,
+                   valid_pairs=pairs,
+                   emulated_candidates_mean=float(valid.mean()),
+                   emulated_candidates_max=int(valid.max()))
         rows.append(row)
-        log(f"  A {name:6s} q{list(q.shape)} s{list(s.shape)} K={k}: "
-            f"equal, kernel {ms:.3f} ms, plain {plain:.3f} ms, "
-            f"bound {b_ms:.4f} ms ({b_by})")
+        log(f"  A {name:6s} q{list(q.shape)} s{list(s.shape)} K={k} r={r}: "
+            f"equal, kernel {ms:.4f} ms (host {host:.4f} ms a call), plain "
+            f"{plain:.3f} ms, bound "
+            f"{b_ms:.5f} ms ({b_by}; all pairs {all_ms:.4f}); in-radius "
+            f"per query {in_radius / max(1.0, float(qm.sum())):.1f}, "
+            f"emulated candidates per query mean "
+            f"{row['emulated_candidates_mean']:.1f}, max "
+            f"{row['emulated_candidates_max']}")
     return rows, dict(ms=t_k, plain_ms=t_p, bound_ms=t_b, max_abs_err=0.0,
-                      bound_by=bound_ms(bytes_t, ops_t)[1])
+                      bound_by=bound_ms(bytes_t, ops_t)[1],
+                      allpairs_bound_ms=t_all, host_ms=t_host)
 
 
 def check_kpconv(model, batch, log, seed):
@@ -608,7 +654,7 @@ SPLITK_SUM = "splitk_sum_kernel"
 # kernel name); the first match wins, anything else is "other". The
 # GEMM core comes before the generic "gemm" match.
 FAMILIES = (
-    ("A radius_search", ("radius_search_kernel",)),
+    ("A radius_search", ("bin_supports_kernel", "search_kernel<")),
     ("B aggregate", ("aggregate_kernel",)),
     (GEMM_FAMILIES[0], ("tf32x3_gemm_kernel<true, false,",)),
     (GEMM_FAMILIES[1], ("tf32x3_gemm_kernel<true, true,",)),

@@ -8,8 +8,13 @@ order). The GEMM core of B and C is also held to f64 products at shapes
 that reach each of its edges and at the main path's widest conv, and,
 on positive operands there, to a mean relative error below 1e-6; and
 B's and C's launches write nothing outside their buffers (guard bands of
-a sentinel around each) and refuse a split-K workspace too short. Needs
-an NVIDIA GPU with nvcc; skips elsewhere. On the machine with the card
+a sentinel around each) and refuse a split-K workspace too short. Kernel
+A runs the point sets built to break its column rule
+(tests/_cell_search_cases.py) and a level-0-sized batch, equal to the
+plain version and the same on a second call, writes only its output and
+scratch, and refuses a scratch too short or misaligned. D runs at the
+main path's K (14, 29) and past its mask's 32 and 64 slots. Needs an
+NVIDIA GPU with nvcc; skips elsewhere. On the machine with the card
 (which has no JAX) run
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
@@ -18,12 +23,14 @@ an NVIDIA GPU with nvcc; skips elsewhere. On the machine with the card
 import ctypes
 import math
 
+import numpy as np
 import pytest
 import torch
 
 from weasal_tpu_torch.ops import kpconv as ops
 from weasal_tpu_torch.ops.cuda import kpconv_bwd as bwd_lib
 from weasal_tpu_torch.ops.cuda import kpconv_fwd as fwd_lib
+from weasal_tpu_torch.ops.cuda import radius_search as radius_lib
 from weasal_tpu_torch.ops.cuda.build import load_library
 from weasal_tpu_torch.ops.cuda.kpconv_bwd import kpconv_bwd, kpconv_bwd_plain
 from weasal_tpu_torch.ops.cuda.kpconv_fwd import (kpconv_fwd,
@@ -35,6 +42,7 @@ from weasal_tpu_torch.ops.cuda.maxpool_bwd import (maxpool_bwd,
 from weasal_tpu_torch.ops.cuda.radius_search import (radius_search,
                                                      radius_search_plain)
 from weasal_tpu_torch.utils.device import plain_ops
+from tests._cell_search_cases import CASES as CELL_CASES, as_tensors
 
 pytestmark = pytest.mark.cuda
 
@@ -63,6 +71,51 @@ def test_radius_search_kernel_equals_plain(dev, grid, k):
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert float(ovf.sum()) == 0.0
+
+
+@pytest.mark.parametrize("case", list(CELL_CASES))
+def test_radius_search_kernel_on_adversarial_sets(dev, case):
+    make, radius, k = CELL_CASES[case]
+    q, s, qm, sm = (t.to(dev) for t in as_tensors(
+        *make(np.random.default_rng(7), radius)))
+    got, ovf = radius_search(q, s, qm, sm, radius, k)
+    again, _ = radius_search(q, s, qm, sm, radius, k)
+    want = radius_search_plain(q, s, qm, sm, radius, k)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(again, got)
+    assert float(ovf.sum()) == 0.0
+
+
+def _level0_batch(dev, seed, b=3, n=16352):
+    """Spheres of the main path's level-0 size: a disc of radius 18 m at
+    about 16 points per m^2, 2.5-D (z up to 3 m, more under a few
+    "trees"), ordered by a 0.24 m voxel key as the pyramid delivers them."""
+    rng = np.random.default_rng(seed)
+    r = 18 * np.sqrt(rng.random((b, n)))
+    a = rng.uniform(0, 2 * np.pi, (b, n))
+    z = rng.uniform(0, 0.3, (b, n))
+    z[:, : n // 10] += rng.uniform(0, 12, (b, n // 10))
+    pts = np.stack([r * np.cos(a), r * np.sin(a), z], -1).astype(np.float32)
+    key = np.floor(pts / 0.24).astype(np.int64) + 200
+    order = np.argsort(key[..., 0] * 10**6 + key[..., 1] * 10**3
+                       + key[..., 2], axis=1, kind="stable")
+    pts = np.take_along_axis(pts, order[..., None], 1)
+    mask = rng.random((b, n)) > 0.05
+    return (torch.from_numpy(pts).to(dev), torch.from_numpy(mask).to(dev))
+
+
+def test_radius_search_kernel_level0_size_deterministic(dev):
+    """conv0's search at the main path's size (3 x 16352 points, r 0.6 m,
+    K 15): equal to the plain version, and the same on a second call
+    although the binning scatters in another order each time."""
+    s, sm = _level0_batch(dev, 5)
+    got = radius_search(s, s, sm, sm, 0.6, 15)[0]
+    again = radius_search(s, s, sm, sm, 0.6, 15)[0]
+    want = radius_search_plain(s, s, sm, sm, 0.6, 15)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(again, got)
 
 
 @pytest.mark.parametrize("influence", ["linear", "constant", "gaussian"])
@@ -132,9 +185,14 @@ def test_kpconv_bwd_kernel_matches_plain(dev, influence):
     _close(dw2, dw_p, 1e-4, 1e-5)
 
 
-def test_maxpool_bwd_kernel_matches_plain(dev):
+# (K, C): the main path's two pools, an odd width (scalar loads, two
+# channel chunks), K past the 32-slot mask and past the 64-slot one
+# (the slots beyond it gathered again)
+@pytest.mark.parametrize("k,c", [(14, 64), (29, 128), (14, 80), (40, 128),
+                                 (70, 7)])
+def test_maxpool_bwd_kernel_matches_plain(dev, k, c):
     g = torch.Generator(device=dev).manual_seed(3)
-    b, nq, ns, k, c = 2, 400, 600, 14, 80
+    b, nq, ns = 2, 400, 600
     # integer values: exact ties; column 0 is never positive, so its
     # maximum is often the 0 that real rows share with shadow slots
     x = torch.randint(-3, 3, (b, ns, c), generator=g, device=dev).float()
@@ -260,12 +318,12 @@ SENTINEL = -7.25
 INVALID_VALUE = 1      # cudaErrorInvalidValue
 
 
-def _guarded(shape, dev):
+def _guarded(shape, dev, dtype=torch.float32):
     """(buffer, view of `shape`) with GUARD sentinel floats on either side
-    of the view."""
+    of the view; the view reinterprets the floats as `dtype` (4 bytes)."""
     n = math.prod(shape)
     buf = torch.full((n + 2 * GUARD,), SENTINEL, device=dev)
-    return buf, buf[GUARD:GUARD + n].view(shape)
+    return buf, buf[GUARD:GUARD + n].view(dtype).view(shape)
 
 
 def _guards_hold(buffers):
@@ -329,3 +387,36 @@ def test_kpconv_launches_write_only_their_buffers(dev, case):
     assert _guards_hold(bwd) == []
     want_dw = y.double().t() @ grad.double().reshape(rows, cout)
     _close(bwd["dw"][1].reshape(kdim, cout).double(), want_dw, 1e-4, 1e-5)
+
+
+@pytest.mark.parametrize("k", [15, 34, 100])
+def test_radius_search_launch_writes_only_its_buffers(dev, k):
+    """Kernel A writes nothing outside its output and its scratch (the
+    column-ordered supports, grid parameters and column starts), and
+    refuses a scratch one word shorter than it needs or not 16-byte
+    aligned."""
+    s, sm = _level0_batch(dev, 6, b=2, n=3000)
+    q, qm = s[:, ::2].contiguous(), sm[:, ::2].contiguous()
+    b, nq, ns = q.shape[0], q.shape[1], s.shape[1]
+    lib = radius_lib.declare(load_library("radius_search"))
+    words = radius_lib.scratch_words(b, ns)
+    bufs = {"out": _guarded((b, nq, k), dev, torch.int32),
+            "scratch": _guarded((words + 1,), dev, torch.int32)}
+    fn = lib.radius_search_launch
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch(scratch_ptr, n_words):
+        return fn(q.data_ptr(), s.data_ptr(), qm.data_ptr(), sm.data_ptr(),
+                  b, nq, ns, k, radius_lib._r2(1.2),
+                  bufs["out"][1].data_ptr(), scratch_ptr, n_words, stream)
+
+    scratch = bufs["scratch"][1]
+    assert launch(scratch.data_ptr(), words - 1) == INVALID_VALUE
+    assert launch(scratch.data_ptr() + 4, words) == INVALID_VALUE
+    assert _guards_hold(bufs) == []
+    assert bool((bufs["out"][0][GUARD:-GUARD] == SENTINEL).all())
+    bufs["scratch"] = _guarded((words,), dev, torch.int32)
+    assert launch(bufs["scratch"][1].data_ptr(), words) == 0
+    assert _guards_hold(bufs) == []
+    want = radius_search_plain(q, s, qm, sm, 1.2, k)
+    assert torch.equal(bufs["out"][1], want)

@@ -15,15 +15,31 @@
 //
 // The TPU kernel consumed a winner mask [B, Nq, K, C] that the forward
 // built, and turned the scatter into membership matrix products over a
-// window of sorted supports. Here one block per query row recomputes the
-// maximum and the tie count per channel from x and nb, so the mask is
-// never built, and adds each share into dX with an f32 atomic; the
-// neighbor list is exact, so there is no window.
+// window of sorted supports. Here the maximum and the tie count are
+// recomputed from x and nb, so the mask is never built, and each share is
+// added into dX with an f32 atomic (a support is pooled by several rows);
+// the neighbor list is exact, so there is no window.
 //
-// What bounds it on the H100: memory. It reads x at the neighbor rows
-// (cached: the K rows of one query are read twice, once for the maximum
-// and once for the winners), nb and g, and writes dX; the arithmetic is a
-// few compares per gathered value. f32 only.
+// What bounds it on the H100: memory. The least traffic is x, nb and g
+// read once and dX written once; the arithmetic is a few compares per
+// gathered value (but see the measurement below). Design: one warp per
+// query row, 8 rows per block. The warp loads the row's K indices once
+// (lane j holds slot j) and shares them with __shfl_sync; the lanes run
+// across channels, VEC consecutive channels a lane (float2 at C = 64,
+// float4 at C = 128, one load each).
+// One pass over the K slots gathers each value once and keeps, per
+// channel, the running maximum, its tie count and a bit mask of the slots
+// that hold it (reset when the maximum rises); the winners pass walks the
+// mask, so nothing is gathered twice and the K values need no registers.
+// Slots past the mask's MAXK bits (K > 64; never on the main path) are
+// gathered again in the winners pass, in the same kernel. The zeroing of
+// dX is a memset inside the launch. Measured on the main path's pools
+// (H100, weasal_tpu_torch/tools/kernel_variants.py): the kernel's time is
+// neither its gathers nor its atomics (without both it takes 90-94 % as
+// long) but the per-slot stream of shuffles, compares and mask updates
+// over 34k and 17k short warps. So the updates are selects, not branches
+// that split the warp (branches: 1.14x the time), and the masks are 32
+// bits wide where K <= 32 (64-bit masks: 1.2x).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -31,65 +47,177 @@
 
 namespace {
 
-__global__ void maxpool_bwd_kernel(const float* __restrict__ x,
-                                   const int32_t* __restrict__ nb,
-                                   const float* __restrict__ g, int nq,
-                                   int ns, int k, int c_dim,
-                                   float* __restrict__ dx) {
-  extern __shared__ int nbs[];                       // [k]
-  const size_t row = blockIdx.x;                     // b * nq + qi
-  const int b = (int)(row / nq);
-  for (int j = threadIdx.x; j < k; j += blockDim.x) {
-    const int n = nb[row * k + j];
-    nbs[j] = (n >= 0 && n < ns) ? n : -1;
-  }
-  __syncthreads();
+constexpr int kRowsPerBlock = 8;                     // one warp per row
+constexpr unsigned kFull = 0xffffffffu;
 
+template <int VEC>
+struct Vec {
+  float v[VEC];
+};
+
+template <int VEC>
+__device__ __forceinline__ Vec<VEC> load_vec(const float* p) {
+  Vec<VEC> r;
+  if constexpr (VEC == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    r.v[0] = t.x; r.v[1] = t.y; r.v[2] = t.z; r.v[3] = t.w;
+  } else if constexpr (VEC == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    r.v[0] = t.x; r.v[1] = t.y;
+  } else {
+    r.v[0] = *p;
+  }
+  return r;
+}
+
+// MASK: uint32_t or uint64_t, one bit per slot below MAXK = its width.
+template <typename MASK, int VEC>
+__global__ void __launch_bounds__(kRowsPerBlock * 32)
+    maxpool_bwd_kernel(const float* __restrict__ x,
+                       const int32_t* __restrict__ nb,
+                       const float* __restrict__ g, long long rows, int nq,
+                       int ns, int k, int c_dim, float* __restrict__ dx) {
+  constexpr int MAXK = 8 * sizeof(MASK);
+  const long long row =
+      (long long)blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
+  if (row >= rows) return;                           // whole warp
+  const int lane = threadIdx.x & 31;
+  const int b = (int)(row / nq);
+  const int32_t* nrow = nb + row * k;
+  // Slot lane and slot 32 + lane of the row; -1 for a shadow slot
+  int n_lo = -1, n_hi = -1;
+  if (lane < k) {
+    const int n = nrow[lane];
+    n_lo = (n >= 0 && n < ns) ? n : -1;
+  }
+  if (MAXK > 32 && 32 + lane < k) {
+    const int n = nrow[32 + lane];
+    n_hi = (n >= 0 && n < ns) ? n : -1;
+  }
+  const int k_mask = k < MAXK ? k : MAXK;
   const float* xb = x + (size_t)b * ns * c_dim;
   float* dxb = dx + (size_t)b * ns * c_dim;
-  for (int c = threadIdx.x; c < c_dim; c += blockDim.x) {
-    const float gv = g[row * c_dim + c];
-    if (gv == 0.f) continue;
-    float m = -INFINITY;
-    int ties = 0;
+
+  for (int c0 = 0; c0 < c_dim; c0 += 32 * VEC) {
+    const int c = c0 + lane * VEC;
+    const bool on = c < c_dim;                       // c_dim % VEC == 0
+    Vec<VEC> gv;
+    bool any = false;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) gv.v[e] = 0.f;
+    if (on) {
+      gv = load_vec<VEC>(g + row * c_dim + c);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) any |= gv.v[e] != 0.f;
+    }
+    float m[VEC];
+    int ties[VEC];
+    MASK win[VEC];
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      m[e] = -INFINITY;
+      ties[e] = 0;
+      win[e] = 0;
+    }
+    // Pass 1: maximum, tie count and winning slots (all lanes shuffle)
     for (int j = 0; j < k; ++j) {
-      const int n = nbs[j];
-      const float v = n >= 0 ? xb[(size_t)n * c_dim + c] : 0.f;
-      if (v > m) {
-        m = v;
-        ties = 1;
-      } else if (v == m) {
-        ++ties;
+      int n;
+      if (j < MAXK) {
+        n = __shfl_sync(kFull, j < 32 ? n_lo : n_hi, j & 31);
+      } else {
+        n = nrow[j];
+        n = (n >= 0 && n < ns) ? n : -1;
+      }
+      if (!any) continue;
+      Vec<VEC> v;
+      if (n >= 0) {
+        v = load_vec<VEC>(xb + (size_t)n * c_dim + c);
+      } else {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) v.v[e] = 0.f;
+      }
+      const MASK bit = j < MAXK ? (MASK)1 << j : (MASK)0;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {               // selects, no branches
+        const bool above = v.v[e] > m[e], tie = v.v[e] == m[e];
+        m[e] = above ? v.v[e] : m[e];
+        ties[e] = above ? 1 : ties[e] + (int)tie;
+        win[e] = above ? bit : (tie ? win[e] | bit : win[e]);
       }
     }
-    const float share = __fdiv_rn(gv, (float)ties);
-    for (int j = 0; j < k; ++j) {
-      const int n = nbs[j];
-      if (n >= 0 && xb[(size_t)n * c_dim + c] == m)
-        atomicAdd(dxb + (size_t)n * c_dim + c, share);
+    float share[VEC];
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      share[e] = __fdiv_rn(gv.v[e], (float)(ties[e] > 0 ? ties[e] : 1));
+      if (gv.v[e] == 0.f) win[e] = 0;
+    }
+    // Pass 2: the winners of the masked slots, then of the slots past them
+    for (int j = 0; j < k_mask; ++j) {
+      const int n = __shfl_sync(kFull, j < 32 ? n_lo : n_hi, j & 31);
+      if (n < 0 || !any) continue;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        if ((win[e] >> j) & 1)
+          atomicAdd(dxb + (size_t)n * c_dim + c + e, share[e]);
+    }
+    if (!any) continue;
+    for (int j = MAXK; j < k; ++j) {
+      const int n = nrow[j];
+      if (n < 0 || n >= ns) continue;
+      const Vec<VEC> v = load_vec<VEC>(xb + (size_t)n * c_dim + c);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        if (gv.v[e] != 0.f && v.v[e] == m[e])
+          atomicAdd(dxb + (size_t)n * c_dim + c + e, share[e]);
     }
   }
+}
+
+template <typename MASK, int VEC>
+void launch(const float* x, const int32_t* nb, const float* g,
+            long long rows, int nq, int ns, int k, int c_dim, float* dx,
+            cudaStream_t st) {
+  const unsigned blocks =
+      (unsigned)((rows + kRowsPerBlock - 1) / kRowsPerBlock);
+  maxpool_bwd_kernel<MASK, VEC><<<blocks, kRowsPerBlock * 32, 0, st>>>(
+      x, nb, g, rows, nq, ns, k, c_dim, dx);
+}
+
+template <typename MASK>
+void launch_vec(const float* x, const int32_t* nb, const float* g,
+                long long rows, int nq, int ns, int k, int c_dim, float* dx,
+                cudaStream_t st) {
+  // The widest vector that divides C, fills the warp and is aligned
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(x) |
+                         reinterpret_cast<uintptr_t>(g);
+  if (c_dim % 4 == 0 && c_dim >= 128 && addr % 16 == 0)
+    launch<MASK, 4>(x, nb, g, rows, nq, ns, k, c_dim, dx, st);
+  else if (c_dim % 2 == 0 && c_dim >= 64 && addr % 8 == 0)
+    launch<MASK, 2>(x, nb, g, rows, nq, ns, k, c_dim, dx, st);
+  else
+    launch<MASK, 1>(x, nb, g, rows, nq, ns, k, c_dim, dx, st);
 }
 
 }  // namespace
 
 // x [B,Ns,C], nb [B,Nq,K] i32, g [B,Nq,C]; output dx [B,Ns,C]; f32,
-// contiguous. Returns cudaGetLastError() after the launch.
+// contiguous. Zeroes dx, then adds the shares. Returns cudaGetLastError()
+// after the launch.
 extern "C" int maxpool_bwd_launch(const float* x, const int32_t* nb,
                                   const float* g, int b, int nq, int ns,
                                   int k, int c_dim, float* dx,
                                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (k < 1 || c_dim < 1 || (size_t)k * sizeof(int) > 48 * 1024)
+  if (k < 1 || c_dim < 1 || b < 0 || nq < 0 || ns < 0)
     return (int)cudaErrorInvalidValue;
   int err = (int)cudaMemsetAsync(dx, 0, (size_t)b * ns * c_dim *
                                             sizeof(float), st);
   if (err) return err;
   const long long rows = (long long)b * nq;
   if (rows == 0) return 0;
-  int threads = ((c_dim + 31) / 32) * 32;
-  threads = threads < 32 ? 32 : (threads > 256 ? 256 : threads);
-  maxpool_bwd_kernel<<<(unsigned)rows, threads, k * sizeof(int), st>>>(
-      x, nb, g, nq, ns, k, c_dim, dx);
+  if (k <= 32)
+    launch_vec<uint32_t>(x, nb, g, rows, nq, ns, k, c_dim, dx, st);
+  else
+    launch_vec<uint64_t>(x, nb, g, rows, nq, ns, k, c_dim, dx, st);
   return (int)cudaGetLastError();
 }

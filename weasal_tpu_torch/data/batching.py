@@ -94,6 +94,22 @@ def layer_radii(config) -> Tuple[List[float], List[float], List[float]]:
     return conv_r, pool_r, up_r
 
 
+def search_edges(config, plan: ShapePlan
+                 ) -> List[Tuple[str, int, int, float, int]]:
+    """(name, query level, support level, radius, K) of the 3L - 2 radius
+    searches of one pyramid: conv_l within level l, pool_l from level
+    l + 1 into level l, up_l from level l into level l + 1."""
+    conv_r, pool_r, up_r = layer_radii(config)
+    edges = []
+    for l in range(plan.num_layers):
+        edges.append((f"conv{l}", l, l, conv_r[l], plan.conv_neighbors[l]))
+        if l < plan.num_layers - 1:
+            edges.append((f"pool{l}", l + 1, l, pool_r[l],
+                          plan.pool_neighbors[l]))
+            edges.append((f"up{l}", l, l + 1, up_r[l], plan.up_neighbors))
+    return edges
+
+
 def build_sphere_pyramid(points: np.ndarray, config,
                          rng: Optional[np.random.Generator] = None,
                          max_neighbors: Optional[Sequence[int]] = None,

@@ -16,8 +16,13 @@ shadow's 0.0 does win.
 
 The TPU kernel took the winner mask [B, Nq, K, C] from the forward; the
 kernel recomputes maximum and tie count from x and nb, so the mask is
-never built. What bounds it on the H100: memory (a gather and a
-scatter, a few compares per value).
+never built. One warp per query row: its K indices are loaded once,
+the lanes run across channels with vector loads, and one pass keeps
+each channel's maximum, tie count and winning slots, so each value is
+gathered once. Its bound on the H100 is bytes (a gather and a scatter,
+a few compares per value); measured, its time goes to the per-slot
+shuffles and compares of many short warps, not to the gathers or the
+atomics (see the source).
 
 `maxpool_bwd_plain` is the same formula written out in plain PyTorch
 (gather, max, tie count, `index_add_`). The CPU path and the tests use
