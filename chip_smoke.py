@@ -34,13 +34,31 @@ Phases, in order; any failure exits non-zero:
    them, losses, parameters and BatchNorm statistics checked, then one
    step with the kernels against one step on the plain versions, both
    held to an f64 step, from the seeded initial state and one shared
-   pyramid (loss, every gradient, the updated state).
+   pyramid (loss, every gradient, the updated state);
+6. the training loop: the entry point
+   `weasal_tpu_torch.train_Vaihingen3D_WeakLabel.run` on a synthetic
+   Vaihingen-like tile (150 m a side, seeded, as are the datasets'
+   potentials, so the plan and the spheres are the same in every run) at
+   full width, on the resident input: 2 epochs of 10 steps with 5
+   validation batches each, then a resume from `current_chkp.tar` for a
+   third; finite losses, one log row per real step, the validation
+   lines, zero neighbor drops, the launches per step (7 A, 12 B, 12 C,
+   2 D) and per validation batch (7 A, 12 B), the checkpoint equal to
+   the trained state and the state after resume equal to the checkpoint;
+   the loop's ms per step, its host breakdown, ms per validation batch,
+   real points/s, the host set-up times and the peak device memory; then
+   one more epoch under torch.profiler for the loop's device busy share;
+   then, on a batch of the loop's own resident source assembled on the
+   card, kernels A-D against their plain versions and a kernel training
+   step against an f64 one (as in phases 2, 4 and 5), and `train_step`
+   timed at the loop's plan, synchronized and back to back, beside the
+   loop's step and phase 5's.
 Phases 3 and 5 end with a profile of one step, by kernel family. Checks
 of agreement (each kernel against its plain version, the GEMM core's
-drift, the forward and the training step against their references)
-report their readings and fail the run at its end, so that a failing run
-still reads every phase; checks of shapes, launch counts and finite
-values fail it at once. The last line is {"ok": true, "device": {...}};
+drift, the forward and the training step against their references, and
+every check of phase 6) report their readings and fail the run at its
+end, so that a failing run still reads every phase; checks of shapes,
+launch counts and finite values in phases 3 and 5 fail it at once. The last line is {"ok": true, "device": {...}};
 the line before it holds the kernels' numbers as JSON, each kernel's
 bound counting its GEMM operations at the 3xTF32 rate of the tensor
 cores and the rest at the f32 rate (`f32_bound_ms`: all at the f32
@@ -118,13 +136,26 @@ F64_FLOOR = 1e-3
 N_BATCHES = 3
 N_TRAIN_STEPS = 4
 SEED = 0
+# Phase 6: a synthetic training tile of LOOP_EXTENT m a side at the
+# synthetic module's density, whose anchor set holds the 600-anchor label
+# budget of VaihingenWLConfig; 2 epochs of 10 steps with 5 validation
+# batches each, then a resume for a third
+LOOP_EXTENT = 150.0
+LOOP_DENSITY = 8.0
+LOOP_ARGS = ("--epoch_steps", "10", "--validation_size", "5",
+             "--seed", str(SEED))
+# Batches of the loop's source drawn after its runs, for the kernel checks
+# and the step times at its shapes
+LOOP_CHECK_BATCHES = 6
 # Failed checks of agreement, reported at once and failing the run at its
-# end (see the module docstring)
+# end (see the module docstring); PREFIX names the shapes being checked
 FAILED: list = []
+PREFIX = ""
 
 
 def expect(ok: bool, msg: str) -> None:
     if not ok:
+        msg = PREFIX + msg
         print(f"chip_smoke: FAILED {msg}", file=sys.stderr, flush=True)
         FAILED.append(msg)
 
@@ -183,7 +214,8 @@ def gemm_product(m: float, n: float, k: float, ms: float,
 
 
 def gemm_text(label: str, p: dict) -> str:
-    return (f"{label} {p['ms']:.3f} ms (cuBLAS f32 {p['cublas_ms']:.3f}, "
+    ms = "lost by the profiler" if p["ms"] is None else f"{p['ms']:.3f} ms"
+    return (f"{label} {ms} (cuBLAS f32 {p['cublas_ms']:.3f}, "
             f"bound f32 {p['f32_bound_ms']:.4f} / 3xTF32 "
             f"{p['tf32x3_bound_ms']:.4f})")
 
@@ -719,14 +751,17 @@ def profiled_kernels(fn, reps: int = 1):
     return rows, wall
 
 
-def gemm_part_ms(fn, families, reps: int = 5, tries: int = 3) -> dict:
+def gemm_part_ms(fn, families, reps: int = 5, tries: int = 6) -> dict:
     """Device ms of one call of fn() in each of `families` (GEMM_FAMILIES
     that fn launches): the mean time of its tile launch plus, where fn
     makes one, of its split-K sum launch, over `reps` calls under
     torch.profiler after a warm-up call. On an H100 the profiler has lost
-    some of a profile's kernel events, and once all of a call's GEMM
-    kernels: so means count only the launches it kept, and a profile that
-    kept no tile launch of a family is taken again, up to `tries` times."""
+    some of a profile's kernel events, and once all GEMM kernels of one
+    call in three profiles in a row: so means count only the
+    launches it kept, a profile that kept no tile launch of a family is
+    taken again, up to `tries` times, and a family still missing then is
+    None (a measurement lost, not a kernel fault: the kernels' outputs
+    are checked apart)."""
     fn()
     for _ in range(tries):
         rows, _ = profiled_kernels(fn, reps)
@@ -737,28 +772,31 @@ def gemm_part_ms(fn, families, reps: int = 5, tries: int = 3) -> dict:
             kept[key] = (n + count, t + ms)
         if all((f, False) in kept for f in families):
             break
-    return {f: sum(t / n for (fam, _), (n, t) in kept.items() if fam == f)
+    return {f: (sum(t / n for (fam, _), (n, t) in kept.items() if fam == f)
+                if (f, False) in kept else None)
             for f in families}
 
 
 def log_gemm_sums(rows, keys, log, wide_cin: int = 256) -> dict:
     """Sums over the convs of each product's GEMM-part time, cuBLAS time
-    and bounds, over all convs and over the wide ones (Cin >= wide_cin);
-    fails where a product's GEMM part was not found in the profile."""
+    and bounds, over all convs and over the wide ones (Cin >= wide_cin),
+    each over the convs whose GEMM part the profiler kept."""
     sums = {}
     for key in keys:
         parts = [(r["shape"][4] >= wide_cin, r[key]) for r in rows
                  if key in r]
-        if not all(p["ms"] > 0 for _, p in parts):
-            raise AssertionError(f"{key}: GEMM part missing from a profile")
         for scope in ("all", "wide"):
             chosen = [p for wide, p in parts if scope == "all" or wide]
+            lost = sum(p["ms"] is None for p in chosen)
+            chosen = [p for p in chosen if p["ms"] is not None]
             sums[f"{key}_{scope}"] = {
                 f: sum(p[f] for p in chosen)
                 for f in ("ms", "cublas_ms", "f32_bound_ms",
                           "tf32x3_bound_ms")}
+            sums[f"{key}_{scope}"]["convs_lost"] = lost
             t = sums[f"{key}_{scope}"]
-            log(f"  {key} summed over {len(chosen)} convs ({scope}): "
+            log(f"  {key} summed over {len(chosen)} convs ({scope}"
+                f"{f'; {lost} lost by the profiler' if lost else ''}): "
                 f"{t['ms']:.3f} ms, cuBLAS f32 {t['cublas_ms']:.3f} ms, "
                 f"bound f32 {t['f32_bound_ms']:.3f} / 3xTF32 "
                 f"{t['tf32x3_bound_ms']:.3f} ms")
@@ -779,6 +817,309 @@ def profile_step(step, log, label: str, top: int = 12):
     for family, count, ms in kernel_families(rows):
         log(f"  {ms:9.3f} ms {count:5d}x  {100 * ms / busy:5.1f}%  {family}")
     return rows, busy, wall
+
+
+def _log_rows(logdir):
+    with open(os.path.join(logdir, "training_iteration0.txt")) as f:
+        return [r.split() for r in f.readlines()[1:]]
+
+
+def _same_state(got, want) -> bool:
+    return set(got) == set(want) and all(
+        torch.equal(got[k].cpu(), want[k].cpu()) for k in want)
+
+
+def check_loop_shapes(trainer, card, log):
+    """The kernels and the step at the loop's own shapes, after its runs:
+    LOOP_CHECK_BATCHES batches of the loop's resident source (the
+    trainer's plan, a fresh epoch's draws), the first assembled on the
+    card (voxel-sorted) into a pyramid on the plain versions. On that
+    pyramid A, B, C and D are held to their plain versions as in phases
+    2 and 4, and one training step with the kernels and one plain are
+    held to an f64 step from the loop's seeded initial state, as in phase
+    5. Then `train_step` on the batches that have regions, as the loop
+    calls it: synchronized after each step, and back to back (host clock
+    between dispatches, steps 2..). Returns the kernels' sums by name and
+    the step times."""
+    global PREFIX
+    from weasal_tpu_torch import KPFCNN_mprm, init_opt_state, train_step
+    from weasal_tpu_torch.data.loader import BatchPrefetcher
+    from weasal_tpu_torch.data.resident import assemble_level0_device
+    from weasal_tpu_torch.ops.pyramid import batch_from_device_pyramid
+    from weasal_tpu_torch.utils.device import plain_ops
+    config, plan, dev = trainer.config, trainer.plan, trainer.device
+    train_ds = trainer.datasets[0]
+    source, extra = trainer._source(train_ds)
+    drawn = list(BatchPrefetcher(source, LOOP_CHECK_BATCHES, dev,
+                                 rng=np.random.default_rng(SEED),
+                                 extra_arrays=extra))
+    batches = [b for b, metas in drawn
+               if any(m["has_regions"] for m in metas)]
+    with torch.no_grad():
+        t = assemble_level0_device(drawn[0][0], config, plan, augment=True,
+                                   spec=trainer.spec)
+        with plain_ops():
+            pyr = batch_from_device_pyramid(
+                t["points0"], t["mask0"], t["features"], t["labels"],
+                config, plan, t["center_pts"], rotations=t["rotations"],
+                cloud_lb=t["cloud_lb"], region_inds=t["region_inds"],
+                region_masks=t["region_masks"],
+                region_point_masks=t["region_point_masks"],
+                region_lb=t["region_lb"])
+    log(f"phase 6: kernels vs plain versions at the loop's shapes, {plan}, "
+        f"{int(t['mask0'].sum())} real level-0 points")
+    PREFIX = "loop shapes: "
+    try:
+        with torch.no_grad():
+            sums = dict(radius_search=check_radius_search(pyr, config, plan,
+                                                          log)[1],
+                        kpconv_fwd=check_kpconv(trainer.model, pyr, log,
+                                                SEED)[1])
+        sums["kpconv_bwd"] = check_kpconv_bwd(trainer.model, pyr, log,
+                                              SEED)[1]
+        sums["maxpool_bwd"] = check_maxpool_bwd(trainer.model, pyr, log,
+                                                SEED)[1]
+        fresh = KPFCNN_mprm(
+            config, tuple(int(v) for v in train_ds.label_values),
+            tuple(int(v) for v in train_ds.ignored_labels),
+            generator=torch.Generator().manual_seed(0)).to(dev)
+        comparison = compare_train_steps(fresh, init_opt_state(fresh), pyr,
+                                         config, log)
+        del fresh
+        expect(len(batches) >= 3, f"{len(batches)} of {len(drawn)} loop "
+               "batches have regions")
+    finally:
+        PREFIX = ""
+
+    def step(b):
+        return train_step(trainer.model, trainer.opt_state, b, config, plan,
+                          trainer.lr, device=dev, class_w=trainer.class_w,
+                          table=trainer.table, spec=trainer.spec)
+
+    sync_ms = []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(b)
+        torch.cuda.synchronize()
+        sync_ms.append((time.perf_counter() - t0) * 1e3)
+    stamps = []
+    torch.cuda.synchronize()
+    for b in batches:
+        step(b)
+        stamps.append(time.perf_counter())
+    torch.cuda.synchronize()
+    gaps = [1e3 * float(v) for v in np.diff(stamps)[1:]]
+    log(f"[{card}] train_step at the loop's plan on {len(batches)} of its "
+        f"batches: synchronized {[round(v, 2) for v in sync_ms]} ms (mean "
+        f"of steps 2.. {statistics.mean(sync_ms[1:]):.2f}); back to back, "
+        f"between dispatches {[round(v, 2) for v in gaps]} ms (mean "
+        f"{statistics.mean(gaps):.2f})")
+    return sums, dict(compare=comparison, sync_ms=sync_ms,
+                      dispatch_gap_ms=gaps)
+
+
+def run_loop(counted, per_step, per_val, card, train_step_ms, log):
+    """Phase 6: the weak-label training loop through its entry point
+    (`weasal_tpu_torch.train_Vaihingen3D_WeakLabel.run`) at full
+    VaihingenWLConfig width on a synthetic tile: 2 epochs, then a resume
+    from `current_chkp.tar` for a third. Launch counts are set to 0 just
+    before each run and read just after. Checks (each fails the run at
+    its end): finite losses, one log row per real step, the validation
+    lines, zero neighbor drops, the launches per real step and per
+    validation batch, the checkpoint equal to the trained state and the
+    state after resume equal to the checkpoint. Then one more epoch of the
+    resumed trainer (no validation, nothing saved) under torch.profiler:
+    the loop's device time by family and its busy share. Returns the
+    report and the launches of the three runs."""
+    import shutil
+    import tempfile
+    from weasal_tpu_torch.data.synthetic import make_vaihingen_like_root
+    from weasal_tpu_torch.train.trainer import ModelTrainer
+    from weasal_tpu_torch.train_Vaihingen3D_WeakLabel import run
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_loop_")
+    try:
+        t0 = time.perf_counter()
+        root = make_vaihingen_like_root(
+            os.path.join(work, "Vaihingen3D"), extent=LOOP_EXTENT,
+            density=LOOP_DENSITY, seed=SEED)
+        scene_s = time.perf_counter() - t0
+        logdir = os.path.join(work, "log")
+        chkp = os.path.join(logdir, "checkpoints", "current_chkp.tar")
+        restored = {}
+        load_checkpoint = ModelTrainer.load_checkpoint
+
+        def keep_restored(self, path, finetune=False):
+            load_checkpoint(self, path, finetune)
+            restored.update(
+                epoch=self.epoch,
+                model={k: v.detach().clone()
+                       for k, v in self.model.state_dict().items()},
+                opt={k: v.clone() for k, v in self.opt_state.items()})
+
+        os.environ["WEASAL_LOOP_STATS"] = "1"
+        ModelTrainer.load_checkpoint = keep_restored
+        torch.cuda.reset_peak_memory_stats()
+        runs, total = [], {fn.__name__: 0 for fn in counted}
+        try:
+            for label, extra, epochs in (
+                    ("run", ("--max_epoch", "2"), 2),
+                    ("resume", ("--resume", logdir, "--max_epoch", "3"), 3)):
+                for fn in counted:
+                    fn.launches = 0
+                t0 = time.perf_counter()
+                trainer = run([logdir, "--data_root", root, *LOOP_ARGS,
+                               *extra])
+                torch.cuda.synchronize()
+                wall_s = time.perf_counter() - t0
+                launches = {fn.__name__: fn.launches for fn in counted}
+                runs.append(_loop_report(label, trainer, logdir, epochs,
+                                         launches, per_step, per_val,
+                                         wall_s, card, log))
+                for k, v in launches.items():
+                    total[k] += v
+                if label == "run":
+                    saved = torch.load(chkp, map_location="cpu",
+                                       weights_only=True)
+                    expect(saved["epoch"] == 2
+                           and _same_state(saved["model_state_dict"],
+                                           trainer.model.state_dict())
+                           and _same_state(saved["optimizer_state_dict"],
+                                           trainer.opt_state),
+                           "loop: current_chkp.tar differs from the "
+                           "trained state")
+                else:
+                    expect(restored.get("epoch") == 2
+                           and _same_state(restored["model"],
+                                           saved["model_state_dict"])
+                           and _same_state(restored["opt"],
+                                           saved["optimizer_state_dict"]),
+                           "loop: the state after resume differs from the "
+                           "checkpoint")
+                    expect(trainer.epoch == 3, "loop: resume ended at epoch "
+                           f"{trainer.epoch}, expected 3")
+        finally:
+            ModelTrainer.load_checkpoint = load_checkpoint
+            os.environ.pop("WEASAL_LOOP_STATS", None)
+        peak = torch.cuda.max_memory_allocated()
+        first = trainer.datasets[0]
+
+        # The loop's device busy share: one more epoch under the profiler
+        trainer.config.saving = False
+        trainer.config.max_epoch = trainer.epoch + 1
+        for fn in counted:
+            fn.launches = 0
+        rows, wall = profiled_kernels(lambda: trainer.train(first, None))
+        launches = {fn.__name__: fn.launches for fn in counted}
+        steps = trainer.epoch_times[-1]["steps"]
+        want = {k: per_step.get(k, 0) * steps for k in launches}
+        expect(launches == want, f"loop profiled epoch: launches {launches}, "
+               f"expected {want} for {steps} steps")
+        for k, v in launches.items():
+            total[k] += v
+        busy = sum(r[2] for r in rows)
+        families = kernel_families(rows)
+        log(f"[{card}] loop epoch under torch.profiler: {steps} steps, wall "
+            f"{wall:.1f} ms ({wall / max(steps, 1):.2f} ms per step), device "
+            f"busy {busy:.1f} ms ({busy / max(steps, 1):.2f} ms per step, "
+            f"{100 * busy / wall:.1f} % of the wall)")
+        for fam, count, ms in families:
+            log(f"[{card}]   {ms:9.3f} ms {count:5d}x  "
+                f"{100 * ms / busy:5.1f}%  {fam}")
+        profile = dict(steps=steps, wall_ms=wall, busy_ms=busy,
+                       launches=launches, families=families)
+        kernel_sums, at_plan = check_loop_shapes(trainer, card, log)
+        setup = dict(scene_s=scene_s, **runs[0]["setup"])
+        log(f"[{card}] loop set-up (host): scene {scene_s:.2f} s, "
+            + ", ".join(f"{k} {v:.2f} s" for k, v in runs[0]["setup"].items())
+            + f"; after resume from the caches: "
+            + ", ".join(f"{k} {v:.2f} s" for k, v in runs[1]["setup"].items())
+            + f"; training tile {first.input_labels[0].shape[0]} points, "
+            f"{len(first.anchors[0])} anchors; {trainer.plan}")
+        log(f"[{card}] loop peak device memory (max_memory_allocated): "
+            f"{peak / 2**20:.1f} MiB")
+        loop_ms = [r["step_ms_steady"] for r in runs if r["step_ms_steady"]]
+        log(f"[{card}] loop ms per step (steps 2.. of each epoch, host "
+            f"clock between dispatches): {[round(v, 2) for v in loop_ms]} "
+            f"beside train_step at the loop's plan: back to back "
+            f"{statistics.mean(at_plan['dispatch_gap_ms']):.2f} ms between "
+            f"dispatches, synchronized "
+            f"{statistics.mean(at_plan['sync_ms'][1:]):.2f} ms; phase 5's "
+            f"train_step {train_step_ms:.2f} ms (synchronized, steps "
+            f"2-{N_TRAIN_STEPS}, phase 5's plan)")
+        return dict(runs=runs, setup=setup, plan=vars(trainer.plan),
+                    peak_bytes=peak, train_step_ms=train_step_ms,
+                    profile=profile, kernels=kernel_sums,
+                    train_step_at_plan=at_plan), total
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _loop_report(label, trainer, logdir, epochs, launches, per_step,
+                 per_val, wall_s, card, log):
+    """Checks and numbers of one run of phase 6."""
+    rows = _log_rows(logdir)
+    steps = sum(e["steps"] for e in trainer.epoch_times)
+    batches = sum(v["batches"] for v in trainer.val_times)
+    losses = [float(r[2]) for r in rows]
+    expect(len(rows) == steps > 0, f"loop {label}: {len(rows)} log rows for "
+           f"{steps} real steps")
+    expect(all(np.isfinite(losses)), f"loop {label}: non-finite losses")
+    with open(os.path.join(logdir, "val_IoUs.txt")) as f:
+        n_val = len(f.readlines())
+    expect(n_val == epochs, f"loop {label}: {n_val} validation lines, "
+           f"expected {epochs}")
+    expect(len(trainer.epoch_drops) == len(trainer.epoch_times)
+           and not any(trainer.epoch_drops),
+           f"loop {label}: neighbor drops {trainer.epoch_drops}")
+    want = {k: per_step.get(k, 0) * steps + per_val.get(k, 0) * batches
+            for k in launches}
+    expect(launches == want, f"loop {label}: launches {launches}, "
+           f"expected {want} for {steps} steps and {batches} validation "
+           "batches")
+    # Host clock between consecutive dispatches (log column, ms
+    # resolution), steps 2.. of each epoch
+    gaps = []
+    for e in sorted({int(r[0]) for r in rows}):
+        walls = [float(r[5]) for r in rows if int(r[0]) == e]
+        gaps += list(np.diff(walls)[1:] if len(walls) > 2 else [])
+    steady = 1e3 * float(np.mean(gaps)) if gaps else None
+    epochs_rep = []
+    for e in trainer.epoch_times:
+        n = max(e["steps"], 1)
+        epochs_rep.append(dict(
+            epoch=e["epoch"], steps=e["steps"], ms_per_step=1e3 * e["seconds"] / n,
+            points_per_s=e["points"] / e["seconds"],
+            **{f"{k}_ms_per_step": 1e3 * e[k] / n
+               for k in ("wait_batch", "dispatch", "flush") if k in e}))
+    vals = [dict(epoch=v["epoch"], batches=v["batches"],
+                 ms_per_batch=1e3 * v["seconds"] / max(v["batches"], 1))
+            for v in trainer.val_times]
+    train_ds = trainer.datasets[0]
+    setup = dict(subsample_s=train_ds.setup_seconds["subsample"],
+                 anchors_s=train_ds.setup_seconds["anchors"],
+                 calibration_s=trainer.calibration_seconds)
+    log(f"[{card}] loop {label}: {len(trainer.epoch_times)} epochs, {steps} "
+        f"real steps, {batches} validation batches in {wall_s:.1f} s; "
+        f"launches {launches}; losses {losses}; mIoU "
+        f"{trainer.last_mIoU:.2f} %")
+    for r in epochs_rep:
+        log(f"[{card}] loop {label} epoch {r['epoch']}: "
+            f"{r['ms_per_step']:.2f} ms per step over the epoch ("
+            + ", ".join(f"{k[:-12]} {r[k]:.2f}" for k in r
+                        if k.endswith("_ms_per_step"))
+            + f" ms per step), {r['points_per_s']:.0f} real points/s")
+    for v in vals:
+        log(f"[{card}] loop {label} validation after epoch {v['epoch']}: "
+            f"{v['ms_per_batch']:.2f} ms per batch ({v['batches']} batches)")
+    if steady is not None:
+        log(f"[{card}] loop {label}: {steady:.2f} ms per step between "
+            "dispatches, steps 2.. of each epoch")
+    return dict(label=label, steps=steps, val_batches=batches,
+                launches=launches, losses=losses, wall_s=wall_s,
+                step_ms_steady=steady, epochs=epochs_rep, validation=vals,
+                setup=setup, mIoU=trainer.last_mIoU)
 
 
 def main(argv=None) -> int:
@@ -930,25 +1271,40 @@ def main(argv=None) -> int:
                            config.learning_rate, device=dev), log,
         "train_step")
 
+    # ---- phase 6: the training loop
+    log("phase 6: the weak-label training loop on the card")
+    per_val = {"radius_search": expected["radius_search"],
+               "kpconv_fwd": expected["kpconv_fwd"]}
+    loop, loop_launches = run_loop(counted, expected, per_val, card,
+                                   statistics.mean(train_ms[1:]), log)
+
+    def main_path(name):
+        return (eval_launches.get(name, 0) + launches[name]
+                + loop_launches[name])
+
+    # The largest error of each kernel at either main path's shapes
+    for name, phase_sum in (("radius_search", a_sum), ("kpconv_fwd", b_sum),
+                            ("kpconv_bwd", c_sum), ("maxpool_bwd", d_sum)):
+        phase_sum["max_abs_err"] = max(
+            phase_sum["max_abs_err"], loop["kernels"][name]["max_abs_err"])
+
     kernels = [
         dict(name="radius_search", route="cuda",
              source="weasal_tpu_torch/csrc/radius_search.cu",
              replaces="weasal_tpu/ops/pallas/radius_pallas.py:196",
-             launches=eval_launches["radius_search"]
-             + launches["radius_search"], library_ms=None, **a_sum),
+             launches=main_path("radius_search"), library_ms=None, **a_sum),
         dict(name="kpconv_fwd", route="cuda",
              source="weasal_tpu_torch/csrc/kpconv_fwd.cu",
              replaces="weasal_tpu/ops/pallas/kpconv_banded.py:478",
-             launches=eval_launches["kpconv_fwd"] + launches["kpconv_fwd"],
-             library_ms=None, **b_sum),
+             launches=main_path("kpconv_fwd"), library_ms=None, **b_sum),
         dict(name="kpconv_bwd", route="cuda",
              source="weasal_tpu_torch/csrc/kpconv_bwd.cu",
              replaces="weasal_tpu/ops/pallas/kpconv_banded.py:550",
-             launches=launches["kpconv_bwd"], library_ms=None, **c_sum),
+             launches=main_path("kpconv_bwd"), library_ms=None, **c_sum),
         dict(name="maxpool_bwd", route="cuda",
              source="weasal_tpu_torch/csrc/maxpool_bwd.cu",
              replaces="weasal_tpu/ops/pallas/maxpool_banded.py:159",
-             launches=launches["maxpool_bwd"], library_ms=None, **d_sum),
+             launches=main_path("maxpool_bwd"), library_ms=None, **d_sum),
     ]
     if args.out:
         with open(args.out, "w") as f:
@@ -964,7 +1320,8 @@ def main(argv=None) -> int:
                            profile=dict(wall_ms=wall, busy_ms=busy,
                                         rows=prof_rows),
                            train_profile=dict(wall_ms=twall, busy_ms=tbusy,
-                                              rows=tprof_rows)), f,
+                                              rows=tprof_rows),
+                           loop=loop, loop_launches=loop_launches), f,
                       indent=1)
     if FAILED:
         print(f"chip_smoke: {len(FAILED)} checks failed", file=sys.stderr)

@@ -13,7 +13,11 @@ A runs the point sets built to break its column rule
 (tests/_cell_search_cases.py) and a level-0-sized batch, equal to the
 plain version and the same on a second call, writes only its output and
 scratch, and refuses a scratch too short or misaligned. D runs at the
-main path's K (14, 29) and past its mask's 32 and 64 slots. Needs an
+main path's K (14, 29) and past its mask's 32 and 64 slots. The training
+loop's input: the resident assembly and the vote buffers on the card
+equal their CPU runs (jitter injected; 1e-5 and 1e-6), and a two-step
+loop with validation launches 7 A and 12 B per step and per validation
+batch, 12 C and 2 D per step. Needs an
 NVIDIA GPU with nvcc; skips elsewhere. On the machine with the card
 (which has no JAX) run
 
@@ -420,3 +424,118 @@ def test_radius_search_launch_writes_only_its_buffers(dev, k):
     assert _guards_hold(bufs) == []
     want = radius_search_plain(q, s, qm, sm, 1.2, k)
     assert torch.equal(bufs["out"][1], want)
+
+
+# ------------------------------------------------ the training loop's input
+
+@pytest.fixture(scope="module")
+def synth_wl(tmp_path_factory):
+    """A small synthetic Vaihingen root, its training and validation
+    datasets (in_radius 8 m, dl 0.4 m, 16 features) and their plan."""
+    from weasal_tpu_torch.config import VaihingenWLConfig
+    from weasal_tpu_torch.data.datasets import Vaihingen3DWLDataset
+    from weasal_tpu_torch.data.synthetic import make_vaihingen_like_root
+
+    class Small(VaihingenWLConfig):
+        in_radius = 8.0
+        sub_radius = 3.0
+        first_subsampling_dl = 0.4
+        first_features_dim = 16
+        batch_num = 2
+        max_epoch = 1
+        epoch_steps = 2
+        validation_size = 1
+        initial_labels_per_file = 30
+        saving = False
+
+    root = make_vaihingen_like_root(
+        str(tmp_path_factory.mktemp("card_loop") / "Vaihingen3D"),
+        extent=30.0, density=5.0, seed=11)
+    cfg = Small()
+    train = Vaihingen3DWLDataset(cfg, split="training", data_root=root,
+                                 rng=np.random.default_rng(0))
+    val = Vaihingen3DWLDataset(cfg, split="validation", data_root=root,
+                               rng=np.random.default_rng(1))
+    return cfg, train, val, train.calibration(num_samples=8)
+
+
+def _input_order(out, key):
+    a, unsort = out[key].cpu(), out["unsort"].cpu()
+    return torch.gather(a, 1, unsort.reshape(
+        *unsort.shape, *([1] * (a.dim() - 2))).expand_as(a))
+
+
+def test_resident_assembly_on_card_equals_cpu(dev, synth_wl):
+    from weasal_tpu_torch.data import resident as res
+    cfg, train, _, plan = synth_wl
+    spec = res.feature_spec(train.name, cfg.in_features_dim)
+    small, _ = res.ResidentBatchSource(train, plan, "cpu").next_batch(
+        np.random.default_rng(3), augment=True)
+    noise = torch.randn((len(small["center_pts"]), plan.num_points[0], 3),
+                        generator=torch.Generator().manual_seed(4))
+    outs = {}
+    for where in ("cpu", dev):
+        clouds = res.ResidentClouds(train, where)
+        batch = {k: (v if k == "noise_seed"
+                     else torch.from_numpy(v).to(where))
+                 for k, v in small.items()}
+        outs[str(where)] = res.assemble_level0_device(
+            {**batch, **clouds.arrays}, cfg, plan, True, spec,
+            noise=noise.to(where))
+    cpu, card = outs["cpu"], outs[str(dev)]
+    assert torch.equal(card["mask0"].cpu(), cpu["mask0"])
+    assert torch.equal(_input_order(card, "labels"),
+                       _input_order(cpu, "labels"))
+    for key in ("points0", "features"):
+        torch.testing.assert_close(_input_order(card, key),
+                                   _input_order(cpu, key), rtol=0,
+                                   atol=1e-5)
+
+
+def test_vote_accumulator_on_card_equals_cpu(dev, synth_wl):
+    from weasal_tpu_torch.data import resident as res
+    from weasal_tpu_torch.train.vote import DeviceVoteAccumulator
+    cfg, _, val, plan = synth_wl
+    accs, clouds = {}, {}
+    for where in ("cpu", dev):
+        clouds[str(where)] = res.ResidentClouds(val, where)
+        accs[str(where)] = DeviceVoteAccumulator(
+            clouds[str(where)], cfg.num_classes, radius_sq=(0.7 * 8.0) ** 2)
+    src = res.ResidentBatchSource(val, plan, "cpu")
+    rng = np.random.default_rng(9)
+    for it in range(3):
+        small, metas = src.next_batch(rng, augment=False)
+        small["flat_inds"][1] = small["flat_inds"][0]      # overlapping
+        probs = torch.rand((len(metas), plan.num_points[0], cfg.num_classes),
+                           generator=torch.Generator().manual_seed(it))
+        for where, acc in accs.items():
+            acc.update(probs.to(where), {
+                "flat_inds": torch.from_numpy(small["flat_inds"]).to(where),
+                "center_pts": torch.from_numpy(small["center_pts"]).to(where),
+                **clouds[where].arrays})
+    for got, want in zip(accs[str(dev)].materialize(),
+                         accs["cpu"].materialize()):
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+def test_two_step_loop_launches_the_kernels(dev, synth_wl):
+    from weasal_tpu_torch.models.blocks import kpconv_modules
+    from weasal_tpu_torch.train.trainer import ModelTrainer
+    cfg, train, val, plan = synth_wl
+    trainer = ModelTrainer(cfg, train, device=dev)
+    assert trainer.resident
+    counted = (radius_search, kpconv_fwd, kpconv_bwd, maxpool_bwd)
+    for fn in counted:
+        fn.launches = 0
+    trainer.train(train, val)
+    torch.cuda.synchronize()
+    steps = trainer.epoch_times[0]["steps"]
+    batches = trainer.val_times[0]["batches"]
+    assert steps >= 1 and batches == 1
+    n_conv = len(kpconv_modules(trainer.model))
+    assert n_conv == 12
+    want = {"radius_search": 7 * (steps + batches),
+            "kpconv_fwd": n_conv * (steps + batches),
+            "kpconv_bwd": n_conv * steps, "maxpool_bwd": 2 * steps}
+    assert {fn.__name__: fn.launches for fn in counted} == want
+    assert all(np.isfinite(v).all() for v in trainer.validation_probs)

@@ -20,16 +20,18 @@ from weasal_tpu_torch.utils.device import (plain_ops, resolve_device,
                                            use_kernel)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|weasal_tpu)\b",
-                       re.M)
+FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|weasal_tpu|sklearn"
+                       r"|matplotlib)\b", re.M)
 
 
 def test_import_loads_no_jax_or_weasal_tpu():
     code = ("import sys, weasal_tpu_torch, weasal_tpu_torch.infer, "
             "weasal_tpu_torch.ops.pyramid, weasal_tpu_torch.data.demo, "
-            "weasal_tpu_torch.data.level0, chip_smoke\n"
+            "weasal_tpu_torch.data.level0, chip_smoke, "
+            "weasal_tpu_torch.train_Vaihingen3D_WeakLabel\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'flax', 'optax', 'weasal_tpu')]\n"
+            "('jax', 'flax', 'optax', 'weasal_tpu', 'sklearn', "
+            "'matplotlib')]\n"
             "print(bad)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                          capture_output=True, text=True, timeout=120)

@@ -5,7 +5,10 @@ KPFCNN_mprm (kernel B, KPConv forward) -> class probabilities; entry
 point `eval_step`. Training: the same forward in training mode, the
 weak-label loss, a backward through kernels C (KPConv backward) and D
 (max-pool backward), and an SGD update; entry point `train_step` with
-`init_opt_state`. See README.md, section "PyTorch/CUDA port".
+`init_opt_state`. The training loop (datasets, potential sampler,
+resident input, validation, checkpoints): `ModelTrainer`, driven by
+`python -m weasal_tpu_torch.train_Vaihingen3D_WeakLabel`. See README.md,
+section "PyTorch/CUDA port".
 """
 
 from weasal_tpu_torch.config import Config, VaihingenWLConfig
@@ -14,7 +17,8 @@ from weasal_tpu_torch.interop import from_jax_opt_state, from_jax_variables
 from weasal_tpu_torch.models.architectures import KPFCNN_mprm
 from weasal_tpu_torch.train.optim import init_opt_state
 from weasal_tpu_torch.train.step import train_step
+from weasal_tpu_torch.train.trainer import ModelTrainer
 
 __all__ = ["Config", "VaihingenWLConfig", "KPFCNN_mprm", "eval_step",
-           "train_step", "init_opt_state", "from_jax_variables",
-           "from_jax_opt_state"]
+           "train_step", "init_opt_state", "ModelTrainer",
+           "from_jax_variables", "from_jax_opt_state"]

@@ -1,16 +1,19 @@
 """Shape plan and the host-side sphere pyramid used to calibrate it.
 
 Counterpart of weasal_tpu/data/batching.py: `ShapePlan` (:36),
-`fill_region_row` (:110), `grid_rotations` (:138), `layer_radii` (:160),
-`build_sphere_pyramid` (:183) and `calibrate_shape_plan` (:236), running
-on the port's own host subsample and radius search. Random draws follow
-the JAX package's order, so one numpy seed gives both packages the same
-plan. The small-sphere bucket is not ported.
+`payload_meta` (:95), `fill_region_row` (:110), `grid_rotations` (:138),
+`layer_radii` (:160), `build_sphere_pyramid` (:183) and
+`calibrate_shape_plan` (:236), running on the port's own host subsample
+and radius search. Random draws follow the JAX package's order, so one
+numpy seed gives both packages the same plan. The small-sphere bucket and
+the measured band windows are not ported: a plan written by the JAX
+package loads without them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -33,6 +36,33 @@ class ShapePlan:
     @property
     def num_layers(self) -> int:
         return len(self.num_points)
+
+    @classmethod
+    def from_dict(cls, d: Dict) -> "ShapePlan":
+        """A plan from its JSON fields; fields of the JAX package's plan
+        that the port has no use for (`bands`, `small`) are dropped."""
+        names = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in names})
+
+    def save(self, path: str) -> None:
+        with open(path, "w") as f:
+            json.dump(dataclasses.asdict(self), f, indent=2)
+
+    @classmethod
+    def load(cls, path: str) -> "ShapePlan":
+        with open(path) as f:
+            return cls.from_dict(json.load(f))
+
+
+def payload_meta(payload: Dict, n0: int) -> Dict:
+    """Host-side metadata of one sphere that every batch source attaches:
+    `has_regions` lets the weak-label loop skip a batch without labels
+    from host data, `n_real` and `input_inds` drive the vote scatter."""
+    return dict(cloud_ind=payload["cloud_ind"],
+                input_inds=payload["input_inds"],
+                center=payload["center"],
+                has_regions=bool(payload.get("regions")),
+                n_real=min(payload["input_inds"].shape[0], n0))
 
 
 def fill_region_row(region_inds_b: np.ndarray,

@@ -1,10 +1,10 @@
 """Level-0 batch assembly for the device pyramid (numpy, host side).
 
 Counterpart of weasal_tpu/data/level0.py `assemble_level0` (:23) and
-`_sort_payload` (:87): the non-resident input that the eval step takes
-when a batch has no `flat_inds`. The host pads sphere payloads to the
-plan's level-0 budget and draws per-sphere grid rotations; the device
-builds the rest of the pyramid (ops/pyramid.py).
+`_sort_payload` (:87) and `Level0BatchSource` (:119): the non-resident
+input that the steps take when a batch has no `flat_inds`. The host pads
+sphere payloads to the plan's level-0 budget and draws per-sphere grid
+rotations; the device builds the rest of the pyramid (ops/pyramid.py).
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 
 from weasal_tpu_torch.data.batching import (
-    ShapePlan, fill_region_row, grid_rotations)
+    ShapePlan, fill_region_row, grid_rotations, payload_meta)
 from weasal_tpu_torch.ops.subsample import SHADOW_COORD
 
 
@@ -96,3 +96,24 @@ def _sort_payload(p: Dict, rotation: np.ndarray, k: int) -> None:
             inds = np.asarray(inds, dtype=np.int64)
             remapped.append((inv[inds[inds < k]], lb))
         p["regions"] = remapped
+
+
+class Level0BatchSource:
+    """`next_batch()` -> (level-0 arrays, metas) from a dataset's sphere
+    sampler: the training loop's input when the clouds are not resident
+    on the device."""
+
+    def __init__(self, dataset, plan: ShapePlan):
+        self.dataset = dataset
+        self.plan = plan
+
+    def next_batch(self, rng, augment: Optional[bool] = None):
+        ds, plan = self.dataset, self.plan
+        if augment is None:
+            augment = ds.split == "training"
+        payloads = [ds.sample_sphere(rng, augment=augment,
+                                     max_points=plan.num_points[0])
+                    for _ in range(ds.config.batch_num)]
+        arrays = assemble_level0(payloads, plan, ds.config.num_classes, rng)
+        metas = [payload_meta(p, plan.num_points[0]) for p in payloads]
+        return arrays, metas

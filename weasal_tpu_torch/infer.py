@@ -1,15 +1,17 @@
-"""Weak-label inference step: level-0 arrays in, class probabilities out.
+"""Weak-label inference: level-0 or resident batches in, class
+probabilities out.
 
 Counterpart of the eval step of weasal_tpu/train/tester.py:93-131 and
-weasal_tpu/train/trainer.py:406-447 for a level-0 batch without
-`flat_inds` (the non-resident input of data/level0.assemble_level0): the
-pyramid is built on the device, `KPFCNN_mprm` runs in eval mode, and a
-softmax turns its fused logits into probabilities.
+weasal_tpu/train/trainer.py:406-447 on the fused path: the pyramid is
+built on the device, `KPFCNN_mprm` runs in eval mode, and a softmax turns
+its fused logits into probabilities. `eval_step` takes level-0 arrays;
+`eval_batch`, the training loop's validation step, also takes a resident
+batch and returns probabilities and labels in `input_inds` order.
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Tuple
 
 import torch
 
@@ -27,6 +29,39 @@ def to_device(arrays: Mapping, device) -> dict:
             if arrays.get(k) is not None}
 
 
+def level0_on_device(arrays: Mapping, config, plan, device,
+                     spec=None) -> dict:
+    """Level-0 tensors on `device`: a resident batch (`flat_inds`) is
+    assembled there with augmentation (data/resident.py; its `unsort`
+    comes along), a level-0 batch is moved there."""
+    if "flat_inds" not in arrays:
+        return to_device(arrays, device)
+    from weasal_tpu_torch.data.resident import assemble_level0_device
+    if spec is None:
+        raise ValueError("a resident batch needs its feature spec")
+    return assemble_level0_device(arrays, config, plan, augment=True,
+                                  spec=spec)
+
+
+def _check_model(model, device):
+    param = next(model.parameters())
+    if param.device != device:
+        raise ValueError(f"model parameters are on {param.device}, the "
+                         f"step runs on {device}; move the model first")
+
+
+def _probs(model, t: dict, config, plan) -> torch.Tensor:
+    batch = batch_from_device_pyramid(
+        t["points0"], t["mask0"], t["features"], t["labels"], config,
+        plan, t["center_pts"], rotations=t.get("rotations"),
+        cloud_lb=t.get("cloud_lb"), region_inds=t.get("region_inds"),
+        region_masks=t.get("region_masks"),
+        region_point_masks=t.get("region_point_masks"),
+        region_lb=t.get("region_lb"))
+    logits, _cla_logits, _cam = model(batch)
+    return torch.softmax(logits, dim=-1)
+
+
 def eval_step(model, arrays: Mapping, config, plan, device=None
               ) -> torch.Tensor:
     """Probabilities [B, N_0, C] for one level-0 batch.
@@ -37,19 +72,31 @@ def eval_step(model, arrays: Mapping, config, plan, device=None
     """
     device = resolve_device(device)
     configure_precision()
-    param = next(model.parameters())
-    if param.device != device:
-        raise ValueError(f"model parameters are on {param.device}, the "
-                         f"step runs on {device}; move the model first")
+    _check_model(model, device)
     t = to_device(arrays, device)
     model.eval()
     with torch.no_grad():
-        batch = batch_from_device_pyramid(
-            t["points0"], t["mask0"], t["features"], t["labels"], config,
-            plan, t["center_pts"], rotations=t.get("rotations"),
-            cloud_lb=t.get("cloud_lb"), region_inds=t.get("region_inds"),
-            region_masks=t.get("region_masks"),
-            region_point_masks=t.get("region_point_masks"),
-            region_lb=t.get("region_lb"))
-        logits, _cla_logits, _cam = model(batch)
-        return torch.softmax(logits, dim=-1)
+        return _probs(model, t, config, plan)
+
+
+def eval_batch(model, arrays: Mapping, config, plan, device=None, spec=None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(probs [B, N_0, C], labels [B, N_0]) of one validation batch, both
+    on `device`. A resident batch is assembled with augmentation (the
+    validation spheres are augmented, as in training) and its outputs are
+    gathered back to `input_inds` order; a level-0 batch's outputs stay in
+    its rows' order, which its metas' `input_inds` follow."""
+    device = resolve_device(device)
+    configure_precision()
+    _check_model(model, device)
+    model.eval()
+    with torch.no_grad():
+        t = level0_on_device(arrays, config, plan, device, spec=spec)
+        probs = _probs(model, t, config, plan)
+        labels = t["labels"]
+        unsort = t.get("unsort")
+        if unsort is not None:
+            probs = torch.gather(
+                probs, 1, unsort[..., None].expand(-1, -1, probs.shape[-1]))
+            labels = torch.gather(labels, 1, unsort)
+    return probs, labels

@@ -2,6 +2,8 @@
 
 Counterpart of weasal_tpu/ops/neighbors.py:
 - `radius_search`: host version (scipy cKDTree), for calibration;
+- `query_radius`: sklearn's `KDTree.query_radius` on a cKDTree, for the
+  datasets and anchors (rows sorted ascending);
 - `radius_search_fixed` (:124): fixed-shape batched search for the device
   pyramid. CUDA tensors go to kernel A (ops/cuda/radius_search.py), CPU
   tensors to its plain version. Both compute d2 per axis in f32, where the
@@ -43,6 +45,24 @@ def radius_search(queries: np.ndarray, supports: np.ndarray, radius: float,
     keep = rank < width
     out[rows[keep], rank[keep]] = cols[keep]
     return out
+
+
+def query_radius(tree: cKDTree, centers: np.ndarray, r: float,
+                 return_distance: bool = False):
+    """Counterpart of sklearn's `KDTree.query_radius` on a scipy cKDTree:
+    for each center, the int64 indices of the tree's points within `r`
+    (distance <= r), and with `return_distance` their f64 distances.
+    Each row is sorted ascending: sklearn returns rows in its tree's
+    order, which no other tree reproduces, and the samplers that thin or
+    remap rows need one canonical order."""
+    centers = np.atleast_2d(np.asarray(centers, dtype=np.float64))
+    rows = [np.sort(np.asarray(row, dtype=np.int64))
+            for row in tree.query_ball_point(centers, r=r)]
+    if not return_distance:
+        return rows
+    dists = [np.sqrt(np.sum(np.square(tree.data[row] - c), axis=1))
+             for row, c in zip(rows, centers)]
+    return rows, dists
 
 
 def radius_search_fixed(queries, supports, q_mask, s_mask, radius: float,

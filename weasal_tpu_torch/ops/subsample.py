@@ -2,8 +2,9 @@
 barycenter of its members.
 
 Counterpart of weasal_tpu/ops/subsample.py:
-- `grid_subsample`: host numpy version (points only), voxel-linear
-  output order;
+- `grid_subsample`: host numpy version (`grid_subsample_numpy`, :69),
+  voxel-linear output order, with optional features (voxel means) and
+  labels (voxel majority);
 - `grid_extent_cells` (:145): static per-axis voxel count bound;
 - `grid_subsample_fixed` (:159): fixed-shape batched torch version used by
   the device pyramid.
@@ -19,7 +20,7 @@ barycenters may differ in the last ulp from run to run (masks do not).
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,8 +28,13 @@ import torch
 SHADOW_COORD = 1e6
 
 
-def grid_subsample(points: np.ndarray, dl: float) -> np.ndarray:
-    """Voxel barycenters of one cloud, in linear voxel-id order."""
+def grid_subsample(points: np.ndarray, dl: float, *,
+                   features: Optional[np.ndarray] = None,
+                   labels: Optional[np.ndarray] = None):
+    """Voxel barycenters of one cloud, in linear voxel-id order; with
+    `features`, their voxel means, and with `labels`, the voxel majority
+    (ties to the smallest label). Returns the points alone, or the tuple
+    (points[, features][, labels]). Sums in f64, results in f32."""
     points = np.asarray(points, dtype=np.float32)
     origin = points.min(axis=0)
     vox = np.floor((points - origin) / dl).astype(np.int64)
@@ -36,12 +42,32 @@ def grid_subsample(points: np.ndarray, dl: float) -> np.ndarray:
     lin = (vox[:, 0] * dims[1] + vox[:, 1]) * dims[2] + vox[:, 2]
     uniq, inv, counts = np.unique(lin, return_inverse=True,
                                   return_counts=True)
-    sub = np.zeros((uniq.shape[0], 3), dtype=np.float64)
+    n_out = uniq.shape[0]
+    sub = np.zeros((n_out, 3), dtype=np.float64)
     for d in range(3):
-        sub[:, d] = np.bincount(inv, weights=points[:, d],
-                                minlength=uniq.shape[0])
+        sub[:, d] = np.bincount(inv, weights=points[:, d], minlength=n_out)
     sub /= counts[:, None]
-    return sub.astype(np.float32)
+    out = [sub.astype(np.float32)]
+
+    if features is not None:
+        features = np.asarray(features, dtype=np.float32)
+        if features.ndim == 1:
+            features = features[:, None]
+        sub_feat = np.zeros((n_out, features.shape[1]), dtype=np.float64)
+        for d in range(features.shape[1]):
+            sub_feat[:, d] = np.bincount(inv, weights=features[:, d],
+                                         minlength=n_out)
+        sub_feat /= counts[:, None]
+        out.append(sub_feat.astype(np.float32))
+
+    if labels is not None:
+        labels = np.squeeze(np.asarray(labels)).astype(np.int64)
+        n_lbl = int(labels.max()) + 1 if labels.size else 1
+        votes = np.zeros((n_out, n_lbl), dtype=np.int64)
+        np.add.at(votes, (inv, labels), 1)
+        out.append(np.argmax(votes, axis=1).astype(np.int32))
+
+    return out[0] if len(out) == 1 else tuple(out)
 
 
 def grid_extent_cells(in_radius: float, dl: float,

@@ -1,37 +1,56 @@
-"""Weak-label training step: level-0 arrays in, one SGD update out.
+"""Weak-label training step: one batch in, one SGD update out.
 
 Counterpart of the weak-mode branch of `step_core`
-(weasal_tpu/train/trainer.py:257-365) for a level-0 batch without
-`flat_inds` (the non-resident input, the same one `eval_step` takes): the
-pyramid is built on the device, `KPFCNN_mprm` runs in training mode
-(BatchNorm on batch statistics, running statistics updated), the loss is
+(weasal_tpu/train/trainer.py:257-365) on the fused path: a resident batch
+(`flat_inds`, data/resident.py) is first assembled into level-0 arrays on
+the device, as :259-267 do; a level-0 batch goes on as it is. The pyramid
+is built on the device, `KPFCNN_mprm` runs in training mode (BatchNorm on
+batch statistics, running statistics updated), the loss is
 `region_mprm_loss` (or `class_logits_loss`, by `config.loss_type`), the
 backward runs kernels C and D, and `sgd_step` applies the update.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
-from weasal_tpu_torch.infer import to_device
+from weasal_tpu_torch.infer import level0_on_device
 from weasal_tpu_torch.models import losses
 from weasal_tpu_torch.ops.pyramid import batch_from_device_pyramid
 from weasal_tpu_torch.train.optim import sgd_step
 from weasal_tpu_torch.utils.device import configure_precision, resolve_device
 
 
+def class_weights(config, device) -> Optional[torch.Tensor]:
+    """`config.class_w` as an f32 tensor on `device` (None when empty)."""
+    return (torch.tensor(config.class_w, dtype=torch.float32, device=device)
+            if len(config.class_w) else None)
+
+
+def label_table(model, device) -> torch.Tensor:
+    """The model's raw-label -> class-index table on `device`."""
+    return torch.as_tensor(
+        losses.valid_label_mapper(model.lbl_values, model.ign_lbls),
+        device=device)
+
+
 def step_on_batch(model, opt_state: Dict[str, torch.Tensor], batch, config,
-                  lr: float) -> Tuple[torch.Tensor, torch.Tensor]:
+                  lr: float, class_w: Optional[torch.Tensor] = None,
+                  table: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One update of `model` on a PyramidBatch; returns (loss, accuracy) as
-    0-d tensors. The parameters' `.grad` keep this step's gradients."""
+    0-d tensors. The parameters' `.grad` keep this step's gradients.
+    `class_w` and `table` (from `class_weights` and `label_table`) are
+    made here when the caller does not pass them."""
     model.train()
     model.zero_grad(set_to_none=True)
     logits, cla_logits, cam = model(batch)
-    class_w = (torch.tensor(config.class_w, dtype=torch.float32,
-                            device=logits.device)
-               if len(config.class_w) else None)
+    if class_w is None:
+        class_w = class_weights(config, logits.device)
+    if table is None:
+        table = label_table(model, logits.device)
     loss_type = config.loss_type
     if loss_type == "region_mprm_loss":
         loss = losses.region_mprm_loss(
@@ -41,9 +60,6 @@ def step_on_batch(model, opt_state: Dict[str, torch.Tensor], batch, config,
         loss = losses.class_logits_loss(cla_logits, batch.cloud_lb, class_w)
     else:
         raise ValueError(f"Unknown weak-label loss_type: {loss_type}")
-    table = torch.as_tensor(
-        losses.valid_label_mapper(model.lbl_values, model.ign_lbls),
-        device=logits.device)
     acc = losses.accuracy(logits.detach(),
                           losses.label_targets(batch.labels, table),
                           batch.masks[0])
@@ -53,16 +69,24 @@ def step_on_batch(model, opt_state: Dict[str, torch.Tensor], batch, config,
 
 
 def train_step(model, opt_state: Dict[str, torch.Tensor], arrays: Mapping,
-               config, plan, lr: float, device=None
+               config, plan, lr: float, device=None,
+               class_w: Optional[torch.Tensor] = None,
+               table: Optional[torch.Tensor] = None, spec=None
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One weak-label training step on a level-0 batch.
+    """One weak-label training step on a level-0 or a resident batch.
 
     :param model: a KPFCNN_mprm whose parameters lie on `device`
     :param opt_state: its momentum buffers (`init_opt_state`), updated in
         place like the parameters and the BatchNorm running statistics
-    :param arrays: assemble_level0 output (numpy arrays or tensors)
+    :param arrays: assemble_level0 output (numpy arrays or tensors), or a
+        resident batch: `pack_payloads` output as tensors on `device`
+        merged with the `ResidentClouds` tensors
     :param lr: the learning rate of this step
     :param device: default ``cuda``; raises where CUDA is absent
+    :param class_w, table: prepared once by a loop (`class_weights`,
+        `label_table`); made per call when left out
+    :param spec: the resident feature recipe (data/resident.feature_spec);
+        needed with a resident batch
     :return: (loss, accuracy, drops) as tensors on `device`; drops is the
         [(2L-1) + (3L-2)] dropped-neighbor vector of the JAX step, all
         zero because the port's kernels drop nothing
@@ -73,8 +97,8 @@ def train_step(model, opt_state: Dict[str, torch.Tensor], arrays: Mapping,
     if param.device != device:
         raise ValueError(f"model parameters are on {param.device}, the "
                          f"step runs on {device}; move the model first")
-    t = to_device(arrays, device)
     with torch.no_grad():
+        t = level0_on_device(arrays, config, plan, device, spec=spec)
         batch = batch_from_device_pyramid(
             t["points0"], t["mask0"], t["features"], t["labels"], config,
             plan, t["center_pts"], rotations=t.get("rotations"),
@@ -82,7 +106,8 @@ def train_step(model, opt_state: Dict[str, torch.Tensor], arrays: Mapping,
             region_masks=t.get("region_masks"),
             region_point_masks=t.get("region_point_masks"),
             region_lb=t.get("region_lb"))
-    loss, acc = step_on_batch(model, opt_state, batch, config, lr)
+    loss, acc = step_on_batch(model, opt_state, batch, config, lr,
+                              class_w=class_w, table=table)
     n_layers = plan.num_layers
     drops = torch.zeros((2 * n_layers - 1) + (3 * n_layers - 2),
                         dtype=torch.float32, device=device)
