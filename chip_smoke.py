@@ -32,27 +32,47 @@ Phases, in order; any failure exits non-zero:
    as B's;
 5. the training path: `train_step` for 4 steps, launch counts read around
    them, losses, parameters and BatchNorm statistics checked, then one
-   step with the kernels against one step on the plain versions, both
-   held to an f64 step, from the seeded initial state and one shared
-   pyramid (loss, every gradient, the updated state);
+   step with the kernels, one on the plain versions and one replay of
+   the kernel step captured in a CUDA graph (train/graphs.StepGraph),
+   each f32 step held to an f64 step, from the seeded initial state and
+   one shared pyramid (loss, every gradient, the updated state);
 6. the training loop: the entry point
    `weasal_tpu_torch.train_Vaihingen3D_WeakLabel.run` on a synthetic
    Vaihingen-like tile (150 m a side, seeded, as are the datasets'
    potentials, so the plan and the spheres are the same in every run) at
-   full width, on the resident input: 2 epochs of 10 steps with 5
+   full width, on the resident input, its steps and validation batches
+   replaying captured CUDA graphs: 2 epochs of 10 steps with 5
    validation batches each, then a resume from `current_chkp.tar` for a
-   third; finite losses, one log row per real step, the validation
-   lines, zero neighbor drops, the launches per step (7 A, 12 B, 12 C,
-   2 D) and per validation batch (7 A, 12 B), the checkpoint equal to
-   the trained state and the state after resume equal to the checkpoint;
-   the loop's ms per step, its host breakdown, ms per validation batch,
-   real points/s, the host set-up times and the peak device memory; then
-   one more epoch under torch.profiler for the loop's device busy share;
-   then, on a batch of the loop's own resident source assembled on the
-   card, kernels A-D against their plain versions and a kernel training
-   step against an f64 one (as in phases 2, 4 and 5), and `train_step`
-   timed at the loop's plan, synchronized and back to back, beside the
-   loop's step and phase 5's.
+   third, which captures anew; finite losses, one log row per real step,
+   the validation lines, zero neighbor drops, every step and validation
+   batch replayed, the launches per step (7 A, 12 B, 12 C, 2 D) and per
+   validation batch (7 A, 12 B), each graph's warm-up step counted, the
+   checkpoint equal to the trained state and the state after resume
+   equal to the checkpoint; the loop's ms per step, its host breakdown,
+   ms per validation batch, real points/s, the host set-up times and the
+   peak device memory; then one more epoch under torch.profiler for the
+   loop's device busy share, whose kernel events by name must count the
+   launches that the counters add up from the replays; then, on batches
+   of the loop's own resident source assembled on the card, kernels A-D
+   against their plain versions (as in phases 2 and 4) and, on the first
+   batch, the kernel training step held to an f64 one (as in phase 5),
+   and `train_step` timed at the loop's plan, synchronized and back to
+   back, beside the loop's step and phase 5's;
+7. dispatch at the loop's plan, on the loop's trainer and on an eager
+   one (`graphs=False`, the same configuration and datasets): 10 pairs
+   of 10-batch epochs, eager and graphed in turns, and 5 pairs of
+   40-batch graphed
+   epochs at K = 1 and K = 10 steps a replay (ms per step per epoch,
+   ending in the last flush's synchronization, with the host's share
+   waiting for batches, dispatching and flushing; medians and ranges;
+   batches without regions are skipped, so an epoch's last pack is a
+   tail run one step a replay); one graphed
+   and one eager epoch under torch.profiler (device busy share); a
+   validation batch's replay beside its eager vote update; the
+   entry point with `--plan_buckets 80` for one epoch with validation,
+   whose small-sphere bucket's graph must replay at least once (checked
+   as phase 6's runs); and the device memory with every graph of both
+   graphed trainers alive.
 Phases 3 and 5 end with a profile of one step, by kernel family. Checks
 of agreement (each kernel against its plain version, the GEMM core's
 drift, the forward and the training step against their references, and
@@ -107,11 +127,13 @@ TF32_OPS_PER_S = 495e12
 KPCONV_RTOL = 1e-4
 KPCONV_ATOL_REL = 1e-5       # times max |plain output|
 # The GEMM core of B and C on positive operands at the widest conv: mean
-# relative error to f64 (cuBLAS f32: ~1e-9; this core: ~2e-7; one
-# truncating tensor-core accumulator over each split of the depth, as
-# emulated in tests/test_torch_gemm_split.py: -1.4e-5 for y @ W and
-# -3.1e-5 for y^T @ g on an H100)
-GEMM_BIAS_MAX = 1e-6
+# relative error to f64 (on an H100: cuBLAS f32 -2e-10 to -1e-9; this
+# core +4e-9 to +7e-9; with a stage's twelve wgmmas in one truncating
+# chain, as before its chains were cut, -2.2e-7, which BatchNorm's
+# gradients amplified past the f64 allowance of a loop batch's step; one
+# truncating accumulator over each split of the depth -1.4e-5 for y @ W
+# and -3.1e-5 for y^T @ g)
+GEMM_BIAS_MAX = 3e-8
 # Kernel D vs its plain version: the same shares, added to a support by
 # atomics in another order
 MAXPOOL_RTOL = 1e-6
@@ -147,6 +169,12 @@ LOOP_ARGS = ("--epoch_steps", "10", "--validation_size", "5",
 # Batches of the loop's source drawn after its runs, for the kernel checks
 # and the step times at its shapes
 LOOP_CHECK_BATCHES = 6
+# Phase 7: pairs of epochs, eager against graphed and K = 1 against K = 10,
+# and the percentile of the small-sphere bucket
+DISPATCH_PAIRS = 10
+K_PAIRS = 5
+K_EPOCH_BATCHES = 40
+BUCKET_PERCENTILE = 80
 # Failed checks of agreement, reported at once and failing the run at its
 # end (see the module docstring); PREFIX names the shapes being checked
 FAILED: list = []
@@ -556,11 +584,45 @@ def clone_state(model, opt_state):
             {k: v.clone() for k, v in opt_state.items()})
 
 
-def compare_train_steps(model, opt_state, batch, config, log):
+def replayed_step(net, opt, data, config, plan):
+    """One training step on the pyramid `data` as a replay of a captured
+    CUDA graph (train/graphs.StepGraph: warm-up, state restored, capture,
+    replay); returns its loss. The parameters' `.grad` hold the replay's
+    gradients."""
+    from weasal_tpu_torch.train.graphs import StepGraph
+    from weasal_tpu_torch.train.step import (class_weights, label_table,
+                                             step_on_batch, step_outputs)
+    dev = data.features.device
+    lr_t = torch.full((), config.learning_rate, device=dev)
+    # made before the capture: a host-to-device copy cannot be captured
+    class_w, table = class_weights(config, dev), label_table(net, dev)
+
+    def body(inputs, out):
+        loss, acc = step_on_batch(net, opt, data, config, lr_t,
+                                  class_w=class_w, table=table)
+        out["stats"][0].copy_(loss)
+        out["stats"][1].copy_(acc)
+
+    example = {"placeholder": torch.zeros((1, 1))}
+    graph = StepGraph("phase 5 step", body, example, 1, dev,
+                      step_outputs(plan, dev, steps=1),
+                      lambda: (list(net.parameters()) + list(net.buffers())
+                               + list(opt.values())), graphed=True)
+    graph.load(example)
+    graph.run()
+    if graph.graph is None or graph.replays != 1:
+        raise AssertionError("phase 5: the step was not replayed")
+    return graph.out["stats"][0, 0]
+
+
+def compare_train_steps(model, opt_state, batch, config, log, plan=None,
+                        label: str = "kernels"):
     """One step with the kernels and one on the plain versions (f32), from
     the same state and pyramid, each held to the same step on the plain
-    versions in f64. The model is left after the plain f32 step. Returns
-    the errors."""
+    versions in f64; with `plan`, also one replay of the kernel step
+    captured in a CUDA graph, held to the f64 step as the kernel step is.
+    `label` names the kernel step in the log. The model is left after the
+    last f32 step. Returns the errors."""
     import copy
     import dataclasses
     from weasal_tpu_torch.train.step import step_on_batch
@@ -572,55 +634,70 @@ def compare_train_steps(model, opt_state, batch, config, log):
         cloud_lb=batch.cloud_lb.double(), region_lb=batch.region_lb.double())
     model64 = copy.deepcopy(model).double()
     runs = {}
-    for label, net, data, dtype in (("f64", model64, f64, torch.float64),
-                                    ("kernels", model, batch, None),
-                                    ("plain", model, batch, None)):
+    labels = [("f64", model64, f64, torch.float64),
+              ("kernels", model, batch, None), ("plain", model, batch, None)]
+    if plan is not None:
+        labels.append(("graph", model, batch, None))
+    for run, net, data, dtype in labels:
         net.load_state_dict({k: v.to(dtype or v.dtype)
                              if v.is_floating_point() else v
                              for k, v in state0.items()})
         opt = {k: v.to(dtype or v.dtype, copy=True) for k, v in opt0.items()}
         with contextlib.ExitStack() as stack:
-            if label != "kernels":
+            if run in ("f64", "plain"):
                 stack.enter_context(plain_ops())
-            loss, _ = step_on_batch(net, opt, data, config,
-                                    config.learning_rate)
+            if run == "graph":
+                loss = replayed_step(net, opt, data, config, plan)
+            else:
+                loss, _ = step_on_batch(net, opt, data, config,
+                                        config.learning_rate)
         grads = {n: p.grad.double() for n, p in net.named_parameters()}
         moved = {k: v.double() - state0[k].double()
                  for k, v in net.state_dict().items() if v.is_floating_point()}
-        runs[label] = (float(loss), grads, moved)
+        runs[run] = (float(loss), grads, moved)
     del model64
     loss_k, loss_p = runs["kernels"][0], runs["plain"][0]
     expect(abs(loss_k - loss_p) <= LOSS_RTOL * abs(loss_p),
            f"train step loss {loss_k} vs plain {loss_p}")
-    worst = dict(kernel_rel=0.0, plain_rel=0.0, ratio=0.0, ratio_of="",
-                 share=0.0, share_of="")
-    for part, what in ((1, "gradient"), (2, "state change")):
-        truth = runs["f64"][part]
-        for name, ref in truth.items():
-            norm = float(ref.norm())
-            err_k = float((runs["kernels"][part][name] - ref).norm())
-            err_p = float((runs["plain"][part][name] - ref).norm())
-            allowed = F64_RATIO * err_p + F64_FLOOR * norm
-            about = (f"{what} {name} (L2 errors {err_k:.3e} with kernels, "
-                     f"{err_p:.3e} plain, norm {norm:.3e})")
-            expect(err_k <= allowed,
-                   f"L2 error to the f64 step too large: {about}")
-            if norm > 0:
-                worst["kernel_rel"] = max(worst["kernel_rel"], err_k / norm)
-                worst["plain_rel"] = max(worst["plain_rel"], err_p / norm)
-            if err_p > 0 and err_k / err_p > worst["ratio"]:
-                worst.update(ratio=err_k / err_p, ratio_of=about)
-            if allowed > 0 and err_k / allowed > worst["share"]:
-                worst.update(share=err_k / allowed, share_of=about)
-    log(f"train step from one state and pyramid: loss {loss_k:.7f} with "
-        f"kernels, {loss_p:.7f} plain, {runs['f64'][0]:.7f} plain f64; "
-        f"worst relative L2 error to f64 over gradients and state changes: "
-        f"{worst['kernel_rel']:.2e} with kernels, {worst['plain_rel']:.2e} "
-        f"plain; worst ratio {worst['ratio']:.2f}, {worst['ratio_of']}; "
-        f"largest share of the allowed error {worst['share']:.3f}, "
-        f"{worst['share_of']}")
-    return dict(loss=loss_k, loss_plain=loss_p, loss_f64=runs["f64"][0],
-                **worst)
+    result = dict(loss=loss_k, loss_plain=loss_p, loss_f64=runs["f64"][0])
+    for who in [w for w in ("kernels", "graph") if w in runs]:
+        worst = dict(rel=0.0, plain_rel=0.0, ratio=0.0, ratio_of="",
+                     share=0.0, share_of="")
+        for part, what in ((1, "gradient"), (2, "state change")):
+            truth = runs["f64"][part]
+            for name, ref in truth.items():
+                norm = float(ref.norm())
+                err_k = float((runs[who][part][name] - ref).norm())
+                err_p = float((runs["plain"][part][name] - ref).norm())
+                allowed = F64_RATIO * err_p + F64_FLOOR * norm
+                about = (f"{what} {name} (L2 errors {err_k:.3e} {who}, "
+                         f"{err_p:.3e} plain, norm {norm:.3e})")
+                expect(err_k <= allowed,
+                       f"L2 error to the f64 step too large: {about}")
+                if norm > 0:
+                    worst["rel"] = max(worst["rel"], err_k / norm)
+                    worst["plain_rel"] = max(worst["plain_rel"],
+                                             err_p / norm)
+                if err_p > 0 and err_k / err_p > worst["ratio"]:
+                    worst.update(ratio=err_k / err_p, ratio_of=about)
+                if allowed > 0 and err_k / allowed > worst["share"]:
+                    worst.update(share=err_k / allowed, share_of=about)
+        log(f"train step ({label if who == 'kernels' else who}) from one "
+            f"state and pyramid: loss {runs[who][0]:.7f}, {loss_p:.7f} plain, "
+            f"{runs['f64'][0]:.7f} plain f64; worst relative L2 error to "
+            f"f64 over gradients and state changes: {worst['rel']:.2e} "
+            f"({who}), {worst['plain_rel']:.2e} plain; worst ratio "
+            f"{worst['ratio']:.2f}, {worst['ratio_of']}; largest share of "
+            f"the allowed error {worst['share']:.3f}, {worst['share_of']}")
+        if who == "kernels":
+            result.update(kernel_rel=worst.pop("rel"), **worst)
+        else:
+            result["graph"] = dict(loss=runs[who][0], **worst)
+    if "graph" in runs:
+        loss_g = runs["graph"][0]
+        expect(abs(loss_g - loss_k) <= LOSS_RTOL * abs(loss_k),
+               f"replayed train step loss {loss_g} vs eager {loss_k}")
+    return result
 
 
 def run_training(config, plan, batches, dev, counted, expected, log):
@@ -803,6 +880,28 @@ def log_gemm_sums(rows, keys, log, wide_cin: int = 256) -> dict:
     return sums
 
 
+# Per call of each counted wrapper, the one kernel it launches exactly
+# once, by name (A's binning, B's GEMM and C's dX and g @ W^T GEMM launch
+# beside it; split-K sums are named after their tile kernel): the
+# launches that a profile observes
+OBSERVED_KERNEL = {"radius_search": "search_kernel<",
+                   "kpconv_fwd": "aggregate_kernel",
+                   "kpconv_bwd": "tf32x3_gemm_kernel<false, false,",
+                   "maxpool_bwd": "maxpool_bwd_kernel"}
+# Profiles of phase 6's graphed epoch taken before a difference between
+# its kernel events and the counters fails the run (the profiler has lost
+# kernel events on an H100; see `gemm_part_ms`)
+PROFILE_TRIES = 3
+
+
+def observed_calls(rows) -> dict:
+    """Calls of each counted wrapper that profile rows (`profiled_kernels`)
+    show, by OBSERVED_KERNEL."""
+    return {fn: sum(n for name, n, _ in rows
+                    if key in name and not name.startswith(SPLITK_SUM))
+            for fn, key in OBSERVED_KERNEL.items()}
+
+
 def profile_step(step, log, label: str, top: int = 12):
     """Device time of one call of `step` by kernel name (torch.profiler);
     returns (rows, busy ms, wall ms). Busy is the sum of kernel self
@@ -832,15 +931,17 @@ def _same_state(got, want) -> bool:
 def check_loop_shapes(trainer, card, log):
     """The kernels and the step at the loop's own shapes, after its runs:
     LOOP_CHECK_BATCHES batches of the loop's resident source (the
-    trainer's plan, a fresh epoch's draws), the first assembled on the
-    card (voxel-sorted) into a pyramid on the plain versions. On that
+    trainer's plan, a fresh epoch's draws), each assembled on the card
+    (voxel-sorted) into a pyramid on the plain versions. On the first
     pyramid A, B, C and D are held to their plain versions as in phases
-    2 and 4, and one training step with the kernels and one plain are
-    held to an f64 step from the loop's seeded initial state, as in phase
-    5. Then `train_step` on the batches that have regions, as the loop
-    calls it: synchronized after each step, and back to back (host clock
-    between dispatches, steps 2..). Returns the kernels' sums by name and
-    the step times."""
+    2 and 4, and the kernel training step, from the loop's seeded initial
+    state, to an f64 step as in phase 5 (BatchNorm's gradients amplify a
+    drift of one sign in B's outputs: the GEMM core's drift before its
+    chains were cut put this batch at 1.66-1.70 of its allowance). Then
+    `train_step` on the batches that have regions, as the loop calls it:
+    synchronized after each step, and back to back (host clock between
+    dispatches, steps 2..). Returns the kernels' sums by name and the
+    step times."""
     global PREFIX
     from weasal_tpu_torch import KPFCNN_mprm, init_opt_state, train_step
     from weasal_tpu_torch.data.loader import BatchPrefetcher
@@ -849,25 +950,31 @@ def check_loop_shapes(trainer, card, log):
     from weasal_tpu_torch.utils.device import plain_ops
     config, plan, dev = trainer.config, trainer.plan, trainer.device
     train_ds = trainer.datasets[0]
-    source, extra = trainer._source(train_ds)
+    from weasal_tpu_torch.data.resident import ResidentBatchSource
+    source = ResidentBatchSource(train_ds, plan, dev)
+    extra = source.resident.arrays
     drawn = list(BatchPrefetcher(source, LOOP_CHECK_BATCHES, dev,
                                  rng=np.random.default_rng(SEED),
                                  extra_arrays=extra))
     batches = [b for b, metas in drawn
                if any(m["has_regions"] for m in metas)]
-    with torch.no_grad():
-        t = assemble_level0_device(drawn[0][0], config, plan, augment=True,
+
+    @torch.no_grad()
+    def pyramid(batch):
+        t = assemble_level0_device(batch, config, plan, augment=True,
                                    spec=trainer.spec)
         with plain_ops():
-            pyr = batch_from_device_pyramid(
+            return batch_from_device_pyramid(
                 t["points0"], t["mask0"], t["features"], t["labels"],
                 config, plan, t["center_pts"], rotations=t["rotations"],
                 cloud_lb=t["cloud_lb"], region_inds=t["region_inds"],
                 region_masks=t["region_masks"],
                 region_point_masks=t["region_point_masks"],
                 region_lb=t["region_lb"])
+
+    pyr = pyramid(drawn[0][0])
     log(f"phase 6: kernels vs plain versions at the loop's shapes, {plan}, "
-        f"{int(t['mask0'].sum())} real level-0 points")
+        f"{int(pyr.masks[0].sum())} real level-0 points")
     PREFIX = "loop shapes: "
     try:
         with torch.no_grad():
@@ -884,8 +991,11 @@ def check_loop_shapes(trainer, card, log):
             tuple(int(v) for v in train_ds.ignored_labels),
             generator=torch.Generator().manual_seed(0)).to(dev)
         comparison = compare_train_steps(fresh, init_opt_state(fresh), pyr,
-                                         config, log)
+                                         config, log,
+                                         label="first loop batch, kernels")
         del fresh
+        log(f"[{card}] f64 step at the loop's shapes (first batch): share "
+            f"of the f64 allowance {comparison['share']:.3f} (held)")
         expect(len(batches) >= 3, f"{len(batches)} of {len(drawn)} loop "
                "batches have regions")
     finally:
@@ -1005,22 +1115,40 @@ def run_loop(counted, per_step, per_val, card, train_step_ms, log):
         peak = torch.cuda.max_memory_allocated()
         first = trainer.datasets[0]
 
-        # The loop's device busy share: one more epoch under the profiler
+        # The loop's device busy share: one more epoch under the profiler,
+        # whose kernel events by name give the launches as the card ran
+        # them, beside the counters that each replay advances by its
+        # capture's counts (taken again where the profiler lost events)
         trainer.config.saving = False
-        trainer.config.max_epoch = trainer.epoch + 1
-        for fn in counted:
-            fn.launches = 0
-        rows, wall = profiled_kernels(lambda: trainer.train(first, None))
-        launches = {fn.__name__: fn.launches for fn in counted}
-        steps = trainer.epoch_times[-1]["steps"]
-        want = {k: per_step.get(k, 0) * steps for k in launches}
+        for attempt in range(PROFILE_TRIES):
+            trainer.config.max_epoch = trainer.epoch + 1
+            for fn in counted:
+                fn.launches = 0
+            warm0 = trainer.graph_counts()["train_warmups"]
+            rows, _ = profiled_kernels(lambda: trainer.train(first, None))
+            launches = {fn.__name__: fn.launches for fn in counted}
+            observed = observed_calls(rows)
+            steps = trainer.epoch_times[-1]["steps"]
+            # the epoch's own clock (the audit after it runs on the host)
+            wall = 1e3 * trainer.epoch_times[-1]["seconds"]
+            warm = trainer.graph_counts()["train_warmups"] - warm0
+            want = {k: per_step.get(k, 0) * (steps + warm) for k in launches}
+            for k, v in launches.items():
+                total[k] += v
+            log(f"[{card}] loop profiled epoch {attempt + 1}: {steps} steps, "
+                f"launches by the counters {launches}, by kernel events "
+                f"{observed}")
+            if observed == launches:
+                break
         expect(launches == want, f"loop profiled epoch: launches {launches}, "
                f"expected {want} for {steps} steps")
-        for k, v in launches.items():
-            total[k] += v
+        expect(observed == launches, f"loop profiled epoch: kernel events "
+               f"{observed} against the counters {launches} in "
+               f"{PROFILE_TRIES} profiles")
         busy = sum(r[2] for r in rows)
         families = kernel_families(rows)
-        log(f"[{card}] loop epoch under torch.profiler: {steps} steps, wall "
+        log(f"[{card}] loop epoch (graphed) under torch.profiler: {steps} "
+            f"steps, wall "
             f"{wall:.1f} ms ({wall / max(steps, 1):.2f} ms per step), device "
             f"busy {busy:.1f} ms ({busy / max(steps, 1):.2f} ms per step, "
             f"{100 * busy / wall:.1f} % of the wall)")
@@ -1028,8 +1156,11 @@ def run_loop(counted, per_step, per_val, card, train_step_ms, log):
             log(f"[{card}]   {ms:9.3f} ms {count:5d}x  "
                 f"{100 * ms / busy:5.1f}%  {fam}")
         profile = dict(steps=steps, wall_ms=wall, busy_ms=busy,
-                       launches=launches, families=families)
+                       launches=launches, observed_launches=observed,
+                       profiles=attempt + 1, families=families)
         kernel_sums, at_plan = check_loop_shapes(trainer, card, log)
+        dispatch = measure_dispatch(
+            trainer, root, work, counted, per_step, per_val, card, log)
         setup = dict(scene_s=scene_s, **runs[0]["setup"])
         log(f"[{card}] loop set-up (host): scene {scene_s:.2f} s, "
             + ", ".join(f"{k} {v:.2f} s" for k, v in runs[0]["setup"].items())
@@ -1037,11 +1168,12 @@ def run_loop(counted, per_step, per_val, card, train_step_ms, log):
             + ", ".join(f"{k} {v:.2f} s" for k, v in runs[1]["setup"].items())
             + f"; training tile {first.input_labels[0].shape[0]} points, "
             f"{len(first.anchors[0])} anchors; {trainer.plan}")
-        log(f"[{card}] loop peak device memory (max_memory_allocated): "
-            f"{peak / 2**20:.1f} MiB")
+        log(f"[{card}] loop peak device memory (max_memory_allocated) of "
+            f"the 2 runs: {peak / 2**20:.1f} MiB")
         loop_ms = [r["step_ms_steady"] for r in runs if r["step_ms_steady"]]
-        log(f"[{card}] loop ms per step (steps 2.. of each epoch, host "
-            f"clock between dispatches): {[round(v, 2) for v in loop_ms]} "
+        log(f"[{card}] loop ms per step (epochs after each run's first, "
+            f"ending in the flush's synchronization): "
+            f"{[round(v, 2) for v in loop_ms]} "
             f"beside train_step at the loop's plan: back to back "
             f"{statistics.mean(at_plan['dispatch_gap_ms']):.2f} ms between "
             f"dispatches, synchronized "
@@ -1051,9 +1183,226 @@ def run_loop(counted, per_step, per_val, card, train_step_ms, log):
         return dict(runs=runs, setup=setup, plan=vars(trainer.plan),
                     peak_bytes=peak, train_step_ms=train_step_ms,
                     profile=profile, kernels=kernel_sums,
-                    train_step_at_plan=at_plan), total
+                    train_step_at_plan=at_plan, dispatch=dispatch), total
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+def _runs_by_k(trainer) -> dict:
+    """Runs of the trainer's step runners by K (steps a run)."""
+    runs = {}
+    for key, n in trainer.graph_counts()["train_runs_by"].items():
+        k = int(key.rsplit(" x", 1)[1])
+        runs[k] = runs.get(k, 0) + n
+    return runs
+
+
+def _dispatch_epoch(trainer, steps_per_dispatch="auto", batches: int = 10):
+    """One training epoch of `batches` batches of `trainer` (no
+    validation, nothing saved), graphed or eager as the trainer was made;
+    returns its numbers: ms per real step over the epoch (its host clock,
+    ending in the last flush's synchronization), the loop's host breakdown
+    per step, the host ms between consecutive dispatches, the dispatches,
+    and the steps that ran in full packs of K (the rest, a tail, run one
+    a replay)."""
+    cfg = trainer.config
+    cfg.steps_per_dispatch = steps_per_dispatch
+    cfg.epoch_steps = batches
+    cfg.max_epoch = trainer.epoch + 1
+    before = _runs_by_k(trainer)
+    trainer.train(trainer.datasets[0], None)
+    packed = sum((n - before.get(k, 0)) * k
+                 for k, n in _runs_by_k(trainer).items() if k > 1)
+    e = trainer.epoch_times[-1]
+    n = max(e["steps"], 1)
+    gaps = np.diff(e["dispatch_stamps"]) * 1e3
+    return dict(graphed=trainer.graphed,
+                k=steps_per_dispatch,
+                batches=batches, steps=e["steps"], packed_steps=packed,
+                ms_per_step=1e3 * e["seconds"] / n,
+                dispatches=len(e["dispatch_stamps"]),
+                gap_ms=float(np.mean(gaps)) if len(gaps) else None,
+                **{f"{k}_ms_per_step": 1e3 * e[k] / n
+                   for k in ("wait_batch", "dispatch", "flush")})
+
+
+def _spread(values):
+    """(median, min, max) of a list."""
+    return (statistics.median(values), min(values), max(values))
+
+
+def measure_vote(trainer, card, log, batches: int = 5):
+    """Host and device ms of a validation batch's replay and of its vote
+    update (`DeviceVoteAccumulator.update`, eager after the replay), over
+    `batches` batches of the trainer's validation source: whether the
+    update belongs in the validation graph."""
+    from weasal_tpu_torch.data.loader import BatchPrefetcher
+    source, runner, acc = trainer.validation_parts()
+    times = {k: [] for k in ("replay_host", "replay_dev", "update_host",
+                             "update_dev")}
+    for pack, _ in BatchPrefetcher(source, batches, trainer.device,
+                                   rng=np.random.default_rng(SEED),
+                                   augment=True, pack=1):
+        runner.load(pack)
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        marks[0].record()
+        runner.run()
+        marks[1].record()
+        t1 = time.perf_counter()
+        acc.update(runner.out["probs"], runner.slots[0])
+        marks[2].record()
+        t2 = time.perf_counter()
+        torch.cuda.synchronize()
+        times["replay_host"].append(1e3 * (t1 - t0))
+        times["update_host"].append(1e3 * (t2 - t1))
+        times["replay_dev"].append(marks[0].elapsed_time(marks[1]))
+        times["update_dev"].append(marks[1].elapsed_time(marks[2]))
+    out = {k: statistics.median(v) for k, v in times.items()}
+    log(f"[{card}] phase 7 validation batch (median of {batches}): replay "
+        f"{out['replay_dev']:.2f} ms on the card, {out['replay_host']:.2f} "
+        f"ms of host; vote update (eager) {out['update_dev']:.2f} ms on the "
+        f"card, {out['update_host']:.2f} ms of host")
+    return out
+
+
+def measure_dispatch(trainer, root, work, counted, per_step, per_val, card,
+                     log):
+    """Phase 7: dispatch at the loop's plan, on the loop's (graphed)
+    trainer and on an eager one made with `graphs=False` from the same
+    configuration and datasets (no validation, nothing saved):
+    DISPATCH_PAIRS pairs of epochs of 10 steps, eager and graphed in
+    turns (which first alternating), then K_PAIRS pairs of graphed epochs
+    at K = 1 and K = 10; one epoch of each trainer under torch.profiler
+    for the device's busy share; then the entry point with
+    `--plan_buckets 80` for one epoch with validation, which must replay
+    the small bucket's graph; and the peak device memory with every graph
+    of both graphed trainers alive."""
+    from weasal_tpu_torch.train.trainer import ModelTrainer
+    from weasal_tpu_torch.train_Vaihingen3D_WeakLabel import run
+    cfg = trainer.config
+    saved = (cfg.saving, cfg.steps_per_dispatch, cfg.epoch_steps)
+    cfg.saving = False
+    os.environ["WEASAL_LOOP_STATS"] = "1"
+    eager = ModelTrainer(cfg, trainer.datasets[0], device=trainer.device,
+                         graphs=False)
+    eager.datasets = trainer.datasets
+    eager.epoch = trainer.epoch
+    by_mode = {False: eager, True: trainer}
+    try:
+        # First runs, untimed: the eager runners and every capture
+        for graphed in (False, True):
+            _dispatch_epoch(by_mode[graphed])
+        _dispatch_epoch(trainer, 10, K_EPOCH_BATCHES)
+        pairs = {False: [], True: []}
+        for i in range(DISPATCH_PAIRS):
+            for graphed in ((False, True) if i % 2 == 0 else (True, False)):
+                pairs[graphed].append(_dispatch_epoch(by_mode[graphed]))
+        # K: epochs long enough for full packs of 10 (batches without
+        # regions are skipped, so 10 batches hold fewer than 10 steps)
+        by_k = {1: [], 10: []}
+        for i in range(K_PAIRS):
+            for k in ((1, 10) if i % 2 == 0 else (10, 1)):
+                by_k[k].append(_dispatch_epoch(trainer, k, K_EPOCH_BATCHES))
+        busy = {}
+        for graphed in (True, False):
+            runner = by_mode[graphed]
+            rows, _ = profiled_kernels(lambda: _dispatch_epoch(runner))
+            b = sum(r[2] for r in rows)
+            # the epoch's own clock: the plan-saturation audit after it
+            # runs on the host, inside the profile but outside the epoch
+            steps = runner.epoch_times[-1]["steps"]
+            wall = 1e3 * runner.epoch_times[-1]["seconds"]
+            busy["graphed" if graphed else "eager"] = dict(
+                steps=steps, wall_ms=wall, busy_ms=b, busy_share=b / wall,
+                launches_per_step=sum(r[1] for r in rows) / max(steps, 1))
+    finally:
+        cfg.saving, cfg.steps_per_dispatch, cfg.epoch_steps = saved
+        os.environ.pop("WEASAL_LOOP_STATS", None)
+    del eager, by_mode
+
+    def summary(runs):
+        return {key: _spread([r[key] for r in runs])
+                for key in ("ms_per_step", "wait_batch_ms_per_step",
+                            "dispatch_ms_per_step", "flush_ms_per_step",
+                            "steps", "packed_steps")}
+
+    report = dict(eager=summary(pairs[False]), graphed=summary(pairs[True]),
+                  k1=summary(by_k[1]), k10=summary(by_k[10]),
+                  k1_gap_ms=_spread([r["gap_ms"] for r in by_k[1]]),
+                  eager_gap_ms=_spread([r["gap_ms"] for r in pairs[False]]),
+                  busy=busy, pairs={str(k): v for k, v in pairs.items()},
+                  by_k={str(k): v for k, v in by_k.items()})
+    ratios = [e["ms_per_step"] / g["ms_per_step"]
+              for e, g in zip(pairs[False], pairs[True])]
+    report["eager_over_graphed"] = _spread(ratios)
+    for name in ("eager", "graphed", "k1", "k10"):
+        parts = ", ".join(f"{k} {v[0]:.2f} [{v[1]:.2f}-{v[2]:.2f}]"
+                          for k, v in report[name].items())
+        epochs = (f"{DISPATCH_PAIRS} epochs of 10 batches"
+                  if name in ("eager", "graphed")
+                  else f"{K_PAIRS} epochs of {K_EPOCH_BATCHES} batches")
+        log(f"[{card}] phase 7 {name}: median [min-max] over {epochs}: "
+            f"{parts}")
+    log(f"[{card}] phase 7: eager / graphed ms per step, pair by pair: "
+        f"median {report['eager_over_graphed'][0]:.2f} [min "
+        f"{report['eager_over_graphed'][1]:.2f}, max "
+        f"{report['eager_over_graphed'][2]:.2f}]; host ms between "
+        f"dispatches: eager {report['eager_gap_ms'][0]:.2f}, graphed K=1 "
+        f"{report['k1_gap_ms'][0]:.2f} (median)")
+    for name, b in busy.items():
+        log(f"[{card}] phase 7 {name} epoch under torch.profiler: "
+            f"{b['steps']} steps, wall {b['wall_ms']:.1f} ms, device busy "
+            f"{b['busy_ms']:.1f} ms ({100 * b['busy_share']:.1f} %), "
+            f"{b['launches_per_step']:.0f} kernel launches a step")
+
+    report["vote"] = measure_vote(trainer, card, log)
+
+    # The small-sphere bucket: its own plan and graph
+    log_b = os.path.join(work, "log_buckets")
+    for fn in counted:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    bucketed = run([log_b, "--data_root", root, *LOOP_ARGS, "--max_epoch",
+                    "1", "--validation_size", "2", "--plan_buckets",
+                    str(BUCKET_PERCENTILE)])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counted}
+    small = bucketed.plan.small
+    expect(small is not None, "phase 7: the 150 m tile gave no small-sphere "
+           f"bucket at p{BUCKET_PERCENTILE}")
+    bucket_rep = _loop_report("buckets", bucketed, log_b, 1, launches,
+                              per_step, per_val, wall_s, card, log)
+    runs_by = bucketed.graph_counts()["train_runs_by"]
+    small_replays = sum(n for key, n in runs_by.items()
+                        if key.startswith("small "))
+    steps_by_bucket = bucketed.epoch_times[-1]["buckets"]
+    expect(small_replays >= 1, f"phase 7: the small bucket's graph was "
+           f"replayed {small_replays} times (steps by bucket "
+           f"{steps_by_bucket})")
+    log(f"[{card}] phase 7 buckets: plan {bucketed.plan}; small plan "
+        f"{bucketed.plan_small and bucketed.plan_small.num_points}; steps "
+        f"by bucket {steps_by_bucket}; small graph replays {small_replays}; "
+        f"graphs {sorted(runs_by)}")
+    report["buckets"] = dict(plan=vars(bucketed.plan), report=bucket_rep,
+                             steps_by_bucket=steps_by_bucket,
+                             small_replays=small_replays)
+    torch.cuda.synchronize()
+    report["memory"] = dict(
+        peak_allocated=torch.cuda.max_memory_allocated(),
+        allocated=torch.cuda.memory_allocated(),
+        reserved=torch.cuda.memory_reserved(),
+        graphs=len(trainer.graph_counts()["train_runs_by"]) + len(runs_by)
+        + 2)
+    m = report["memory"]
+    log(f"[{card}] phase 7 device memory with every graph alive "
+        f"({m['graphs']} graphs of two trainers): peak allocated "
+        f"{m['peak_allocated'] / 2**20:.1f} MiB, allocated "
+        f"{m['allocated'] / 2**20:.1f} MiB, reserved "
+        f"{m['reserved'] / 2**20:.1f} MiB")
+    return report
 
 
 def _loop_report(label, trainer, logdir, epochs, launches, per_step,
@@ -1073,18 +1422,27 @@ def _loop_report(label, trainer, logdir, epochs, launches, per_step,
     expect(len(trainer.epoch_drops) == len(trainer.epoch_times)
            and not any(trainer.epoch_drops),
            f"loop {label}: neighbor drops {trainer.epoch_drops}")
-    want = {k: per_step.get(k, 0) * steps + per_val.get(k, 0) * batches
+    counts = trainer.graph_counts()
+    expect(trainer.graphed and counts["train_replayed_steps"] == steps
+           and counts["eval_replays"] == batches,
+           f"loop {label}: {counts} for {steps} steps and {batches} "
+           "validation batches: not every step and batch was replayed")
+    # Each capture's warm-up runs one step (batch) on the card
+    want = {k: per_step.get(k, 0) * (steps + counts["train_warmups"])
+            + per_val.get(k, 0) * (batches + counts["eval_warmups"])
             for k in launches}
     expect(launches == want, f"loop {label}: launches {launches}, "
-           f"expected {want} for {steps} steps and {batches} validation "
-           "batches")
-    # Host clock between consecutive dispatches (log column, ms
-    # resolution), steps 2.. of each epoch
-    gaps = []
-    for e in sorted({int(r[0]) for r in rows}):
-        walls = [float(r[5]) for r in rows if int(r[0]) == e]
-        gaps += list(np.diff(walls)[1:] if len(walls) > 2 else [])
-    steady = 1e3 * float(np.mean(gaps)) if gaps else None
+           f"expected {want} for {steps} replayed steps and {batches} "
+           f"replayed validation batches and their graphs' warm-ups "
+           f"({counts})")
+    # Host ms between consecutive dispatches (each of up to K steps), and
+    # ms per step of the epochs after a run's first (whose clock holds
+    # the graphs' captures)
+    gaps = [1e3 * float(g) for e in trainer.epoch_times
+            for g in np.diff(e["dispatch_stamps"])]
+    later = trainer.epoch_times[1:]
+    steady = (1e3 * sum(e["seconds"] for e in later)
+              / max(sum(e["steps"] for e in later), 1) if later else None)
     epochs_rep = []
     for e in trainer.epoch_times:
         n = max(e["steps"], 1)
@@ -1102,22 +1460,24 @@ def _loop_report(label, trainer, logdir, epochs, launches, per_step,
                  calibration_s=trainer.calibration_seconds)
     log(f"[{card}] loop {label}: {len(trainer.epoch_times)} epochs, {steps} "
         f"real steps, {batches} validation batches in {wall_s:.1f} s; "
-        f"launches {launches}; losses {losses}; mIoU "
+        f"graphs {counts}; launches {launches}; losses {losses}; mIoU "
         f"{trainer.last_mIoU:.2f} %")
     for r in epochs_rep:
+        parts = ", ".join(f"{k[:-12]} {r[k]:.2f}" for k in r
+                          if k.endswith("_ms_per_step"))
         log(f"[{card}] loop {label} epoch {r['epoch']}: "
-            f"{r['ms_per_step']:.2f} ms per step over the epoch ("
-            + ", ".join(f"{k[:-12]} {r[k]:.2f}" for k in r
-                        if k.endswith("_ms_per_step"))
-            + f" ms per step), {r['points_per_s']:.0f} real points/s")
+            f"{r['ms_per_step']:.2f} ms per step over the epoch"
+            + (f" ({parts} ms per step)" if parts else "")
+            + f", {r['points_per_s']:.0f} real points/s")
     for v in vals:
         log(f"[{card}] loop {label} validation after epoch {v['epoch']}: "
             f"{v['ms_per_batch']:.2f} ms per batch ({v['batches']} batches)")
-    if steady is not None:
-        log(f"[{card}] loop {label}: {steady:.2f} ms per step between "
-            "dispatches, steps 2.. of each epoch")
+    log(f"[{card}] loop {label}: host ms between dispatches "
+        f"{[round(g, 2) for g in gaps]}; ms per step over the epochs after "
+        f"the first: {steady if steady is None else round(steady, 2)}")
     return dict(label=label, steps=steps, val_batches=batches,
-                launches=launches, losses=losses, wall_s=wall_s,
+                launches=launches, graphs=counts, losses=losses,
+                wall_s=wall_s, dispatch_gaps_ms=gaps,
                 step_ms_steady=steady, epochs=epochs_rep, validation=vals,
                 setup=setup, mIoU=trainer.last_mIoU)
 
@@ -1265,7 +1625,7 @@ def main(argv=None) -> int:
             region_lb=t["region_lb"])
     train_model.load_state_dict(start[0])
     comparison = compare_train_steps(train_model, start[1], shared, config,
-                                     log)
+                                     log, plan=plan)
     tprof_rows, tbusy, twall = profile_step(
         lambda: train_step(train_model, opt_state, batches[1], config, plan,
                            config.learning_rate, device=dev), log,

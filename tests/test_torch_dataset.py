@@ -12,6 +12,7 @@ the potentials after each. Payload points and features may differ by
 1e-6 (f32 arithmetic in the same order).
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -123,16 +124,51 @@ def test_calibrated_plan_equal_and_cached(both):
     assert os.path.exists(os.path.join(proot, "shape_plans_torch.json"))
     assert not os.path.exists(os.path.join(proot, "shape_plans.json"))
     assert pds[0].calibration(num_samples=1) == pplan     # from the cache
-    # JSON: the port's own round trip, and a plan the JAX package saved
-    # (its `bands` and `small` fields dropped)
+    # JSON: the port's own round trip (with and without a small-sphere
+    # bucket), and a plan the JAX package saved (its `bands` dropped, its
+    # `small` kept)
     pplan.save(os.path.join(proot, "plan.json"))
     assert ShapePlan.load(os.path.join(proot, "plan.json")) == pplan
-    jplan.bands, jplan.small = {"kpconv": None}, {"cut": 1}
+    small = {"num_points": [8, 8, 8], "cut": 1}
+    bucketed = dataclasses.replace(pplan, small=small)
+    bucketed.save(os.path.join(proot, "plan_small.json"))
+    loaded = ShapePlan.load(os.path.join(proot, "plan_small.json"))
+    assert loaded == bucketed and loaded.derive_small().num_points == [8] * 3
+    jplan.bands, jplan.small = {"kpconv": None}, small
     jplan.save(os.path.join(jroot, "plan.json"))
-    assert ShapePlan.load(os.path.join(jroot, "plan.json")) == pplan
+    assert ShapePlan.load(os.path.join(jroot, "plan.json")) == bucketed
     # The potentials are those from before the calibration
     np.testing.assert_array_equal(pds[0].potentials[0],
                                   jds[0].potentials[0])
+
+
+@pytest.mark.parametrize("tight", [False, True])
+def test_plan_saturation_audit_equals_jax(both, tight):
+    """The port's audit (data/telemetry.py) and the JAX package's on the
+    same plan and seed: equal reports, warnings included (a plan cut to
+    half its budgets makes some), its line for plan_saturation.txt equal,
+    and the potentials of both datasets unmoved."""
+    from weasal_tpu.data.telemetry import (
+        audit_plan_saturation as jax_audit,
+        format_saturation_line as jax_line)
+    from weasal_tpu_torch.data.telemetry import (audit_plan_saturation,
+                                                 format_saturation_line)
+    jds, pds, _ = both
+    plan = pds[0].calibration(num_samples=12)
+    if tight:
+        plan = dataclasses.replace(
+            plan, num_points=[n // 2 for n in plan.num_points],
+            conv_neighbors=[k // 2 for k in plan.conv_neighbors],
+            max_regions=1)
+    before = [p.copy() for p in pds[0].potentials]
+    got = audit_plan_saturation(pds[0], plan, rng=np.random.default_rng(9))
+    want = jax_audit(jds[0], plan, rng=np.random.default_rng(9))
+    assert got == want
+    assert bool(got["warnings"]) == tight
+    assert format_saturation_line(3, got) == jax_line(3, want)
+    for a, b, c in zip(pds[0].potentials, before, jds[0].potentials):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, c)
 
 
 def _assert_payload_equal(got, want):

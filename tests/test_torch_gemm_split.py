@@ -13,12 +13,16 @@ tests/test_torch_cuda.py). It also shows that single-pass TF32 misses that
 tolerance, which is why the core does not use it.
 
 The tensor cores add each MMA's products to the accumulator with
-truncation (round toward zero), which on operands of one sign makes the
-sum drift: the emulation models that, takes each MMA's 8 products
-exactly (a TF32 product fits in f32), and, as the core does, starts each
-32-deep stage from zero and adds the stage's sum to the running f32 sum
-rounded to nearest. It shows that this keeps the drift at f32 level,
-where one truncating accumulator over the depth does not.
+truncation (round toward zero), which makes a sum drift toward zero: the
+emulation models that, taking each MMA's 8 products exactly (a TF32
+product fits in f32) and rounding their sum with the accumulator toward
+zero. As the core does, each 32-deep stage runs four chains from zero
+(its small products with the first big product, then each other big
+product alone), and each chain's result goes into the running f32 sum,
+rounded to nearest, after `untruncate` adds its last bit (half an ulp on
+average, what the truncation took). It shows that this leaves no drift
+at the f32 level, where one truncating accumulator over the depth, or one
+chain of a stage's twelve MMAs, does drift.
 """
 
 import numpy as np
@@ -51,33 +55,80 @@ def round_toward_zero(exact: np.ndarray) -> np.ndarray:
     return r
 
 
+def untruncate(x: np.ndarray) -> np.ndarray:
+    """The core's `untruncate`: one integer add of the last bit of each
+    f32 value, moving it one ulp away from zero when that bit is 1."""
+    bits = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    return (bits + (bits & np.uint32(1))).view(np.float32)
+
+
+def _slabs(a: np.ndarray, b: np.ndarray, steps: int) -> np.ndarray:
+    """[steps, m, n] exact products of each 8-deep step, the depth padded
+    with zeros as the core's tiles are."""
+    m, depth = a.shape
+    pad = steps * 8 - depth
+    a = np.pad(a.astype(np.float64), ((0, 0), (0, pad)))
+    b = np.pad(b.astype(np.float64), ((0, pad), (0, 0)))
+    return np.einsum("msk,skn->smn", a.reshape(m, steps, 8),
+                     b.reshape(steps, 8, b.shape[1]))
+
+
+def _rn_add(total: np.ndarray, x: np.ndarray) -> np.ndarray:
+    return (total.astype(np.float64) + x).astype(np.float32)
+
+
 def mma_product(pairs, depth: int, stage_steps: int = STAGE_STEPS):
-    """sum over `pairs` of a @ b, in the order of the core: per 8-deep
-    step one MMA per pair in order, each adding its 8 exact products to
-    the stage accumulator with truncation; every `stage_steps` steps the
-    stage's sum goes into the running sum, rounded to nearest."""
+    """sum over `pairs` of a @ b with one truncating chain a stage: per
+    8-deep step one MMA per pair in order, each adding its 8 exact
+    products to the stage accumulator with truncation; every
+    `stage_steps` steps the stage's sum goes into the running sum,
+    rounded to nearest (the core's arrangement before its chains were cut
+    to one big product, and with stage_steps = depth one accumulator)."""
     m, n = pairs[0][0].shape[0], pairs[0][1].shape[1]
     steps = -(-depth // 8)
-    slabs = []
-    for a, b in pairs:
-        pad = steps * 8 - depth
-        a = np.pad(a.astype(np.float64), ((0, 0), (0, pad)))
-        b = np.pad(b.astype(np.float64), ((0, pad), (0, 0)))
-        slabs.append(np.einsum("msk,skn->smn", a.reshape(m, steps, 8),
-                               b.reshape(steps, 8, n)))
+    slabs = [_slabs(a, b, steps) for a, b in pairs]
     total = np.zeros((m, n), dtype=np.float32)
     acc = np.zeros((m, n), dtype=np.float32)
     for s in range(steps):
         if s % stage_steps == 0:
-            total = (total.astype(np.float64) + acc).astype(np.float32)
+            total = _rn_add(total, acc)
             acc = np.zeros((m, n), dtype=np.float32)
         for slab in slabs:
             acc = round_toward_zero(acc.astype(np.float64) + slab[s])
-    return (total.astype(np.float64) + acc).astype(np.float32)
+    return _rn_add(total, acc)
 
 
-def tf32x3(a: np.ndarray, b: np.ndarray,
-           stage_steps: int = STAGE_STEPS) -> np.ndarray:
+def core_product(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """a @ b as the core sums it: per 32-deep stage the small products of
+    its 4 steps and the first big product in one truncating chain from
+    zero, then each other big product from zero; each chain's result,
+    untruncated, added to the running sum rounded to nearest."""
+    a_big, a_small = split_tf32(a)
+    b_big, b_small = split_tf32(b)
+    steps = -(-a.shape[1] // 32) * 4
+    small = [_slabs(a_small, b_big, steps), _slabs(a_big, b_small, steps)]
+    big = _slabs(a_big, b_big, steps)
+    total = np.zeros(big.shape[1:], dtype=np.float32)
+    for stage in range(0, steps, STAGE_STEPS):
+        acc = np.zeros_like(total)
+        for s in range(stage, stage + STAGE_STEPS):
+            for slab in small:
+                acc = round_toward_zero(acc.astype(np.float64) + slab[s])
+        for s in range(stage, stage + STAGE_STEPS):
+            start = acc if s == stage else np.zeros_like(total)
+            acc = round_toward_zero(start.astype(np.float64) + big[s])
+            total = _rn_add(total, untruncate(acc))
+    return total
+
+
+def tf32x3(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    return core_product(a, b)
+
+
+def stage_chained_tf32x3(a: np.ndarray, b: np.ndarray,
+                         stage_steps: int = STAGE_STEPS) -> np.ndarray:
+    """3xTF32 with each stage's twelve MMAs in one truncating chain (or,
+    with stage_steps = depth, one accumulator over the depth)."""
     a_big, a_small = split_tf32(a)
     b_big, b_small = split_tf32(b)
     return mma_product([(a_small, b_big), (a_big, b_small), (a_big, b_big)],
@@ -170,6 +221,52 @@ def test_stage_sums_stop_the_truncation_drift(depth):
     b = np.abs(rng.standard_normal((depth, 32))).astype(np.float32)
     ref = a.astype(np.float64) @ b.astype(np.float64)
     staged = float(((tf32x3(a, b) - ref) / ref).mean())
-    one_chain = float(((tf32x3(a, b, stage_steps=depth) - ref) / ref).mean())
+    one_chain = float(((stage_chained_tf32x3(a, b, stage_steps=depth) - ref)
+                       / ref).mean())
     assert abs(staged) < 1e-6
     assert one_chain < -5e-6
+
+
+# (f32 bits in, bits out): the last bit 0 stays, 1 moves one ulp away from
+# zero, a carry into the exponent, zeros and the smallest subnormal
+UNTRUNCATE_CASES = [
+    (0x3F800000, 0x3F800000),
+    (0x3F800001, 0x3F800002),
+    (0xBF800001, 0xBF800002),
+    (0x3FFFFFFF, 0x40000000),
+    (0x00000000, 0x00000000),
+    (0x80000000, 0x80000000),
+    (0x00000001, 0x00000002),
+]
+
+
+@pytest.mark.parametrize("bits_in,bits_out", UNTRUNCATE_CASES,
+                         ids=[f"{a:08x}" for a, _ in UNTRUNCATE_CASES])
+def test_untruncate_bit_patterns(bits_in, bits_out):
+    x = np.array([bits_in], dtype=np.uint32).view(np.float32)
+    assert int(untruncate(x).view(np.uint32)[0]) == bits_out
+    # the same as adding half an ulp away from zero, rounded to nearest even
+    half_ulp = np.float64(np.spacing(np.abs(x[0]))) / 2 * np.sign(x[0])
+    assert np.float32(np.float64(x[0]) + half_ulp) == untruncate(x)[0]
+
+
+@pytest.mark.parametrize("operands", ["positive", "mixed"])
+@pytest.mark.parametrize("depth", [960, 7680])
+def test_single_big_product_chains_leave_no_drift(depth, operands):
+    # The mean signed error to f64, relative to the mean |output|: a chain
+    # of a stage's twelve MMAs drifts toward zero by ~2e-7 (about what the
+    # card measured for that arrangement); chains of one big product with
+    # their truncation undone stay at the f32 rounding noise
+    rng = np.random.default_rng(depth + 2)
+    a = np.abs(rng.standard_normal((48, depth))).astype(np.float32)
+    b = rng.standard_normal((depth, 32)).astype(np.float32)
+    if operands == "positive":
+        b = np.abs(b)
+    ref = a.astype(np.float64) @ b.astype(np.float64)
+
+    def drift(got):
+        err = (got.astype(np.float64) - ref) * np.sign(ref)
+        return float(err.mean() / np.abs(ref).mean())
+
+    assert drift(stage_chained_tf32x3(a, b)) < -1e-7
+    assert abs(drift(tf32x3(a, b))) < 1.5e-8

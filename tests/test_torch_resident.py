@@ -3,10 +3,11 @@
 - `pack_payloads`: equal arrays from the same gather-less payloads and
   seed.
 - `assemble_level0_device` (on the CPU here) against the JAX function,
-  given the JAX jitter draws: each sphere's points and features in
-  `input_inds` order (each side gathered back through its own `unsort`)
-  to 1e-5, labels and masks exactly, region members by their points; and
-  `unsort` brings the rows back to `input_inds` order.
+  each drawing its own jitter from the shipped seeds (utils/prng: JAX's
+  threefry bits, normals within a few ulp): each sphere's points and
+  features in `input_inds` order (each side gathered back through its
+  own `unsort`) to 1e-5, labels and masks exactly, region members by
+  their points; and `unsort` brings the rows back to `input_inds` order.
 - `DeviceVoteAccumulator`: the same buffers after the same updates, with
   and without the radius mask, with spheres of one batch overlapping,
   to 1e-6.
@@ -95,11 +96,11 @@ def test_assemble_level0_device_equals_jax(setup, split):
     n0 = plan.num_points[0]
     noise = _jax_noise(small["noise_seed"], n0)
 
-    batch_t = {k: (v if k == "noise_seed" else torch.from_numpy(v))
+    batch_t = {k: torch.from_numpy(v.astype(np.int64) if k == "noise_seed"
+                                   else v)
                for k, v in small.items()}
     got = pres.assemble_level0_device({**batch_t, **src.resident.arrays},
-                                      cfg, plan, True, spec,
-                                      noise=torch.from_numpy(noise))
+                                      cfg, plan, True, spec)
     want = jax.jit(lambda b: jres.assemble_level0_device(
         b, cfg, plan, True, spec))({**{k: jnp.asarray(v)
                                        for k, v in small.items()},
@@ -142,10 +143,14 @@ def test_assemble_level0_device_equals_jax(setup, split):
 
 
 def test_seeded_jitter_is_deterministic(setup):
-    a = pres.sphere_noise(np.array([5, 7], np.uint32), 40, "cpu")
-    b = pres.sphere_noise(np.array([5, 9], np.uint32), 40, "cpu")
+    a = pres.sphere_noise(torch.tensor([5, 7]), 40)
+    b = pres.sphere_noise(torch.tensor([5, 9]), 40)
     assert a.shape == (2, 40, 3)
     assert torch.equal(a[0], b[0]) and not torch.equal(a[1], b[1])
+    # each sphere's jitter is JAX's draw for its seed (within a few ulp)
+    np.testing.assert_allclose(a.numpy(), _jax_noise(np.array([5, 7],
+                                                              np.uint32), 40),
+                               rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("radius", [None, 0.7 * 8.0])

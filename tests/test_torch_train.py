@@ -53,6 +53,8 @@ from weasal_tpu_torch.models import losses
 from weasal_tpu_torch.models.blocks import MaskedBatchNorm
 from weasal_tpu_torch.ops.pyramid import batch_from_device_pyramid
 from weasal_tpu_torch.train.optim import sgd_step
+from weasal_tpu_torch.train.step import (class_weights, label_table,
+                                         step_body, step_outputs)
 from tests._warm_torch import cpu_torch
 from tests.test_torch_model import TinyConfig, _as_dicts, _randomize
 
@@ -241,6 +243,46 @@ def test_sgd_matches_make_optimizer_over_three_updates():
     assert norms[0] > 1.0 > norms[2]
 
 
+def test_sgd_with_a_tensor_lr_matches_optax_across_an_lr_change():
+    """The learning rate as a 0-d tensor (what a captured step reads),
+    changed in place between updates as the trainer's per-epoch decay
+    does, against make_optimizer and optax's -lr * u, p + u with the
+    same f32 learning rates: parameters and momentum to rtol 1e-6, atol
+    1e-7, as the float-lr test above."""
+    rng = np.random.default_rng(6)
+    cfg = TinyConfig()
+    params = {"a": rng.normal(size=(3, 4)).astype(np.float32),
+              "b": rng.normal(size=(5,)).astype(np.float32)}
+    grads = [{k: (s * rng.normal(size=v.shape)).astype(np.float32)
+              for k, v in params.items()} for s in (3.0, 0.8, 0.01)]
+    rates = [cfg.learning_rate, cfg.learning_rate,
+             cfg.learning_rate * 0.98]
+    tx = make_optimizer(cfg, jax.tree_util.tree_map(jnp.asarray, params))
+    jp = jax.tree_util.tree_map(jnp.asarray, params)
+    opt = tx.init(jp)
+    model = _TwoParams(params["a"], params["b"])
+    state = init_opt_state(model)
+    lr_t = torch.full((), rates[0], dtype=torch.float32)
+    for g, lr in zip(grads, rates):
+        updates, opt = tx.update(jax.tree_util.tree_map(jnp.asarray, g),
+                                 opt, jp)
+        jp = optax.apply_updates(jp, jax.tree_util.tree_map(
+            lambda u: -jnp.float32(lr) * u, updates))
+        lr_t.fill_(lr)
+        for name, p in model.named_parameters():
+            p.grad = torch.from_numpy(g[name])
+        sgd_step(model, state, cfg, lr_t)
+        for name, p in model.named_parameters():
+            np.testing.assert_allclose(p.detach().numpy(),
+                                       np.asarray(jp[name]),
+                                       rtol=1e-6, atol=1e-7)
+        trace = from_jax_opt_state(_np_tree(opt))
+        for name in state:
+            np.testing.assert_allclose(state[name].numpy(),
+                                       trace[name].numpy(),
+                                       rtol=1e-6, atol=1e-7)
+
+
 def test_sgd_refuses_deformable_offsets_and_foreign_state():
     class Offsets(nn.Module):
         def __init__(self):
@@ -381,6 +423,49 @@ def test_train_step_moves_params_and_statistics(three_steps):
     assert any(k.endswith("KPConv.weights") for k in changed)
     assert not any(k.endswith("kernel_points") for k in changed)
     assert all(np.isfinite(v.numpy()).all() for v in last.values())
+
+
+def test_static_step_body_equals_train_step_bit_for_bit():
+    """`step_body` on preallocated outputs (what the trainer runs eagerly
+    or captures) against `train_step` from one state on one batch, on
+    the CPU: loss, accuracy, drops, parameters, statistics and momentum
+    bit for bit, with the learning rate as a tensor in one and a float in
+    the other."""
+    cfg = TinyConfig()
+    rng = np.random.default_rng(8)
+    plan = calibrate_shape_plan(
+        [port_demo.demo_sphere(rng, cfg, density=8.0)["points"]
+         for _ in range(3)], cfg, region_budget=(8, 64), rng=rng)
+    arrays = port_level0.assemble_level0(
+        [port_demo.thin_payload(port_demo.demo_sphere(rng, cfg, density=8.0),
+                                plan.num_points[0], rng) for _ in range(2)],
+        plan, cfg.num_classes, rng)
+    runs = []
+    for static in (False, True):
+        model = KPFCNN_mprm(cfg, tuple(range(9)), (),
+                            generator=torch.Generator().manual_seed(4))
+        state = init_opt_state(model)
+        if static:
+            out = step_outputs(plan, "cpu", steps=2)
+            row = {k: v[1] for k, v in out.items()}
+            step_body(model, state, to_device(arrays, "cpu"), cfg, plan,
+                      torch.full((), cfg.learning_rate), row,
+                      class_weights(cfg, "cpu"), label_table(model, "cpu"))
+            loss, acc, drops = row["stats"][0], row["stats"][1], row["drops"]
+            assert not out["stats"][0].any()          # row 0 untouched
+        else:
+            loss, acc, drops = train_step(model, state, arrays, cfg, plan,
+                                          cfg.learning_rate, device="cpu")
+        runs.append((loss.clone(), acc.clone(), drops.clone(),
+                     {k: v.clone() for k, v in model.state_dict().items()},
+                     {k: v.clone() for k, v in state.items()}))
+    (la, aa, da, sa, ta), (lb, ab, db, sb, tb) = runs
+    assert torch.equal(la, lb) and torch.equal(aa, ab)
+    assert torch.equal(da, db) and not da.any()
+    for key in sa:
+        assert torch.equal(sa[key], sb[key]), key
+    for key in ta:
+        assert torch.equal(ta[key], tb[key]), key
 
 
 def test_train_step_takes_the_class_logits_loss_by_config():

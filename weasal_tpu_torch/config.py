@@ -95,6 +95,14 @@ class Config:
     resident_clouds = "auto"
     # Level-0 sizing percentile of the shape plan (data/batching.py)
     plan_point_percentile = 100.0
+    # Small-sphere plan bucket (data/batching.py): > 0 sizes a second,
+    # smaller plan for batches of small spheres at this level-0 percentile
+    plan_bucket_percentile = 0.0
+    # Training steps per dispatch (train/trainer.py): an int, or "auto"
+    steps_per_dispatch = "auto"
+    # Seconds without progress before the stall watchdog ends the process
+    # (utils/watchdog.py; armed on CUDA only; <= 0 disables)
+    stall_watchdog_s = 900
 
     def __init__(self):
         self.num_layers = len(
@@ -298,6 +306,9 @@ class Config:
             if float(getattr(self, "plan_point_percentile", 100.0)) != 100.0:
                 w("plan_point_percentile = "
                   f"{float(self.plan_point_percentile):.6f}\n")
+            if float(getattr(self, "plan_bucket_percentile", 0.0)) > 0.0:
+                w("plan_bucket_percentile = "
+                  f"{float(self.plan_bucket_percentile):.6f}\n")
 
 
 class VaihingenWLConfig(Config):

@@ -21,15 +21,22 @@ inline size_t influence_smem_bytes(int n_kp, int k) {
 
 // Loads the k neighbor indices of query `row` (sphere b) into nbs, -1 for
 // a shadow (nb >= ns), and the influences h[p * k + j] = h_p(s[nb_j] - q)
-// into h; both in shared memory, each pass ended by a barrier. Direct
-// differences s - q - kp_p with each axis rounded separately and no fused
-// multiply-add, as the plain PyTorch version computes them.
+// into h; both in shared memory, each pass ended by a barrier. Each step
+// rounded as the plain PyTorch version rounds it on the card, so that the
+// influences are its own bit for bit: direct differences s - q - kp_p with
+// each axis rounded separately, no fused multiply-add, and a division by
+// ext or den as a product with the reciprocal rounded to f32 (PyTorch's
+// CUDA division by a Python scalar). A true division put the kernel's
+// influences one ulp off theirs on many pairs, a bias of one sign in y
+// (-5e-8 against their +9e-8, relative, on an H100) that the training
+// step's BatchNorm gradients amplified.
 //   linear: relu(1 - |d| / ext); constant: 1; gaussian: exp(-|d|^2 / den)
 __device__ __forceinline__ void row_influences(
     size_t row, int b, const float* __restrict__ q,
     const float* __restrict__ s, const int32_t* __restrict__ nb,
     const float* __restrict__ kp, int ns, int k, int n_kp, float ext,
     int influence, float gauss_den, float* h, int* nbs) {
+  const float inv_ext = __frcp_rn(ext), inv_den = __frcp_rn(gauss_den);
   const float qx = q[row * 3 + 0];
   const float qy = q[row * 3 + 1];
   const float qz = q[row * 3 + 2];
@@ -56,9 +63,9 @@ __device__ __forceinline__ void row_influences(
       if (influence == 0) {
         w = 1.f;
       } else if (influence == 1) {
-        w = fmaxf(__fsub_rn(1.f, __fdiv_rn(sqrtf(d2), ext)), 0.f);
+        w = fmaxf(__fsub_rn(1.f, __fmul_rn(sqrtf(d2), inv_ext)), 0.f);
       } else {
-        w = expf(__fdiv_rn(-d2, gauss_den));
+        w = expf(__fmul_rn(-d2, inv_den));
       }
     }
     h[i] = w;
@@ -94,13 +101,21 @@ __device__ __forceinline__ void row_influences(
 // (relative 2^-22) is dropped. Its operation bound is 3 x 2MNK / 495e12 s,
 // 2.5x below the f32 one.
 // The tensor cores add each wgmma's products to its f32 accumulator with
-// truncation, not round-to-nearest, so on operands of one sign a long
-// chain of wgmmas into one accumulator drifts low: by ~8e-6, relative,
-// over depth 960 in the CPU emulation of tests/test_torch_gemm_split.py,
-// against ~1e-9 for cuBLAS f32 on the card. So each 32-deep stage starts
-// its accumulator from zero, and the stage's sum is added to a second
-// register set in f32 round-to-nearest; the drift then stays near 2e-7
-// (chip_smoke.py's phase 2 measures it on the card).
+// truncation (round toward zero), not round-to-nearest, so a sum drifts
+// toward zero by about half an ulp of the accumulator per wgmma: over
+// depth 960 one accumulator drifts by ~8e-6, relative, on operands of one
+// sign in the CPU emulation of tests/test_torch_gemm_split.py, against
+// ~1e-9 for cuBLAS f32 on the card. A drift of one sign in B's outputs
+// is what BatchNorm's gradients, sums over every point, amplify: with the
+// twelve wgmmas of a 32-deep stage in one chain (-2.2e-7 on an H100) a
+// training step at the loop's shapes landed past its f64 allowance. So
+// no chain holds more than one big product: a stage sums its small
+// products and its first big one from zero, then each other big product
+// from zero, and each of the four results goes into a second register set
+// in f32 round-to-nearest, after `untruncate` (below) has undone its
+// truncation on average. The small products' own truncations are 2^-11
+// smaller. The emulation puts the drift at ~1e-9; chip_smoke.py's phase 2
+// measures it on the card.
 //
 // Design: a block of 2 warpgroups computes 128 x BN outputs (BN = 32 for
 // N <= 32, else 64), depth 32 a stage:
@@ -117,8 +132,9 @@ __device__ __forceinline__ void row_influences(
 //   y and g for y^T @ g; nothing is transposed in device memory.
 // - MMA: wgmma.mma_async m64nBNk8 tf32, A from registers, B from the
 //   planes; each warpgroup owns 64 rows and runs 3 x 4 wgmmas a stage
-//   into the stage accumulator (BN / 2 floats a thread), then adds it to
-//   the running sum (BN / 2 more).
+//   in four chains (9, 1, 1, 1) into the stage accumulator (BN / 2
+//   floats a thread), adding each chain's result to the running sum
+//   (BN / 2 more) before the next starts.
 // - Overlap: the planes and fragments are single-buffered, so a block
 //   alternates between its wgmmas and its next split (two barriers a
 //   stage). <= 128 registers a thread (__launch_bounds__(256, 2); the two
@@ -289,6 +305,16 @@ __device__ __forceinline__ void load_tile(float* dst,
 // longer sequence that also screens NaNs.
 __device__ __forceinline__ uint32_t to_tf32(float x) {
   return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// A wgmma's result x is its exact sum rounded toward zero: it lies up to
+// one ulp short of the sum, half an ulp on average. Adding half an ulp of
+// x away from zero and rounding to nearest-even gives x + ulp when x's last
+// bit is 1 and x when it is 0: half an ulp on average, as one integer add
+// of that bit (a carry moves into the exponent; 0 stays 0).
+__device__ __forceinline__ float untruncate(float x) {
+  const uint32_t u = __float_as_uint(x);
+  return __uint_as_float(u + (u & 1u));
 }
 
 // x = big + small (+ a remainder below 2^-22 |x|), both TF32 values.
@@ -471,8 +497,8 @@ __global__ void __launch_bounds__(kGemmThreads, kBlocksPerSm)
   const int n_kt = min(kt_total, kt_begin + kt_per_split) - kt_begin;
   float* out = C + (size_t)blockIdx.z * M * N;
 
-  // acc: one stage's products, summed by the tensor cores; sum: the
-  // stages' sums, added in f32 round-to-nearest (see the note above)
+  // acc: one chain's products, summed by the tensor cores; sum: the
+  // chains' results, added in f32 round-to-nearest (see the note above)
   float acc[BN / 2], sum[BN / 2];
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) acc[i] = sum[i] = 0.f;
@@ -505,23 +531,30 @@ __global__ void __launch_bounds__(kGemmThreads, kBlocksPerSm)
   load_stage(2);
 
   for (int i = 0; i < n_kt; ++i) {
-    fence_operands(acc);
-    fence_operands(fa);
-    wgmma_fence();
+    // Four chains, each from zero: the small products of the 4 depth steps
+    // of 8 (8 depths = 32 bytes further along the swizzled rows) with the
+    // first big one, then each other big product alone
 #pragma unroll
     for (int s = 0; s < 4; ++s) {
-      // 8 depths = 32 bytes further along the swizzled rows; the stage's
-      // first wgmma starts acc from zero
-      wgmma_tf32<BN>(acc, fa[1][s], sw128_desc(planes + s * 8), s > 0);
-      wgmma_tf32<BN>(acc, fa[0][s], sw128_desc(planes + kB + s * 8), 1);
-      wgmma_tf32<BN>(acc, fa[0][s], sw128_desc(planes + s * 8), 1);
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_operands(acc);
-    fence_operands(fa);
+      fence_operands(acc);
+      fence_operands(fa);
+      wgmma_fence();
+      if (s == 0) {
 #pragma unroll
-    for (int j = 0; j < BN / 2; ++j) sum[j] = __fadd_rn(sum[j], acc[j]);
+        for (int t = 0; t < 4; ++t) {
+          wgmma_tf32<BN>(acc, fa[1][t], sw128_desc(planes + t * 8), t > 0);
+          wgmma_tf32<BN>(acc, fa[0][t], sw128_desc(planes + kB + t * 8), 1);
+        }
+      }
+      wgmma_tf32<BN>(acc, fa[0][s], sw128_desc(planes + s * 8), s == 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(acc);
+      fence_operands(fa);
+#pragma unroll
+      for (int j = 0; j < BN / 2; ++j)
+        sum[j] = __fadd_rn(sum[j], untruncate(acc[j]));
+    }
     if (i + 1 < n_kt) {
       // Both warpgroups' wgmmas are done with the planes after this
       // barrier, and raw stage i + 1 has landed (only stage i + 2's copies

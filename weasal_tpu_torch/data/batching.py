@@ -5,9 +5,9 @@ Counterpart of weasal_tpu/data/batching.py: `ShapePlan` (:36),
 `layer_radii` (:160), `build_sphere_pyramid` (:183) and
 `calibrate_shape_plan` (:236), running on the port's own host subsample
 and radius search. Random draws follow the JAX package's order, so one
-numpy seed gives both packages the same plan. The small-sphere bucket and
-the measured band windows are not ported: a plan written by the JAX
-package loads without them.
+numpy seed gives both packages the same plan, small-sphere bucket
+included. The measured band windows are not ported (the port's kernels
+are exact): a plan written by the JAX package loads without them.
 """
 
 from __future__ import annotations
@@ -32,15 +32,32 @@ class ShapePlan:
     up_neighbors: int = 1          # only column 0 is read (closest_pool)
     max_regions: int = 0           # R (weak-label sub-regions per sphere)
     max_region_points: int = 0     # P (points per sub-region)
+    # Optional small-sphere bucket ({"num_points": [N_l], "cut": int},
+    # config.plan_bucket_percentile > 0): training batches whose every
+    # sphere has <= `cut` level-0 points run at these budgets, nothing
+    # cropped
+    small: Optional[Dict] = None
 
     @property
     def num_layers(self) -> int:
         return len(self.num_points)
 
+    def derive_small(self) -> Optional["ShapePlan"]:
+        """The small bucket's plan: its per-level point budgets, every
+        other field inherited; None without a bucket."""
+        if not self.small:
+            return None
+        return ShapePlan(num_points=list(self.small["num_points"]),
+                         conv_neighbors=self.conv_neighbors,
+                         pool_neighbors=self.pool_neighbors,
+                         up_neighbors=self.up_neighbors,
+                         max_regions=self.max_regions,
+                         max_region_points=self.max_region_points)
+
     @classmethod
     def from_dict(cls, d: Dict) -> "ShapePlan":
-        """A plan from its JSON fields; fields of the JAX package's plan
-        that the port has no use for (`bands`, `small`) are dropped."""
+        """A plan from its JSON fields; the JAX package's `bands`, which
+        the port has no use for, are dropped."""
         names = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in d.items() if k in names})
 
@@ -192,11 +209,15 @@ def calibrate_shape_plan(sphere_point_clouds: Sequence[np.ndarray], config,
                          untouched_ratio: float = 0.9,
                          point_percentile: float = 100.0,
                          region_budget: Tuple[int, int] = (0, 0),
-                         rng: Optional[np.random.Generator] = None
-                         ) -> ShapePlan:
+                         rng: Optional[np.random.Generator] = None,
+                         bucket_percentile: float = 0.0) -> ShapePlan:
     """Static budgets from sampled spheres: N_l at `point_percentile` of
     the level-0 counts (p100 above level 0), padded ~10% and rounded up to
-    a multiple of 8; K_l keeps `untouched_ratio` of neighborhoods whole."""
+    a multiple of 8; K_l keeps `untouched_ratio` of neighborhoods whole.
+    `bucket_percentile` in (0, 100) adds the small-sphere bucket: the
+    level-0 `cut` at that percentile and p100 budgets of the spheres at or
+    below it, per level from their own counts; none when every sphere or
+    none falls in it, or when it would not be smaller at level 0."""
     rng = rng or np.random.default_rng(0)
     L = config.num_layers
     counts: List[List[int]] = [[] for _ in range(L)]
@@ -221,10 +242,24 @@ def calibrate_shape_plan(sphere_point_clouds: Sequence[np.ndarray], config,
                                 point_percentile if l == 0 else 100.0)
                   * 1.1 + 1, 8)
         for l in range(L)]
+
+    small = None
+    if 0.0 < bucket_percentile < 100.0:
+        counts0 = np.asarray(counts[0])
+        cut = int(np.percentile(counts0, bucket_percentile))
+        in_bucket = counts0 <= cut
+        if 0 < int(in_bucket.sum()) < len(counts0):
+            small_points = [
+                _round_up(np.asarray(counts[l])[in_bucket].max() * 1.1 + 1, 8)
+                for l in range(L)]
+            # every sphere routed by `cut` fits the bucket's level 0
+            small_points[0] = max(small_points[0], _round_up(cut + 1, 8))
+            if small_points[0] < num_points[0]:
+                small = {"num_points": small_points, "cut": cut}
     return ShapePlan(
         num_points=num_points,
         conv_neighbors=[percentile_width(conv_hist[l]) for l in range(L)],
         pool_neighbors=[percentile_width(pool_hist[l])
                         for l in range(L - 1)],
         max_regions=region_budget[0],
-        max_region_points=region_budget[1])
+        max_region_points=region_budget[1], small=small)

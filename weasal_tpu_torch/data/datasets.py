@@ -17,7 +17,7 @@ both the same spheres. Differences by design:
   arrays and dicts), and the trees are rebuilt from them; shape plans go
   to `shape_plans_torch.json`.
 - Anchor subsampling draws from `random.Random(ANCHOR_SEED)`.
-- The plan has no band windows and no small-sphere bucket.
+- The plan has no band windows.
 The 'test' and 'ERF' splits, and the pseudo-label and DALES datasets, are
 not ported.
 """
@@ -504,6 +504,9 @@ class CloudSegmentationDataset:
         pct = float(getattr(cfg, "plan_point_percentile", 100.0))
         if pct != 100.0:
             key += "_p{:g}".format(pct)
+        bkt = float(getattr(cfg, "plan_bucket_percentile", 0.0))
+        if bkt > 0.0:
+            key += "_b{:g}".format(bkt)
         return key
 
     def _load_plans(self) -> Dict:
@@ -543,7 +546,9 @@ class CloudSegmentationDataset:
             clouds, cfg, untouched_ratio=untouched_ratio,
             point_percentile=float(getattr(cfg, "plan_point_percentile",
                                            100.0)),
-            region_budget=r_budget, rng=rng)
+            region_budget=r_budget, rng=rng,
+            bucket_percentile=float(getattr(cfg, "plan_bucket_percentile",
+                                            0.0)))
         self.save_plan(plan)
         if verbose:
             print(f"Calibrated shape plan in {time.time() - t0:.1f}s: "

@@ -1,18 +1,24 @@
 """Background batch prefetching for the training loop.
 
-Counterpart of weasal_tpu/data/loader.py:27-165 (`BatchPrefetcher`, one
-step per batch):
+Counterpart of weasal_tpu/data/loader.py:27-165 (`BatchPrefetcher`):
 
 - a producer thread runs the source's `next_batch` ahead of the consumer
-  and queues up to `prefetch` ready batches; it is the only thread that
+  and queues up to `PREFETCH` ready items; it is the only thread that
   touches the dataset's state (potentials, the region buffer), so the
   sampler keeps one writer and needs no lock;
 - on a CUDA device the producer turns each batch's arrays into tensors in
-  page-locked host memory, and the consumer issues `non_blocking` copies
-  to the device just before the step, so no synchronous pageable copy
-  sits on the consumer's path;
-- the resident tensors (already on the device) are merged in after the
-  copy; `noise_seed` stays a numpy array (its seeds are read on the host);
+  page-locked host memory, so the consumer's copies to the device are
+  `non_blocking` and no synchronous pageable copy sits on its path;
+- with `pack=K` it stacks K batches into one [K, ...] host pack (a tail
+  pack holds the n < K batches left; the trainer runs those one step a
+  replay, so no masked step is padded in), drops batches that `keep_fn`
+  refuses before packing (they still use up `num_batches`, as the
+  unpacked loop's skip does) and never mixes the buckets of a bucketed
+  source in one pack; the consumer
+  copies each pack, or one step of it, into the static input tensors of
+  its step (`copy_batch`);
+- without `pack` it yields single batches already on the device, with
+  the resident tensors (on the device already) merged in;
 - an error in the producer is raised in the consumer.
 """
 
@@ -20,29 +26,51 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Dict, Iterator, Optional
+from typing import Callable, Dict, Iterator, Mapping, Optional
 
 import numpy as np
 import torch
 
-# Batch keys that stay numpy on the host
-HOST_KEYS = ("noise_seed",)
-# Ready batches the producer may hold ahead of the consumer
+# Ready items the producer may hold ahead of the consumer
 PREFETCH = 2
 
 
+def copy_batch(dst: Mapping[str, torch.Tensor],
+               src: Mapping[str, torch.Tensor]) -> None:
+    """Copy the host tensors `src` into the preallocated device tensors
+    `dst`, key by key, `non_blocking` on the current stream (no host
+    synchronization). Raises on a missing key or on a shape or dtype that
+    differs from the static tensor's: a captured graph replays one
+    shape."""
+    for key, static in dst.items():
+        value = src.get(key)
+        if value is None:
+            raise KeyError(f"batch has no {key!r} for the static inputs")
+        if tuple(value.shape) != tuple(static.shape) \
+                or value.dtype != static.dtype:
+            raise ValueError(
+                f"batch {key!r} is {tuple(value.shape)} {value.dtype}, the "
+                f"static input is {tuple(static.shape)} {static.dtype}")
+        static.copy_(value, non_blocking=True)
+
+
 class BatchPrefetcher:
-    """Iterator of (batch dict of tensors on `device`, metas)."""
+    """Iterator of (batch, metas): with `pack`, (host pack, [metas of each
+    real step]); without, (batch dict of tensors on `device`, metas)."""
 
     def __init__(self, source, num_batches: int, device,
                  rng: np.random.Generator, augment: Optional[bool] = None,
-                 extra_arrays: Optional[Dict[str, torch.Tensor]] = None):
+                 extra_arrays: Optional[Dict[str, torch.Tensor]] = None,
+                 pack: Optional[int] = None,
+                 keep_fn: Optional[Callable] = None):
         self.source = source
         self.num_batches = num_batches
         self.device = torch.device(device)
         self.rng = rng
         self.augment = augment
         self.extra_arrays = extra_arrays
+        self.pack = None if pack is None else max(int(pack), 1)
+        self.keep_fn = keep_fn
         self._pin = self.device.type == "cuda"
         self._queue: "queue.Queue" = queue.Queue(maxsize=PREFETCH)
         self._error: Optional[BaseException] = None
@@ -50,31 +78,52 @@ class BatchPrefetcher:
         self._thread = threading.Thread(target=self._produce, daemon=True)
         self._thread.start()
 
+    def _host_tensor(self, v: np.ndarray) -> torch.Tensor:
+        if v.dtype == np.uint32:            # noise seeds: no uint32 math
+            v = v.astype(np.int64)
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        return t.pin_memory() if self._pin else t
+
     def _host_tensors(self, batch: Dict) -> Dict:
-        out = {}
-        for k, v in batch.items():
-            if k in HOST_KEYS or v is None:
-                out[k] = v
-                continue
-            t = torch.from_numpy(np.ascontiguousarray(v))
-            out[k] = t.pin_memory() if self._pin else t
-        return out
+        # every key, the noise seeds included, becomes a tensor, so that
+        # every input of a step can live in a captured graph's tensors
+        return {k: (None if v is None else self._host_tensor(v))
+                for k, v in batch.items()}
+
+    def _emit_pack(self, buf, buf_metas):
+        stacked = {k: np.stack([b[k] for b in buf]) for k in buf[0]}
+        self._queue.put((self._host_tensors(stacked), buf_metas))
 
     def _produce(self):
         try:
+            bufs = {}
             for _ in range(self.num_batches):
                 if self._closed:
                     break
                 batch, metas = self.source.next_batch(self.rng,
                                                       augment=self.augment)
-                self._queue.put((self._host_tensors(batch), metas))
+                if self.keep_fn is not None and not self.keep_fn(metas):
+                    continue
+                if self.pack is None:
+                    self._queue.put((self._host_tensors(batch), metas))
+                    continue
+                tag = metas[0].get("bucket", "large") if metas else "large"
+                buf, buf_metas = bufs.setdefault(tag, ([], []))
+                buf.append(batch)
+                buf_metas.append(metas)
+                if len(buf) == self.pack:
+                    self._emit_pack(buf, buf_metas)
+                    bufs.pop(tag)
+            for buf, buf_metas in bufs.values():
+                if buf and not self._closed:
+                    self._emit_pack(buf, buf_metas)
         except BaseException as e:                     # raised in consumer
             self._error = e
         finally:
             self._queue.put(None)
 
     def _place(self, batch: Dict) -> Dict:
-        out = {k: (v if k in HOST_KEYS or v is None
+        out = {k: (None if v is None
                    else v.to(self.device, non_blocking=True))
                for k, v in batch.items()}
         if self.extra_arrays is not None:
@@ -82,6 +131,8 @@ class BatchPrefetcher:
         return out
 
     def __iter__(self) -> Iterator:
+        # With keep_fn or pack the producer may emit fewer items than
+        # num_batches; its None ends the iteration either way
         for _ in range(self.num_batches):
             item = self._queue.get()
             if item is None:
@@ -89,7 +140,7 @@ class BatchPrefetcher:
                     raise self._error
                 return
             batch, metas = item
-            yield self._place(batch), metas
+            yield (batch if self.pack else self._place(batch)), metas
         self._thread.join()
 
     def close(self):

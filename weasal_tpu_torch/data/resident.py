@@ -1,7 +1,7 @@
 """Device-resident clouds: the host ships sphere indices, not points.
 
 Counterpart of weasal_tpu/data/resident.py: `feature_spec` (:49),
-`ResidentClouds` (:64), `ResidentBatchSource` (:120, without size
+`ResidentClouds` (:64), `ResidentBatchSource` (:120, with its size
 buckets), `pack_payloads` (:185) and `assemble_level0_device` (:282).
 
 - `ResidentClouds` uploads one split's subsampled clouds once, as flat
@@ -15,11 +15,11 @@ buckets), `pack_payloads` (:185) and `assemble_level0_device` (:282).
   `assemble_level0` would have made, plus `unsort`, which takes a sorted
   per-point output back to `input_inds` order.
 
-The jitter of the JAX package comes from `jax.random.normal` keyed by
-each sphere's `noise_seed`; here it comes from a `torch.Generator` on the
-device seeded by that number, so the two packages jitter differently. The
-`noise` argument takes the jitter from outside (the parity tests pass the
-JAX draws).
+The jitter is `jax.random.normal` keyed by each sphere's `noise_seed`, as
+in the JAX package, drawn on the device by utils/prng from the shipped
+seed tensor: the same bits as JAX's, normals within a few ulp, and no
+read of the seeds on the host, so the assembly can be captured in a CUDA
+graph.
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ from weasal_tpu_torch.data.batching import (
     ShapePlan, fill_region_row, grid_rotations, payload_meta)
 from weasal_tpu_torch.ops.pyramid import _rotate
 from weasal_tpu_torch.ops.subsample import SHADOW_COORD
+from weasal_tpu_torch.utils import prng
 
 _KEY_SENTINEL = 2 ** 31 - 1    # sort key of pad rows
 
@@ -85,22 +86,62 @@ class ResidentClouds:
 class ResidentBatchSource:
     """`next_batch()` -> (index and parameter arrays, metas). The consumer
     merges `self.resident.arrays` into each batch (they are on the device
-    already) and the step calls `assemble_level0_device`."""
+    already) and the step calls `assemble_level0_device`.
 
-    def __init__(self, dataset, plan: ShapePlan, device):
+    With `bucketed` and a plan that has a small-sphere bucket
+    (`plan.small`), sampled spheres are grouped into size-homogeneous
+    batches: spheres of at most `plan.small["cut"]` level-0 points make
+    "small" batches packed at `plan.derive_small()`'s budgets, the others
+    "large" batches at the plan's; each meta carries its batch's
+    `bucket`. Sampling stays in potential order; only the grouping of
+    spheres into batches changes."""
+
+    def __init__(self, dataset, plan: ShapePlan, device,
+                 bucketed: bool = False):
         self.dataset = dataset
         self.plan = plan
         self.resident = ResidentClouds(dataset, device)
+        self.small_plan = plan.derive_small() if bucketed else None
+        self._pending = {"small": [], "large": []}
 
     def next_batch(self, rng, augment: Optional[bool] = None):
         ds, plan = self.dataset, self.plan
+        B = ds.config.batch_num
         if augment is None:
             augment = ds.split == "training"
-        payloads = [ds.sample_sphere(rng, augment=augment,
-                                     max_points=plan.num_points[0],
-                                     gather=False)
-                    for _ in range(ds.config.batch_num)]
-        arrays = pack_payloads(payloads, plan, ds.config, rng,
+        if self.small_plan is None:
+            payloads = [ds.sample_sphere(rng, augment=augment,
+                                         max_points=plan.num_points[0],
+                                         gather=False)
+                        for _ in range(B)]
+            return self._pack(payloads, plan, rng)
+
+        cut = plan.small["cut"]
+        while True:
+            for tag in ("small", "large"):
+                if len(self._pending[tag]) >= B:
+                    payloads = self._pending[tag][:B]
+                    self._pending[tag] = self._pending[tag][B:]
+                    arrays, metas = self._pack(
+                        payloads, self.small_plan if tag == "small" else plan,
+                        rng)
+                    for m in metas:
+                        m["bucket"] = tag
+                    return arrays, metas
+            payload = ds.sample_sphere(rng, augment=augment,
+                                       max_points=plan.num_points[0],
+                                       gather=False)
+            tag = ("small" if payload["input_inds"].shape[0] <= cut
+                   else "large")
+            self._pending[tag].append(payload)
+
+    def drop_pending(self) -> None:
+        """Forget the spheres sampled into a bucket but not yet packed
+        (the JAX trainer starts each `train` call with a new source)."""
+        self._pending = {"small": [], "large": []}
+
+    def _pack(self, payloads, plan: ShapePlan, rng):
+        arrays = pack_payloads(payloads, plan, self.dataset.config, rng,
                                base=self.resident.base,
                                shadow=self.resident.shadow)
         n0 = plan.num_points[0]
@@ -158,26 +199,19 @@ def pack_payloads(payloads, plan: ShapePlan, config, rng,
                 region_lb=region_lb)
 
 
-def sphere_noise(noise_seed, n0: int, device) -> torch.Tensor:
-    """[B, n0, 3] standard-normal jitter, sphere b drawn from a
-    `torch.Generator` on `device` seeded with noise_seed[b] (host ints)."""
-    out = []
-    for seed in np.asarray(noise_seed).reshape(-1):
-        gen = torch.Generator(device=device).manual_seed(int(seed))
-        out.append(torch.randn((n0, 3), generator=gen, device=device))
-    return torch.stack(out)
+def sphere_noise(noise_seed: torch.Tensor, n0: int) -> torch.Tensor:
+    """[B, n0, 3] standard-normal jitter on `noise_seed`'s device, sphere b
+    `jax.random.normal(PRNGKey(noise_seed[b]), (n0, 3))` (utils/prng)."""
+    return prng.normal(noise_seed, (n0, 3))
 
 
 def assemble_level0_device(batch: Dict, config, plan: ShapePlan,
-                           augment: bool, spec: Sequence[str],
-                           noise: Optional[torch.Tensor] = None) -> Dict:
+                           augment: bool, spec: Sequence[str]) -> Dict:
     """Resident tensors + shipped indices -> the level-0 dict, on the
     tensors' device.
 
-    :param batch: `res_*` tensors, the `pack_payloads` arrays as tensors
-        on the same device, and `noise_seed` (numpy, read on the host)
-    :param noise: optional [B, N0, 3] standard-normal jitter used in place
-        of the seeded draws (scaled by `config.augment_noise`)
+    :param batch: `res_*` tensors and the `pack_payloads` arrays as tensors
+        on the same device (`noise_seed` included)
     :return: the keys `batch_from_device_pyramid` takes, plus `unsort`
         [B, N0] (gather a sorted-order output with it to get `input_inds`
         order)
@@ -196,9 +230,7 @@ def assemble_level0_device(batch: Dict, config, plan: ShapePlan,
         pts = pts * batch["aug_scale"][:, None, :]
         sigma = float(getattr(config, "augment_noise", 0.0) or 0.0)
         if sigma:
-            if noise is None:
-                noise = sphere_noise(batch["noise_seed"], n0, dev)
-            pts = pts + noise * sigma
+            pts = pts + sphere_noise(batch["noise_seed"], n0) * sigma
 
     labels = torch.where(mask0, batch["res_labels"][inds],
                          torch.full_like(inds, -1, dtype=torch.int32))

@@ -6,12 +6,14 @@ weasal_tpu/train/trainer.py:406-447 on the fused path: the pyramid is
 built on the device, `KPFCNN_mprm` runs in eval mode, and a softmax turns
 its fused logits into probabilities. `eval_step` takes level-0 arrays;
 `eval_batch`, the training loop's validation step, also takes a resident
-batch and returns probabilities and labels in `input_inds` order.
+batch and returns probabilities and labels in `input_inds` order; its
+body, `eval_body`, writes them into preallocated tensors, which is what
+the trainer runs eagerly or captures in a CUDA graph (train/graphs.py).
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
@@ -79,24 +81,39 @@ def eval_step(model, arrays: Mapping, config, plan, device=None
         return _probs(model, t, config, plan)
 
 
+@torch.no_grad()
+def eval_body(model, inputs: Mapping, config, plan, device, spec=None,
+              out: Optional[Dict[str, torch.Tensor]] = None
+              ) -> Dict[str, torch.Tensor]:
+    """{"probs": [B, N_0, C], "labels": [B, N_0]} of one validation batch
+    on `device`, with no read back to the host; written into `out` when
+    given (tensors of those shapes), else into new tensors. A resident
+    batch is assembled with augmentation (the validation spheres are
+    augmented, as in training) and its outputs are gathered back to
+    `input_inds` order; a level-0 batch's outputs stay in its rows'
+    order, which its metas' `input_inds` follow."""
+    model.eval()
+    t = level0_on_device(inputs, config, plan, device, spec=spec)
+    probs = _probs(model, t, config, plan)
+    labels = t["labels"]
+    unsort = t.get("unsort")
+    if unsort is not None:
+        probs = torch.gather(
+            probs, 1, unsort[..., None].expand(-1, -1, probs.shape[-1]))
+        labels = torch.gather(labels, 1, unsort)
+    if out is None:
+        return {"probs": probs, "labels": labels}
+    out["probs"].copy_(probs)
+    out["labels"].copy_(labels)
+    return out
+
+
 def eval_batch(model, arrays: Mapping, config, plan, device=None, spec=None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(probs [B, N_0, C], labels [B, N_0]) of one validation batch, both
-    on `device`. A resident batch is assembled with augmentation (the
-    validation spheres are augmented, as in training) and its outputs are
-    gathered back to `input_inds` order; a level-0 batch's outputs stay in
-    its rows' order, which its metas' `input_inds` follow."""
+    on `device` (`eval_body`, eagerly)."""
     device = resolve_device(device)
     configure_precision()
     _check_model(model, device)
-    model.eval()
-    with torch.no_grad():
-        t = level0_on_device(arrays, config, plan, device, spec=spec)
-        probs = _probs(model, t, config, plan)
-        labels = t["labels"]
-        unsort = t.get("unsort")
-        if unsort is not None:
-            probs = torch.gather(
-                probs, 1, unsort[..., None].expand(-1, -1, probs.shape[-1]))
-            labels = torch.gather(labels, 1, unsort)
-    return probs, labels
+    out = eval_body(model, arrays, config, plan, device, spec=spec)
+    return out["probs"], out["labels"]

@@ -95,8 +95,10 @@ def grid_subsample_fixed(points: torch.Tensor, mask: torch.Tensor,
                          torch.full_like(points, math.inf))
     origin = masked.amin(dim=1, keepdim=True)                 # [B, 1, 3]
     # A device tensor divisor keeps this a true division on CUDA (a host
-    # scalar there is turned into a multiplication by its reciprocal).
-    dl_t = torch.tensor(dl, dtype=points.dtype, device=points.device)
+    # scalar there is turned into a multiplication by its reciprocal);
+    # filled on the device, so no host copy (none is allowed while a CUDA
+    # graph captures)
+    dl_t = torch.full((), dl, dtype=points.dtype, device=points.device)
     vox = torch.floor((points - origin) / dl_t)
     vox = vox.clamp(0, n_cells - 1).to(torch.int64)
     lin = (vox[..., 0] * n_cells + vox[..., 1]) * n_cells + vox[..., 2]

@@ -8,7 +8,8 @@ weak mode with the update of :358-361:
                               not torch.nn.utils.clip_grad_norm_)
     g <- g + weight_decay * p (optax.add_decayed_weights)
     t <- g + momentum * t     (optax.trace, from zeros)
-    p <- p - lr * t
+    u <- -lr * t, p <- p + u  (the trainer's scaling and apply_updates,
+                               each rounded as optax rounds it)
 
 The state is one momentum buffer per parameter, keyed by parameter name
 (`init_opt_state`; `interop.from_jax_opt_state` fills it from an optax
@@ -18,7 +19,7 @@ JAX path, are not ported and raise.
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Tuple, Union
 
 import torch
 from torch import nn
@@ -41,11 +42,15 @@ def init_opt_state(model: nn.Module) -> Dict[str, torch.Tensor]:
 
 @torch.no_grad()
 def sgd_step(model: nn.Module, opt_state: Dict[str, torch.Tensor], config,
-             lr: float) -> None:
+             lr: Union[float, torch.Tensor]) -> None:
     """Apply one update from the parameters' `.grad` (a missing gradient
     counts as zero, and `.grad` is left as it was); updates the parameters
     and `opt_state` in place. Multi-tensor (`torch._foreach_*`) ops: a
-    handful of launches for all parameters instead of several each."""
+    handful of launches for all parameters instead of several each.
+
+    `lr` is a float or a 0-d f32 tensor on the parameters' device; a CUDA
+    graph captures the tensor's address, so the trainer's per-epoch decay
+    (`lr_t.fill_`) reaches every later replay."""
     named = _named_params(model)
     if set(opt_state) != {name for name, _ in named}:
         raise ValueError("opt_state does not hold one buffer per parameter")
@@ -65,4 +70,4 @@ def sgd_step(model: nn.Module, opt_state: Dict[str, torch.Tensor], config,
                                    alpha=float(config.weight_decay))
     torch._foreach_mul_(traces, float(config.momentum))
     torch._foreach_add_(traces, grads)
-    torch._foreach_add_(params, traces, alpha=-lr)
+    torch._foreach_add_(params, torch._foreach_mul(traces, -lr))

@@ -8,11 +8,15 @@ is built on the device, `KPFCNN_mprm` runs in training mode (BatchNorm on
 batch statistics, running statistics updated), the loss is
 `region_mprm_loss` (or `class_logits_loss`, by `config.loss_type`), the
 backward runs kernels C and D, and `sgd_step` applies the update.
+
+`step_body` is the step on fixed-shape inputs with its results written
+into preallocated tensors: what the trainer runs eagerly or captures in a
+CUDA graph (train/graphs.py). `train_step` calls it eagerly.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple, Union
 
 import torch
 
@@ -68,6 +72,50 @@ def step_on_batch(model, opt_state: Dict[str, torch.Tensor], batch, config,
     return loss.detach(), acc
 
 
+def step_outputs(plan, device, steps: int = 0) -> Dict[str, torch.Tensor]:
+    """Zeroed output tensors of `step_body`: "stats" [2] (loss, accuracy)
+    and "drops" [(2L-1) + (3L-2)]; with `steps` > 0 one row of each per
+    step ([steps, 2], [steps, 5L-3])."""
+    lead = (steps,) if steps else ()
+    n_drops = 5 * plan.num_layers - 3
+    return {"stats": torch.zeros(*lead, 2, device=device),
+            "drops": torch.zeros(*lead, n_drops, device=device)}
+
+
+def step_body(model, opt_state: Dict[str, torch.Tensor], inputs: Mapping,
+              config, plan, lr: Union[float, torch.Tensor],
+              out: Dict[str, torch.Tensor], class_w: Optional[torch.Tensor],
+              table: torch.Tensor, spec=None) -> None:
+    """One training step on fixed-shape tensors, with no read back to the
+    host: the counterpart of one iteration of the JAX trainer's step scan.
+
+    :param inputs: a level-0 batch or a resident batch (`flat_inds`, the
+        `pack_payloads` arrays and the `res_*` tensors) as tensors on the
+        model's device (level-0 numpy arrays are moved there first)
+    :param lr: a float or a 0-d tensor on the device
+    :param out: `step_outputs` tensors (one step's rows), written in
+        place: loss and accuracy in "stats", the drop vector (all zero:
+        the port's kernels drop nothing) in "drops"
+    :param class_w, table: from `class_weights` and `label_table`
+    """
+    device = out["stats"].device
+    with torch.no_grad():
+        t = level0_on_device(inputs, config, plan, device, spec=spec)
+        batch = batch_from_device_pyramid(
+            t["points0"], t["mask0"], t["features"], t["labels"], config,
+            plan, t["center_pts"], rotations=t.get("rotations"),
+            cloud_lb=t.get("cloud_lb"), region_inds=t.get("region_inds"),
+            region_masks=t.get("region_masks"),
+            region_point_masks=t.get("region_point_masks"),
+            region_lb=t.get("region_lb"))
+    loss, acc = step_on_batch(model, opt_state, batch, config, lr,
+                              class_w=class_w, table=table)
+    with torch.no_grad():
+        out["stats"][0].copy_(loss)
+        out["stats"][1].copy_(acc)
+        out["drops"].zero_()
+
+
 def train_step(model, opt_state: Dict[str, torch.Tensor], arrays: Mapping,
                config, plan, lr: float, device=None,
                class_w: Optional[torch.Tensor] = None,
@@ -97,18 +145,11 @@ def train_step(model, opt_state: Dict[str, torch.Tensor], arrays: Mapping,
     if param.device != device:
         raise ValueError(f"model parameters are on {param.device}, the "
                          f"step runs on {device}; move the model first")
-    with torch.no_grad():
-        t = level0_on_device(arrays, config, plan, device, spec=spec)
-        batch = batch_from_device_pyramid(
-            t["points0"], t["mask0"], t["features"], t["labels"], config,
-            plan, t["center_pts"], rotations=t.get("rotations"),
-            cloud_lb=t.get("cloud_lb"), region_inds=t.get("region_inds"),
-            region_masks=t.get("region_masks"),
-            region_point_masks=t.get("region_point_masks"),
-            region_lb=t.get("region_lb"))
-    loss, acc = step_on_batch(model, opt_state, batch, config, lr,
-                              class_w=class_w, table=table)
-    n_layers = plan.num_layers
-    drops = torch.zeros((2 * n_layers - 1) + (3 * n_layers - 2),
-                        dtype=torch.float32, device=device)
-    return loss, acc, drops
+    if class_w is None:
+        class_w = class_weights(config, device)
+    if table is None:
+        table = label_table(model, device)
+    out = step_outputs(plan, device)
+    step_body(model, opt_state, arrays, config, plan, lr, out, class_w,
+              table, spec=spec)
+    return out["stats"][0], out["stats"][1], out["drops"]

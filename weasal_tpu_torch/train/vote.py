@@ -68,8 +68,9 @@ class DeviceVoteAccumulator:
                 for lo, n in zip(self.resident.base, self.resident.sizes)]
 
     def load(self, per_cloud: List[np.ndarray]) -> None:
-        """Seed the buffer from host per-cloud arrays (resume)."""
+        """Seed the buffer from host per-cloud arrays (resume), in place:
+        the buffer keeps its address."""
         flat = np.zeros((self._S, self.num_classes), np.float32)
         for lo, arr in zip(self.resident.base, per_cloud):
             flat[int(lo):int(lo) + arr.shape[0]] = arr
-        self._flat = torch.from_numpy(flat).to(self._flat.device)
+        self._flat.copy_(torch.from_numpy(flat))

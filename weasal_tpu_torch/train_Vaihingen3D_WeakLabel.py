@@ -9,11 +9,13 @@ is not ported yet.
     python -m weasal_tpu_torch.train_Vaihingen3D_WeakLabel [saving_path]
         [--data_root data/Vaihingen3D] [--max_epoch N] [--epoch_steps N]
         [--validation_size N] [--resume Log_dir] [--preset quick]
-        [--initial_labels N] [--plan_percentile P] [--device cuda|cpu]
-        [--seed S]
+        [--initial_labels N] [--plan_percentile P] [--plan_buckets P]
+        [--steps_per_dispatch K] [--device cuda|cpu] [--seed S]
 
 Runs on CUDA unless `--device cpu` is given; where CUDA is absent it
-raises instead.
+raises instead. On CUDA the training and validation steps replay
+captured CUDA graphs, K training steps a replay (`--steps_per_dispatch`,
+default "auto"); a capture that fails raises.
 """
 
 from __future__ import annotations
@@ -48,6 +50,14 @@ def parse_args(argv=None):
     parser.add_argument("--plan_percentile", type=float, default=None,
                         help="shape-plan level-0 sizing percentile "
                              "(config.plan_point_percentile)")
+    parser.add_argument("--plan_buckets", type=float, default=None,
+                        help="small-sphere plan bucket percentile "
+                             "(config.plan_bucket_percentile, e.g. 80): "
+                             "batches of small spheres train on a second, "
+                             "smaller captured step; nothing is cropped")
+    parser.add_argument("--steps_per_dispatch", type=int, default=None,
+                        help="training steps per graph replay "
+                             "(config.steps_per_dispatch; default auto)")
     parser.add_argument("--initial_labels", type=int, default=None,
                         help="initial weak-label anchors per file "
                              "(config.initial_labels_per_file)")
@@ -73,6 +83,10 @@ def run(argv=None):
     config = VaihingenWLConfig()
     if args.plan_percentile is not None:
         config.plan_point_percentile = args.plan_percentile
+    if args.plan_buckets is not None:
+        config.plan_bucket_percentile = args.plan_buckets
+    if args.steps_per_dispatch is not None:
+        config.steps_per_dispatch = args.steps_per_dispatch
     if args.preset == "quick":
         config.in_radius = min(config.in_radius, 7.0)
         config.sub_radius = min(getattr(config, "sub_radius", 5), 2.5)
