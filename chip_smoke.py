@@ -3,8 +3,8 @@
     python3 chip_smoke.py [--out report.json]
 
 Phases, in order; any failure exits non-zero:
-1. setup: card name and power limit (nvidia-smi), build of the four CUDA
-   kernels with nvcc (sm_90a, one process per source, in parallel), the
+1. setup: card name and power limit (nvidia-smi), build of the five CUDA
+   sources with nvcc (sm_90a, one process per source, in parallel), the
    Vaihingen3D weak-label model at full width with weights from a seeded
    torch.Generator, a shape plan calibrated on synthetic spheres, and the
    level-0 batches;
@@ -28,22 +28,35 @@ Phases, in order; any failure exits non-zero:
    training step gives them: the 12 KPConv backwards (seeded random
    inputs and output gradients) and the 2 strided-shortcut max-pool
    backwards (integer-valued features, so that ties and maxima of 0
-   shared with shadows occur), timed as in phase 2, C's two GEMM parts
-   as B's;
+   shared with shadows occur), each the same bit for bit over 3 calls
+   (their dX adds in a fixed order over inverse neighbor lists), timed as
+   in phase 2 with the edge's inverse lists built once as a step shares
+   them, C's two GEMM parts as B's, and each dX stage's device time;
 5. the training path: `train_step` for 4 steps, launch counts read around
    them, losses, parameters and BatchNorm statistics checked, then one
    step with the kernels, one on the plain versions and one replay of
    the kernel step captured in a CUDA graph (train/graphs.StepGraph),
    each f32 step held to an f64 step, from the seeded initial state and
-   one shared pyramid (loss, every gradient, the updated state);
+   one shared pyramid (loss, every gradient, the updated state), with a
+   witness of the kernel step's largest share (the plain step with its
+   sums in the kernels' order and in seeded random orders, and kernel
+   B's forward before the plain backward, each read on that tensor); the
+   inverse-list builds and the row sums of one step at the shapes it
+   gives them, against their plain versions (lists equal to a stable
+   sort's, sums within f32 rounding of `index_add_` / `scatter_add_`,
+   beside whose times they are timed), each the same over repeated
+   calls; one kernel training step in a process of its own under
+   `torch.use_deterministic_algorithms(True)`;
 6. the training loop: the entry point
    `weasal_tpu_torch.train_Vaihingen3D_WeakLabel.run` on a synthetic
    Vaihingen-like tile (150 m a side, seeded, as are the datasets'
    potentials, so the plan and the spheres are the same in every run) at
    full width, on the resident input, its steps and validation batches
    replaying captured CUDA graphs: 2 epochs of 10 steps with 5
-   validation batches each, then a resume from `current_chkp.tar` for a
-   third, which captures anew; finite losses, one log row per real step,
+   validation batches each, the same two epochs again in a fresh trainer
+   (every loss and the checkpoint equal bit for bit), then a resume from
+   `current_chkp.tar` for a third, which captures anew; finite losses,
+   one log row per real step,
    the validation lines, zero neighbor drops, every step and validation
    batch replayed, the launches per step (7 A, 12 B, 12 C, 2 D) and per
    validation batch (7 A, 12 B), each graph's warm-up step counted, the
@@ -72,12 +85,22 @@ Phases, in order; any failure exits non-zero:
    entry point with `--plan_buckets 80` for one epoch with validation,
    whose small-sphere bucket's graph must replay at least once (checked
    as phase 6's runs); and the device memory with every graph of both
-   graphed trainers alive.
+   graphed trainers alive;
+8. testing and active learning on phase 6's tile at full width
+   (`run_active_learning`): the entry point with one acquisition
+   (`--al_iterations 1`, a vote of 2 on the training clouds replaying
+   the tester's eval graph, 100 anchors added), `test_models --on
+   validation` and `--on train` (2 votes), then pseudo-label refinement;
+   the ledger's growth, the larger budget of iteration 1, the launches
+   per vote batch (7 A, 12 B), one vote batch's replay against the
+   eager body bit for bit, the plys, pseudo labels and class weights;
+   ms per vote batch and update, voted points/s, the refinement's host
+   seconds, the peak memory.
 Phases 3 and 5 end with a profile of one step, by kernel family. Checks
-of agreement (each kernel against its plain version, the GEMM core's
-drift, the forward and the training step against their references, and
-every check of phase 6) report their readings and fail the run at its
-end, so that a failing run still reads every phase; checks of shapes,
+of agreement (each kernel against its plain version and against itself
+on a repeat, the GEMM core's drift, the forward and the training step
+against their references, and every check of phases 6-8) report their
+readings and fail the run at its end, so that a failing run still reads every phase; checks of shapes,
 launch counts and finite values in phases 3 and 5 fail it at once. The last line is {"ok": true, "device": {...}};
 the line before it holds the kernels' numbers as JSON, each kernel's
 bound counting its GEMM operations at the 3xTF32 rate of the tensor
@@ -89,6 +112,12 @@ through one GEMM core, weasal_tpu_torch/csrc/kpconv_common.cuh: wgmma
 TF32 on the tensor cores with each f32 operand split as big + small
 (3xTF32, f32-grade error), 128-row tiles 32 deep fed by a cp.async ring,
 and split-K with a workspace where the schedule gains from it.
+
+Kernels C and D take their dX in two stages: each (row, slot)
+contribution to a workspace, then each support's slots summed in
+ascending order over its inverse neighbor list (csrc/inverse_lists.cuh),
+so that no atomic decides an order; the lists of each pyramid edge are
+built once a step (five launches, no host read) and shared.
 
 Kernel A is two launches: a binning of each sphere's supports into
 columns of a 2-D grid (one block per sphere, counts, scan and scatter in
@@ -134,8 +163,9 @@ KPCONV_ATOL_REL = 1e-5       # times max |plain output|
 # truncating accumulator over each split of the depth -1.4e-5 for y @ W
 # and -3.1e-5 for y^T @ g)
 GEMM_BIAS_MAX = 3e-8
-# Kernel D vs its plain version: the same shares, added to a support by
-# atomics in another order
+# Kernel D vs its plain version: the same shares, added to a support in
+# ascending slot order by the kernel and in index_add_'s order (atomics on
+# the card) by the plain version
 MAXPOOL_RTOL = 1e-6
 MAXPOOL_ATOL_REL = 1e-6      # times max |plain dX|
 # Whole forward, kernels vs plain versions on one shared pyramid
@@ -148,16 +178,20 @@ PROBS_ATOL = 1e-4
 # gradient and each change of the state is held to the f64 step: the
 # kernel step's L2 error may be F64_FLOOR times the f64 tensor's norm plus
 # F64_RATIO times the plain f32 step's own error. The steps start from the
-# seeded initial state: the training steps before them add f32 atomics in
-# another order on every run (kernels C and D, index_add_), and from the
-# states they end in, the outcome of this check varied from run to run,
-# with an f32 FFMA GEMM in kernels B and C as much as with the 3xTF32 one.
+# seeded initial state: before C's and D's dX added in a fixed order, the
+# training steps before them added f32 atomics in another order on every
+# run, and from the states they ended in, the outcome of this check varied
+# from run to run, with an f32 FFMA GEMM in kernels B and C as much as
+# with the 3xTF32 one.
 LOSS_RTOL = 1e-5
 F64_RATIO = 4.0
 F64_FLOOR = 1e-3
 N_BATCHES = 3
 N_TRAIN_STEPS = 4
 SEED = 0
+# Seeded random orders of the sums in the witness of phase 5's largest
+# share (`witness_runs`)
+WITNESS_RANDOM_ORDERS = 3
 # Phase 6: a synthetic training tile of LOOP_EXTENT m a side at the
 # synthetic module's density, whose anchor set holds the 600-anchor label
 # budget of VaihingenWLConfig; 2 epochs of 10 steps with 5 validation
@@ -165,7 +199,7 @@ SEED = 0
 LOOP_EXTENT = 150.0
 LOOP_DENSITY = 8.0
 LOOP_ARGS = ("--epoch_steps", "10", "--validation_size", "5",
-             "--seed", str(SEED))
+             "--seed", str(SEED), "--al_iterations", "0")
 # Batches of the loop's source drawn after its runs, for the kernel checks
 # and the step times at its shapes
 LOOP_CHECK_BATCHES = 6
@@ -175,6 +209,9 @@ DISPATCH_PAIRS = 10
 K_PAIRS = 5
 K_EPOCH_BATCHES = 40
 BUCKET_PERCENTILE = 80
+# Phase 8: anchors added per training file by the acquisition (fewer
+# where the tile has fewer unused ones)
+AL_ADDED = 100
 # Failed checks of agreement, reported at once and failing the run at its
 # end (see the module docstring); PREFIX names the shapes being checked
 FAILED: list = []
@@ -394,6 +431,31 @@ def _expect_close(what, got, want, rtol, atol):
            f"{what}: max abs err {err:.3e} (rtol {rtol}, atol {atol:.3e})")
 
 
+def expect_repeats(what, fn, calls: int = 3):
+    """fn()'s tensors are the same bit for bit over `calls` calls (the
+    fixed-order sums of C's and D's dX, the row sums and the inverse
+    lists: no atomics decide an order)."""
+    first = [t.clone() for t in fn() if t is not None]
+    same = True
+    for _ in range(calls - 1):
+        again = [t for t in fn() if t is not None]
+        same &= all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                    for a, b in zip(first, again))
+    torch.cuda.synchronize()
+    expect(same, f"{what}: {calls} calls on the same inputs differ")
+    return same
+
+
+def stage_ms(fn, names, reps: int = 5) -> dict:
+    """Mean device ms a call of fn() of each kernel whose name contains
+    one of `names` (torch.profiler; None where the profiler kept none)."""
+    fn()
+    rows, _ = profiled_kernels(fn, reps)
+    return {key: (sum(t for name, _, t in rows if key in name) / reps
+                  if any(key in name for name, _, _ in rows) else None)
+            for key in names}
+
+
 def check_gemm_bias(log, seed):
     """Mean signed and rms relative error to f64 of the GEMM core's y @ W
     (kernel B) and y^T @ g (kernel C) at the main path's widest conv
@@ -456,6 +518,7 @@ def check_kpconv_bwd(model, batch, log, seed):
     from weasal_tpu_torch.ops.cuda.kpconv_bwd import (kpconv_bwd,
                                                       kpconv_bwd_plain)
     from weasal_tpu_torch.ops.cuda.kpconv_fwd import kpconv_fwd_plain_with_y
+    from weasal_tpu_torch.ops.cuda.inverse_lists import LazyInverse
     gen = torch.Generator(device=batch.features.device).manual_seed(seed)
     rows, t_k, t_p, t_b, t_f32 = [], 0.0, 0.0, 0.0, 0.0
     ops_t, gemm_t, bytes_t, worst = 0.0, 0.0, 0.0, 0.0
@@ -472,7 +535,14 @@ def check_kpconv_bwd(model, batch, log, seed):
         _, y = kpconv_fwd_plain_with_y(q, s, nb, x, kp, w, ext, infl)
         # Checked with dX at every conv; timed as the main path calls it
         args = (q, s, nb, y, kp, w, g, ext, infl)
-        got = kpconv_bwd(*args)
+        # the edge's inverse lists, built once as the step shares them
+        inv = LazyInverse(nb, s.shape[1])
+        inv.get()
+
+        def kernel(need_dx=True):
+            return kpconv_bwd(*args, need_dx=need_dx, inverse=inv)
+
+        got = kernel()
         ref = kpconv_bwd_plain(*args)
         torch.cuda.synchronize()
         errs = []
@@ -482,14 +552,16 @@ def check_kpconv_bwd(model, batch, log, seed):
                           KPCONV_ATOL_REL * max(scale, 1e-30))
             errs.append(float((a - b).abs().max()))
         worst = max(worst, *errs)
+        repeats = expect_repeats(f"kpconv_bwd {name}", kernel)
         need_dx = name != skip_dx
-        ms = cuda_ms(lambda: kpconv_bwd(*args, need_dx=need_dx))
+        ms = cuda_ms(lambda: kernel(need_dx))
+        dx_stages = stage_ms(kernel, DX_STAGES["C"]) if need_dx else {}
         plain = cuda_ms(lambda: kpconv_bwd_plain(*args, need_dx=need_dx))
         pairs = float((nb < s.shape[1]).sum())
         rows_valid = float(q_mask.sum())
-        # dW (and dr) on the tensor cores, the dX scatter on the CUDA
+        # dW (and dr) on the tensor cores, dX's contributions on the CUDA
         # cores; inputs y, W, g and output dW; with dX also q, s, nb, kp
-        # and dX
+        # and dX (its workspace is the kernel's own traffic)
         gemm_ops = 2.0 * rows_valid * n_kp * cin * cout
         n_ops = 0.0
         n_bytes = 4.0 * (y.numel() + w.numel() + g.numel() + w.numel())
@@ -504,7 +576,7 @@ def check_kpconv_bwd(model, batch, log, seed):
         t_f32 += f32_ms
         ops_t, gemm_t = ops_t + n_ops, gemm_t + gemm_ops
         bytes_t += n_bytes
-        parts = gemm_part_ms(lambda: kpconv_bwd(*args, need_dx=need_dx),
+        parts = gemm_part_ms(lambda: kernel(need_dx),
                              GEMM_FAMILIES[1 if need_dx else 2:])
         g2, w2 = g.reshape(-1, cout), w.reshape(n_kp * cin, cout)
         gemms = dict(gemm_yt_g=gemm_product(
@@ -517,7 +589,8 @@ def check_kpconv_bwd(model, batch, log, seed):
         rows.append(dict(conv=name, shape=[*q.shape[:2], s.shape[1],
                                            nb.shape[2], cin, cout],
                          need_dx=need_dx, max_abs_err_dx=errs[0],
-                         max_abs_err_dw=errs[1], ms=ms, plain_ms=plain,
+                         max_abs_err_dw=errs[1], repeats=repeats,
+                         dx_stage_ms=dx_stages, ms=ms, plain_ms=plain,
                          bound_ms=b_ms, bound_by=b_by, f32_bound_ms=f32_ms,
                          **gemms))
         texts = [gemm_text(label, gemms[key]) for key, label in
@@ -527,10 +600,30 @@ def check_kpconv_bwd(model, batch, log, seed):
             f"K={nb.shape[2]} {cin}->{cout}: err dX {errs[0]:.2e} dW "
             f"{errs[1]:.2e}, kernel {ms:.3f} ms, plain {plain:.3f} ms, "
             f"bound {b_ms:.4f} ms ({b_by}; all f32 {f32_ms:.4f})"
-            f"{'' if need_dx else ', no dX'}; " + "; ".join(texts))
+            f"{'' if need_dx else ', no dX'}; " + "; ".join(texts)
+            + f"; dX stages {stage_text(dx_stages)}; repeats {repeats}")
     return rows, dict(ms=t_k, plain_ms=t_p, bound_ms=t_b, max_abs_err=worst,
                       bound_by=bound_ms(bytes_t, ops_t, gemm_t)[1],
-                      f32_bound_ms=t_f32)
+                      f32_bound_ms=t_f32,
+                      dx_stage_ms=stage_sums(rows, DX_STAGES["C"]))
+
+
+# The two stages of C's and D's dX by kernel name: the workspace of each
+# slot's contribution, then the fixed-order sums over inverse lists
+DX_STAGES = {"C": ("dx_contrib_kernel", "inverse_sum_kernel"),
+             "D": ("maxpool_bwd_kernel", "inverse_sum_kernel")}
+
+
+def stage_text(stages: dict) -> str:
+    return ", ".join(f"{k.split('_kernel')[0]} "
+                     + ("lost" if v is None else f"{v:.3f} ms")
+                     for k, v in stages.items()) or "none"
+
+
+def stage_sums(rows, names) -> dict:
+    """Each dX stage's ms summed over a step's calls (rows with dX)."""
+    return {k: sum(r["dx_stage_ms"].get(k) or 0.0 for r in rows)
+            for k in names}
 
 
 def strided_pools(model):
@@ -541,6 +634,7 @@ def strided_pools(model):
 
 
 def check_maxpool_bwd(model, batch, log, seed):
+    from weasal_tpu_torch.ops.cuda.inverse_lists import LazyInverse
     from weasal_tpu_torch.ops.cuda.maxpool_bwd import (maxpool_bwd,
                                                        maxpool_bwd_plain)
     gen = torch.Generator(device=batch.features.device).manual_seed(seed)
@@ -554,7 +648,13 @@ def check_maxpool_bwd(model, batch, log, seed):
                           device=nb.device).float()
         x[:, :, 0].clamp_(max=0.0)
         g = torch.randn((b, nb.shape[1], c), generator=gen, device=nb.device)
-        got = maxpool_bwd(x, nb, g)
+        inv = LazyInverse(nb, ns)          # built once, as the step does
+        inv.get()
+
+        def kernel():
+            return maxpool_bwd(x, nb, g, inverse=inv)
+
+        got = kernel()
         ref = maxpool_bwd_plain(x, nb, g)
         torch.cuda.synchronize()
         scale = float(ref.abs().max())
@@ -562,21 +662,208 @@ def check_maxpool_bwd(model, batch, log, seed):
                       MAXPOOL_ATOL_REL * max(scale, 1e-30))
         err = float((got - ref).abs().max())
         worst = max(worst, err)
-        ms = cuda_ms(lambda: maxpool_bwd(x, nb, g))
+        repeats = expect_repeats(f"maxpool_bwd {name}",
+                                 lambda: (kernel(),))
+        ms = cuda_ms(kernel)
         plain = cuda_ms(lambda: maxpool_bwd_plain(x, nb, g))
+        dx_stages = stage_ms(kernel, DX_STAGES["D"])
         n_bytes = 4.0 * (x.numel() + nb.numel() + g.numel() + got.numel())
         b_ms, b_by = bound_ms(n_bytes, 0.0)
         t_k, t_p, t_b = t_k + ms, t_p + plain, t_b + b_ms
         bytes_t += n_bytes
         rows.append(dict(pool=name, shape=[b, nb.shape[1], ns, nb.shape[2],
                                            c],
-                         max_abs_err=err, ms=ms, plain_ms=plain,
+                         max_abs_err=err, repeats=repeats,
+                         dx_stage_ms=dx_stages, ms=ms, plain_ms=plain,
                          bound_ms=b_ms, bound_by=b_by))
         log(f"  D {name}: nb{list(nb.shape)} Ns={ns} C={c}: err {err:.2e} "
             f"(scale {scale:.2e}), kernel {ms:.3f} ms, plain {plain:.3f} "
-            f"ms, bound {b_ms:.4f} ms ({b_by})")
+            f"ms, bound {b_ms:.4f} ms ({b_by}); dX stages "
+            f"{stage_text(dx_stages)}; repeats {repeats}")
     return rows, dict(ms=t_k, plain_ms=t_p, bound_ms=t_b, max_abs_err=worst,
-                      bound_by="bytes")
+                      bound_by="bytes",
+                      dx_stage_ms=stage_sums(rows, DX_STAGES["D"]))
+
+
+def record_inverse_calls(step):
+    """Run step() once, recording the arguments of every call of the
+    inverse-list build, the row sums and the voxel run sums it makes (the
+    standalone ones: C and D run their own sums inside their launches);
+    returns [(kind, args)]."""
+    from weasal_tpu_torch.ops.cuda import inverse_lists as il
+    calls = []
+    originals = (il.build_inverse_lists, il.inverse_sum, il.run_sums)
+
+    def build(inds, ns, k=None):
+        calls.append(("build", (inds.clone(), ns, k)))
+        return originals[0](inds, ns, k)
+
+    def row_sum(src, inv, rows):
+        calls.append(("sum", (src.clone(), il.InverseLists(
+            inv.offsets.clone(), inv.entries.clone()), rows)))
+        return originals[1](src, inv, rows)
+
+    def runs(src, seg, n_out):
+        calls.append(("runs", (src.clone(), seg.clone(), n_out)))
+        return originals[2](src, seg, n_out)
+
+    # the wrappers count their launches through their module names (and
+    # the callers find them there), so the stand-ins carry the counters
+    # while they are in place
+    build.launches = originals[0].launches
+    row_sum.launches = originals[1].launches
+    il.build_inverse_lists, il.inverse_sum, il.run_sums = \
+        build, row_sum, runs
+    try:
+        step()
+        torch.cuda.synchronize()
+    finally:
+        il.build_inverse_lists, il.inverse_sum, il.run_sums = originals
+        originals[0].launches = build.launches
+        originals[1].launches = row_sum.launches
+    return calls
+
+
+def check_inverse_lists(calls, log):
+    """The inverse-list build and the fixed-order row sums at the shapes
+    one training step gives them (recorded by `record_inverse_calls`),
+    against their plain versions: the build's lists equal the plain
+    stable sort's; the row sums (and the voxel sums of the pyramid's
+    subsample) within f32 rounding of `index_add_` / `scatter_add_`
+    (MAXPOOL_RTOL, MAXPOOL_ATOL_REL); every call repeats bit for bit.
+    Times: kernel, plain version, and for the sums one PyTorch call that
+    computes the same function (`index_add_` of the source rows into
+    their destinations, `scatter_add_` for the voxel sums; on CUDA both
+    add with atomics in no fixed order). Returns the sums of both
+    wrappers."""
+    from weasal_tpu_torch.ops.cuda import inverse_lists as il
+    sums = {n: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, max_abs_err=0.0,
+                    library_ms=0.0, calls=0, repeats=True)
+            for n in ("build_inverse_lists", "inverse_sum")}
+    for kind, args in calls:
+        if kind == "build":
+            inds, ns, k = args
+            k = inds.shape[2] if k is None else k
+
+            def kernel():
+                return il.build_inverse_lists(inds, ns, k)
+
+            def plain():
+                return il.build_inverse_lists_plain(inds, ns, k)
+
+            got, ref = kernel(), plain()
+            total = int(ref.offsets[-1])
+            ok = torch.equal(got.offsets, ref.offsets) and torch.equal(
+                got.entries[:total], ref.entries[:total])
+            expect(ok, f"build_inverse_lists {list(inds.shape)} k={k}: "
+                   "lists differ from the stable sort's")
+            err = 0.0 if ok else float("inf")
+            rep = expect_repeats("build_inverse_lists", lambda: (
+                kernel().offsets, kernel().entries[:total]), calls=2)
+            n_bytes = 4.0 * (inds[..., :k].numel() + ref.offsets.numel()
+                             + total)
+            name, lib_ms = "build_inverse_lists", None
+            shape = f"nb{list(inds.shape)} k={k} Ns={ns}: {total} entries"
+        else:
+            if kind == "sum":
+                src, inv, rows = args
+
+                def kernel():
+                    return il.inverse_sum(src, inv, rows)
+
+                def plain():
+                    return il.inverse_sum_plain(src, inv, rows)
+
+                total = int(inv.offsets[-1])
+                c = src.shape[1]
+                # each source row's destination (rows: not in any list)
+                tgt = torch.full((src.shape[0],), rows, dtype=torch.int64,
+                                 device=src.device)
+                tgt[inv.entries[:total].long()] = il.segment_ids(
+                    inv.offsets, total)
+
+                def library():
+                    out = torch.zeros((rows + 1, c), device=src.device)
+                    return out.index_add_(0, tgt, src)
+                n_bytes = 4.0 * (src.numel() + rows * c + rows + 1 + total)
+                shape = f"src{list(src.shape)} -> {rows} rows"
+            else:
+                src, seg, n_out = args
+
+                def kernel():
+                    return il.run_sums(src, seg, n_out)
+
+                def plain():
+                    return il.run_sums_plain(src, seg, n_out)
+
+                where = seg.clamp(max=n_out)[..., None].expand_as(src)
+
+                def library():
+                    out = torch.zeros((src.shape[0], n_out + 1,
+                                       src.shape[2]), device=src.device)
+                    return out.scatter_add_(1, where, src)
+                n_bytes = 4.0 * (src.numel() + seg.numel() * 2
+                                 + src.shape[0] * n_out * (src.shape[2] + 1))
+                shape = f"voxel sums src{list(src.shape)} -> {n_out} voxels"
+            got, ref = kernel(), plain()
+            got = got if isinstance(got, tuple) else (got,)
+            ref = ref if isinstance(ref, tuple) else (ref,)
+            err = 0.0
+            for a, b in zip(got, ref):
+                scale = float(b.abs().max()) if b.numel() else 0.0
+                _expect_close(f"inverse_sum {shape}", a, b, MAXPOOL_RTOL,
+                              MAXPOOL_ATOL_REL * max(scale, 1e-30))
+                err = max(err, float((a - b).abs().max()) if b.numel()
+                          else 0.0)
+            rep = expect_repeats(f"inverse_sum {shape}", lambda: (
+                kernel() if kind == "runs" else (kernel(),)))
+            name, lib_ms = "inverse_sum", cuda_ms(library)
+        ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
+        b_ms = bound_ms(n_bytes, 0.0)[0]
+        t = sums[name]
+        t["ms"] += ms
+        t["plain_ms"] += plain_ms
+        t["bound_ms"] += b_ms
+        t["max_abs_err"] = max(t["max_abs_err"], err)
+        t["calls"] += 1
+        t["repeats"] &= bool(rep)
+        if lib_ms is not None:
+            t["library_ms"] += lib_ms
+        log(f"  {name} {shape}: err {err:.2e}, kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms" + ("" if lib_ms is None else
+                                    f", library {lib_ms:.3f} ms")
+            + f", bound {b_ms:.4f} ms (bytes); repeats {rep}")
+    for name, t in sums.items():
+        t["bound_by"] = "bytes"
+        if name == "build_inverse_lists":
+            t["library_ms"] = None
+        log(f"  {name}: {t['calls']} calls a training step: kernel "
+            f"{t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, bound "
+            f"{t['bound_ms']:.4f} ms, library {t['library_ms']}")
+    return sums
+
+
+def run_deterministic_step(log, timeout: int = 600) -> dict:
+    """weasal_tpu_torch.tools.deterministic_step in a process of its own:
+    one eager kernel training step at phase 5's width under
+    `torch.use_deterministic_algorithms(True)` (PyTorch raises at any op
+    it knows to be non-deterministic on CUDA), CUBLAS_WORKSPACE_CONFIG
+    :4096:8. Its failure fails the run at its end."""
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "weasal_tpu_torch.tools.deterministic_step",
+         "--seed", str(SEED)], env=env, capture_output=True, text=True,
+        timeout=timeout, cwd=os.path.dirname(os.path.abspath(__file__)))
+    ok = out.returncode == 0 and "deterministic step: loss" in out.stdout
+    line = (out.stdout.strip().splitlines() or [""])[-1][:200]
+    log(f"deterministic-algorithms step (own process, "
+        f"{time.perf_counter() - t0:.1f} s): "
+        + (line if ok else f"FAILED rc {out.returncode}: "
+           f"{out.stderr.strip()[-600:]}"))
+    expect(ok, "a kernel training step under "
+           "torch.use_deterministic_algorithms(True) failed")
+    return dict(ok=ok, line=line)
 
 
 def clone_state(model, opt_state):
@@ -615,14 +902,96 @@ def replayed_step(net, opt, data, config, plan):
     return graph.out["stats"][0, 0]
 
 
+@contextlib.contextmanager
+def swapped(changes):
+    """Sets each (module, name, value) of `changes` for the block's
+    duration."""
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in changes]
+    for mod, name, value in changes:
+        setattr(mod, name, value)
+    try:
+        yield
+    finally:
+        for mod, name, value in saved:
+            setattr(mod, name, value)
+
+
+def ordered_scatter(seed=None):
+    """A plain `scatter_rows` (ops/cuda/inverse_lists) that adds each
+    support's terms one after another from 0.0: in ascending slot order,
+    the order of kernels C and D and of the row sums, when seed is None,
+    else in a seeded random order of each support's list."""
+    from weasal_tpu_torch.ops.cuda.inverse_lists import (
+        build_inverse_lists_plain)
+
+    def scatter(values, inds, ns):
+        b, _, k, d = values.shape
+        dev = values.device
+        inv = build_inverse_lists_plain(inds, ns, k)
+        offs = inv.offsets.long()
+        lens = offs[1:] - offs[:-1]
+        width = int(lens.max()) if lens.numel() else 0
+        pos = torch.arange(width, device=dev)
+        valid = pos[None] < lens[:, None]
+        order = pos.expand(lens.shape[0], width)
+        if seed is not None:
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            keys = torch.rand(valid.shape, generator=gen, device=dev)
+            order = keys.masked_fill(~valid, 2.0).argsort(dim=1)
+        ent = inv.entries.long()
+        slot = (offs[:-1, None] + order).clamp(max=max(ent.numel() - 1, 0))
+        src = values.reshape(-1, d)
+        out = torch.zeros((lens.shape[0], d), dtype=values.dtype,
+                          device=dev)
+        for j in range(width):
+            term = src.index_select(0, ent[slot[:, j]])
+            out = out + torch.where(valid[:, j, None], term,
+                                    torch.zeros_like(term))
+        return out.reshape(b, ns, d)
+    return scatter
+
+
+def witness_runs() -> dict:
+    """The witness of the f64 check's largest share: runs of one step by
+    name, each a (plain versions?, attribute swaps) pair. The plain
+    versions with every scatter-add summed in the kernels' order and in
+    WITNESS_RANDOM_ORDERS seeded random orders (code that shares only
+    that order with the kernels), and kernel B's forward before the
+    plain backward (index_add_, in the card's atomic order)."""
+    import importlib
+    from weasal_tpu_torch.ops import kpconv as ops_mod
+    inv_mod = importlib.import_module(
+        "weasal_tpu_torch.ops.cuda.inverse_lists")
+    c_mod = importlib.import_module("weasal_tpu_torch.ops.cuda.kpconv_bwd")
+    d_mod = importlib.import_module("weasal_tpu_torch.ops.cuda.maxpool_bwd")
+
+    def sums(fn):
+        return [(mod, "scatter_rows", fn) for mod in (inv_mod, c_mod, d_mod)]
+
+    runs = {"plain, kernels' sum order": (True, sums(ordered_scatter()))}
+    for i in range(1, WITNESS_RANDOM_ORDERS + 1):
+        runs[f"plain, random sum order {i}"] = (
+            True, sums(ordered_scatter(seed=i)))
+    runs["kernel B, plain backward"] = (False, [
+        (ops_mod, "kpconv_bwd",
+         lambda *a, need_dx, inverse: c_mod.kpconv_bwd_plain(
+             *a, need_dx=need_dx)),
+        (ops_mod, "maxpool_bwd",
+         lambda x, nb, g, inverse: d_mod.maxpool_bwd_plain(x, nb, g)),
+        (inv_mod, "inverse_sum", inv_mod.inverse_sum_plain)])
+    return runs
+
+
 def compare_train_steps(model, opt_state, batch, config, log, plan=None,
-                        label: str = "kernels"):
+                        label: str = "kernels", witness: bool = False):
     """One step with the kernels and one on the plain versions (f32), from
     the same state and pyramid, each held to the same step on the plain
     versions in f64; with `plan`, also one replay of the kernel step
-    captured in a CUDA graph, held to the f64 step as the kernel step is.
-    `label` names the kernel step in the log. The model is left after the
-    last f32 step. Returns the errors."""
+    captured in a CUDA graph, held to the f64 step as the kernel step is;
+    with `witness`, the runs of `witness_runs`, each read on the tensor
+    of the kernel step's largest share (not held). `label` names the
+    kernel step in the log. The model is left after the last f32 step.
+    Returns the errors."""
     import copy
     import dataclasses
     from weasal_tpu_torch.train.step import step_on_batch
@@ -638,14 +1007,18 @@ def compare_train_steps(model, opt_state, batch, config, log, plan=None,
               ("kernels", model, batch, None), ("plain", model, batch, None)]
     if plan is not None:
         labels.append(("graph", model, batch, None))
+    extra = witness_runs() if witness else {}
+    labels += [(run, model, batch, None) for run in extra]
     for run, net, data, dtype in labels:
         net.load_state_dict({k: v.to(dtype or v.dtype)
                              if v.is_floating_point() else v
                              for k, v in state0.items()})
         opt = {k: v.to(dtype or v.dtype, copy=True) for k, v in opt0.items()}
         with contextlib.ExitStack() as stack:
-            if run in ("f64", "plain"):
+            if run in ("f64", "plain") or extra.get(run, (False,))[0]:
                 stack.enter_context(plain_ops())
+            if run in extra:
+                stack.enter_context(swapped(extra[run][1]))
             if run == "graph":
                 loss = replayed_step(net, opt, data, config, plan)
             else:
@@ -660,16 +1033,22 @@ def compare_train_steps(model, opt_state, batch, config, log, plan=None,
     expect(abs(loss_k - loss_p) <= LOSS_RTOL * abs(loss_p),
            f"train step loss {loss_k} vs plain {loss_p}")
     result = dict(loss=loss_k, loss_plain=loss_p, loss_f64=runs["f64"][0])
+
+    def allowance(part, name):
+        ref = runs["f64"][part][name]
+        err_p = float((runs["plain"][part][name] - ref).norm())
+        return F64_RATIO * err_p + F64_FLOOR * float(ref.norm())
+
     for who in [w for w in ("kernels", "graph") if w in runs]:
         worst = dict(rel=0.0, plain_rel=0.0, ratio=0.0, ratio_of="",
-                     share=0.0, share_of="")
+                     share=0.0, share_of="", share_key=None)
         for part, what in ((1, "gradient"), (2, "state change")):
             truth = runs["f64"][part]
             for name, ref in truth.items():
                 norm = float(ref.norm())
                 err_k = float((runs[who][part][name] - ref).norm())
                 err_p = float((runs["plain"][part][name] - ref).norm())
-                allowed = F64_RATIO * err_p + F64_FLOOR * norm
+                allowed = allowance(part, name)
                 about = (f"{what} {name} (L2 errors {err_k:.3e} {who}, "
                          f"{err_p:.3e} plain, norm {norm:.3e})")
                 expect(err_k <= allowed,
@@ -681,7 +1060,8 @@ def compare_train_steps(model, opt_state, batch, config, log, plan=None,
                 if err_p > 0 and err_k / err_p > worst["ratio"]:
                     worst.update(ratio=err_k / err_p, ratio_of=about)
                 if allowed > 0 and err_k / allowed > worst["share"]:
-                    worst.update(share=err_k / allowed, share_of=about)
+                    worst.update(share=err_k / allowed, share_of=about,
+                                 share_key=(part, name))
         log(f"train step ({label if who == 'kernels' else who}) from one "
             f"state and pyramid: loss {runs[who][0]:.7f}, {loss_p:.7f} plain, "
             f"{runs['f64'][0]:.7f} plain f64; worst relative L2 error to "
@@ -693,6 +1073,21 @@ def compare_train_steps(model, opt_state, batch, config, log, plan=None,
             result.update(kernel_rel=worst.pop("rel"), **worst)
         else:
             result["graph"] = dict(loss=runs[who][0], **worst)
+    key = result.get("share_key")
+    if extra and key is not None:
+        part, name = key
+        ref, allowed = runs["f64"][part][name], allowance(part, name)
+        result["witness"] = {}
+        for run in extra:
+            err = float((runs[run][part][name] - ref).norm())
+            own = max((float((runs[run][p][n] - t).norm()) / a, n)
+                      for p in (1, 2) for n, t in runs["f64"][p].items()
+                      for a in [allowance(p, n)] if a > 0)
+            result["witness"][run] = dict(err=err, share=err / allowed,
+                                          own_share=own[0], own_of=own[1])
+            log(f"witness of the largest share ({name}): {run}: L2 error "
+                f"{err:.3e}, share {err / allowed:.3f}; its own largest "
+                f"share {own[0]:.3f}, {own[1]}")
     if "graph" in runs:
         loss_g = runs["graph"][0]
         expect(abs(loss_g - loss_k) <= LOSS_RTOL * abs(loss_k),
@@ -767,7 +1162,10 @@ FAMILIES = (
     ("B aggregate", ("aggregate_kernel",)),
     (GEMM_FAMILIES[0], ("tf32x3_gemm_kernel<true, false,",)),
     (GEMM_FAMILIES[1], ("tf32x3_gemm_kernel<true, true,",)),
-    ("C scatter_dx", ("scatter_dx_kernel",)),
+    ("C dX contributions", ("dx_contrib_kernel",)),
+    ("row sums (C, D dX; gathers; voxels)", ("inverse_sum_kernel",)),
+    ("inverse lists", ("inverse_count_kernel", "inverse_scan_kernel",
+                       "inverse_fill_kernel", "inverse_sort_kernel")),
     (GEMM_FAMILIES[2], ("tf32x3_gemm_kernel<false, false,",)),
     ("D maxpool_bwd", ("maxpool_bwd_kernel",)),
     ("cuBLAS/CUTLASS GEMMs", ("gemm", "cutlass", "cublas")),
@@ -883,11 +1281,15 @@ def log_gemm_sums(rows, keys, log, wide_cin: int = 256) -> dict:
 # Per call of each counted wrapper, the one kernel it launches exactly
 # once, by name (A's binning, B's GEMM and C's dX and g @ W^T GEMM launch
 # beside it; split-K sums are named after their tile kernel): the
-# launches that a profile observes
+# launches that a profile observes. The row sums' kernel also runs inside
+# C (once per call with dX, beside dx_contrib_kernel) and D (once per
+# call): its own calls are its events less those.
 OBSERVED_KERNEL = {"radius_search": "search_kernel<",
                    "kpconv_fwd": "aggregate_kernel",
                    "kpconv_bwd": "tf32x3_gemm_kernel<false, false,",
-                   "maxpool_bwd": "maxpool_bwd_kernel"}
+                   "maxpool_bwd": "maxpool_bwd_kernel",
+                   "build_inverse_lists": "inverse_scan_kernel",
+                   "inverse_sum": "inverse_sum_kernel"}
 # Profiles of phase 6's graphed epoch taken before a difference between
 # its kernel events and the counters fails the run (the profiler has lost
 # kernel events on an H100; see `gemm_part_ms`)
@@ -897,9 +1299,13 @@ PROFILE_TRIES = 3
 def observed_calls(rows) -> dict:
     """Calls of each counted wrapper that profile rows (`profiled_kernels`)
     show, by OBSERVED_KERNEL."""
-    return {fn: sum(n for name, n, _ in rows
-                    if key in name and not name.startswith(SPLITK_SUM))
-            for fn, key in OBSERVED_KERNEL.items()}
+    def events(key):
+        return sum(n for name, n, _ in rows
+                   if key in name and not name.startswith(SPLITK_SUM))
+    out = {fn: events(key) for fn, key in OBSERVED_KERNEL.items()}
+    out["inverse_sum"] -= (events("dx_contrib_kernel")
+                           + events("maxpool_bwd_kernel"))
+    return out
 
 
 def profile_step(step, log, label: str, top: int = 12):
@@ -1029,7 +1435,7 @@ def check_loop_shapes(trainer, card, log):
                       dispatch_gap_ms=gaps)
 
 
-def run_loop(counted, per_step, per_val, card, train_step_ms, log):
+def run_loop(counted, per_step, per_val, card, train_step_ms, work, log):
     """Phase 6: the weak-label training loop through its entry point
     (`weasal_tpu_torch.train_Vaihingen3D_WeakLabel.run`) at full
     VaihingenWLConfig width on a synthetic tile: 2 epochs, then a resume
@@ -1040,152 +1446,438 @@ def run_loop(counted, per_step, per_val, card, train_step_ms, log):
     validation batch, the checkpoint equal to the trained state and the
     state after resume equal to the checkpoint. Then one more epoch of the
     resumed trainer (no validation, nothing saved) under torch.profiler:
-    the loop's device time by family and its busy share. Returns the
-    report and the launches of the three runs."""
-    import shutil
-    import tempfile
+    the loop's device time by family and its busy share. The tile and the
+    logs go into `work`. Returns the report, the launches of its runs and
+    the tile's data root."""
     from weasal_tpu_torch.data.synthetic import make_vaihingen_like_root
     from weasal_tpu_torch.train.trainer import ModelTrainer
     from weasal_tpu_torch.train_Vaihingen3D_WeakLabel import run
 
-    work = tempfile.mkdtemp(prefix="chip_smoke_loop_")
+    t0 = time.perf_counter()
+    root = make_vaihingen_like_root(
+        os.path.join(work, "Vaihingen3D"), extent=LOOP_EXTENT,
+        density=LOOP_DENSITY, seed=SEED)
+    scene_s = time.perf_counter() - t0
+    logdir = os.path.join(work, "log")
+    chkp = os.path.join(logdir, "checkpoints", "current_chkp.tar")
+    restored = {}
+    load_checkpoint = ModelTrainer.load_checkpoint
+
+    def keep_restored(self, path, finetune=False):
+        load_checkpoint(self, path, finetune)
+        restored.update(
+            epoch=self.epoch,
+            model={k: v.detach().clone()
+                   for k, v in self.model.state_dict().items()},
+            opt={k: v.clone() for k, v in self.opt_state.items()})
+
+    # Every loss at full precision, as each flush fetches it
+    losses = {}
+    flush_log = ModelTrainer._flush_log
+
+    def keep_losses(self, pending, log_file, al_iteration):
+        losses.setdefault(self.config.saving_path, []).extend(
+            float(p[2]) for p in pending)
+        return flush_log(self, pending, log_file, al_iteration)
+
+    os.environ["WEASAL_LOOP_STATS"] = "1"
+    ModelTrainer.load_checkpoint = keep_restored
+    ModelTrainer._flush_log = keep_losses
+    torch.cuda.reset_peak_memory_stats()
+    runs, total = [], {fn.__name__: 0 for fn in counted}
+    repeat_dir = os.path.join(work, "log_repeat")
     try:
-        t0 = time.perf_counter()
-        root = make_vaihingen_like_root(
-            os.path.join(work, "Vaihingen3D"), extent=LOOP_EXTENT,
-            density=LOOP_DENSITY, seed=SEED)
-        scene_s = time.perf_counter() - t0
-        logdir = os.path.join(work, "log")
-        chkp = os.path.join(logdir, "checkpoints", "current_chkp.tar")
-        restored = {}
-        load_checkpoint = ModelTrainer.load_checkpoint
-
-        def keep_restored(self, path, finetune=False):
-            load_checkpoint(self, path, finetune)
-            restored.update(
-                epoch=self.epoch,
-                model={k: v.detach().clone()
-                       for k, v in self.model.state_dict().items()},
-                opt={k: v.clone() for k, v in self.opt_state.items()})
-
-        os.environ["WEASAL_LOOP_STATS"] = "1"
-        ModelTrainer.load_checkpoint = keep_restored
-        torch.cuda.reset_peak_memory_stats()
-        runs, total = [], {fn.__name__: 0 for fn in counted}
-        try:
-            for label, extra, epochs in (
-                    ("run", ("--max_epoch", "2"), 2),
-                    ("resume", ("--resume", logdir, "--max_epoch", "3"), 3)):
-                for fn in counted:
-                    fn.launches = 0
-                t0 = time.perf_counter()
-                trainer = run([logdir, "--data_root", root, *LOOP_ARGS,
-                               *extra])
-                torch.cuda.synchronize()
-                wall_s = time.perf_counter() - t0
-                launches = {fn.__name__: fn.launches for fn in counted}
-                runs.append(_loop_report(label, trainer, logdir, epochs,
-                                         launches, per_step, per_val,
-                                         wall_s, card, log))
-                for k, v in launches.items():
-                    total[k] += v
-                if label == "run":
-                    saved = torch.load(chkp, map_location="cpu",
-                                       weights_only=True)
-                    expect(saved["epoch"] == 2
-                           and _same_state(saved["model_state_dict"],
-                                           trainer.model.state_dict())
-                           and _same_state(saved["optimizer_state_dict"],
-                                           trainer.opt_state),
-                           "loop: current_chkp.tar differs from the "
-                           "trained state")
-                else:
-                    expect(restored.get("epoch") == 2
-                           and _same_state(restored["model"],
-                                           saved["model_state_dict"])
-                           and _same_state(restored["opt"],
-                                           saved["optimizer_state_dict"]),
-                           "loop: the state after resume differs from the "
-                           "checkpoint")
-                    expect(trainer.epoch == 3, "loop: resume ended at epoch "
-                           f"{trainer.epoch}, expected 3")
-        finally:
-            ModelTrainer.load_checkpoint = load_checkpoint
-            os.environ.pop("WEASAL_LOOP_STATS", None)
-        peak = torch.cuda.max_memory_allocated()
-        first = trainer.datasets[0]
-
-        # The loop's device busy share: one more epoch under the profiler,
-        # whose kernel events by name give the launches as the card ran
-        # them, beside the counters that each replay advances by its
-        # capture's counts (taken again where the profiler lost events)
-        trainer.config.saving = False
-        for attempt in range(PROFILE_TRIES):
-            trainer.config.max_epoch = trainer.epoch + 1
+        # "repeat": the first run's two seeded epochs again, in a
+        # fresh trainer: its losses and checkpoint must be bit equal
+        for label, out, extra, epochs in (
+                ("run", logdir, ("--max_epoch", "2"), 2),
+                ("repeat", repeat_dir, ("--max_epoch", "2"), 2),
+                ("resume", logdir,
+                 ("--resume", logdir, "--max_epoch", "3"), 3)):
             for fn in counted:
                 fn.launches = 0
-            warm0 = trainer.graph_counts()["train_warmups"]
-            rows, _ = profiled_kernels(lambda: trainer.train(first, None))
+            t0 = time.perf_counter()
+            trainer = run([out, "--data_root", root, *LOOP_ARGS,
+                           *extra])
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
             launches = {fn.__name__: fn.launches for fn in counted}
-            observed = observed_calls(rows)
-            steps = trainer.epoch_times[-1]["steps"]
-            # the epoch's own clock (the audit after it runs on the host)
-            wall = 1e3 * trainer.epoch_times[-1]["seconds"]
-            warm = trainer.graph_counts()["train_warmups"] - warm0
-            want = {k: per_step.get(k, 0) * (steps + warm) for k in launches}
+            runs.append(_loop_report(label, trainer, out, epochs,
+                                     launches, per_step, per_val,
+                                     wall_s, card, log))
+            if label == "repeat":
+                repeat = compare_repeat(
+                    losses.get(logdir, []), losses.get(repeat_dir, []),
+                    chkp, os.path.join(repeat_dir, "checkpoints",
+                                       "current_chkp.tar"), card, log)
             for k, v in launches.items():
                 total[k] += v
-            log(f"[{card}] loop profiled epoch {attempt + 1}: {steps} steps, "
-                f"launches by the counters {launches}, by kernel events "
-                f"{observed}")
-            if observed == launches:
-                break
-        expect(launches == want, f"loop profiled epoch: launches {launches}, "
-               f"expected {want} for {steps} steps")
-        expect(observed == launches, f"loop profiled epoch: kernel events "
-               f"{observed} against the counters {launches} in "
-               f"{PROFILE_TRIES} profiles")
-        busy = sum(r[2] for r in rows)
-        families = kernel_families(rows)
-        log(f"[{card}] loop epoch (graphed) under torch.profiler: {steps} "
-            f"steps, wall "
-            f"{wall:.1f} ms ({wall / max(steps, 1):.2f} ms per step), device "
-            f"busy {busy:.1f} ms ({busy / max(steps, 1):.2f} ms per step, "
-            f"{100 * busy / wall:.1f} % of the wall)")
-        for fam, count, ms in families:
-            log(f"[{card}]   {ms:9.3f} ms {count:5d}x  "
-                f"{100 * ms / busy:5.1f}%  {fam}")
-        profile = dict(steps=steps, wall_ms=wall, busy_ms=busy,
-                       launches=launches, observed_launches=observed,
-                       profiles=attempt + 1, families=families)
-        kernel_sums, at_plan = check_loop_shapes(trainer, card, log)
-        dispatch = measure_dispatch(
-            trainer, root, work, counted, per_step, per_val, card, log)
-        setup = dict(scene_s=scene_s, **runs[0]["setup"])
-        log(f"[{card}] loop set-up (host): scene {scene_s:.2f} s, "
-            + ", ".join(f"{k} {v:.2f} s" for k, v in runs[0]["setup"].items())
-            + f"; after resume from the caches: "
-            + ", ".join(f"{k} {v:.2f} s" for k, v in runs[1]["setup"].items())
-            + f"; training tile {first.input_labels[0].shape[0]} points, "
-            f"{len(first.anchors[0])} anchors; {trainer.plan}")
-        log(f"[{card}] loop peak device memory (max_memory_allocated) of "
-            f"the 2 runs: {peak / 2**20:.1f} MiB")
-        loop_ms = [r["step_ms_steady"] for r in runs if r["step_ms_steady"]]
-        log(f"[{card}] loop ms per step (epochs after each run's first, "
-            f"ending in the flush's synchronization): "
-            f"{[round(v, 2) for v in loop_ms]} "
-            f"beside train_step at the loop's plan: back to back "
-            f"{statistics.mean(at_plan['dispatch_gap_ms']):.2f} ms between "
-            f"dispatches, synchronized "
-            f"{statistics.mean(at_plan['sync_ms'][1:]):.2f} ms; phase 5's "
-            f"train_step {train_step_ms:.2f} ms (synchronized, steps "
-            f"2-{N_TRAIN_STEPS}, phase 5's plan)")
-        return dict(runs=runs, setup=setup, plan=vars(trainer.plan),
-                    peak_bytes=peak, train_step_ms=train_step_ms,
-                    profile=profile, kernels=kernel_sums,
-                    train_step_at_plan=at_plan, dispatch=dispatch), total
+            if label == "run":
+                saved = torch.load(chkp, map_location="cpu",
+                                   weights_only=True)
+                expect(saved["epoch"] == 2
+                       and _same_state(saved["model_state_dict"],
+                                       trainer.model.state_dict())
+                       and _same_state(saved["optimizer_state_dict"],
+                                       trainer.opt_state),
+                       "loop: current_chkp.tar differs from the "
+                       "trained state")
+            elif label == "resume":
+                expect(restored.get("epoch") == 2
+                       and _same_state(restored["model"],
+                                       saved["model_state_dict"])
+                       and _same_state(restored["opt"],
+                                       saved["optimizer_state_dict"]),
+                       "loop: the state after resume differs from the "
+                       "checkpoint")
+                expect(trainer.epoch == 3, "loop: resume ended at epoch "
+                       f"{trainer.epoch}, expected 3")
     finally:
-        shutil.rmtree(work, ignore_errors=True)
+        ModelTrainer.load_checkpoint = load_checkpoint
+        ModelTrainer._flush_log = flush_log
+        os.environ.pop("WEASAL_LOOP_STATS", None)
+    peak = torch.cuda.max_memory_allocated()
+    first = trainer.datasets[0]
+
+    # The loop's device busy share: one more epoch under the profiler,
+    # whose kernel events by name give the launches as the card ran
+    # them, beside the counters that each replay advances by its
+    # capture's counts (taken again where the profiler lost events)
+    trainer.config.saving = False
+    for attempt in range(PROFILE_TRIES):
+        trainer.config.max_epoch = trainer.epoch + 1
+        for fn in counted:
+            fn.launches = 0
+        warm0 = trainer.graph_counts()["train_warmups"]
+        rows, _ = profiled_kernels(lambda: trainer.train(first, None))
+        launches = {fn.__name__: fn.launches for fn in counted}
+        observed = observed_calls(rows)
+        steps = trainer.epoch_times[-1]["steps"]
+        # the epoch's own clock (the audit after it runs on the host)
+        wall = 1e3 * trainer.epoch_times[-1]["seconds"]
+        warm = trainer.graph_counts()["train_warmups"] - warm0
+        want = {k: per_step.get(k, 0) * (steps + warm) for k in launches}
+        for k, v in launches.items():
+            total[k] += v
+        log(f"[{card}] loop profiled epoch {attempt + 1}: {steps} steps, "
+            f"launches by the counters {launches}, by kernel events "
+            f"{observed}")
+        if observed == launches:
+            break
+    expect(launches == want, f"loop profiled epoch: launches {launches}, "
+           f"expected {want} for {steps} steps")
+    expect(observed == launches, f"loop profiled epoch: kernel events "
+           f"{observed} against the counters {launches} in "
+           f"{PROFILE_TRIES} profiles")
+    busy = sum(r[2] for r in rows)
+    families = kernel_families(rows)
+    log(f"[{card}] loop epoch (graphed) under torch.profiler: {steps} "
+        f"steps, wall "
+        f"{wall:.1f} ms ({wall / max(steps, 1):.2f} ms per step), device "
+        f"busy {busy:.1f} ms ({busy / max(steps, 1):.2f} ms per step, "
+        f"{100 * busy / wall:.1f} % of the wall)")
+    for fam, count, ms in families:
+        log(f"[{card}]   {ms:9.3f} ms {count:5d}x  "
+            f"{100 * ms / busy:5.1f}%  {fam}")
+    profile = dict(steps=steps, wall_ms=wall, busy_ms=busy,
+                   launches=launches, observed_launches=observed,
+                   profiles=attempt + 1, families=families)
+    kernel_sums, at_plan = check_loop_shapes(trainer, card, log)
+    dispatch = measure_dispatch(
+        trainer, root, work, counted, per_step, per_val, card, log)
+    setup = dict(scene_s=scene_s, **runs[0]["setup"])
+    log(f"[{card}] loop set-up (host): scene {scene_s:.2f} s, "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in runs[0]["setup"].items())
+        + f"; after resume from the caches: "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in runs[2]["setup"].items())
+        + f"; training tile {first.input_labels[0].shape[0]} points, "
+        f"{len(first.anchors[0])} anchors; {trainer.plan}")
+    log(f"[{card}] loop peak device memory (max_memory_allocated) of "
+        f"the 3 runs: {peak / 2**20:.1f} MiB")
+    loop_ms = [r["step_ms_steady"] for r in runs if r["step_ms_steady"]]
+    log(f"[{card}] loop ms per step (epochs after each run's first, "
+        f"ending in the flush's synchronization): "
+        f"{[round(v, 2) for v in loop_ms]} "
+        f"beside train_step at the loop's plan: back to back "
+        f"{statistics.mean(at_plan['dispatch_gap_ms']):.2f} ms between "
+        f"dispatches, synchronized "
+        f"{statistics.mean(at_plan['sync_ms'][1:]):.2f} ms; phase 5's "
+        f"train_step {train_step_ms:.2f} ms (synchronized, steps "
+        f"2-{N_TRAIN_STEPS}, phase 5's plan)")
+    return dict(runs=runs, repeat=repeat, setup=setup,
+                plan=vars(trainer.plan),
+                peak_bytes=peak, train_step_ms=train_step_ms,
+                profile=profile, kernels=kernel_sums,
+                train_step_at_plan=at_plan, dispatch=dispatch), total, root
+
+
+def compare_repeat(losses_a, losses_b, chkp_a, chkp_b, card, log):
+    """Two seeded runs of the loop's two epochs, each in a fresh trainer:
+    every loss (the flushes' f32 values) and the checkpoint's payload
+    (epoch, parameters, BatchNorm statistics, momentum; the saving path
+    names the run's own directory) equal bit for bit."""
+    a = torch.load(chkp_a, map_location="cpu", weights_only=True)
+    b = torch.load(chkp_b, map_location="cpu", weights_only=True)
+    same_losses = len(losses_a) == len(losses_b) > 0 and all(
+        x == y for x, y in zip(losses_a, losses_b))
+    same_state = (a["epoch"] == b["epoch"]
+                  and _same_state(a["model_state_dict"],
+                                  b["model_state_dict"])
+                  and _same_state(a["optimizer_state_dict"],
+                                  b["optimizer_state_dict"]))
+    differ = [k for k in a["model_state_dict"]
+              if not torch.equal(a["model_state_dict"][k],
+                                 b["model_state_dict"][k])]
+    log(f"[{card}] loop repeat: {len(losses_b)} losses "
+        f"{'bit-equal' if same_losses else 'DIFFER'} to the first run's; "
+        f"checkpoint {'bit-equal' if same_state else 'DIFFERS'}"
+        + (f" ({len(differ)} tensors, e.g. {differ[:3]})" if differ else ""))
+    expect(same_losses, "loop repeat: the losses of two seeded runs differ: "
+           f"{losses_a} against {losses_b}")
+    expect(same_state, "loop repeat: the checkpoints of two seeded runs "
+           "differ")
+    return dict(losses_equal=same_losses, checkpoint_equal=same_state,
+                steps=len(losses_b), differing_tensors=differ)
+
+
+def run_active_learning(root, work, counted, per_step, per_val, card, log):
+    """Phase 8: testing and weak-label active learning on phase 6's tile
+    at full width. The entry point with one acquisition (`--al_iterations
+    1 --epoch_schedule 1,1`, 10 steps and 5 validation batches an epoch,
+    2 votes on the training clouds, AL_ADDED anchors, or what the tile
+    has left); then `test_models --on validation` and `--on train` (2
+    votes each, 200 batches an epoch as the script sets), and the
+    pseudo-label refinement. Checks (each fails the run at its end): the
+    ledger grows by exactly the added anchors, none reused; iteration 1
+    trains on the larger budget; every vote batch replays its graph, with
+    7 A and 12 B launches a batch (counted as phase 6 counts them); one
+    vote batch's replay equals the eager `eval_body` bit for bit; the
+    plys, the pseudo labels (one a subsampled point) and finite class
+    weights are written. Reports ms per vote batch (replay, on the card)
+    and per vote update, each vote pass's seconds and voted points/s, the
+    refinement's host seconds and the peak device memory. Returns the
+    report and the launches."""
+    import pickle
+    from weasal_tpu_torch.data.loader import BatchPrefetcher
+    from weasal_tpu_torch.infer import eval_body
+    from weasal_tpu_torch.pseudoLabel_refinement import main as refine
+    from weasal_tpu_torch.test_models import main as test_models
+    from weasal_tpu_torch.train.tester import ModelTester
+    from weasal_tpu_torch.train.trainer import ModelTrainer
+    from weasal_tpu_torch.train_Vaihingen3D_WeakLabel import run
+    from weasal_tpu_torch.utils.ply import read_ply
+
+    log_name = "Log_phase8"
+    logdir = os.path.join(work, "results", "WeakLabel", log_name)
+    tree = os.path.join(root, "input_0.240_torch")
+    cloud = "Vaihingen3D_Training"
+    with open(os.path.join(tree, f"{cloud}_anchors_reduced.pkl"),
+              "rb") as f:
+        n_anchors = len(pickle.load(f)[1])
+    with open(os.path.join(tree, f"{cloud}_subsampled_anchors.pkl"),
+              "rb") as f:
+        budget = len(pickle.load(f))
+    added = min(AL_ADDED, n_anchors - budget)
+    log(f"phase 8: {n_anchors} anchors in the training tile, {budget} in "
+        f"the budget, {added} to add per acquisition")
+    ledgers, trainers = {}, []
+    extend, train = ModelTester._extend_anchor_ledger, ModelTrainer.train
+
+    def ledger():
+        with open(os.path.join(tree, f"{cloud}_subsampled_anchors.pkl"),
+                  "rb") as f:
+            return [int(v) for v in pickle.load(f)]
+
+    def keep_ledgers(self, dataset, all_probs, all_pseudo_lbs):
+        ledgers["before"] = ledger()
+        extend(self, dataset, all_probs, all_pseudo_lbs)
+        ledgers["after"] = ledger()
+
+    def keep_trainer(self, *args, **kwargs):
+        trainers.append(self)
+        return train(self, *args, **kwargs)
+
+    def vote_launches(tester):
+        graph = tester._eval_graph
+        batches = sum(v["batches"] for v in tester.vote_times)
+        expect(tester.graphed and graph.replays == batches,
+               f"phase 8: {graph.replays} vote replays for {batches} vote "
+               "batches")
+        return {k: per_val.get(k, 0) * (batches + graph.warmup_steps)
+                for k in per_val}
+
+    def add(total, part):
+        for k, v in part.items():
+            total[k] = total.get(k, 0) + v
+
+    cwd = os.getcwd()
+    os.chdir(work)
+    torch.cuda.reset_peak_memory_stats()
+    report, total = {}, {fn.__name__: 0 for fn in counted}
+    try:
+        # 1. the entry point: train, vote on the training clouds, acquire,
+        # train again
+        for fn in counted:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        ModelTester._extend_anchor_ledger = keep_ledgers
+        ModelTrainer.train = keep_trainer
+        try:
+            last = run([logdir, "--data_root", root, "--al_iterations", "1",
+                        "--epoch_schedule", "1,1", "--epoch_steps", "10",
+                        "--validation_size", "5", "--al_votes", "2",
+                        "--added_labels", str(added), "--seed", str(SEED)])
+        finally:
+            ModelTester._extend_anchor_ledger = extend
+            ModelTrainer.train = train
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in counted}
+        add(total, launches)
+        want = {}
+        for trainer in trainers:
+            counts = trainer.graph_counts()
+            steps = sum(e["steps"] for e in trainer.epoch_times)
+            batches = sum(v["batches"] for v in trainer.val_times)
+            expect(counts["train_replayed_steps"] == steps
+                   and counts["eval_replays"] == batches,
+                   f"phase 8: training {counts} for {steps} steps and "
+                   f"{batches} validation batches")
+            add(want, {k: per_step.get(k, 0)
+                       * (steps + counts["train_warmups"])
+                       + per_val.get(k, 0)
+                       * (batches + counts["eval_warmups"])
+                       for k in launches})
+        tester = last.testers[0] if getattr(last, "testers", None) else None
+        expect(tester is not None and len(trainers) == 2,
+               f"phase 8: {len(trainers)} trainings and "
+               f"{0 if tester is None else 1} acquisition")
+        add(want, vote_launches(tester))
+        expect(launches == want, f"phase 8 entry point: launches "
+               f"{launches}, expected {want}")
+        before, after = ledgers.get("before", []), ledgers.get("after", [])
+        expect(len(after) == len(before) + added and after[:len(before)]
+               == before and len(set(after)) == len(after),
+               f"phase 8: ledger {len(before)} -> {len(after)} anchors "
+               f"({len(set(after))} distinct), expected +{added}")
+        sizes = [sum(len(a) for a in t.datasets[0].anchors)
+                 for t in trainers]
+        with open(os.path.join(logdir, "training_iteration1.txt")) as f:
+            header = f.readline()
+        expect(f"({len(before) + added})" in header and len(sizes) == 2
+               and sizes[1] > sizes[0],
+               f"phase 8: iteration 1 trained on anchors {sizes}, its log "
+               f"header {header.strip()!r}")
+        vote = dict(tester.vote_times[0])
+        log(f"[{card}] phase 8 entry point: {wall_s:.1f} s; ledger "
+            f"{len(before)} -> {len(after)}; anchors with overlaps by "
+            f"iteration {sizes}; acquisition vote {vote['batches']} batches "
+            f"in {vote['seconds']:.2f} s ({vote['points'] / vote['seconds']:.0f} "
+            f"voted points/s); launches {launches}")
+        report["entry"] = dict(wall_s=wall_s, ledger=[len(before), len(after)],
+                               anchors=sizes, vote=vote, launches=launches)
+
+        # one vote batch: replay against the eager body; replay and vote
+        # update timed on the card
+        source, extra, acc = tester.vote_parts(tester.dataset)
+        runner = tester._eval_graph
+        times = {k: [] for k in ("replay_dev", "replay_host", "update_dev",
+                                 "update_host")}
+        same = None
+        for pack, _ in BatchPrefetcher(source, 5, tester.device,
+                                       rng=np.random.default_rng(SEED),
+                                       augment=True, pack=1):
+            runner.load(pack)
+            marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            marks[0].record()
+            runner.run()
+            marks[1].record()
+            t1 = time.perf_counter()
+            acc.update(runner.out["probs"], runner.slots[0],
+                       d2=runner.out["d2"])
+            marks[2].record()
+            t2 = time.perf_counter()
+            torch.cuda.synchronize()
+            times["replay_host"].append(1e3 * (t1 - t0))
+            times["update_host"].append(1e3 * (t2 - t1))
+            times["replay_dev"].append(marks[0].elapsed_time(marks[1]))
+            times["update_dev"].append(marks[1].elapsed_time(marks[2]))
+            if same is None:
+                eager = eval_body(tester.model, runner.slots[0],
+                                  tester.config, tester.plan, tester.device,
+                                  spec=tester.spec)
+                same = all(torch.equal(runner.out[k], eager[k])
+                           for k in ("probs", "labels", "d2"))
+        expect(bool(same), "phase 8: a vote batch's replay differs from "
+               "the eager eval_body")
+        med = {k: statistics.median(v) for k, v in times.items()}
+        log(f"[{card}] phase 8 vote batch (median of 5): replay "
+            f"{med['replay_dev']:.2f} ms on the card, {med['replay_host']:.2f}"
+            f" ms of host; vote update with d2 {med['update_dev']:.3f} ms on "
+            f"the card, {med['update_host']:.2f} ms of host; replay equal "
+            f"to eager bit for bit: {same}")
+        report["vote_batch"] = dict(replay_equals_eager=bool(same), **med)
+
+        # 2-3. test_models on the validation and the training clouds
+        for on in ("validation", "train"):
+            for fn in counted:
+                fn.launches = 0
+            t0 = time.perf_counter()
+            tm = test_models(["--log", logdir, "--on", on, "--num_votes",
+                              "2", "--data_root", root])
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            launches = {fn.__name__: fn.launches for fn in counted}
+            add(total, launches)
+            want = vote_launches(tm)
+            expect(launches == {k: want.get(k, 0) for k in launches},
+                   f"phase 8 test_models --on {on}: launches {launches}, "
+                   f"expected {want}")
+            out = os.path.join("test", "WeakLabel", log_name)
+            n_eval = len(tm.dataset.validation_labels[0])
+            for sub in ("predictions", "probs", "potentials"):
+                path = os.path.join(out, sub, f"{cloud}.ply")
+                ok = os.path.exists(path)
+                if ok and sub != "potentials":
+                    ok = read_ply(path)["x"].shape[0] == n_eval
+                expect(ok, f"phase 8 test_models --on {on}: {path} missing "
+                       f"or not {n_eval} points")
+            finite = all(np.isfinite(p).all() for p in tm.test_probs)
+            expect(finite, f"phase 8 test_models --on {on}: non-finite "
+                   "votes")
+            vote = dict(tm.vote_times[0])
+            log(f"[{card}] phase 8 test_models --on {on}: {wall_s:.1f} s; "
+                f"vote {vote['batches']} batches in {vote['seconds']:.2f} s "
+                f"({1e3 * vote['seconds'] / vote['batches']:.2f} ms a batch, "
+                f"{vote['points'] / vote['seconds']:.0f} voted points/s); "
+                f"{n_eval} points projected; launches {launches}")
+            report[f"test_{on}"] = dict(wall_s=wall_s, vote=vote,
+                                        launches=launches)
+
+        t0 = time.perf_counter()
+        out_dir = refine(["--weak_label_log", log_name, "--data_root",
+                          root])
+        refine_s = time.perf_counter() - t0
+        n_sub = len(tm.dataset.input_labels[0])
+        pseudo = os.path.join(out_dir, f"{cloud}_t20_pseudo.txt")
+        weights = os.path.join(out_dir, "Vaihingen3D_t20_weight.txt")
+        labels = np.loadtxt(pseudo) if os.path.exists(pseudo) else []
+        w = np.loadtxt(weights) if os.path.exists(weights) else []
+        expect(len(labels) == n_sub and len(w) == 9
+               and np.isfinite(w).all(),
+               f"phase 8 refinement: {len(labels)} pseudo labels for "
+               f"{n_sub} subsampled points, weights {w}")
+        peak = torch.cuda.max_memory_allocated()
+        log(f"[{card}] phase 8 refinement: {refine_s:.2f} s of host for "
+            f"{n_sub} points ({int(np.sum(np.asarray(labels) == 10))} "
+            f"no-label); weights {np.round(w, 3).tolist()}; phase 8 peak "
+            f"device memory {peak / 2**20:.1f} MiB")
+        report.update(refine_s=refine_s, peak_bytes=peak)
+    finally:
+        os.chdir(cwd)
+    return report, total
 
 
 def _runs_by_k(trainer) -> dict:
@@ -1500,6 +2192,8 @@ def main(argv=None) -> int:
     from weasal_tpu_torch.data.level0 import assemble_level0
     from weasal_tpu_torch.infer import to_device
     from weasal_tpu_torch.ops.cuda import build
+    from weasal_tpu_torch.ops.cuda.inverse_lists import (build_inverse_lists,
+                                                         inverse_sum)
     from weasal_tpu_torch.ops.cuda.kpconv_bwd import kpconv_bwd
     from weasal_tpu_torch.ops.cuda.kpconv_fwd import kpconv_fwd
     from weasal_tpu_torch.ops.cuda.maxpool_bwd import maxpool_bwd
@@ -1554,8 +2248,10 @@ def main(argv=None) -> int:
 
     # ---- phase 3: the inference path
     log("phase 3: eval_step on the card")
-    radius_search.launches = 0
-    kpconv_fwd.launches = 0
+    counted = (radius_search, kpconv_fwd, kpconv_bwd, maxpool_bwd,
+               build_inverse_lists, inverse_sum)
+    for fn in counted:
+        fn.launches = 0
     step_ms, points = [], 0
     for arrays in batches:
         torch.cuda.synchronize()
@@ -1573,10 +2269,11 @@ def main(argv=None) -> int:
         if not torch.allclose(valid.sum(-1), torch.ones_like(valid[:, 0]),
                               atol=1e-5):
             raise AssertionError("probabilities do not sum to 1")
-    eval_launches = {"radius_search": radius_search.launches,
-                     "kpconv_fwd": kpconv_fwd.launches}
+    eval_launches = {fn.__name__: fn.launches for fn in counted}
+    # the row sums: the pyramid subsample's voxel sums, one per level
     expected = {"radius_search": 3 * plan.num_layers - 2,
-                "kpconv_fwd": len(b_rows)}
+                "kpconv_fwd": len(b_rows), "kpconv_bwd": 0, "maxpool_bwd": 0,
+                "build_inverse_lists": 0, "inverse_sum": plan.num_layers - 1}
     for name, per_batch in expected.items():
         if eval_launches[name] != per_batch * len(batches):
             raise AssertionError(
@@ -1608,12 +2305,24 @@ def main(argv=None) -> int:
 
     # ---- phase 5: the training path
     log(f"phase 5: train_step on the card, {N_TRAIN_STEPS} steps")
-    counted = (radius_search, kpconv_fwd, kpconv_bwd, maxpool_bwd)
+    per_val = dict(expected)
+    # Per step: the inverse lists of every edge a backward sums over (3
+    # conv, 2 pool, 2 upsample edges and the region members), the row
+    # sums of the 2 upsample gathers and the 4 region-member gathers, and
+    # the subsample's voxel sums
+    n_up = plan.num_layers - 1
     expected = {"radius_search": 3 * plan.num_layers - 2,
                 "kpconv_fwd": len(b_rows), "kpconv_bwd": len(b_rows),
                 "maxpool_bwd": len(d_rows)}
+    inverse_per_step = {"build_inverse_lists": plan.num_layers + 2 * n_up + 1,
+                        "inverse_sum": n_up + n_up + 4}
     train_model, opt_state, start, launches, train_ms, losses = run_training(
         config, plan, batches, dev, counted, expected, log)
+    for name, want in inverse_per_step.items():
+        got = launches[name] / N_TRAIN_STEPS
+        expect(got == want, f"{name}: {launches[name]} launches in "
+               f"{N_TRAIN_STEPS} training steps, expected {want} a step")
+        expected[name] = int(got) if got == int(got) else want
     t = to_device(batches[0], dev)
     with torch.no_grad():
         shared = batch_from_device_pyramid(
@@ -1625,22 +2334,36 @@ def main(argv=None) -> int:
             region_lb=t["region_lb"])
     train_model.load_state_dict(start[0])
     comparison = compare_train_steps(train_model, start[1], shared, config,
-                                     log, plan=plan)
+                                     log, plan=plan, witness=True)
     tprof_rows, tbusy, twall = profile_step(
         lambda: train_step(train_model, opt_state, batches[1], config, plan,
                            config.learning_rate, device=dev), log,
         "train_step")
+    log("phase 5: the inverse lists and the row sums at a step's shapes")
+    inv_sums = check_inverse_lists(record_inverse_calls(
+        lambda: train_step(train_model, opt_state, batches[2], config, plan,
+                           config.learning_rate, device=dev)), log)
+    deterministic = run_deterministic_step(log)
 
-    # ---- phase 6: the training loop
+    # ---- phase 6: the training loop (phase 7 inside it)
     log("phase 6: the weak-label training loop on the card")
-    per_val = {"radius_search": expected["radius_search"],
-               "kpconv_fwd": expected["kpconv_fwd"]}
-    loop, loop_launches = run_loop(counted, expected, per_val, card,
-                                   statistics.mean(train_ms[1:]), log)
+    import shutil
+    import tempfile
+    work = tempfile.mkdtemp(prefix="chip_smoke_loop_")
+    try:
+        loop, loop_launches, root = run_loop(
+            counted, expected, per_val, card, statistics.mean(train_ms[1:]),
+            work, log)
+        # ---- phase 8: testing and active learning on the loop's tile
+        log("phase 8: testing and weak-label active learning on the card")
+        al, al_launches = run_active_learning(root, work, counted, expected,
+                                              per_val, card, log)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     def main_path(name):
         return (eval_launches.get(name, 0) + launches[name]
-                + loop_launches[name])
+                + loop_launches[name] + al_launches[name])
 
     # The largest error of each kernel at either main path's shapes
     for name, phase_sum in (("radius_search", a_sum), ("kpconv_fwd", b_sum),
@@ -1665,6 +2388,20 @@ def main(argv=None) -> int:
              source="weasal_tpu_torch/csrc/maxpool_bwd.cu",
              replaces="weasal_tpu/ops/pallas/maxpool_banded.py:159",
              launches=main_path("maxpool_bwd"), library_ms=None, **d_sum),
+        # C's and D's dX sum over these lists in their own launches; the
+        # standalone row sums are the other scatter-adds of the step. No
+        # pallas_call computes them (the TPU kernels sum by membership
+        # products), so they replace none and name the kernels they serve
+        dict(name="build_inverse_lists", route="cuda",
+             source="weasal_tpu_torch/csrc/inverse_lists.cu",
+             replaces=None, helper_of=["kpconv_bwd", "maxpool_bwd"],
+             launches=main_path("build_inverse_lists"),
+             **inv_sums["build_inverse_lists"]),
+        dict(name="inverse_sum", route="cuda",
+             source="weasal_tpu_torch/csrc/inverse_lists.cu",
+             replaces=None, helper_of=["kpconv_bwd", "maxpool_bwd"],
+             launches=main_path("inverse_sum"),
+             **inv_sums["inverse_sum"]),
     ]
     if args.out:
         with open(args.out, "w") as f:
@@ -1681,7 +2418,10 @@ def main(argv=None) -> int:
                                         rows=prof_rows),
                            train_profile=dict(wall_ms=twall, busy_ms=tbusy,
                                               rows=tprof_rows),
-                           loop=loop, loop_launches=loop_launches), f,
+                           loop=loop, loop_launches=loop_launches,
+                           inverse_lists=inv_sums,
+                           deterministic_step=deterministic,
+                           active_learning=al, al_launches=al_launches), f,
                       indent=1)
     if FAILED:
         print(f"chip_smoke: {len(FAILED)} checks failed", file=sys.stderr)

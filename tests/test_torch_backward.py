@@ -195,3 +195,97 @@ def test_max_pool_function_routes_to_kernel_d_plain_version():
     want = maxpool_bwd_plain(xt.detach(), nbt, gt)
     assert torch.equal(got, want)
     assert torch.equal(maxpool_bwd(xt.detach(), nbt, gt), want)
+
+
+def _dx_two_stage(contrib, neighb_inds, ns):
+    """Kernels C's and D's two stages for dX in plain PyTorch: contrib
+    [B, Nq, K, D] (stage 1's workspace) summed into [B, Ns, D] over the
+    inverse neighbor lists (build_inverse_lists_plain), each support's
+    slots added one at a time in ascending order from 0.0, as
+    `inverse_sum_kernel` adds them."""
+    from weasal_tpu_torch.ops.cuda.inverse_lists import (
+        build_inverse_lists_plain, segment_ids)
+    b, nq, k, d = contrib.shape
+    inv = build_inverse_lists_plain(neighb_inds, ns, k)
+    offsets = inv.offsets.long()
+    counts = offsets[1:] - offsets[:-1]
+    rows = b * ns
+    total = int(offsets[-1])
+    seg = segment_ids(inv.offsets, total)
+    rank = torch.arange(total, dtype=torch.int64) - offsets[seg]
+    src = contrib.reshape(-1, d)
+    out = torch.zeros((rows, d), dtype=contrib.dtype)
+    depth = int(counts.max()) if rows else 0
+    for j in range(depth):
+        at = rank == j
+        out[seg[at]] = out[seg[at]] + src[inv.entries[:total][at].long()]
+    return out.reshape(b, ns, d)
+
+
+# Kernel C's and D's dX in two stages (a workspace of each slot's
+# contribution, then each support's slots added in ascending order over
+# its inverse neighbor list) against `index_add_`, at phase 4's (K,
+# channels) of the main path: the convs' K 15 / 31 / 34 with their input
+# widths and the pools' K 14 / 29, at fewer points (300 queries on 400
+# supports, a third of the slots shadows)
+@pytest.mark.parametrize("k,c", [(15, 4), (15, 32), (15, 64), (31, 64),
+                                 (31, 128), (34, 128), (34, 256), (34, 512),
+                                 (14, 64), (29, 128)])
+def test_two_stage_dx_equals_index_add(k, c):
+    from weasal_tpu_torch.ops.cuda.inverse_lists import scatter_rows
+    g = torch.Generator().manual_seed(k * 1000 + c)
+    b, nq, ns = 3, 300, 400
+    nb = torch.randint(0, ns, (b, nq, k), generator=g, dtype=torch.int32)
+    nb[torch.rand(nb.shape, generator=g) < 0.33] = ns
+    contrib = torch.randn((b, nq, k, c), generator=g)
+    got = _dx_two_stage(contrib, nb, ns)
+    want = scatter_rows(contrib, nb, ns)
+    torch.testing.assert_close(got, want, rtol=1e-6,
+                               atol=1e-6 * float(want.abs().max()))
+    assert torch.equal(got, want)        # both add in ascending slot order
+
+
+def test_gather_rows_backward_equals_gather_autograd():
+    """The row gather of the region loss and of nearest upsampling
+    (`GatherRows`): values and gradient on the CPU equal the autograd of
+    the plain gather it replaces, bit for bit; `inverse_sum_plain` over
+    the plain inverse lists gives the same gradient."""
+    from weasal_tpu_torch.ops.cuda.inverse_lists import (
+        build_inverse_lists_plain, gather_rows, inverse_sum_plain)
+    g = torch.Generator().manual_seed(9)
+    b, ns, d, r, p = 2, 50, 9, 7, 12
+    x = torch.randn((b, ns, d), generator=g, requires_grad=True)
+    inds = torch.randint(0, ns + 1, (b, r, p), generator=g,
+                         dtype=torch.int32)
+    gout = torch.randn((b, r, p, d), generator=g)
+    got = gather_rows(x, inds)
+    (dx,) = torch.autograd.grad(got, x, gout)
+    padded = torch.cat([x, x.new_zeros((b, 1, d))], dim=1)
+    flat = inds.reshape(b, -1).long()
+    want = padded.gather(1, flat[:, :, None].expand(-1, -1, d))
+    (dx_want,) = torch.autograd.grad(want, x, gout.reshape(b, -1, d))
+    assert torch.equal(got.reshape(b, -1, d), want)
+    assert torch.equal(dx, dx_want)
+    inv = build_inverse_lists_plain(inds, ns)
+    dx_inv = inverse_sum_plain(gout.reshape(-1, d), inv, b * ns)
+    assert torch.equal(dx_inv.reshape(b, ns, d), dx_want)
+
+
+def test_card_backwards_take_their_inverse_lists_from_the_caller():
+    """A dX on the card sums over the inverse lists its caller passes
+    (`require_lists`): none raises, lists of another edge raise, and a
+    LazyInverse of the indices gives the stable sort's lists."""
+    from weasal_tpu_torch.ops.cuda.inverse_lists import (
+        LazyInverse, build_inverse_lists_plain, require_lists)
+    g = torch.Generator().manual_seed(10)
+    b, nq, ns, k = 2, 30, 20, 6
+    inds = torch.randint(0, ns + 1, (b, nq, k), generator=g,
+                         dtype=torch.int32)
+    with pytest.raises(ValueError, match="inverse lists"):
+        require_lists(None, b * ns, "kpconv_bwd")
+    with pytest.raises(ValueError, match="another shape"):
+        require_lists(LazyInverse(inds, ns + 1), b * ns, "maxpool_bwd")
+    got = require_lists(LazyInverse(inds, ns), b * ns, "gather_rows")
+    want = build_inverse_lists_plain(inds, ns)
+    assert torch.equal(got.offsets, want.offsets)
+    assert torch.equal(got.entries, want.entries)

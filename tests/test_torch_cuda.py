@@ -3,8 +3,10 @@ with shadows, masks, ties (a maximum of 0 shared with shadows for D) and
 all three influences, and the autograd Functions that launch C and D.
 Tolerances: B and C rtol 1e-4, atol 1e-5 x output scale (f32 sums in
 another order; the GEMM core's 3xTF32 products are f32-grade); D rtol
-1e-6, atol 1e-6 x scale (atomics add the shares of one support in another
-order). The GEMM core of B and C is also held to f64 products at shapes
+1e-6, atol 1e-6 x scale (the kernel adds the shares of one support in
+ascending slot order, `index_add_` in its own). C and D repeat bit for
+bit, and a training step runs under `torch.use_deterministic_algorithms`;
+inverse neighbor lists built inside a captured graph equal eager ones. The GEMM core of B and C is also held to f64 products at shapes
 that reach each of its edges and at the main path's widest conv, and,
 on positive operands there, to a mean relative error below 3e-8; B's
 influences equal the plain version's bit for bit; and
@@ -24,7 +26,8 @@ and 2 D per step, its warm-ups counted. The captured steps
 (train/graphs.py): a replayed training step against the eager one, both
 held to an f64 step from one state and pyramid (L2 error <= 1e-3 x norm
 + 4 x the eager step's, as chip_smoke.py); a replay after `lr_t.fill_`
-applies the new rate; the validation graph equals `eval_batch` (1e-6);
+applies the new rate; the validation graph equals `eval_batch` (1e-6), and a vote batch's
+replay equals the eager body bit for bit (probabilities, labels, `d2`);
 `load_checkpoint` and the vote buffer's `load` keep every captured
 address; a capture that meets a host synchronization raises. Needs an
 NVIDIA GPU with nvcc; skips elsewhere. On the machine with the card
@@ -45,6 +48,8 @@ from weasal_tpu_torch.ops.cuda import kpconv_bwd as bwd_lib
 from weasal_tpu_torch.ops.cuda import kpconv_fwd as fwd_lib
 from weasal_tpu_torch.ops.cuda import radius_search as radius_lib
 from weasal_tpu_torch.ops.cuda.build import load_library
+from weasal_tpu_torch.ops.cuda.inverse_lists import (
+    LazyInverse, build_inverse_lists, build_inverse_lists_plain)
 from weasal_tpu_torch.ops.cuda.kpconv_bwd import kpconv_bwd, kpconv_bwd_plain
 from weasal_tpu_torch.ops.cuda.kpconv_fwd import (kpconv_fwd,
                                                   kpconv_fwd_plain,
@@ -208,7 +213,8 @@ def test_kpconv_bwd_kernel_matches_plain(dev, influence):
     _, y_plain = kpconv_fwd_plain_with_y(q, s, nb, x, kpts, w, 0.8,
                                          influence)
     _close(y, y_plain, 1e-4, 1e-5)
-    dx, dw = kpconv_bwd(q, s, nb, y, kpts, w, grad, 0.8, influence)
+    dx, dw = kpconv_bwd(q, s, nb, y, kpts, w, grad, 0.8, influence,
+                        inverse=LazyInverse(nb, s.shape[1]))
     dx_p, dw_p = kpconv_bwd_plain(q, s, nb, y, kpts, w, grad, 0.8,
                                   influence)
     torch.cuda.synchronize()
@@ -236,10 +242,103 @@ def test_maxpool_bwd_kernel_matches_plain(dev, k, c):
                        dtype=torch.int32)
     nb[torch.rand(nb.shape, generator=g, device=dev) < 0.2] = ns
     grad = torch.randn((b, nq, c), generator=g, device=dev)
-    got = maxpool_bwd(x, nb, grad)
+    got = maxpool_bwd(x, nb, grad, inverse=LazyInverse(nb, ns))
     want = maxpool_bwd_plain(x, nb, grad)
     torch.cuda.synchronize()
     _close(got, want, 1e-6, 1e-6)
+
+
+def _bits_repeat(fn, calls=3):
+    """fn()'s outputs over `calls` calls, each equal bit for bit to the
+    first; returns the first."""
+    first = [t.clone() for t in fn() if t is not None]
+    for _ in range(calls - 1):
+        again = [t for t in fn() if t is not None]
+        torch.cuda.synchronize()
+        assert all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(first, again))
+    return first
+
+
+# C at small shapes and at the main path's level-0 conv (K 15, Cin 64,
+# 3 spheres of 16352 rows), D at the main path's two pools
+@pytest.mark.parametrize("case", [
+    dict(), dict(b=3, nq=16352, ns=16352, k=15, cin=64, cout=64)])
+def test_kpconv_bwd_repeats_bit_for_bit(dev, case):
+    q, s, nb, x, kpts, w, grad = _conv_problem(dev, 12, **case)
+    _, y = kpconv_fwd_with_y(q, s, nb, x, kpts, w, 0.8, "linear")
+    inv = LazyInverse(nb, s.shape[1])
+    dx, dw = _bits_repeat(lambda: kpconv_bwd(q, s, nb, y, kpts, w, grad,
+                                             0.8, "linear", inverse=inv))
+    dx_p, dw_p = kpconv_bwd_plain(q, s, nb, y, kpts, w, grad, 0.8, "linear")
+    _close(dx, dx_p, 1e-4, 1e-5)
+    _close(dw, dw_p, 1e-4, 1e-5)
+
+
+@pytest.mark.parametrize("k,c,nq,ns", [(14, 64, 11432, 16352),
+                                       (29, 128, 5712, 11432)])
+def test_maxpool_bwd_repeats_bit_for_bit(dev, k, c, nq, ns):
+    g = torch.Generator(device=dev).manual_seed(13)
+    x = torch.randint(-3, 3, (3, ns, c), generator=g, device=dev).float()
+    nb = torch.randint(0, ns + 1, (3, nq, k), generator=g, device=dev,
+                       dtype=torch.int32)
+    grad = torch.randn((3, nq, c), generator=g, device=dev)
+    inv = LazyInverse(nb, ns)
+    (got,) = _bits_repeat(lambda: (maxpool_bwd(x, nb, grad, inverse=inv),))
+    _close(got, maxpool_bwd_plain(x, nb, grad), 1e-6, 1e-6)
+
+
+def test_inverse_lists_captured_equal_eager(dev):
+    """The build reads nothing back to the host, so a CUDA graph captures
+    it; its lists equal the eager build's and the plain stable sort's,
+    and the row sums over them equal index_add_ to f32 rounding."""
+    from weasal_tpu_torch.ops.cuda.inverse_lists import (inverse_sum,
+                                                         inverse_sum_plain)
+    g = torch.Generator(device=dev).manual_seed(14)
+    b, nq, ns, ld = 3, 2000, 1500, 12
+    nb = torch.randint(0, ns + 1, (b, nq, ld), generator=g, device=dev,
+                       dtype=torch.int32)
+    eager = build_inverse_lists(nb, ns)
+    plain = build_inverse_lists_plain(nb, ns)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        build_inverse_lists(nb, ns)              # warm-up: load the library
+    torch.cuda.current_stream(dev).wait_stream(side)
+    with torch.cuda.graph(graph):
+        captured = build_inverse_lists(nb, ns)
+    graph.replay()
+    torch.cuda.synchronize()
+    total = int(plain.offsets[-1])
+    for lists in (eager, captured):
+        assert torch.equal(lists.offsets, plain.offsets)
+        assert torch.equal(lists.entries[:total], plain.entries[:total])
+    src = torch.randn((b * nq * ld, 40), generator=g, device=dev)
+    got = inverse_sum(src, eager, b * ns)
+    _close(got, inverse_sum_plain(src, plain, b * ns), 1e-6, 1e-6)
+    # one column of an upsample edge (k = 1 of ld)
+    one = build_inverse_lists(nb, ns, k=1)
+    ref = build_inverse_lists_plain(nb, ns, k=1)
+    assert torch.equal(one.offsets, ref.offsets)
+    assert torch.equal(one.entries[:int(ref.offsets[-1])],
+                       ref.entries[:int(ref.offsets[-1])])
+
+
+def test_deterministic_algorithms_training_step(dev):
+    """One eager kernel training step at full width runs under
+    `torch.use_deterministic_algorithms(True)` (which raises at any
+    PyTorch op known to be non-deterministic on CUDA), in a process of
+    its own with CUBLAS_WORKSPACE_CONFIG=:4096:8."""
+    import os
+    import subprocess
+    import sys
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    out = subprocess.run(
+        [sys.executable, "-m", "weasal_tpu_torch.tools.deterministic_step"],
+        env=env, capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "deterministic step: loss" in out.stdout
 
 
 def test_autograd_functions_launch_kernels_c_and_d(dev):
@@ -250,9 +349,10 @@ def test_autograd_functions_launch_kernels_c_and_d(dev):
     pools = torch.randint(0, q.shape[1] + 1, (q.shape[0], 200, 9),
                           generator=gen, device=dev, dtype=torch.int32)
     c0, d0 = kpconv_bwd.launches, maxpool_bwd.launches
-    out = ops.kpconv(q, s, nb, x, kpts, w, ops.KPConvParams(0.8))
+    out = ops.kpconv(q, s, nb, x, kpts, w, ops.KPConvParams(0.8),
+                     LazyInverse(nb, s.shape[1]))
     assert out.grad_fn is not None
-    pooled = ops.max_pool(out, pools)
+    pooled = ops.max_pool(out, pools, LazyInverse(pools, q.shape[1]))
     assert pooled.grad_fn is not None
     loss = (pooled * grad[:, :200]).sum()
     dx, dw = torch.autograd.grad(loss, (x, w))
@@ -270,6 +370,17 @@ def test_autograd_functions_launch_kernels_c_and_d(dev):
     assert maxpool_bwd.launches == d0 + 1
     _close(dw, dwp, 1e-3, 1e-5)
     _close(dx, dxp, 1e-3, 1e-5)
+
+
+def test_card_backward_without_inverse_lists_raises(dev):
+    """A dX on the card sums over inverse lists that its caller passes;
+    without them the wrappers raise rather than build their own."""
+    q, s, nb, x, kpts, w, grad = _conv_problem(dev, 4)
+    _, y = kpconv_fwd_with_y(q, s, nb, x, kpts, w, 0.8, "linear")
+    with pytest.raises(ValueError, match="inverse lists"):
+        kpconv_bwd(q, s, nb, y, kpts, w, grad, 0.8, "linear")
+    with pytest.raises(ValueError, match="inverse lists"):
+        maxpool_bwd(x, nb, grad[..., :x.shape[2]].contiguous())
 
 
 # Shapes that reach every edge of the GEMM core (csrc/kpconv_common.cuh):
@@ -312,7 +423,7 @@ def test_kpconv_bwd_gemm_core_matches_f64(dev, case, need_dx):
     q, s, nb, x, kpts, w, grad = _conv_problem(dev, 7, **GEMM_CASES[case])
     _, y = kpconv_fwd_with_y(q, s, nb, x, kpts, w, 0.8, "linear")
     dx, dw = kpconv_bwd(q, s, nb, y, kpts, w, grad, 0.8, "linear",
-                        need_dx=need_dx)
+                        need_dx=need_dx, inverse=LazyInverse(nb, s.shape[1]))
     kp, cin, cout = w.shape
     want_dw = (y.double().t() @ grad.double().reshape(-1, cout)).reshape(
         kp, cin, cout)
@@ -372,9 +483,10 @@ def _guards_hold(buffers):
 
 @pytest.mark.parametrize("case", list(GEMM_CASES))
 def test_kpconv_launches_write_only_their_buffers(dev, case):
-    """Kernels B and C write nothing outside y, out, dr, dX, dW and the
-    split-K workspace (each between guard bands), and refuse a workspace
-    one float shorter than the schedule needs."""
+    """Kernels B and C write nothing outside y, out, dr, C's dX
+    workspace, dX, dW and the split-K workspace (each between guard
+    bands), and refuse a workspace one float shorter than the schedule
+    needs."""
     q, s, nb, x, kpts, w, grad = _conv_problem(dev, 9, **GEMM_CASES[case])
     b, nq, _ = q.shape
     ns, k = s.shape[1], nb.shape[2]
@@ -408,15 +520,18 @@ def test_kpconv_launches_write_only_their_buffers(dev, case):
     lib = load_library("kpconv_bwd")
     n_ws = fwd_lib.workspace_floats(lib, "kpconv_bwd", rows, kdim, cout, 1)
     bwd = {name: _guarded(shape, dev) for name, shape in (
-        ("dr", (rows, kdim)), ("dx", (b, ns, cin)), ("dw", (kp, cin, cout)),
-        ("ws", (max(n_ws, 1),)))}
+        ("dr", (rows, kdim)), ("xws", (rows * k, cin)), ("dx", (b, ns, cin)),
+        ("dw", (kp, cin, cout)), ("ws", (max(n_ws, 1),)))}
+    inv = build_inverse_lists(nb, ns)
     fn = lib.kpconv_bwd_launch
     fn.argtypes, fn.restype = bwd_lib._ARGTYPES, ctypes.c_int
 
     def launch_bwd(ws_floats):
-        outs = [bwd[n][1].data_ptr() for n in ("dr", "dx", "dw", "ws")]
+        outs = [bwd[n][1].data_ptr() for n in ("dr", "xws", "dx", "dw",
+                                                "ws")]
         return fn(*head, y.data_ptr(), kpts.data_ptr(), w.data_ptr(),
-                  grad.data_ptr(), *scalars, 1, *outs, ws_floats, stream)
+                  grad.data_ptr(), *scalars, 1, inv.offsets.data_ptr(),
+                  inv.entries.data_ptr(), *outs, ws_floats, stream)
 
     if n_ws:
         assert launch_bwd(n_ws - 1) == INVALID_VALUE
@@ -723,6 +838,28 @@ def test_eval_graph_equals_eval_batch(dev, synth_wl):
     torch.testing.assert_close(graph.out["probs"], want_p, rtol=0,
                                atol=1e-6)
     assert torch.equal(graph.out["labels"], want_l)
+
+
+def test_vote_batch_replay_equals_eager_bit_for_bit(dev, synth_wl):
+    """A vote batch's replay (the tester's EvalGraph) equals the eager
+    `eval_body` bit for bit: probabilities, labels and `d2`, the squared
+    norms of the augmented points that the vote mask reads."""
+    from weasal_tpu_torch.infer import eval_body
+    from weasal_tpu_torch.train.graphs import EvalGraph
+    cfg, plan, spec, model, _, batch, _ = _card_setup(dev, synth_wl, seed=8)
+    host = {k: v.cpu()[None] for k, v in batch.items()
+            if not k.startswith("res_")}
+    extra = {k: v for k, v in batch.items() if k.startswith("res_")}
+    graph = EvalGraph("vote batch", lambda inputs, out: eval_body(
+        model, inputs, cfg, plan, dev, spec=spec, out=out), host, dev,
+        extra=extra, graphed=True)
+    graph.load(host)
+    graph.run()
+    eager = eval_body(model, batch, cfg, plan, dev, spec=spec)
+    torch.cuda.synchronize()
+    assert graph.replays == 1 and set(graph.out) == {"probs", "labels", "d2"}
+    for key in ("probs", "labels", "d2"):
+        assert torch.equal(graph.out[key], eager[key]), key
 
 
 def test_threefry_on_card_equals_cpu(dev):

@@ -217,3 +217,53 @@ def test_twenty_sphere_payloads_equal(both, split, gather):
         assert p.argmin_potentials == j.argmin_potentials
     assert thinned > 0                          # the thinning ran
     assert rj.random() == rp.random()           # same draws consumed
+
+
+@pytest.mark.parametrize("on_train", [True, False])
+def test_test_split_equals_jax(both, on_train):
+    """The 'test' split: with `test_on_train` the training cloud (labels
+    kept), else the testing cloud (no labels read into payloads); files,
+    subsampled clouds, projection indices, evaluation labels and points,
+    and five payloads equal."""
+    from weasal_tpu.data import datasets as jax_datasets
+    from weasal_tpu_torch.data.datasets import Vaihingen3DWLDataset
+    _, _, (jroot, proot) = both
+    with jax_dataset_patches():
+        j = jax_datasets.Vaihingen3DWLDataset(
+            JaxSynthConfig(), split="test", test_on_train=on_train,
+            data_root=jroot, rng=np.random.default_rng(0))
+        p = Vaihingen3DWLDataset(port_config_class()(), split="test",
+                                 test_on_train=on_train, data_root=proot,
+                                 rng=np.random.default_rng(0))
+    assert p.has_labels == on_train
+    assert [os.path.relpath(f, proot) for f in p.files] == \
+        [os.path.relpath(f, jroot) for f in j.files] == \
+        [os.path.join("Test", "Vaihingen3D_Training.ply" if on_train
+                      else "Vaihingen3D_Testing.ply")]
+    with open(j.files[0], "rb") as f:
+        want = f.read()
+    with open(p.files[0], "rb") as f:
+        assert f.read() == want
+    np.testing.assert_array_equal(np.asarray(p.input_trees[0].data),
+                                  np.asarray(j.input_trees[0].data))
+    np.testing.assert_array_equal(p.input_labels[0], j.input_labels[0])
+    np.testing.assert_array_equal(p.test_proj[0], j.test_proj[0])
+    np.testing.assert_array_equal(p.validation_labels[0],
+                                  j.validation_labels[0])
+    np.testing.assert_array_equal(p.load_evaluation_points(p.files[0]),
+                                  j.load_evaluation_points(j.files[0]))
+    jr, pr = np.random.default_rng(4), np.random.default_rng(4)
+    for _ in range(5):
+        a = j.sample_sphere(jr, augment=True)
+        b = p.sample_sphere(pr, augment=True)
+        np.testing.assert_array_equal(b["input_inds"], a["input_inds"])
+        np.testing.assert_allclose(b["points"], a["points"], atol=1e-6)
+        if on_train:
+            np.testing.assert_array_equal(b["labels"], a["labels"])
+            np.testing.assert_array_equal(b["cloud_lb"], a["cloud_lb"])
+        else:
+            assert b["labels"] is None and a["labels"] is None
+            assert b["cloud_lb"] is None and a["cloud_lb"] is None
+        assert b["regions"] is None and a["regions"] is None
+    for k in range(p.num_clouds):
+        np.testing.assert_array_equal(p.potentials[k], j.potentials[k])

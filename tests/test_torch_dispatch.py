@@ -176,7 +176,8 @@ def test_entry_point_packs_buckets_audits_and_traces(tmp_path, monkeypatch):
         trainer = run([log, "--data_root", root, "--preset", "quick",
                        "--device", "cpu", "--epoch_steps", "10", "--seed",
                        "0", "--steps_per_dispatch", "2", "--plan_buckets",
-                       "80", "--validation_size", "1"])
+                       "80", "--validation_size", "1",
+                       "--al_iterations", "0"])
     cfg = trainer.config
     assert cfg.steps_per_dispatch == 2 and cfg.plan_bucket_percentile == 80
     assert trainer._resolve_steps_per_dispatch() == 2

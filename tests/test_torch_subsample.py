@@ -121,3 +121,44 @@ def test_calibrate_shape_plan_matches_jax():
     for field in ("num_points", "conv_neighbors", "pool_neighbors",
                   "up_neighbors", "max_regions", "max_region_points"):
         assert getattr(got, field) == getattr(want, field), field
+
+
+@pytest.mark.parametrize("dl,max_out", [(0.5, 400), (0.9, 60)])
+def test_voxel_sums_in_sorted_order(dl, max_out):
+    """The card's voxel sums (`run_sums`: each voxel's run of the stable
+    sort added in order from 0.0 over `run_bounds`) equal the CPU's
+    `scatter_add_` bit for bit; the second case drops voxels past
+    max_out."""
+    from weasal_tpu_torch.ops.cuda.inverse_lists import (run_bounds,
+                                                         run_sums_plain)
+    rng = np.random.default_rng(3)
+    b, n = 3, 900
+    pts = torch.from_numpy(
+        (rng.random((b, n, 3)) * 8 - 4).astype(np.float32))
+    mask = torch.from_numpy(rng.random((b, n)) < 0.8)
+    n_cells = grid_extent_cells(4.0, dl)
+    origin = torch.where(mask[..., None], pts,
+                         torch.full_like(pts, np.inf)).amin(dim=1,
+                                                           keepdim=True)
+    vox = torch.floor((pts - origin) / dl).clamp(0, n_cells - 1).long()
+    lin = (vox[..., 0] * n_cells + vox[..., 1]) * n_cells + vox[..., 2]
+    lin = torch.where(mask, lin, torch.full_like(lin, n_cells ** 3))
+    sorted_lin, order = torch.sort(lin, dim=1, stable=True)
+    src = torch.gather(pts, 1, order[..., None].expand(b, n, 3))
+    valid = sorted_lin < n_cells ** 3
+    is_new = torch.ones_like(valid)
+    is_new[:, 1:] = sorted_lin[:, 1:] != sorted_lin[:, :-1]
+    seg = torch.cumsum((is_new & valid).long(), dim=1) - 1
+    seg = torch.where(valid, seg.clamp(max=max_out),
+                      torch.full_like(seg, max_out))
+    src = torch.where(valid[..., None], src, torch.zeros_like(src))
+    want_sums, want_counts = run_sums_plain(src, seg, max_out)
+    lo, hi = run_bounds(seg, max_out)
+    flat = src.reshape(-1, 3)
+    sums = torch.zeros((b * max_out, 3))
+    for r in range(b * max_out):
+        for e in range(int(lo[r]), int(hi[r])):
+            sums[r] = sums[r] + flat[e]
+    assert torch.equal(sums.reshape(b, max_out, 3), want_sums)
+    assert torch.equal((hi - lo).float().reshape(b, max_out), want_counts)
+    assert int((want_counts > 0).sum()) > b * 10

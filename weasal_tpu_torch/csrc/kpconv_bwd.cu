@@ -13,21 +13,28 @@
 //
 // The TPU kernel kept dX free of scatters by accumulating a membership-
 // weighted influence matrix product into a per-sphere slab, one query
-// tile after another. Blocks on the H100 run in parallel and in no order,
-// so dX is a scatter here: one block per query row recomputes its Kp x K
-// influences exactly as kernel B does (kpconv_common.cuh), each thread
-// owns channels c, holds the Kp values dr[q, :, c] in registers and adds
-// sum_p h_p * dr_p into dX[nb_k, c] with an f32 atomic, skipping exact
-// zeros (most of the linear influences are zero). dW reuses the y that
+// tile after another, so its sums ran in a fixed order. Blocks on the
+// H100 run in parallel and in no order, so dX takes two stages that keep
+// the order fixed (inverse_lists.cuh): `dx_contrib_kernel`, one block per
+// query row, recomputes its Kp x K influences exactly as kernel B does
+// (kpconv_common.cuh); each thread owns channels c, holds the Kp values
+// dr[q, :, c] in registers and writes sum_p h_p * dr_p for every real
+// slot k into the workspace xws[(row * K + k), c] (zeros included); then
+// `inverse_sum_kernel` adds each support's slots in ascending (row, slot)
+// order over its inverse neighbor list, which the caller builds once per
+// pyramid edge and shares among the convs on it. Each thread of the first
+// stage owns 1, 2 or 4 consecutive channels (by Cin), so one shared-memory
+// read of an influence serves that many multiply-adds. dW reuses the y that
 // kernel B wrote in the forward (the autograd Function keeps it).
 //
 // What bounds it on the H100: the two contractions, 2 x 2 * rows * Kp*Cin
-// * Cout operations, at the wide levels; the scatter's atomics (rows *
-// K * Cin at most) at level 0. Launches on one stream:
+// * Cout operations, at the wide levels; at level 0 the workspace's
+// traffic (rows * K * Cin floats written and read once). Launches on one
+// stream:
 //  1. dr = g @ W^T by the GEMM core of kpconv_common.cuh (3xTF32 on the
 //     tensor cores, both operands K-major);
-//  2. zero dX, then `scatter_dx` (1 and 2 are skipped when x needs no
-//     gradient);
+//  2. `dx_contrib_kernel`, then `inverse_sum_kernel` into dX (1 and 2 are
+//     skipped when x needs no gradient);
 //  3. dW = y^T @ g by the same core, y read M-major as it lies. Its depth
 //     (rows, 17k-49k) is long and its output small (<= 7680 x 256, at
 //     most 240 tiles for 264 resident blocks), so plan_gemm splits the
@@ -39,20 +46,25 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "inverse_lists.cuh"
 #include "kpconv_common.cuh"
 
 namespace {
 
 using kpconv_common::kMaxKp;
 
-__global__ void scatter_dx_kernel(const float* __restrict__ q,
+// VEC consecutive channels a thread: each influence read from shared
+// memory serves VEC multiply-adds (one channel a thread was bound by those
+// reads), and the workspace gets VEC-wide stores.
+template <int VEC>
+__global__ void dx_contrib_kernel(const float* __restrict__ q,
                                   const float* __restrict__ s,
                                   const int32_t* __restrict__ nb,
                                   const float* __restrict__ kp,
                                   const float* __restrict__ dr, int nq,
                                   int ns, int k, int n_kp, int cin, float ext,
                                   int influence, float gauss_den,
-                                  float* __restrict__ dx) {
+                                  float* __restrict__ xws) {
   extern __shared__ float smem[];
   float* h = smem;                                   // [n_kp * k]
   int* nbs = reinterpret_cast<int*>(smem + n_kp * k);  // [k]
@@ -63,23 +75,48 @@ __global__ void scatter_dx_kernel(const float* __restrict__ q,
                                 influence, gauss_den, h, nbs);
 
   const float* drr = dr + row * (size_t)n_kp * cin;
-  float* dxb = dx + (size_t)b * ns * cin;
-  for (int c = threadIdx.x; c < cin; c += blockDim.x) {
-    float d[kMaxKp];
+  float* out = xws + row * (size_t)k * cin;
+  for (int c = threadIdx.x * VEC; c < cin; c += blockDim.x * VEC) {
+    inverse_lists::Vec<VEC> d[kMaxKp];
 #pragma unroll
-    for (int p = 0; p < kMaxKp; ++p)
-      d[p] = p < n_kp ? drr[(size_t)p * cin + c] : 0.f;
+    for (int p = 0; p < kMaxKp; ++p) {
+      if (p < n_kp) {
+        d[p] = inverse_lists::load_vec<VEC>(drr + (size_t)p * cin + c);
+      } else {
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) d[p].v[v] = 0.f;
+      }
+    }
     for (int j = 0; j < k; ++j) {
-      const int n = nbs[j];
-      if (n < 0) continue;
-      float acc = 0.f;
+      if (nbs[j] < 0) continue;                      // not in any list
+      inverse_lists::Vec<VEC> acc;
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) acc.v[v] = 0.f;
 #pragma unroll
       for (int p = 0; p < kMaxKp; ++p) {
-        if (p < n_kp) acc = fmaf(h[p * k + j], d[p], acc);
+        if (p < n_kp) {
+          const float hp = h[p * k + j];
+#pragma unroll
+          for (int v = 0; v < VEC; ++v) acc.v[v] = fmaf(hp, d[p].v[v],
+                                                        acc.v[v]);
+        }
       }
-      if (acc != 0.f) atomicAdd(dxb + (size_t)n * cin + c, acc);
+      inverse_lists::store_vec<VEC>(out + (size_t)j * cin + c, acc);
     }
   }
+}
+
+template <int VEC>
+void launch_contrib(const float* q, const float* s, const int32_t* nb,
+                    const float* kp, const float* dr, long long rows, int nq,
+                    int ns, int k, int n_kp, int cin, float ext,
+                    int influence, float gauss_den, float* xws, size_t smem,
+                    cudaStream_t st) {
+  int threads = ((cin / VEC + 31) / 32) * 32;
+  threads = threads < 32 ? 32 : (threads > 256 ? 256 : threads);
+  dx_contrib_kernel<VEC><<<(unsigned)rows, threads, smem, st>>>(
+      q, s, nb, kp, dr, nq, ns, k, n_kp, cin, ext, influence, gauss_den,
+      xws);
 }
 
 }  // namespace
@@ -99,20 +136,23 @@ extern "C" long long kpconv_bwd_workspace(long long rows, int kdim, int cout,
 }
 
 // q [B,Nq,3], s [B,Ns,3], nb [B,Nq,K] i32, y [B*Nq, Kp*Cin] (kernel B's
-// aggregate), kp [Kp,3], w [Kp,Cin,Cout], g [B,Nq,Cout]; scratch dr
-// [B*Nq, Kp*Cin] and ws (ws_floats floats, at least kpconv_bwd_workspace);
-// outputs dx [B,Ns,Cin] (written only when need_dx) and dw [Kp,Cin,Cout].
-// f32, contiguous. influence: 0 constant, 1 linear, 2 gaussian. Returns
-// cudaGetLastError() after the last launch, cudaErrorInvalidValue for a
-// workspace too short.
+// aggregate), kp [Kp,3], w [Kp,Cin,Cout], g [B,Nq,Cout]; with dX also the
+// inverse lists of nb (inv_off [B*Ns+1], inv_ent, inverse_lists.cuh) and
+// scratch dr [B*Nq, Kp*Cin] and xws [B*Nq*K, Cin]; scratch ws (ws_floats
+// floats, at least kpconv_bwd_workspace); outputs dx [B,Ns,Cin] (written
+// only when need_dx) and dw [Kp,Cin,Cout]. f32, contiguous. influence:
+// 0 constant, 1 linear, 2 gaussian. Returns cudaGetLastError() after the
+// last launch, cudaErrorInvalidValue for a workspace too short.
 extern "C" int kpconv_bwd_launch(const float* q, const float* s,
                                  const int32_t* nb, const float* y,
                                  const float* kp, const float* w,
                                  const float* g, int b, int nq, int ns,
                                  int k, int n_kp, int cin, int cout,
                                  float ext, int influence, float gauss_den,
-                                 int need_dx, float* dr, float* dx,
-                                 float* dw, float* ws, long long ws_floats,
+                                 int need_dx, const int32_t* inv_off,
+                                 const int32_t* inv_ent, float* dr,
+                                 float* xws, float* dx, float* dw,
+                                 float* ws, long long ws_floats,
                                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n_kp < 1 || n_kp > kMaxKp || k < 1 || cin < 1 || cout < 1)
@@ -124,21 +164,29 @@ extern "C" int kpconv_bwd_launch(const float* q, const float* s,
   int err = 0;
 
   if (need_dx) {
-    err = (int)cudaMemsetAsync(dx, 0, (size_t)b * ns * cin * sizeof(float),
-                               st);
-    if (err) return err;
     if (rows > 0) {
       err = kpconv_common::gemm_tf32x3<true, true>(
           g, w, dr, ws, ws_floats, (int)rows, kdim, cout, st);
       if (err) return err;
-      int threads = ((cin + 31) / 32) * 32;
-      threads = threads < 32 ? 32 : (threads > 256 ? 256 : threads);
-      scatter_dx_kernel<<<(unsigned)rows, threads, smem, st>>>(
-          q, s, nb, kp, dr, nq, ns, k, n_kp, cin, ext, influence, gauss_den,
-          dx);
+      // dr and xws come from the allocator (256-byte aligned), so with
+      // Cin a multiple of VEC every VEC-wide access is aligned
+      if (cin % 4 == 0 && cin >= 128)
+        launch_contrib<4>(q, s, nb, kp, dr, rows, nq, ns, k, n_kp, cin, ext,
+                          influence, gauss_den, xws, smem, st);
+      else if (cin % 2 == 0 && cin >= 64)
+        launch_contrib<2>(q, s, nb, kp, dr, rows, nq, ns, k, n_kp, cin, ext,
+                          influence, gauss_den, xws, smem, st);
+      else
+        launch_contrib<1>(q, s, nb, kp, dr, rows, nq, ns, k, n_kp, cin, ext,
+                          influence, gauss_den, xws, smem, st);
       err = (int)cudaGetLastError();
       if (err) return err;
     }
+    // Every support row of dX is written, an empty list as zeros
+    err = inverse_lists::launch_inverse_sum(inv_off, inv_off + 1, inv_ent,
+                                            xws, (long long)b * ns, cin, dx,
+                                            st);
+    if (err) return err;
   }
   // With rows = 0 the depth is empty and the core writes zeros.
   return kpconv_common::gemm_tf32x3<false, false>(

@@ -15,27 +15,32 @@
 //
 // The TPU kernel consumed a winner mask [B, Nq, K, C] that the forward
 // built, and turned the scatter into membership matrix products over a
-// window of sorted supports. Here the maximum and the tie count are
-// recomputed from x and nb, so the mask is never built, and each share is
-// added into dX with an f32 atomic (a support is pooled by several rows);
+// window of sorted supports, summing in a fixed order. Here the maximum
+// and the tie count are recomputed from x and nb, so the mask is never
+// built, and dX takes two stages that keep the order fixed
+// (inverse_lists.cuh): the kernel below writes each real slot's share,
+// or 0.0, into a workspace [rows * K, C], and `inverse_sum_kernel` adds
+// each support's slots in ascending (row, slot) order over the pool
+// edge's inverse neighbor list (a support is pooled by several rows);
 // the neighbor list is exact, so there is no window.
 //
 // What bounds it on the H100: memory. The least traffic is x, nb and g
-// read once and dX written once; the arithmetic is a few compares per
-// gathered value (but see the measurement below). Design: one warp per
-// query row, 8 rows per block. The warp loads the row's K indices once
-// (lane j holds slot j) and shares them with __shfl_sync; the lanes run
-// across channels, VEC consecutive channels a lane (float2 at C = 64,
-// float4 at C = 128, one load each).
+// read once and dX written once; the workspace adds rows * K * C floats
+// written and read once. Design: one warp per query row, 8 rows per
+// block. The warp loads the row's K indices once (lane j holds slot j)
+// and shares them with __shfl_sync; the lanes run across channels, VEC
+// consecutive channels a lane (float2 at C = 64, float4 at C = 128, one
+// load each).
 // One pass over the K slots gathers each value once and keeps, per
 // channel, the running maximum, its tie count and a bit mask of the slots
-// that hold it (reset when the maximum rises); the winners pass walks the
-// mask, so nothing is gathered twice and the K values need no registers.
-// Slots past the mask's MAXK bits (K > 64; never on the main path) are
-// gathered again in the winners pass, in the same kernel. The zeroing of
-// dX is a memset inside the launch. Measured on the main path's pools
-// (H100, weasal_tpu_torch/tools/kernel_variants.py): the kernel's time is
-// neither its gathers nor its atomics (without both it takes 90-94 % as
+// that hold it (reset when the maximum rises); the second pass writes the
+// masked slots' shares, so nothing is gathered twice and the K values
+// need no registers. Slots past the mask's MAXK bits (K > 64; never on the
+// main path) are gathered again in the second pass, in the same kernel.
+// Measured on the main path's pools (H100, before the workspace, when the
+// shares went to dX by f32 atomics;
+// weasal_tpu_torch/tools/kernel_variants.py): the kernel's time was
+// neither its gathers nor its atomics (without both it took 90-94 % as
 // long) but the per-slot stream of shuffles, compares and mask updates
 // over 34k and 17k short warps. So the updates are selects, not branches
 // that split the warp (branches: 1.14x the time), and the masks are 32
@@ -45,30 +50,16 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "inverse_lists.cuh"
+
 namespace {
 
 constexpr int kRowsPerBlock = 8;                     // one warp per row
 constexpr unsigned kFull = 0xffffffffu;
 
-template <int VEC>
-struct Vec {
-  float v[VEC];
-};
-
-template <int VEC>
-__device__ __forceinline__ Vec<VEC> load_vec(const float* p) {
-  Vec<VEC> r;
-  if constexpr (VEC == 4) {
-    const float4 t = *reinterpret_cast<const float4*>(p);
-    r.v[0] = t.x; r.v[1] = t.y; r.v[2] = t.z; r.v[3] = t.w;
-  } else if constexpr (VEC == 2) {
-    const float2 t = *reinterpret_cast<const float2*>(p);
-    r.v[0] = t.x; r.v[1] = t.y;
-  } else {
-    r.v[0] = *p;
-  }
-  return r;
-}
+using inverse_lists::load_vec;
+using inverse_lists::store_vec;
+using inverse_lists::Vec;
 
 // MASK: uint32_t or uint64_t, one bit per slot below MAXK = its width.
 template <typename MASK, int VEC>
@@ -76,7 +67,7 @@ __global__ void __launch_bounds__(kRowsPerBlock * 32)
     maxpool_bwd_kernel(const float* __restrict__ x,
                        const int32_t* __restrict__ nb,
                        const float* __restrict__ g, long long rows, int nq,
-                       int ns, int k, int c_dim, float* __restrict__ dx) {
+                       int ns, int k, int c_dim, float* __restrict__ ws) {
   constexpr int MAXK = 8 * sizeof(MASK);
   const long long row =
       (long long)blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
@@ -94,9 +85,7 @@ __global__ void __launch_bounds__(kRowsPerBlock * 32)
     const int n = nrow[32 + lane];
     n_hi = (n >= 0 && n < ns) ? n : -1;
   }
-  const int k_mask = k < MAXK ? k : MAXK;
   const float* xb = x + (size_t)b * ns * c_dim;
-  float* dxb = dx + (size_t)b * ns * c_dim;
 
   for (int c0 = 0; c0 < c_dim; c0 += 32 * VEC) {
     const int c = c0 + lane * VEC;
@@ -147,77 +136,88 @@ __global__ void __launch_bounds__(kRowsPerBlock * 32)
     }
     float share[VEC];
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) {
+    for (int e = 0; e < VEC; ++e)
       share[e] = __fdiv_rn(gv.v[e], (float)(ties[e] > 0 ? ties[e] : 1));
-      if (gv.v[e] == 0.f) win[e] = 0;
-    }
-    // Pass 2: the winners of the masked slots, then of the slots past them
-    for (int j = 0; j < k_mask; ++j) {
-      const int n = __shfl_sync(kFull, j < 32 ? n_lo : n_hi, j & 31);
-      if (n < 0 || !any) continue;
+    // Pass 2: every real slot's share or 0.0 into the workspace, the
+    // masked slots from their bits, the slots past them gathered again
+    float* out = ws + (size_t)row * k * c_dim + c;
+    for (int j = 0; j < k; ++j) {
+      int n;
+      if (j < MAXK) {
+        n = __shfl_sync(kFull, j < 32 ? n_lo : n_hi, j & 31);
+      } else {
+        n = nrow[j];
+        n = (n >= 0 && n < ns) ? n : -1;
+      }
+      if (n < 0 || !on) continue;                    // not in any list
+      Vec<VEC> w;
+      if (j < MAXK) {
 #pragma unroll
-      for (int e = 0; e < VEC; ++e)
-        if ((win[e] >> j) & 1)
-          atomicAdd(dxb + (size_t)n * c_dim + c + e, share[e]);
-    }
-    if (!any) continue;
-    for (int j = MAXK; j < k; ++j) {
-      const int n = nrow[j];
-      if (n < 0 || n >= ns) continue;
-      const Vec<VEC> v = load_vec<VEC>(xb + (size_t)n * c_dim + c);
+        for (int e = 0; e < VEC; ++e)
+          w.v[e] = (gv.v[e] != 0.f && ((win[e] >> j) & 1)) ? share[e] : 0.f;
+      } else {
+        Vec<VEC> v;
 #pragma unroll
-      for (int e = 0; e < VEC; ++e)
-        if (gv.v[e] != 0.f && v.v[e] == m[e])
-          atomicAdd(dxb + (size_t)n * c_dim + c + e, share[e]);
+        for (int e = 0; e < VEC; ++e) v.v[e] = 0.f;
+        if (any) v = load_vec<VEC>(xb + (size_t)n * c_dim + c);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          w.v[e] = (gv.v[e] != 0.f && v.v[e] == m[e]) ? share[e] : 0.f;
+      }
+      store_vec<VEC>(out + (size_t)j * c_dim, w);
     }
   }
 }
 
 template <typename MASK, int VEC>
 void launch(const float* x, const int32_t* nb, const float* g,
-            long long rows, int nq, int ns, int k, int c_dim, float* dx,
+            long long rows, int nq, int ns, int k, int c_dim, float* ws,
             cudaStream_t st) {
   const unsigned blocks =
       (unsigned)((rows + kRowsPerBlock - 1) / kRowsPerBlock);
   maxpool_bwd_kernel<MASK, VEC><<<blocks, kRowsPerBlock * 32, 0, st>>>(
-      x, nb, g, rows, nq, ns, k, c_dim, dx);
+      x, nb, g, rows, nq, ns, k, c_dim, ws);
 }
 
 template <typename MASK>
 void launch_vec(const float* x, const int32_t* nb, const float* g,
-                long long rows, int nq, int ns, int k, int c_dim, float* dx,
+                long long rows, int nq, int ns, int k, int c_dim, float* ws,
                 cudaStream_t st) {
   // The widest vector that divides C, fills the warp and is aligned
   const uintptr_t addr = reinterpret_cast<uintptr_t>(x) |
-                         reinterpret_cast<uintptr_t>(g);
+                         reinterpret_cast<uintptr_t>(g) |
+                         reinterpret_cast<uintptr_t>(ws);
   if (c_dim % 4 == 0 && c_dim >= 128 && addr % 16 == 0)
-    launch<MASK, 4>(x, nb, g, rows, nq, ns, k, c_dim, dx, st);
+    launch<MASK, 4>(x, nb, g, rows, nq, ns, k, c_dim, ws, st);
   else if (c_dim % 2 == 0 && c_dim >= 64 && addr % 8 == 0)
-    launch<MASK, 2>(x, nb, g, rows, nq, ns, k, c_dim, dx, st);
+    launch<MASK, 2>(x, nb, g, rows, nq, ns, k, c_dim, ws, st);
   else
-    launch<MASK, 1>(x, nb, g, rows, nq, ns, k, c_dim, dx, st);
+    launch<MASK, 1>(x, nb, g, rows, nq, ns, k, c_dim, ws, st);
 }
 
 }  // namespace
 
-// x [B,Ns,C], nb [B,Nq,K] i32, g [B,Nq,C]; output dx [B,Ns,C]; f32,
-// contiguous. Zeroes dx, then adds the shares. Returns cudaGetLastError()
-// after the launch.
+// x [B,Ns,C], nb [B,Nq,K] i32, g [B,Nq,C]; the inverse lists of nb
+// (inv_off [B*Ns+1], inv_ent, inverse_lists.cuh); scratch ws
+// [B*Nq*K, C]; output dx [B,Ns,C]; f32, contiguous. Writes every row of
+// dx. Returns cudaGetLastError() after the last launch.
 extern "C" int maxpool_bwd_launch(const float* x, const int32_t* nb,
                                   const float* g, int b, int nq, int ns,
-                                  int k, int c_dim, float* dx,
-                                  void* stream) {
+                                  int k, int c_dim, const int32_t* inv_off,
+                                  const int32_t* inv_ent, float* ws,
+                                  float* dx, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (k < 1 || c_dim < 1 || b < 0 || nq < 0 || ns < 0)
     return (int)cudaErrorInvalidValue;
-  int err = (int)cudaMemsetAsync(dx, 0, (size_t)b * ns * c_dim *
-                                            sizeof(float), st);
-  if (err) return err;
   const long long rows = (long long)b * nq;
-  if (rows == 0) return 0;
-  if (k <= 32)
-    launch_vec<uint32_t>(x, nb, g, rows, nq, ns, k, c_dim, dx, st);
-  else
-    launch_vec<uint64_t>(x, nb, g, rows, nq, ns, k, c_dim, dx, st);
-  return (int)cudaGetLastError();
+  if (rows > 0) {
+    if (k <= 32)
+      launch_vec<uint32_t>(x, nb, g, rows, nq, ns, k, c_dim, ws, st);
+    else
+      launch_vec<uint64_t>(x, nb, g, rows, nq, ns, k, c_dim, ws, st);
+    const int err = (int)cudaGetLastError();
+    if (err) return err;
+  }
+  return inverse_lists::launch_inverse_sum(inv_off, inv_off + 1, inv_ent, ws,
+                                           (long long)b * ns, c_dim, dx, st);
 }

@@ -1,6 +1,6 @@
 """Anchors: the weak labels of sub-clouds.
 
-Counterpart of weasal_tpu/data/anchors.py:26-186 on scipy's cKDTree.
+Counterpart of weasal_tpu/data/anchors.py:26-198 on scipy's cKDTree.
 Anchors are regularly spaced sphere centers of radius `sub_radius`; each
 anchor that holds points carries the multi-hot class label of those
 points; overlapping anchors with different labels spawn an intersection
@@ -179,3 +179,15 @@ def subsample_anchors(anchor: np.ndarray, anchors_dict: Dict,
 
     sub = select_anchors(anchor, anchors_dict, anchor_lb, anchor_inds_sub)
     return (*sub, anchor_inds_sub)
+
+
+def weak_label_masks(anchors_dict: Dict, anchor_lbs: Dict,
+                     num_points: int, num_classes: int) -> np.ndarray:
+    """[num_points, num_classes] f64: each point's product of the
+    multi-hot labels of every anchor that holds it (1 where none does);
+    the pseudo-label refinement's mask (weasal_tpu/data/anchors.py:189)."""
+    weak = np.ones((num_points, num_classes))
+    for aa in anchors_dict.keys():
+        idx = anchors_dict[aa][0]
+        weak[tuple(idx)] = weak[tuple(idx)] * anchor_lbs[aa]
+    return weak

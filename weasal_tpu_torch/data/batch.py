@@ -9,9 +9,11 @@ ops, padded labels are -1. Index tensors are sphere-local int32.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
+
+from weasal_tpu_torch.ops.cuda.inverse_lists import LazyInverse
 
 
 @dataclasses.dataclass
@@ -39,6 +41,28 @@ class PyramidBatch:
     # Per-edge search-overflow counts [3L-2]; all zero, because the port's
     # radius search is exact (layout: ops/pyramid.search_slot)
     search_overflow: Optional[torch.Tensor] = None
+
+    # The inverse neighbor lists of each edge, made on first request and
+    # built when a backward on the card first asks (ops/cuda/inverse_lists)
+    _inverse: Dict = dataclasses.field(default_factory=dict, init=False,
+                                       repr=False, compare=False)
+
+    def inverse(self, edge: str, l: int) -> LazyInverse:
+        """The LazyInverse of `edge` ("neighbors", "pools", "upsamples",
+        or "regions" with l = 0) at level l, one per batch and edge, so
+        that every op on the edge shares its lists. Supports: level l for
+        neighbors and pools, level l+1 for upsamples (column 0 only), the
+        level-0 points for the region members."""
+        key = (edge, l)
+        if key not in self._inverse:
+            if edge == "regions":
+                inds, ns, k = self.region_inds, self.points[0].shape[1], None
+            else:
+                inds = getattr(self, edge)[l]
+                ns = self.points[l + 1 if edge == "upsamples" else l].shape[1]
+                k = 1 if edge == "upsamples" else None
+            self._inverse[key] = LazyInverse(inds, ns, k)
+        return self._inverse[key]
 
     @property
     def num_layers(self) -> int:

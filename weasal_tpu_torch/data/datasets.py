@@ -2,8 +2,10 @@
 potential-driven sphere sampler.
 
 Counterpart of weasal_tpu/data/datasets.py: `CloudSegmentationDataset`
-(:42-781) for the splits 'training' and 'validation', `_Vaihingen3DBase`
-(:787-841) and `Vaihingen3DWLDataset` (:843). The sampler draws the same
+(:42-781) for the splits 'training', 'validation' and 'test' (with
+`test_on_train`, the training clouds voted on for pseudo-labels and
+active learning), `_Vaihingen3DBase` (:787-841) and
+`Vaihingen3DWLDataset` (:843). The sampler draws the same
 random numbers in the same order as the JAX package, so one seed gives
 both the same spheres. Differences by design:
 
@@ -18,8 +20,8 @@ both the same spheres. Differences by design:
   to `shape_plans_torch.json`.
 - Anchor subsampling draws from `random.Random(ANCHOR_SEED)`.
 - The plan has no band windows.
-The 'test' and 'ERF' splits, and the pseudo-label and DALES datasets, are
-not ported.
+The 'ERF' split (which the JAX tester refuses to vote on), and the
+pseudo-label and DALES datasets, are not ported.
 """
 
 from __future__ import annotations
@@ -50,7 +52,9 @@ class CloudSegmentationDataset:
     """In-memory subsampled clouds and the potential sphere sampler.
 
     Subclasses define the label nomenclature, the file lists and the
-    feature assembly. `split` is 'training' or 'validation'.
+    feature assembly. `split` is 'training', 'validation' or 'test';
+    `test_on_train` makes the test split the training clouds (labels
+    kept).
     """
 
     name: str = ""
@@ -58,6 +62,7 @@ class CloudSegmentationDataset:
     ignored_label_values: Tuple[int, ...] = ()
     train_dir = "Training"
     validation_dir = "Validation"
+    test_dir = "Test"
     cloud_names: List[str] = []
     all_splits: List[int] = []
     validation_split: int = 1
@@ -65,13 +70,15 @@ class CloudSegmentationDataset:
 
     def __init__(self, config, split: str = "training",
                  al_iteration: int = 0, data_root: Optional[str] = None,
-                 rng: Optional[np.random.Generator] = None):
-        if split not in ("training", "validation"):
+                 rng: Optional[np.random.Generator] = None,
+                 test_on_train: bool = False):
+        if split not in ("training", "validation", "test"):
             raise NotImplementedError(
-                f"split {split!r}: only 'training' and 'validation' are "
-                "ported (testing and active learning come with slice D)")
+                f"split {split!r}: only 'training', 'validation' and 'test' "
+                "are ported")
         self.config = config
         self.split = split
+        self.test_on_train = test_on_train
         self.al_iteration = al_iteration
         self.rng = rng or np.random.default_rng()
 
@@ -86,7 +93,7 @@ class CloudSegmentationDataset:
         config.num_classes = self.num_classes - len(self.ignored_labels)
         config.dataset_task = "cloud_segmentation"
 
-        self.test_split = self._test_split()
+        self.test_split = self._test_split(test_on_train)
         self.prepare_ply()
         self.files, self.cloud_names_split = self._select_files()
         self.input_trees: List[cKDTree] = []
@@ -112,19 +119,28 @@ class CloudSegmentationDataset:
     # File selection / preparation
     # ------------------------------------------------------------------
 
-    def _test_split(self):
+    def _test_split(self, test_on_train: bool):
         raise NotImplementedError
 
     def _split_dir(self) -> str:
+        if self.split == "test":
+            return join(self.path, self.test_dir)
         if self.split == "validation":
             return join(self.path, self.validation_dir)
         return join(self.path, self.train_dir)
 
     def _in_split(self, i: int) -> bool:
+        in_test = self.all_splits[i] == self.test_split
+        if self.split == "test":
+            return in_test
         if self.split == "validation":
             return self.all_splits[i] == self.validation_split
-        return (self.all_splits[i] != self.validation_split
-                and self.all_splits[i] != self.test_split)
+        return self.all_splits[i] != self.validation_split and not in_test
+
+    @property
+    def has_labels(self) -> bool:
+        """False for the test split's own clouds (no labels are read)."""
+        return not (self.split == "test" and not self.test_on_train)
 
     def _select_files(self):
         ply_dir = self._split_dir()
@@ -193,7 +209,7 @@ class CloudSegmentationDataset:
             self.pot_trees.append(cKDTree(coarse))
 
         # Reprojection indices for full-cloud evaluation
-        if self.split == "validation":
+        if self.split in ("validation", "test"):
             for i, file_path in enumerate(self.files):
                 proj_file = join(self.tree_path,
                                  f"{self.cloud_names_split[i]}_proj.pkl")
@@ -211,6 +227,11 @@ class CloudSegmentationDataset:
                         pickle.dump([proj_inds, labels], f)
                 self.test_proj.append(proj_inds)
                 self.validation_labels.append(labels)
+
+    def load_evaluation_points(self, file_path: str) -> np.ndarray:
+        """The points of a split's prepared ply (f64 [N, 3])."""
+        data = read_ply(file_path)
+        return np.vstack((data["x"], data["y"], data["z"])).T
 
     # ------------------------------------------------------------------
     # Anchors (weak-label datasets)
@@ -414,13 +435,17 @@ class CloudSegmentationDataset:
                 regions = new_regions
             input_inds = input_inds[keep]
 
+        has_labels = self.has_labels
         if not gather:
-            raw_present = np.unique(self.input_labels[cloud_ind][input_inds])
-            cloud_lb = np.zeros(cfg.num_classes, np.float32)
-            for l in raw_present:
-                idx = self.label_to_idx[l]
-                if 0 <= idx < cfg.num_classes:
-                    cloud_lb[idx] = 1
+            cloud_lb = None
+            if has_labels:
+                raw_present = np.unique(
+                    self.input_labels[cloud_ind][input_inds])
+                cloud_lb = np.zeros(cfg.num_classes, np.float32)
+                for l in raw_present:
+                    idx = self.label_to_idx[l]
+                    if 0 <= idx < cfg.num_classes:
+                        cloud_lb[idx] = 1
             if augment:
                 scale, R = self.augmentation_params(rng)
             else:
@@ -438,11 +463,14 @@ class CloudSegmentationDataset:
         input_points = (points[input_inds] - center).astype(np.float32)
         colors = self.input_colors[cloud_ind][input_inds]
 
-        raw = self.input_labels[cloud_ind][input_inds]
-        labels = self._label_table()[np.asarray(raw, np.int64)]
-        cloud_lb = np.zeros(cfg.num_classes, np.float32)
-        present = np.unique(labels)
-        cloud_lb[present[present < cfg.num_classes]] = 1
+        if has_labels:
+            raw = self.input_labels[cloud_ind][input_inds]
+            labels = self._label_table()[np.asarray(raw, np.int64)]
+            cloud_lb = np.zeros(cfg.num_classes, np.float32)
+            present = np.unique(labels)
+            cloud_lb[present[present < cfg.num_classes]] = 1
+        else:
+            labels = cloud_lb = None
 
         if augment:
             aug_points, scale, R = self.augmentation_transform(
@@ -586,21 +614,26 @@ class _Vaihingen3DBase(CloudSegmentationDataset):
     all_splits = [0, 1, 2]
     validation_split = 1
 
-    def _test_split(self):
-        return 2
+    def _test_split(self, test_on_train: bool):
+        return 0 if test_on_train else 2
 
     def prepare_ply(self):
-        """Offset-reduce the raw training cloud into the split's prepared
-        ply (points relative to the cloud's first point)."""
+        """Offset-reduce the split's raw cloud into its prepared ply
+        (points relative to the training cloud's first point): the
+        testing cloud for the test split on its own clouds, else the
+        training cloud."""
         ply_dir = self._split_dir()
         os.makedirs(ply_dir, exist_ok=True)
-        cloud_name = self.cloud_names[0]
-        data = read_ply(join(self.path, cloud_name + ".ply"))
+        data = read_ply(join(self.path, self.cloud_names[0] + ".ply"))
         self.coord_offset = np.vstack((data["x"][0], data["y"][0],
                                        data["z"][0])).T
+        cloud_name = self.cloud_names[
+            2 if self.split == "test" and not self.test_on_train else 0]
         cloud_file = join(ply_dir, cloud_name + ".ply")
         if exists(cloud_file):
             return
+        if cloud_name != self.cloud_names[0]:
+            data = read_ply(join(self.path, cloud_name + ".ply"))
         points = np.vstack((data["x"], data["y"], data["z"])).T
         points = (points - self.coord_offset).astype(np.float32)
         intensity = data["scalar_Intensity"].astype(np.uint8)

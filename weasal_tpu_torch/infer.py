@@ -7,8 +7,11 @@ built on the device, `KPFCNN_mprm` runs in eval mode, and a softmax turns
 its fused logits into probabilities. `eval_step` takes level-0 arrays;
 `eval_batch`, the training loop's validation step, also takes a resident
 batch and returns probabilities and labels in `input_inds` order; its
-body, `eval_body`, writes them into preallocated tensors, which is what
-the trainer runs eagerly or captures in a CUDA graph (train/graphs.py).
+body, `eval_body`, writes them (and the squared norms `d2` of the
+augmented level-0 points, which the tester's vote mask reads,
+weasal_tpu/train/tester.py:103-131) into preallocated tensors, which is
+what the trainer and the tester run eagerly or capture in a CUDA graph
+(train/graphs.py).
 """
 
 from __future__ import annotations
@@ -85,10 +88,13 @@ def eval_step(model, arrays: Mapping, config, plan, device=None
 def eval_body(model, inputs: Mapping, config, plan, device, spec=None,
               out: Optional[Dict[str, torch.Tensor]] = None
               ) -> Dict[str, torch.Tensor]:
-    """{"probs": [B, N_0, C], "labels": [B, N_0]} of one validation batch
-    on `device`, with no read back to the host; written into `out` when
-    given (tensors of those shapes), else into new tensors. A resident
-    batch is assembled with augmentation (the validation spheres are
+    """{"probs": [B, N_0, C], "labels": [B, N_0], "d2": [B, N_0]} of one
+    validation or vote batch on `device`, with no read back to the host;
+    written into `out` when given (tensors of those shapes), else into
+    new tensors. `d2` holds the squared norms of the augmented level-0
+    points, (x*x + y*y) + z*z, which the tester's vote mask compares
+    with its radius (validation ignores it). A resident batch is
+    assembled with augmentation (the validation and vote spheres are
     augmented, as in training) and its outputs are gathered back to
     `input_inds` order; a level-0 batch's outputs stay in its rows'
     order, which its metas' `input_inds` follow."""
@@ -96,15 +102,20 @@ def eval_body(model, inputs: Mapping, config, plan, device, spec=None,
     t = level0_on_device(inputs, config, plan, device, spec=spec)
     probs = _probs(model, t, config, plan)
     labels = t["labels"]
+    pts = t["points0"]
+    d2 = pts[..., 0] * pts[..., 0] + pts[..., 1] * pts[..., 1] \
+        + pts[..., 2] * pts[..., 2]
     unsort = t.get("unsort")
     if unsort is not None:
         probs = torch.gather(
             probs, 1, unsort[..., None].expand(-1, -1, probs.shape[-1]))
         labels = torch.gather(labels, 1, unsort)
+        d2 = torch.gather(d2, 1, unsort)
     if out is None:
-        return {"probs": probs, "labels": labels}
+        return {"probs": probs, "labels": labels, "d2": d2}
     out["probs"].copy_(probs)
     out["labels"].copy_(labels)
+    out["d2"].copy_(d2)
     return out
 
 

@@ -136,9 +136,9 @@ class KPConv(nn.Module):
                           rng=np.random.default_rng(pose_seed))
         self.register_buffer("kernel_points", torch.from_numpy(kp))
 
-    def forward(self, q_pts, s_pts, neighb_inds, x):
+    def forward(self, q_pts, s_pts, neighb_inds, x, inverse=None):
         return ops.kpconv(q_pts, s_pts, neighb_inds, x, self.kernel_points,
-                          self.weights, self.params)
+                          self.weights, self.params, inverse=inverse)
 
 
 def conv_inputs(strided: bool, layer_ind: int, batch):
@@ -149,6 +149,11 @@ def conv_inputs(strided: bool, layer_ind: int, batch):
                 batch.pools[layer_ind], batch.masks[layer_ind + 1])
     return (batch.points[layer_ind], batch.points[layer_ind],
             batch.neighbors[layer_ind], batch.masks[layer_ind])
+
+
+def conv_inverse(strided: bool, layer_ind: int, batch):
+    """The LazyInverse of a conv's neighbor rows (see conv_inputs)."""
+    return batch.inverse("pools" if strided else "neighbors", layer_ind)
 
 
 def _make_kpconv(cfg, block_name: str, in_dim: int, out_dim: int,
@@ -217,9 +222,11 @@ class SimpleBlock(_ConvBlock):
         self.batch_norm = self._bn(width)
 
     def forward(self, x, batch):
+        strided = self.KPConv.strided
         q_pts, s_pts, neighb, out_mask = conv_inputs(
-            self.KPConv.strided, self.layer_ind, batch)
-        x = self.KPConv(q_pts, s_pts, neighb, x)
+            strided, self.layer_ind, batch)
+        x = self.KPConv(q_pts, s_pts, neighb, x,
+                        conv_inverse(strided, self.layer_ind, batch))
         return leaky_relu(self.batch_norm(x, out_mask))
 
 
@@ -250,10 +257,12 @@ class ResnetBottleneckBlock(_ConvBlock):
         x = features
         if self.unary1 is not None:
             x = self.unary1(x, batch.masks[self.layer_ind])
-        x = self.KPConv(q_pts, s_pts, neighb, x)
+        inverse = conv_inverse(strided, self.layer_ind, batch)
+        x = self.KPConv(q_pts, s_pts, neighb, x, inverse)
         x = leaky_relu(self.batch_norm_conv(x, out_mask))
         x = self.unary2(x, out_mask)
-        shortcut = ops.max_pool(features, neighb) if strided else features
+        shortcut = (ops.max_pool(features, neighb, inverse) if strided
+                    else features)
         if self.unary_shortcut is not None:
             shortcut = self.unary_shortcut(shortcut, out_mask)
         return leaky_relu(x + shortcut)
@@ -267,7 +276,9 @@ class NearestUpsampleBlock(nn.Module):
         self.layer_ind = layer_ind
 
     def forward(self, x, batch):
-        return ops.closest_pool(x, batch.upsamples[self.layer_ind - 1])
+        l = self.layer_ind - 1
+        return ops.closest_pool(x, batch.upsamples[l],
+                                batch.inverse("upsamples", l))
 
 
 class GlobalAverageBlock(nn.Module):

@@ -15,6 +15,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from weasal_tpu_torch.ops.cuda.inverse_lists import LazyInverse, gather_rows
+
 
 def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor,
                     class_w: Optional[torch.Tensor] = None,
@@ -47,11 +49,16 @@ def region_mprm_loss(cam: Sequence[torch.Tensor],
                      region_masks: torch.Tensor,
                      region_point_masks: torch.Tensor,
                      region_lb: torch.Tensor,
-                     class_w: Optional[torch.Tensor] = None
+                     class_w: Optional[torch.Tensor] = None,
+                     inverse: Optional[LazyInverse] = None
                      ) -> torch.Tensor:
     """Sub-region weak-label loss: for each of the 4 class maps, the mean
     logit over every region's member points against the region's
     multi-hot label (BCE over the existing regions), summed over paths.
+    The members' gather adds its gradient into each point in a fixed
+    order (ops/cuda/inverse_lists.GatherRows; `inverse`: the lists of
+    region_inds over the level-0 points, shared by the 4 paths; needed
+    on the card only).
 
     :param cam: 4 x [B, N0, C] per-point class maps
     :param region_inds: [B, R, P] level-0 indices (pad = N0)
@@ -62,13 +69,8 @@ def region_mprm_loss(cam: Sequence[torch.Tensor],
     total = 0.0
     pm = region_point_masks.to(cam[0].dtype)                  # [B, R, P]
     counts = pm.sum(dim=-1).clamp(min=1.0)                    # [B, R]
-    b = region_inds.shape[0]
-    flat = region_inds.reshape(b, -1).to(torch.int64)         # [B, R*P]
     for path in cam:
-        c = path.shape[-1]
-        padded = torch.cat([path, path.new_zeros((b, 1, c))], dim=1)
-        member = padded.gather(1, flat[:, :, None].expand(-1, -1, c))
-        member = member.reshape(*region_inds.shape, c)        # [B,R,P,C]
+        member = gather_rows(path, region_inds, inverse=inverse)  # [B,R,P,C]
         mean_logits = ((member * pm[..., None]).sum(dim=2)
                        / counts[..., None])                   # [B, R, C]
         total = total + bce_with_logits(mean_logits, region_lb, class_w,

@@ -12,14 +12,20 @@ the output gradient g [B, Nq, Cout]:
 
 Points, neighbor indices and kernel points get no gradient, as in
 kpconv_banded.py:562-566. The TPU kernel summed dX over a window of
-sorted supports and could drop neighbors outside it (counted in the
-forward's `oob`); this kernel scatters into the exact neighbor rows.
+sorted supports in a fixed order and could drop neighbors outside it
+(counted in the forward's `oob`); this kernel sums over the exact
+neighbor rows, also in a fixed order: each (row, slot) contribution goes
+to a workspace, and each support adds its slots in ascending order over
+its inverse neighbor list (ops/cuda/inverse_lists.py), so dX repeats bit
+for bit. The lists come from the caller (`inverse`, shared by the convs
+on one pyramid edge) or are built here.
 
 What bounds it on the H100: the two contractions at the wide levels
 (operations; both run on the tensor cores through the 3xTF32 split of
-csrc/kpconv_common.cuh), the scatter's atomics at level 0; the source
+csrc/kpconv_common.cuh), the workspace's traffic at level 0; the source
 describes the launches. The wrapper allocates the GEMMs' split-K
-workspace, whose size the library computes (`kpconv_bwd_workspace`).
+workspace, whose size the library computes (`kpconv_bwd_workspace`), and
+the dX workspace [B*Nq*K, Cin].
 
 `kpconv_bwd_plain` is the same function written out in plain PyTorch
 (influences, gathers, einsums, `index_add_`), not autograd of the
@@ -35,29 +41,15 @@ import ctypes
 import torch
 
 from weasal_tpu_torch.ops.cuda.build import check, load_library
+from weasal_tpu_torch.ops.cuda.inverse_lists import (require_lists,
+                                                     scatter_rows)
 from weasal_tpu_torch.ops.cuda.kpconv_fwd import (
     INFLUENCES, check_kpconv_inputs, gaussian_denominator,
     neighbor_influences, workspace, workspace_args)
 
 _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
              + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int]
-             + [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_void_p])
-
-
-def scatter_rows(values: torch.Tensor, inds: torch.Tensor,
-                 ns: int) -> torch.Tensor:
-    """Sum [B, Nq, K, D] values into [B, Ns, D] rows by the sphere-local
-    indices [B, Nq, K]; a shadow index (outside 0..Ns-1) is dropped."""
-    b, nq, k, d = values.shape
-    inds = inds.to(torch.int64)
-    rows = torch.where((inds >= 0) & (inds < ns), inds,
-                       torch.full_like(inds, ns))
-    offs = (torch.arange(b, device=inds.device, dtype=torch.int64)
-            * (ns + 1))[:, None, None]
-    out = torch.zeros((b * (ns + 1), d), dtype=values.dtype,
-                      device=values.device)
-    out.index_add_(0, (rows + offs).reshape(-1), values.reshape(-1, d))
-    return out.reshape(b, ns + 1, d)[:, :ns]
+             + [ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_void_p])
 
 
 def kpconv_bwd_plain(q_pts, s_pts, neighb_inds, y, kernel_points, weights,
@@ -78,7 +70,7 @@ def kpconv_bwd_plain(q_pts, s_pts, neighb_inds, y, kernel_points, weights,
 
 
 def _launch(q_pts, s_pts, neighb_inds, y, kernel_points, weights, g,
-            kp_extent, influence, need_dx):
+            kp_extent, influence, need_dx, inverse):
     b, nq, _ = q_pts.shape
     ns = s_pts.shape[1]
     kp, cin, cout = weights.shape
@@ -102,6 +94,9 @@ def _launch(q_pts, s_pts, neighb_inds, y, kernel_points, weights, g,
           if need_dx else None)
     dr = (torch.empty((b * nq, kp * cin), dtype=torch.float32, device=dev)
           if need_dx else None)
+    xws = (torch.empty((b * nq * k, cin), dtype=torch.float32, device=dev)
+           if need_dx else None)
+    inv = require_lists(inverse, b * ns, "kpconv_bwd") if need_dx else None
     dw = torch.empty((kp, cin, cout), dtype=torch.float32, device=dev)
     lib = load_library("kpconv_bwd")
     ws = workspace(lib, "kpconv_bwd", b * nq, kp * cin, cout, int(need_dx),
@@ -113,8 +108,10 @@ def _launch(q_pts, s_pts, neighb_inds, y, kernel_points, weights, g,
              y.data_ptr(), kernel_points.data_ptr(), weights.data_ptr(),
              g.data_ptr(), b, nq, ns, k, kp, cin, cout, float(kp_extent),
              INFLUENCES[influence], gaussian_denominator(kp_extent),
-             int(need_dx), dr.data_ptr() if need_dx else None,
-             dx.data_ptr() if need_dx else None, dw.data_ptr(),
+             int(need_dx),
+             *((inv.offsets.data_ptr(), inv.entries.data_ptr(),
+                dr.data_ptr(), xws.data_ptr(), dx.data_ptr()) if need_dx
+               else (None,) * 5), dw.data_ptr(),
              *workspace_args(ws), torch.cuda.current_stream(dev).cuda_stream),
           "kpconv_bwd")
     return dx, dw
@@ -122,7 +119,7 @@ def _launch(q_pts, s_pts, neighb_inds, y, kernel_points, weights, g,
 
 def kpconv_bwd(q_pts, s_pts, neighb_inds, y, kernel_points, weights, g,
                kp_extent: float, influence: str = "linear",
-               need_dx: bool = True):
+               need_dx: bool = True, inverse=None):
     """Gradients of the rigid KPConv forward.
 
     :param q_pts: [B, Nq, 3]; s_pts: [B, Ns, 3]; neighb_inds: [B, Nq, K]
@@ -130,6 +127,9 @@ def kpconv_bwd(q_pts, s_pts, neighb_inds, y, kernel_points, weights, g,
         aggregate; kernel_points: [Kp, 3]; weights: [Kp, Cin, Cout];
         g: [B, Nq, Cout]; all f32 except the indices
     :param need_dx: False skips dX (the input needs no gradient)
+    :param inverse: a LazyInverse of neighb_inds (ops/cuda/inverse_lists;
+        shared by the convs on one edge); the kernel's dX needs it, the
+        plain version ignores it
     :return: (dX [B, Ns, Cin] or None, dW [Kp, Cin, Cout])
 
     A CPU tensor runs `kpconv_bwd_plain`; a CUDA tensor launches the
@@ -142,7 +142,7 @@ def kpconv_bwd(q_pts, s_pts, neighb_inds, y, kernel_points, weights, g,
         raise ValueError(f"kpconv_bwd runs on cpu or cuda tensors, got "
                          f"{q_pts.device}")
     return _launch(q_pts, s_pts, neighb_inds, y, kernel_points, weights, g,
-                   kp_extent, influence, need_dx)
+                   kp_extent, influence, need_dx, inverse)
 
 
 kpconv_bwd.launches = 0

@@ -19,10 +19,12 @@ kernel recomputes maximum and tie count from x and nb, so the mask is
 never built. One warp per query row: its K indices are loaded once,
 the lanes run across channels with vector loads, and one pass keeps
 each channel's maximum, tie count and winning slots, so each value is
-gathered once. Its bound on the H100 is bytes (a gather and a scatter,
-a few compares per value); measured, its time goes to the per-slot
-shuffles and compares of many short warps, not to the gathers or the
-atomics (see the source).
+gathered once; the second pass writes each slot's share (or 0.0) to a
+workspace [B*Nq*K, C], and each support adds its slots in ascending
+order over the pool edge's inverse neighbor list
+(ops/cuda/inverse_lists.py), so dX repeats bit for bit as the TPU
+kernel's fixed-order sums do. Its bound on the H100 is bytes (a gather,
+the workspace and dX, a few compares per value); see the source.
 
 `maxpool_bwd_plain` is the same formula written out in plain PyTorch
 (gather, max, tie count, `index_add_`). The CPU path and the tests use
@@ -36,11 +38,12 @@ import ctypes
 import torch
 
 from weasal_tpu_torch.ops.cuda.build import check, load_library
-from weasal_tpu_torch.ops.cuda.kpconv_bwd import scatter_rows
+from weasal_tpu_torch.ops.cuda.inverse_lists import (require_lists,
+                                                     scatter_rows)
 from weasal_tpu_torch.ops.cuda.kpconv_fwd import gather_neighbors
 
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
-             + [ctypes.c_void_p] * 2)
+             + [ctypes.c_void_p] * 5)
 
 
 def maxpool_bwd_plain(x: torch.Tensor, neighb_inds: torch.Tensor,
@@ -54,7 +57,7 @@ def maxpool_bwd_plain(x: torch.Tensor, neighb_inds: torch.Tensor,
     return scatter_rows(contrib, neighb_inds, x.shape[1])
 
 
-def _launch(x, neighb_inds, g):
+def _launch(x, neighb_inds, g, inverse):
     b, ns, c = x.shape
     nq, k = neighb_inds.shape[1:]
     for name, t, dtype in (("x", x, torch.float32),
@@ -72,24 +75,31 @@ def _launch(x, neighb_inds, g):
     if k < 1:
         raise ValueError("maxpool_bwd needs at least one neighbor slot")
     dx = torch.empty((b, ns, c), dtype=torch.float32, device=x.device)
+    ws = torch.empty((max(b * nq * k, 1), c), dtype=torch.float32,
+                     device=x.device)
+    inv = require_lists(inverse, b * ns, "maxpool_bwd")
     lib = load_library("maxpool_bwd")
     fn = lib.maxpool_bwd_launch
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     maxpool_bwd.launches += 1
     check(fn(x.data_ptr(), neighb_inds.data_ptr(), g.data_ptr(), b, nq, ns,
-             k, c, dx.data_ptr(),
+             k, c, inv.offsets.data_ptr(), inv.entries.data_ptr(),
+             ws.data_ptr(), dx.data_ptr(),
              torch.cuda.current_stream(x.device).cuda_stream),
           "maxpool_bwd")
     return dx
 
 
 def maxpool_bwd(x: torch.Tensor, neighb_inds: torch.Tensor,
-                g: torch.Tensor) -> torch.Tensor:
+                g: torch.Tensor, inverse=None) -> torch.Tensor:
     """Gradient of the neighborhood max-pool.
 
     :param x: [B, Ns, C] f32, the pooled features
     :param neighb_inds: [B, Nq, K] int32 (>= Ns = shadow)
     :param g: [B, Nq, C] f32, the gradient of the pooled output
+    :param inverse: a LazyInverse of neighb_inds (ops/cuda/inverse_lists;
+        shared on one pool edge); the kernel needs it, the plain version
+        ignores it
     :return: dX [B, Ns, C] f32
 
     A CPU tensor runs `maxpool_bwd_plain`; a CUDA tensor launches the
@@ -100,7 +110,7 @@ def maxpool_bwd(x: torch.Tensor, neighb_inds: torch.Tensor,
     if not x.is_cuda:
         raise ValueError(f"maxpool_bwd runs on cpu or cuda tensors, got "
                          f"{x.device}")
-    return _launch(x, neighb_inds, g)
+    return _launch(x, neighb_inds, g, inverse)
 
 
 maxpool_bwd.launches = 0

@@ -16,17 +16,22 @@ maxpool_banded.py:170:
 The route is fixed in the forward and kept for the backward (which runs
 on autograd's own thread): a CUDA tensor outside `plain_ops()` launches
 the kernels, anything else runs their plain PyTorch versions. Points,
-neighbor indices and kernel points get no gradient.
+neighbor indices and kernel points get no gradient. On the card the
+backwards sum dX in a fixed order over inverse neighbor lists
+(ops/cuda/inverse_lists.py), which the caller passes as a `LazyInverse`
+shared by every op on one pyramid edge (data/batch.PyramidBatch), and
+`closest_pool`'s gather has a backward of the same kind.
 """
 
 from __future__ import annotations
 
 import os
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 from torch.autograd.function import once_differentiable
 
+from weasal_tpu_torch.ops.cuda.inverse_lists import LazyInverse, gather_rows
 from weasal_tpu_torch.ops.cuda.kpconv_bwd import kpconv_bwd, kpconv_bwd_plain
 from weasal_tpu_torch.ops.cuda.kpconv_fwd import (  # noqa: F401 (re-export)
     gather_neighbors, influence_weights, kpconv_fwd, kpconv_fwd_plain,
@@ -52,8 +57,9 @@ class KPConvFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q_pts, s_pts, neighb_inds, x, kernel_points, weights,
-                kp_extent: float, influence: str):
+                kp_extent: float, influence: str, inverse=None):
         ctx.kernel = use_kernel(x)
+        ctx.inverse = inverse
         x, weights = x.contiguous(), weights.contiguous()
         fwd = kpconv_fwd_with_y if ctx.kernel else kpconv_fwd_plain_with_y
         out, y = fwd(q_pts, s_pts, neighb_inds, x, kernel_points, weights,
@@ -68,11 +74,14 @@ class KPConvFunction(torch.autograd.Function):
     def backward(ctx, g):
         q_pts, s_pts, neighb_inds, y, kernel_points, weights = \
             ctx.saved_tensors
-        bwd = kpconv_bwd if ctx.kernel else kpconv_bwd_plain
-        dx, dw = bwd(q_pts, s_pts, neighb_inds, y, kernel_points, weights,
-                     g.contiguous(), ctx.kp_extent, ctx.influence,
-                     need_dx=ctx.needs_input_grad[3])
-        return None, None, None, dx, None, dw, None, None
+        args = (q_pts, s_pts, neighb_inds, y, kernel_points, weights,
+                g.contiguous(), ctx.kp_extent, ctx.influence)
+        need_dx = ctx.needs_input_grad[3]
+        if ctx.kernel:
+            dx, dw = kpconv_bwd(*args, need_dx=need_dx, inverse=ctx.inverse)
+        else:
+            dx, dw = kpconv_bwd_plain(*args, need_dx=need_dx)
+        return None, None, None, dx, None, dw, None, None, None
 
 
 class MaxPoolFunction(torch.autograd.Function):
@@ -80,8 +89,9 @@ class MaxPoolFunction(torch.autograd.Function):
     gather + max, the backward is kernel D (ties split equally)."""
 
     @staticmethod
-    def forward(ctx, x, neighb_inds):
+    def forward(ctx, x, neighb_inds, inverse=None):
         ctx.kernel = use_kernel(x)
+        ctx.inverse = inverse
         ctx.save_for_backward(x, neighb_inds)
         return gather_neighbors(x, neighb_inds, 0.0).amax(dim=2)
 
@@ -89,35 +99,46 @@ class MaxPoolFunction(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         x, neighb_inds = ctx.saved_tensors
-        bwd = maxpool_bwd if ctx.kernel else maxpool_bwd_plain
-        return bwd(x, neighb_inds, g.contiguous()), None
+        if ctx.kernel:
+            dx = maxpool_bwd(x, neighb_inds, g.contiguous(),
+                             inverse=ctx.inverse)
+        else:
+            dx = maxpool_bwd_plain(x, neighb_inds, g.contiguous())
+        return dx, None, None
 
 
 def kpconv(q_pts, s_pts, neighb_inds, x, kernel_points, weights,
-           params: KPConvParams) -> torch.Tensor:
+           params: KPConvParams,
+           inverse: Optional[LazyInverse] = None) -> torch.Tensor:
     """Rigid KPConv: [B, Nq, 3], [B, Ns, 3], [B, Nq, K], [B, Ns, Cin],
-    [Kp, 3], [Kp, Cin, Cout] -> [B, Nq, Cout]."""
+    [Kp, 3], [Kp, Cin, Cout] -> [B, Nq, Cout]; `inverse`: the edge's
+    inverse lists for kernel C's dX."""
     if params.aggregation != "sum":
         raise NotImplementedError(
             "only sum-aggregation KPConv is ported")
     return KPConvFunction.apply(q_pts, s_pts, neighb_inds, x, kernel_points,
-                                weights, params.kp_extent, params.influence)
+                                weights, params.kp_extent, params.influence,
+                                inverse)
 
 
-def max_pool(x: torch.Tensor, inds: torch.Tensor) -> torch.Tensor:
+def max_pool(x: torch.Tensor, inds: torch.Tensor,
+             inverse: Optional[LazyInverse] = None) -> torch.Tensor:
     """Max over each pooling neighborhood; the shadow row is zero, so the
     result is clamped at >= 0 like the reference. Only the 'dense' route
-    is ported: `WEASAL_MAXPOOL` naming another one raises."""
+    is ported: `WEASAL_MAXPOOL` naming another one raises. `inverse`:
+    the edge's inverse lists for kernel D."""
     route = os.environ.get("WEASAL_MAXPOOL", "") or "dense"
     if route not in MAXPOOL_ROUTES:
         raise ValueError(f"max_pool route {route!r} is not ported "
                          f"(known: {MAXPOOL_ROUTES})")
-    return MaxPoolFunction.apply(x, inds)
+    return MaxPoolFunction.apply(x, inds, inverse)
 
 
-def closest_pool(x: torch.Tensor, inds: torch.Tensor) -> torch.Tensor:
-    """Features of the nearest support (column 0 of the sorted rows)."""
-    return gather_neighbors(x, inds[:, :, :1], 0.0)[:, :, 0, :]
+def closest_pool(x: torch.Tensor, inds: torch.Tensor,
+                 inverse: Optional[LazyInverse] = None) -> torch.Tensor:
+    """Features of the nearest support (column 0 of the sorted rows); its
+    backward adds in a fixed order (`inverse`: the lists of column 0)."""
+    return gather_rows(x, inds, 1, inverse)[:, :, 0, :]
 
 
 def global_average(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

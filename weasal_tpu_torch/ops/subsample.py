@@ -12,9 +12,11 @@ Counterpart of weasal_tpu/ops/subsample.py:
 The fixed version must reproduce the JAX masks bit for bit, because every
 level above depends on them: min-corner origin over valid points,
 ``floor((p - origin) / dl)`` as a true division, clip to ``n_cells - 1``,
-a stable sort of the voxel ids, and ``SHADOW_COORD`` padding. On CUDA the
-barycenter sums go through ``scatter_add_``, whose order is not fixed, so
-barycenters may differ in the last ulp from run to run (masks do not).
+a stable sort of the voxel ids, and ``SHADOW_COORD`` padding. Each
+voxel's members are summed in their stable-sorted order from 0.0: on the
+CPU by ``scatter_add_``, which adds in that order, on the card by the
+fixed-order row sums over each voxel's run (ops/cuda/inverse_lists.
+run_sums), so the barycenters repeat bit for bit from run to run.
 """
 
 from __future__ import annotations
@@ -24,6 +26,9 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+# a module reference: inverse_lists imports kpconv_fwd, which imports this
+from weasal_tpu_torch.ops.cuda import inverse_lists
 
 SHADOW_COORD = 1e6
 
@@ -114,17 +119,12 @@ def grid_subsample_fixed(points: torch.Tensor, mask: torch.Tensor,
     seg = torch.where(valid, seg.clamp(max=max_out),
                       torch.full_like(seg, max_out))
 
-    sums = torch.zeros((b, max_out + 1, 3), dtype=points.dtype,
-                       device=points.device)
-    sums.scatter_add_(1, seg[..., None].expand(b, n, 3),
-                      torch.where(valid[..., None], sorted_pts,
-                                  torch.zeros_like(sorted_pts)))
-    counts = torch.zeros((b, max_out + 1), dtype=points.dtype,
-                         device=points.device)
-    counts.scatter_add_(1, seg, valid.to(points.dtype))
+    sums, counts = inverse_lists.run_sums(
+        torch.where(valid[..., None], sorted_pts,
+                    torch.zeros_like(sorted_pts)), seg, max_out)
 
-    out_mask = counts[:, :max_out] > 0
-    centers = sums[:, :max_out] / counts[:, :max_out, None].clamp(min=1.0)
+    out_mask = counts > 0
+    centers = sums / counts[..., None].clamp(min=1.0)
     centers = torch.where(out_mask[..., None], centers,
                           torch.full_like(centers, SHADOW_COORD))
     return centers, out_mask

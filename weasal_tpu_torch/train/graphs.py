@@ -35,13 +35,16 @@ from typing import Callable, Dict, List, Mapping, Optional, Sequence
 import torch
 
 from weasal_tpu_torch.data.loader import copy_batch
+from weasal_tpu_torch.ops.cuda.inverse_lists import (build_inverse_lists,
+                                                     inverse_sum)
 from weasal_tpu_torch.ops.cuda.kpconv_bwd import kpconv_bwd
 from weasal_tpu_torch.ops.cuda.kpconv_fwd import kpconv_fwd
 from weasal_tpu_torch.ops.cuda.maxpool_bwd import maxpool_bwd
 from weasal_tpu_torch.ops.cuda.radius_search import radius_search
 
 # The kernel wrappers whose `launches` a replay adds to
-COUNTED = (radius_search, kpconv_fwd, kpconv_bwd, maxpool_bwd)
+COUNTED = (radius_search, kpconv_fwd, kpconv_bwd, maxpool_bwd,
+           build_inverse_lists, inverse_sum)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -59,7 +59,8 @@ def step_on_batch(model, opt_state: Dict[str, torch.Tensor], batch, config,
     if loss_type == "region_mprm_loss":
         loss = losses.region_mprm_loss(
             cam, batch.region_inds, batch.region_masks,
-            batch.region_point_masks, batch.region_lb, class_w)
+            batch.region_point_masks, batch.region_lb, class_w,
+            inverse=batch.inverse("regions", 0))
     elif loss_type == "class_logits_loss":
         loss = losses.class_logits_loss(cla_logits, batch.cloud_lb, class_w)
     else:

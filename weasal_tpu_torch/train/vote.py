@@ -7,8 +7,11 @@ bases and trailing shadow row). Each batch's probabilities are smoothed
 in sphere by sphere, in order, as the JAX package's `lax.scan` does:
 spheres of one batch may overlap, and a single scatter over the batch
 would give another answer there. Pad rows all write back the shadow
-row's own value, so their duplicate writes are harmless. The host reads
-the buffer only through `materialize`.
+row's own value, so their duplicate writes are harmless. The tester's
+radius mask reads the squared norms `d2` of the augmented points
+(`use_d2`, as the reference masks augmented coordinates); without them
+it measures the resident points from each sphere's center. The host
+reads the buffer only through `materialize`.
 """
 
 from __future__ import annotations
@@ -43,17 +46,22 @@ class DeviceVoteAccumulator:
                                  device=res_points.device)
 
     @torch.no_grad()
-    def update(self, probs: torch.Tensor, batch) -> None:
+    def update(self, probs: torch.Tensor, batch,
+               d2: Optional[torch.Tensor] = None) -> None:
         """Smooth one batch's probabilities [B, N0, C] (in `input_inds`
-        order) into the buffer; the radius mask measures the resident
-        points from each sphere's center."""
+        order) into the buffer. The radius mask compares `d2` [B, N0]
+        (squared norms of the augmented points, `input_inds` order) when
+        given, else the resident points' squared distances from each
+        sphere's center."""
         shadow = self._S - 1
         flat_inds = batch["flat_inds"].long()
         probs = probs.to(torch.float32)
         for b in range(flat_inds.shape[0]):
             idx = flat_inds[b]
             valid = idx < shadow
-            if self.radius_sq is not None:
+            if self.radius_sq is not None and d2 is not None:
+                valid = valid & (d2[b] < self.radius_sq)
+            elif self.radius_sq is not None:
                 rel = batch["res_points"][idx] - batch["center_pts"][b][None, :]
                 valid = valid & ((rel * rel).sum(dim=1) < self.radius_sq)
             tgt = torch.where(valid, idx, torch.full_like(idx, shadow))
