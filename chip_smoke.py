@@ -29,9 +29,11 @@ Phases, in order; any failure exits non-zero:
    inputs and output gradients) and the 2 strided-shortcut max-pool
    backwards (integer-valued features, so that ties and maxima of 0
    shared with shadows occur), each the same bit for bit over 3 calls
-   (their dX adds in a fixed order over inverse neighbor lists), timed as
-   in phase 2 with the edge's inverse lists built once as a step shares
-   them, C's two GEMM parts as B's, and each dX stage's device time;
+   (their dX adds in a fixed order over inverse neighbor lists), the row
+   sums over each edge's lists of a seeded workspace at the layer's width
+   equal to the sums added in list order, timed as in phase 2 with the
+   edge's inverse lists built once as a step shares them, C's two GEMM
+   parts as B's, and each dX stage's device time;
 5. the training path: `train_step` for 4 steps, launch counts read around
    them, losses, parameters and BatchNorm statistics checked, then one
    step with the kernels, one on the plain versions and one replay of
@@ -43,10 +45,14 @@ Phases, in order; any failure exits non-zero:
    B's forward before the plain backward, each read on that tensor); the
    inverse-list builds and the row sums of one step at the shapes it
    gives them, against their plain versions (lists equal to a stable
-   sort's, sums within f32 rounding of `index_add_` / `scatter_add_`,
-   beside whose times they are timed), each the same over repeated
-   calls; one kernel training step in a process of its own under
-   `torch.use_deterministic_algorithms(True)`;
+   sort's, eager and replayed from a CUDA graph; sums equal bit for bit
+   to the sums added in list order, and within f32 rounding of the
+   plain versions), timed by CUDA events and by device time split by
+   kernel name beside their library calls (`torch.sort(keys,
+   stable=True)` for the build, `index_add_` / `scatter_add_` for the
+   sums), each the same over repeated calls; the same checks at
+   adversarial shapes; one kernel training step in a process of its own
+   under `torch.use_deterministic_algorithms(True)`;
 6. the training loop: the entry point
    `weasal_tpu_torch.train_Vaihingen3D_WeakLabel.run` on a synthetic
    Vaihingen-like tile (150 m a side, seeded, as are the datasets'
@@ -69,8 +75,11 @@ Phases, in order; any failure exits non-zero:
    of the loop's own resident source assembled on the card, kernels A-D
    against their plain versions (as in phases 2 and 4) and, on the first
    batch, the kernel training step held to an f64 one (as in phase 5),
+   and read again on the same batch's pyramid built twice more (each
+   pyramid's hash and share of the f64 allowance logged, not held),
    and `train_step` timed at the loop's plan, synchronized and back to
-   back, beside the loop's step and phase 5's;
+   back, beside the loop's step and phase 5's, after the inverse lists
+   and row sums of one step checked and timed as in phase 5;
 7. dispatch at the loop's plan, on the loop's trainer and on an eager
    one (`graphs=False`, the same configuration and datasets): 10 pairs
    of 10-batch epochs, eager and graphed in turns, and 5 pairs of
@@ -117,7 +126,8 @@ Kernels C and D take their dX in two stages: each (row, slot)
 contribution to a workspace, then each support's slots summed in
 ascending order over its inverse neighbor list (csrc/inverse_lists.cuh),
 so that no atomic decides an order; the lists of each pyramid edge are
-built once a step (five launches, no host read) and shared.
+built once a step (a memset and one kernel in four phases, no host
+read) and shared.
 
 Kernel A is two launches: a binning of each sphere's supports into
 columns of a 2-D grid (one block per sphere, counts, scan and scatter in
@@ -131,6 +141,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
 import json
 import os
 import statistics
@@ -140,6 +151,10 @@ import time
 
 import numpy as np
 import torch
+
+from tests._inverse_cases import (CASES as INVERSE_CASES, graph_replay,
+                                  index_case, ordered_row_sums,
+                                  ordered_run_sums, run_case)
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, f32
 # operations/s outside the tensor cores and dense TF32 operations/s on the
@@ -203,6 +218,9 @@ LOOP_ARGS = ("--epoch_steps", "10", "--validation_size", "5",
 # Batches of the loop's source drawn after its runs, for the kernel checks
 # and the step times at its shapes
 LOOP_CHECK_BATCHES = 6
+# Pyramids built of the loop's first batch, each read against the f64
+# step (the first held)
+LOOP_F64_PYRAMIDS = 3
 # Phase 7: pairs of epochs, eager against graphed and K = 1 against K = 10,
 # and the percentile of the small-sphere bucket
 DISPATCH_PAIRS = 10
@@ -523,6 +541,8 @@ def check_kpconv_bwd(model, batch, log, seed):
     rows, t_k, t_p, t_b, t_f32 = [], 0.0, 0.0, 0.0, 0.0
     ops_t, gemm_t, bytes_t, worst = 0.0, 0.0, 0.0, 0.0
     skip_dx = first_conv(model)
+    ws_gen = torch.Generator(device=batch.features.device).manual_seed(
+        seed + 1)
     for name, conv in kpconv_modules(model):
         q, s, nb, q_mask = conv_inputs(conv.strided, conv.layer_ind, batch)
         kp, w = conv.kernel_points, conv.weights.detach()
@@ -553,6 +573,8 @@ def check_kpconv_bwd(model, batch, log, seed):
             errs.append(float((a - b).abs().max()))
         worst = max(worst, *errs)
         repeats = expect_repeats(f"kpconv_bwd {name}", kernel)
+        stage2 = expect_stage2_order(f"kpconv_bwd {name}", inv,
+                                     s.shape[0] * s.shape[1], cin, ws_gen)
         need_dx = name != skip_dx
         ms = cuda_ms(lambda: kernel(need_dx))
         dx_stages = stage_ms(kernel, DX_STAGES["C"]) if need_dx else {}
@@ -590,6 +612,7 @@ def check_kpconv_bwd(model, batch, log, seed):
                                            nb.shape[2], cin, cout],
                          need_dx=need_dx, max_abs_err_dx=errs[0],
                          max_abs_err_dw=errs[1], repeats=repeats,
+                         stage2_in_order=stage2,
                          dx_stage_ms=dx_stages, ms=ms, plain_ms=plain,
                          bound_ms=b_ms, bound_by=b_by, f32_bound_ms=f32_ms,
                          **gemms))
@@ -601,7 +624,8 @@ def check_kpconv_bwd(model, batch, log, seed):
             f"{errs[1]:.2e}, kernel {ms:.3f} ms, plain {plain:.3f} ms, "
             f"bound {b_ms:.4f} ms ({b_by}; all f32 {f32_ms:.4f})"
             f"{'' if need_dx else ', no dX'}; " + "; ".join(texts)
-            + f"; dX stages {stage_text(dx_stages)}; repeats {repeats}")
+            + f"; dX stages {stage_text(dx_stages)}; repeats {repeats}; "
+            f"stage 2 in list order {stage2}")
     return rows, dict(ms=t_k, plain_ms=t_p, bound_ms=t_b, max_abs_err=worst,
                       bound_by=bound_ms(bytes_t, ops_t, gemm_t)[1],
                       f32_bound_ms=t_f32,
@@ -626,6 +650,22 @@ def stage_sums(rows, names) -> dict:
             for k in names}
 
 
+def expect_stage2_order(what, inv, rows, width, gen) -> bool:
+    """The row sums over an edge's lists (`inv`, a LazyInverse) of a
+    seeded workspace [slots, width], as C's and D's dX take their stage
+    2, equal the sums in list order bit for bit."""
+    from weasal_tpu_torch.ops.cuda import inverse_lists as il
+    lists = inv.get()
+    ws = torch.randn((lists.entries.shape[0], width), generator=gen,
+                     device=lists.entries.device)
+    ok = torch.equal(il.inverse_sum(ws, lists, rows),
+                     ordered_row_sums(ws, lists.offsets, lists.entries,
+                                      rows))
+    expect(ok, f"{what}: row sums over a workspace of width {width} "
+           "differ from the sums in list order")
+    return ok
+
+
 def strided_pools(model):
     """(name, level, channels) of each max-pooled strided shortcut."""
     from weasal_tpu_torch.models.blocks import ResnetBottleneckBlock
@@ -638,6 +678,8 @@ def check_maxpool_bwd(model, batch, log, seed):
     from weasal_tpu_torch.ops.cuda.maxpool_bwd import (maxpool_bwd,
                                                        maxpool_bwd_plain)
     gen = torch.Generator(device=batch.features.device).manual_seed(seed)
+    ws_gen = torch.Generator(device=batch.features.device).manual_seed(
+        seed + 1)
     rows, t_k, t_p, t_b, bytes_t, worst = [], 0.0, 0.0, 0.0, 0.0, 0.0
     for name, level, c in strided_pools(model):
         nb = batch.pools[level]
@@ -664,6 +706,8 @@ def check_maxpool_bwd(model, batch, log, seed):
         worst = max(worst, err)
         repeats = expect_repeats(f"maxpool_bwd {name}",
                                  lambda: (kernel(),))
+        stage2 = expect_stage2_order(f"maxpool_bwd {name}", inv, b * ns, c,
+                                     ws_gen)
         ms = cuda_ms(kernel)
         plain = cuda_ms(lambda: maxpool_bwd_plain(x, nb, g))
         dx_stages = stage_ms(kernel, DX_STAGES["D"])
@@ -674,12 +718,14 @@ def check_maxpool_bwd(model, batch, log, seed):
         rows.append(dict(pool=name, shape=[b, nb.shape[1], ns, nb.shape[2],
                                            c],
                          max_abs_err=err, repeats=repeats,
+                         stage2_in_order=stage2,
                          dx_stage_ms=dx_stages, ms=ms, plain_ms=plain,
                          bound_ms=b_ms, bound_by=b_by))
         log(f"  D {name}: nb{list(nb.shape)} Ns={ns} C={c}: err {err:.2e} "
             f"(scale {scale:.2e}), kernel {ms:.3f} ms, plain {plain:.3f} "
             f"ms, bound {b_ms:.4f} ms ({b_by}); dX stages "
-            f"{stage_text(dx_stages)}; repeats {repeats}")
+            f"{stage_text(dx_stages)}; repeats {repeats}; stage 2 in list "
+            f"order {stage2}")
     return rows, dict(ms=t_k, plain_ms=t_p, bound_ms=t_b, max_abs_err=worst,
                       bound_by="bytes",
                       dx_stage_ms=stage_sums(rows, DX_STAGES["D"]))
@@ -724,21 +770,74 @@ def record_inverse_calls(step):
     return calls
 
 
-def check_inverse_lists(calls, log):
-    """The inverse-list build and the fixed-order row sums at the shapes
-    one training step gives them (recorded by `record_inverse_calls`),
-    against their plain versions: the build's lists equal the plain
-    stable sort's; the row sums (and the voxel sums of the pyramid's
-    subsample) within f32 rounding of `index_add_` / `scatter_add_`
-    (MAXPOOL_RTOL, MAXPOOL_ATOL_REL); every call repeats bit for bit.
-    Times: kernel, plain version, and for the sums one PyTorch call that
-    computes the same function (`index_add_` of the source rows into
-    their destinations, `scatter_add_` for the voxel sums; on CUDA both
-    add with atomics in no fixed order). Returns the sums of both
-    wrappers."""
+def device_split(fn, reps: int = 10) -> dict:
+    """{kernel name: mean device ms a call} of fn() (torch.profiler over
+    `reps` calls after a warm-up call; memsets are "Memset (Device)")."""
+    fn()
+    rows, _ = profiled_kernels(fn, reps)
+    return {name: ms / reps for name, _, ms in rows}
+
+
+def lists_equal(got, ref) -> bool:
+    total = int(ref.offsets[-1])
+    return torch.equal(got.offsets, ref.offsets) and torch.equal(
+        got.entries[:total], ref.entries[:total])
+
+
+def adversarial_inverse_calls(dev, seed):
+    """Calls of the build, the row sums and the voxel run sums at shapes
+    the main path does not give them, in `record_inverse_calls`' form:
+    the builds of tests/_inverse_cases.py's index cases (a support
+    referenced by thousands of slots, skew, duplicated supports in a row
+    with shadows on both sides, rows of shadows only, no slots, no
+    supports, k = 1 of a wider ld, B*Ns a multiple of no tile), the sums
+    over each case's lists at C = 3, 9 and 64, and the run sums of its
+    voxel runs (one of 400 rows, rows dropped past n_out, a sphere with
+    no run)."""
     from weasal_tpu_torch.ops.cuda import inverse_lists as il
-    sums = {n: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, max_abs_err=0.0,
-                    library_ms=0.0, calls=0, repeats=True)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    builds = []
+    for name in INVERSE_CASES:
+        nb, ns, k = index_case(name, seed)
+        builds.append((nb.to(dev), ns, k))
+    calls = [("build", args) for args in builds]
+    for inds, ns, k in builds:
+        k = inds.shape[2] if k is None else k
+        lists = il.build_inverse_lists_plain(inds, ns, k)
+        for c in (3, 9, 64):
+            src = torch.randn((inds.shape[0] * inds.shape[1] * k, c),
+                              generator=gen, device=dev)
+            calls.append(("sum", (src, lists, inds.shape[0] * ns)))
+    seg, n_out = run_case(seed)
+    calls.append(("runs", (torch.randn((*seg.shape, 3), generator=gen,
+                                       device=dev), seg.to(dev), n_out)))
+    return calls
+
+
+def check_inverse_lists(calls, log, totals: bool = True, reps: int = 10):
+    """The inverse-list build and the fixed-order row sums at recorded
+    shapes (`record_inverse_calls`, or `adversarial_inverse_calls` with
+    totals=False: checked alike, left out of the sums). The build's
+    lists equal the plain stable sort's, eager and replayed from a CUDA
+    graph; every row sum and voxel sum equals `ordered_row_sums` /
+    `ordered_run_sums` bit for bit (and is within f32 rounding of the
+    plain version, whose `index_add_` / `scatter_add_` adds with atomics
+    on the card: at the step's shapes within MAXPOOL_RTOL and
+    MAXPOOL_ATOL_REL, at adversarial ones within the bound on two orders
+    of an f32 sum); every call repeats bit for bit. Times: CUDA events around a call
+    (kernel, plain version, library call), and the device time of the
+    kernel's launches and of the library call's from torch.profiler,
+    split by kernel name. The library calls compute the same function
+    and the port never calls them: `torch.sort(keys, stable=True)` on
+    the slots' precomputed support keys for the build (its lists are
+    the stable sort's order), `index_add_` of the source rows into their
+    destinations for the row sums, `scatter_add_` for the voxel sums (on
+    CUDA both add with atomics in no fixed order). Returns the sums of
+    both wrappers over the calls."""
+    from weasal_tpu_torch.ops.cuda import inverse_lists as il
+    sums = {n: dict(ms=0.0, device_ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                    max_abs_err=0.0, library_ms=0.0, library_device_ms=0.0,
+                    calls=0, repeats=True, exact=True, split={})
             for n in ("build_inverse_lists", "inverse_sum")}
     for kind, args in calls:
         if kind == "build":
@@ -751,19 +850,24 @@ def check_inverse_lists(calls, log):
             def plain():
                 return il.build_inverse_lists_plain(inds, ns, k)
 
+            keys = il._support_keys(inds, ns, k)
+
+            def library():
+                return torch.sort(keys, stable=True)
+
             got, ref = kernel(), plain()
             total = int(ref.offsets[-1])
-            ok = torch.equal(got.offsets, ref.offsets) and torch.equal(
-                got.entries[:total], ref.entries[:total])
-            expect(ok, f"build_inverse_lists {list(inds.shape)} k={k}: "
-                   "lists differ from the stable sort's")
-            err = 0.0 if ok else float("inf")
-            rep = expect_repeats("build_inverse_lists", lambda: (
+            captured = il.InverseLists(*graph_replay(kernel))
+            exact = lists_equal(got, ref) and lists_equal(captured, ref)
+            shape = f"nb{list(inds.shape)} k={k} Ns={ns}: {total} entries"
+            expect(exact, f"build_inverse_lists {shape}: lists (eager or "
+                   "graph-captured) differ from the stable sort's")
+            err = 0.0 if exact else float("inf")
+            rep = expect_repeats(f"build_inverse_lists {shape}", lambda: (
                 kernel().offsets, kernel().entries[:total]), calls=2)
             n_bytes = 4.0 * (inds[..., :k].numel() + ref.offsets.numel()
                              + total)
-            name, lib_ms = "build_inverse_lists", None
-            shape = f"nb{list(inds.shape)} k={k} Ns={ns}: {total} entries"
+            name = "build_inverse_lists"
         else:
             if kind == "sum":
                 src, inv, rows = args
@@ -776,6 +880,12 @@ def check_inverse_lists(calls, log):
 
                 total = int(inv.offsets[-1])
                 c = src.shape[1]
+                want = (ordered_row_sums(src, inv.offsets, inv.entries,
+                                         rows),)
+                magnitude = ordered_row_sums(src.abs(), inv.offsets,
+                                             inv.entries, rows)
+                longest = int((inv.offsets[1:] - inv.offsets[:-1]).max()) \
+                    if rows else 0
                 # each source row's destination (rows: not in any list)
                 tgt = torch.full((src.shape[0],), rows, dtype=torch.int64,
                                  device=src.device)
@@ -796,6 +906,9 @@ def check_inverse_lists(calls, log):
                 def plain():
                     return il.run_sums_plain(src, seg, n_out)
 
+                want = ordered_run_sums(src, seg, n_out)
+                magnitude, counts = ordered_run_sums(src.abs(), seg, n_out)
+                longest = int(counts.max()) if counts.numel() else 0
                 where = seg.clamp(max=n_out)[..., None].expand_as(src)
 
                 def library():
@@ -808,38 +921,67 @@ def check_inverse_lists(calls, log):
             got, ref = kernel(), plain()
             got = got if isinstance(got, tuple) else (got,)
             ref = ref if isinstance(ref, tuple) else (ref,)
+            exact = all(torch.equal(a, w) for a, w in zip(got, want))
+            expect(exact, f"inverse_sum {shape}: differs from the sums in "
+                   "list order")
+            # The plain versions add with atomics on the card, in no fixed
+            # order. The step's lists hold tens of terms, and the kernels
+            # stay within MAXPOOL_RTOL / MAXPOOL_ATOL_REL of them there;
+            # an adversarial list of thousands of terms is held to the
+            # bound on two orders of one f32 sum of L terms instead:
+            # 2 (L - 1) 2^-24 times the sum of the terms' magnitudes
             err = 0.0
+            order_bound = 2 * max(longest - 1, 1) * 2.0 ** -24 * (
+                float(magnitude.max()) if magnitude.numel() else 0.0)
             for a, b in zip(got, ref):
-                scale = float(b.abs().max()) if b.numel() else 0.0
+                if not b.numel():
+                    continue
+                scale = float(b.abs().max())
                 _expect_close(f"inverse_sum {shape}", a, b, MAXPOOL_RTOL,
-                              MAXPOOL_ATOL_REL * max(scale, 1e-30))
-                err = max(err, float((a - b).abs().max()) if b.numel()
-                          else 0.0)
+                              MAXPOOL_ATOL_REL * max(scale, 1e-30)
+                              if totals else order_bound)
+                err = max(err, float((a - b).abs().max()))
             rep = expect_repeats(f"inverse_sum {shape}", lambda: (
                 kernel() if kind == "runs" else (kernel(),)))
-            name, lib_ms = "inverse_sum", cuda_ms(library)
+            name = "inverse_sum"
         ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
+        lib_ms = cuda_ms(library)
+        split = device_split(kernel, reps)
+        dev_ms = sum(split.values())
+        lib_dev_ms = sum(device_split(library, reps).values())
         b_ms = bound_ms(n_bytes, 0.0)[0]
+        log(f"  {name} {shape}: err {err:.2e}, exact {exact}, kernel "
+            f"{ms:.4f} ms (device {dev_ms:.4f}: "
+            + ", ".join(f"{k.split('(')[0][-40:]} {v:.4f}"
+                        for k, v in split.items())
+            + f"), plain {plain_ms:.3f} ms, library {lib_ms:.4f} ms "
+            f"(device {lib_dev_ms:.4f}), bound {b_ms:.5f} ms (bytes); "
+            f"repeats {rep}")
         t = sums[name]
-        t["ms"] += ms
-        t["plain_ms"] += plain_ms
-        t["bound_ms"] += b_ms
-        t["max_abs_err"] = max(t["max_abs_err"], err)
-        t["calls"] += 1
         t["repeats"] &= bool(rep)
-        if lib_ms is not None:
-            t["library_ms"] += lib_ms
-        log(f"  {name} {shape}: err {err:.2e}, kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.3f} ms" + ("" if lib_ms is None else
-                                    f", library {lib_ms:.3f} ms")
-            + f", bound {b_ms:.4f} ms (bytes); repeats {rep}")
+        t["exact"] &= bool(exact)
+        t["max_abs_err"] = max(t["max_abs_err"], err)
+        if not totals:
+            continue
+        for key, v in (("ms", ms), ("plain_ms", plain_ms),
+                       ("bound_ms", b_ms), ("library_ms", lib_ms),
+                       ("device_ms", dev_ms),
+                       ("library_device_ms", lib_dev_ms)):
+            t[key] += v
+        t["calls"] += 1
+        for k, v in split.items():
+            t["split"][k] = t["split"].get(k, 0.0) + v
     for name, t in sums.items():
         t["bound_by"] = "bytes"
-        if name == "build_inverse_lists":
-            t["library_ms"] = None
-        log(f"  {name}: {t['calls']} calls a training step: kernel "
-            f"{t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, bound "
-            f"{t['bound_ms']:.4f} ms, library {t['library_ms']}")
+        if not totals:
+            continue
+        log(f"  {name}: {t['calls']} calls: kernel {t['ms']:.4f} ms "
+            f"(device {t['device_ms']:.4f}), plain {t['plain_ms']:.3f} "
+            f"ms, library {t['library_ms']:.4f} ms (device "
+            f"{t['library_device_ms']:.4f}), bound {t['bound_ms']:.5f} ms; "
+            "device split " + ", ".join(
+                f"{k} {v:.4f}" for k, v in sorted(
+                    t["split"].items(), key=lambda kv: -kv[1])))
     return sums
 
 
@@ -983,19 +1125,22 @@ def witness_runs() -> dict:
 
 
 def compare_train_steps(model, opt_state, batch, config, log, plan=None,
-                        label: str = "kernels", witness: bool = False):
+                        label: str = "kernels", witness: bool = False,
+                        held: bool = True):
     """One step with the kernels and one on the plain versions (f32), from
     the same state and pyramid, each held to the same step on the plain
     versions in f64; with `plan`, also one replay of the kernel step
     captured in a CUDA graph, held to the f64 step as the kernel step is;
     with `witness`, the runs of `witness_runs`, each read on the tensor
     of the kernel step's largest share (not held). `label` names the
-    kernel step in the log. The model is left after the last f32 step.
-    Returns the errors."""
+    kernel step in the log; held=False reads the errors and fails no
+    check. The model is left after the last f32 step. Returns the
+    errors."""
     import copy
     import dataclasses
     from weasal_tpu_torch.train.step import step_on_batch
     from weasal_tpu_torch.utils.device import plain_ops
+    check = expect if held else (lambda ok, msg: None)
     state0, opt0 = clone_state(model, opt_state)
     f64 = dataclasses.replace(
         batch, points=tuple(p.double() for p in batch.points),
@@ -1030,7 +1175,7 @@ def compare_train_steps(model, opt_state, batch, config, log, plan=None,
         runs[run] = (float(loss), grads, moved)
     del model64
     loss_k, loss_p = runs["kernels"][0], runs["plain"][0]
-    expect(abs(loss_k - loss_p) <= LOSS_RTOL * abs(loss_p),
+    check(abs(loss_k - loss_p) <= LOSS_RTOL * abs(loss_p),
            f"train step loss {loss_k} vs plain {loss_p}")
     result = dict(loss=loss_k, loss_plain=loss_p, loss_f64=runs["f64"][0])
 
@@ -1051,7 +1196,7 @@ def compare_train_steps(model, opt_state, batch, config, log, plan=None,
                 allowed = allowance(part, name)
                 about = (f"{what} {name} (L2 errors {err_k:.3e} {who}, "
                          f"{err_p:.3e} plain, norm {norm:.3e})")
-                expect(err_k <= allowed,
+                check(err_k <= allowed,
                        f"L2 error to the f64 step too large: {about}")
                 if norm > 0:
                     worst["rel"] = max(worst["rel"], err_k / norm)
@@ -1090,7 +1235,7 @@ def compare_train_steps(model, opt_state, batch, config, log, plan=None,
                 f"share {own[0]:.3f}, {own[1]}")
     if "graph" in runs:
         loss_g = runs["graph"][0]
-        expect(abs(loss_g - loss_k) <= LOSS_RTOL * abs(loss_k),
+        check(abs(loss_g - loss_k) <= LOSS_RTOL * abs(loss_k),
                f"replayed train step loss {loss_g} vs eager {loss_k}")
     return result
 
@@ -1163,9 +1308,9 @@ FAMILIES = (
     (GEMM_FAMILIES[0], ("tf32x3_gemm_kernel<true, false,",)),
     (GEMM_FAMILIES[1], ("tf32x3_gemm_kernel<true, true,",)),
     ("C dX contributions", ("dx_contrib_kernel",)),
-    ("row sums (C, D dX; gathers; voxels)", ("inverse_sum_kernel",)),
-    ("inverse lists", ("inverse_count_kernel", "inverse_scan_kernel",
-                       "inverse_fill_kernel", "inverse_sort_kernel")),
+    ("C, D dX row sums", ("inverse_sum_kernel",)),
+    ("row sums (gathers, voxels)", ("list_sum_kernel", "run_sum_kernel")),
+    ("inverse lists", ("inverse_build_kernel",)),
     (GEMM_FAMILIES[2], ("tf32x3_gemm_kernel<false, false,",)),
     ("D maxpool_bwd", ("maxpool_bwd_kernel",)),
     ("cuBLAS/CUTLASS GEMMs", ("gemm", "cutlass", "cublas")),
@@ -1281,15 +1426,15 @@ def log_gemm_sums(rows, keys, log, wide_cin: int = 256) -> dict:
 # Per call of each counted wrapper, the one kernel it launches exactly
 # once, by name (A's binning, B's GEMM and C's dX and g @ W^T GEMM launch
 # beside it; split-K sums are named after their tile kernel): the
-# launches that a profile observes. The row sums' kernel also runs inside
-# C (once per call with dX, beside dx_contrib_kernel) and D (once per
-# call): its own calls are its events less those.
-OBSERVED_KERNEL = {"radius_search": "search_kernel<",
-                   "kpconv_fwd": "aggregate_kernel",
-                   "kpconv_bwd": "tf32x3_gemm_kernel<false, false,",
-                   "maxpool_bwd": "maxpool_bwd_kernel",
-                   "build_inverse_lists": "inverse_scan_kernel",
-                   "inverse_sum": "inverse_sum_kernel"}
+# launches that a profile observes. `inverse_sum` counts the row sums
+# over lists and the voxel run sums; C and D run their own stage 2
+# (`inverse_sum_kernel`) inside their launches.
+OBSERVED_KERNEL = {"radius_search": ("search_kernel<",),
+                   "kpconv_fwd": ("aggregate_kernel",),
+                   "kpconv_bwd": ("tf32x3_gemm_kernel<false, false,",),
+                   "maxpool_bwd": ("maxpool_bwd_kernel",),
+                   "build_inverse_lists": ("inverse_build_kernel",),
+                   "inverse_sum": ("list_sum_kernel", "run_sum_kernel")}
 # Profiles of phase 6's graphed epoch taken before a difference between
 # its kernel events and the counters fails the run (the profiler has lost
 # kernel events on an H100; see `gemm_part_ms`)
@@ -1299,13 +1444,10 @@ PROFILE_TRIES = 3
 def observed_calls(rows) -> dict:
     """Calls of each counted wrapper that profile rows (`profiled_kernels`)
     show, by OBSERVED_KERNEL."""
-    def events(key):
-        return sum(n for name, n, _ in rows
-                   if key in name and not name.startswith(SPLITK_SUM))
-    out = {fn: events(key) for fn, key in OBSERVED_KERNEL.items()}
-    out["inverse_sum"] -= (events("dx_contrib_kernel")
-                           + events("maxpool_bwd_kernel"))
-    return out
+    return {fn: sum(n for name, n, _ in rows
+                    if any(key in name for key in keys)
+                    and not name.startswith(SPLITK_SUM))
+            for fn, keys in OBSERVED_KERNEL.items()}
 
 
 def profile_step(step, log, label: str, top: int = 12):
@@ -1334,6 +1476,14 @@ def _same_state(got, want) -> bool:
         torch.equal(got[k].cpu(), want[k].cpu()) for k in want)
 
 
+def pyramid_print(pyr) -> str:
+    """A short hash of a pyramid's bits: its points and features."""
+    h = hashlib.sha1()
+    for t in (*pyr.points, pyr.features):
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()[:10]
+
+
 def check_loop_shapes(trainer, card, log):
     """The kernels and the step at the loop's own shapes, after its runs:
     LOOP_CHECK_BATCHES batches of the loop's resident source (the
@@ -1343,8 +1493,15 @@ def check_loop_shapes(trainer, card, log):
     2 and 4, and the kernel training step, from the loop's seeded initial
     state, to an f64 step as in phase 5 (BatchNorm's gradients amplify a
     drift of one sign in B's outputs: the GEMM core's drift before its
-    chains were cut put this batch at 1.66-1.70 of its allowance). Then
-    `train_step` on the batches that have regions, as the loop calls it:
+    chains were cut put this batch at 1.66-1.70 of its allowance); the
+    first batch's pyramid is built LOOP_F64_PYRAMIDS times, and each
+    later one's hash and share of the f64 allowance are read beside the
+    first's (not held: whether the pyramid's bits, and the share, vary
+    within a run). Then
+    the inverse-list builds and row sums of one `train_step` on the
+    first batch with regions, checked and timed as in phase 5 (their
+    device split by kernel name), and `train_step` on the batches that
+    have regions, as the loop calls it:
     synchronized after each step, and back to back (host clock between
     dispatches, steps 2..). Returns the kernels' sums by name and the
     step times."""
@@ -1378,7 +1535,8 @@ def check_loop_shapes(trainer, card, log):
                 region_point_masks=t["region_point_masks"],
                 region_lb=t["region_lb"])
 
-    pyr = pyramid(drawn[0][0])
+    pyrs = [pyramid(drawn[0][0]) for _ in range(LOOP_F64_PYRAMIDS)]
+    pyr = pyrs[0]
     log(f"phase 6: kernels vs plain versions at the loop's shapes, {plan}, "
         f"{int(pyr.masks[0].sum())} real level-0 points")
     PREFIX = "loop shapes: "
@@ -1392,16 +1550,30 @@ def check_loop_shapes(trainer, card, log):
                                               SEED)[1]
         sums["maxpool_bwd"] = check_maxpool_bwd(trainer.model, pyr, log,
                                                 SEED)[1]
-        fresh = KPFCNN_mprm(
-            config, tuple(int(v) for v in train_ds.label_values),
-            tuple(int(v) for v in train_ds.ignored_labels),
-            generator=torch.Generator().manual_seed(0)).to(dev)
-        comparison = compare_train_steps(fresh, init_opt_state(fresh), pyr,
-                                         config, log,
-                                         label="first loop batch, kernels")
-        del fresh
+        def fresh():
+            return KPFCNN_mprm(
+                config, tuple(int(v) for v in train_ds.label_values),
+                tuple(int(v) for v in train_ds.ignored_labels),
+                generator=torch.Generator().manual_seed(0)).to(dev)
+
+        runs = []
+        for i, p in enumerate(pyrs):
+            # pyramids 1.. are the same batch's built again (their voxel
+            # sums add with atomics on the plain versions): read, not held
+            net = fresh()
+            runs.append(compare_train_steps(
+                net, init_opt_state(net), p, config, log,
+                label="first loop batch, kernels" + (
+                    f", pyramid {i}" if i else ""), held=i == 0))
+            del net
+        comparison = runs[0]
+        shares = [r["share"] for r in runs]
+        prints = [pyramid_print(p) for p in pyrs]
+        comparison.update(pyramid_prints=prints, pyramid_shares=shares)
         log(f"[{card}] f64 step at the loop's shapes (first batch): share "
-            f"of the f64 allowance {comparison['share']:.3f} (held)")
+            f"of the f64 allowance {comparison['share']:.3f} (held); the "
+            f"batch's pyramid built {LOOP_F64_PYRAMIDS} times: prints "
+            f"{prints}, shares {[round(v, 3) for v in shares]} (read)")
         expect(len(batches) >= 3, f"{len(batches)} of {len(drawn)} loop "
                "batches have regions")
     finally:
@@ -1411,6 +1583,14 @@ def check_loop_shapes(trainer, card, log):
         return train_step(trainer.model, trainer.opt_state, b, config, plan,
                           trainer.lr, device=dev, class_w=trainer.class_w,
                           table=trainer.table, spec=trainer.spec)
+
+    log("phase 6: the inverse lists and the row sums at the loop's shapes")
+    PREFIX = "loop shapes: "
+    try:
+        sums["inverse_lists"] = check_inverse_lists(
+            record_inverse_calls(lambda: step(batches[0])), log)
+    finally:
+        PREFIX = ""
 
     sync_ms = []
     for b in batches:
@@ -2343,6 +2523,12 @@ def main(argv=None) -> int:
     inv_sums = check_inverse_lists(record_inverse_calls(
         lambda: train_step(train_model, opt_state, batches[2], config, plan,
                            config.learning_rate, device=dev)), log)
+    log("phase 5: the inverse lists and the row sums at adversarial shapes")
+    inv_adversarial = check_inverse_lists(
+        adversarial_inverse_calls(dev, SEED), log, totals=False)
+    for name, t in inv_sums.items():
+        t["exact"] &= inv_adversarial[name]["exact"]
+        t["repeats"] &= inv_adversarial[name]["repeats"]
     deterministic = run_deterministic_step(log)
 
     # ---- phase 6: the training loop (phase 7 inside it)
@@ -2360,6 +2546,9 @@ def main(argv=None) -> int:
                                               per_val, card, log)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+    def line_fields(sums):
+        return {k: v for k, v in sums.items() if k != "split"}
 
     def main_path(name):
         return (eval_launches.get(name, 0) + launches[name]
@@ -2396,12 +2585,12 @@ def main(argv=None) -> int:
              source="weasal_tpu_torch/csrc/inverse_lists.cu",
              replaces=None, helper_of=["kpconv_bwd", "maxpool_bwd"],
              launches=main_path("build_inverse_lists"),
-             **inv_sums["build_inverse_lists"]),
+             **line_fields(inv_sums["build_inverse_lists"])),
         dict(name="inverse_sum", route="cuda",
              source="weasal_tpu_torch/csrc/inverse_lists.cu",
              replaces=None, helper_of=["kpconv_bwd", "maxpool_bwd"],
              launches=main_path("inverse_sum"),
-             **inv_sums["inverse_sum"]),
+             **line_fields(inv_sums["inverse_sum"])),
     ]
     if args.out:
         with open(args.out, "w") as f:
@@ -2420,6 +2609,7 @@ def main(argv=None) -> int:
                                               rows=tprof_rows),
                            loop=loop, loop_launches=loop_launches,
                            inverse_lists=inv_sums,
+                           inverse_lists_adversarial=inv_adversarial,
                            deterministic_step=deterministic,
                            active_learning=al, al_launches=al_launches), f,
                       indent=1)

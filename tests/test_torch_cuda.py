@@ -6,7 +6,10 @@ another order; the GEMM core's 3xTF32 products are f32-grade); D rtol
 1e-6, atol 1e-6 x scale (the kernel adds the shares of one support in
 ascending slot order, `index_add_` in its own). C and D repeat bit for
 bit, and a training step runs under `torch.use_deterministic_algorithms`;
-inverse neighbor lists built inside a captured graph equal eager ones. The GEMM core of B and C is also held to f64 products at shapes
+inverse neighbor lists built inside a captured graph equal eager ones, and
+the plain stable sort's on adversarial indices (tests/_inverse_cases.py);
+the row sums and voxel run sums at C from 1 to 512, and over workspaces at
+C's and D's widths, equal the sums added in list order bit for bit. The GEMM core of B and C is also held to f64 products at shapes
 that reach each of its edges and at the main path's widest conv, and,
 on positive operands there, to a mean relative error below 3e-8; B's
 influences equal the plain version's bit for bit; and
@@ -61,6 +64,9 @@ from weasal_tpu_torch.ops.cuda.radius_search import (radius_search,
                                                      radius_search_plain)
 from weasal_tpu_torch.utils.device import plain_ops
 from tests._cell_search_cases import CASES as CELL_CASES, as_tensors
+from tests._inverse_cases import (CASES as INVERSE_CASES, graph_replay,
+                                  index_case, ordered_row_sums,
+                                  ordered_run_sums, run_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -323,6 +329,71 @@ def test_inverse_lists_captured_equal_eager(dev):
     assert torch.equal(one.offsets, ref.offsets)
     assert torch.equal(one.entries[:int(ref.offsets[-1])],
                        ref.entries[:int(ref.offsets[-1])])
+
+
+@pytest.mark.parametrize("case", list(INVERSE_CASES))
+def test_inverse_lists_build_on_adversarial_indices(dev, case):
+    """The build equals the plain stable sort on the cases that stress its
+    phases (tests/_inverse_cases.py: a support of thousands of slots,
+    skew, duplicates, rows of shadows, no slots, no supports, k = 1 of a
+    wider ld), eager, again, and replayed from a CUDA graph."""
+    nb, ns, k = index_case(case)
+    nb = nb.to(dev)
+    k = nb.shape[2] if k is None else k
+    want = build_inverse_lists_plain(nb, ns, k)
+    total = int(want.offsets[-1])
+    for got in (build_inverse_lists(nb, ns, k),
+                build_inverse_lists(nb, ns, k),
+                graph_replay(lambda: build_inverse_lists(nb, ns, k))):
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want.offsets)
+        assert torch.equal(got[1][:total], want.entries[:total])
+
+
+@pytest.mark.parametrize("c_dim", [1, 3, 9, 64, 128, 512])
+def test_row_sums_equal_sums_in_list_order(dev, c_dim):
+    """`inverse_sum` (over skewed lists with a support of thousands of
+    slots) and `run_sums` (voxel runs, one of 400 rows, rows dropped
+    past n_out, a sphere with none) equal the sums added rank by rank in
+    list order, bit for bit, and repeat."""
+    from weasal_tpu_torch.ops.cuda.inverse_lists import inverse_sum, run_sums
+    g = torch.Generator(device=dev).manual_seed(c_dim)
+    for case in ("hot", "skewed"):
+        nb, ns, _ = index_case(case)
+        nb = nb.to(dev)
+        inv = build_inverse_lists(nb, ns)
+        rows = nb.shape[0] * ns
+        src = torch.randn((nb.numel(), c_dim), generator=g, device=dev)
+        (got,) = _bits_repeat(lambda: (inverse_sum(src, inv, rows),))
+        assert torch.equal(got, ordered_row_sums(src, inv.offsets,
+                                                 inv.entries, rows))
+    seg, n_out = run_case()
+    seg = seg.to(dev)
+    src = torch.randn((*seg.shape, c_dim), generator=g, device=dev)
+    sums, counts = _bits_repeat(lambda: run_sums(src, seg, n_out))
+    want_sums, want_counts = ordered_run_sums(src, seg, n_out)
+    assert torch.equal(sums, want_sums)
+    assert torch.equal(counts, want_counts)
+
+
+# C's and D's stage 2 at their widths on the main path: the convs' K with
+# their Cin, the pools' K with their C
+@pytest.mark.parametrize("k,c_dim", [(15, 64), (31, 128), (34, 256),
+                                     (34, 512), (14, 64), (29, 128)])
+def test_inverse_sum_on_stage2_workspaces(dev, k, c_dim):
+    """The row sums over a conv or pool edge's lists of a workspace [rows
+    * K, C], as C's and D's dX take their stage 2, equal the sums in list
+    order bit for bit."""
+    from weasal_tpu_torch.ops.cuda.inverse_lists import inverse_sum
+    g = torch.Generator(device=dev).manual_seed(k * c_dim)
+    b, nq, ns = 3, 700, 900
+    nb = torch.randint(0, ns + 1, (b, nq, k), generator=g, device=dev,
+                       dtype=torch.int32)
+    inv = build_inverse_lists(nb, ns)
+    ws = torch.randn((b * nq * k, c_dim), generator=g, device=dev)
+    got = inverse_sum(ws, inv, b * ns)
+    assert torch.equal(got, ordered_row_sums(ws, inv.offsets, inv.entries,
+                                             b * ns))
 
 
 def test_deterministic_algorithms_training_step(dev):

@@ -126,11 +126,11 @@ def test_calibrate_shape_plan_matches_jax():
 @pytest.mark.parametrize("dl,max_out", [(0.5, 400), (0.9, 60)])
 def test_voxel_sums_in_sorted_order(dl, max_out):
     """The card's voxel sums (`run_sums`: each voxel's run of the stable
-    sort added in order from 0.0 over `run_bounds`) equal the CPU's
-    `scatter_add_` bit for bit; the second case drops voxels past
-    max_out."""
-    from weasal_tpu_torch.ops.cuda.inverse_lists import (run_bounds,
-                                                         run_sums_plain)
+    sort added in order from 0.0, its rows [lo, hi) the lower bounds of j
+    and j + 1 in the sphere's seg row, as `run_sum_kernel` searches them)
+    equal the CPU's `scatter_add_` bit for bit; the second case drops
+    voxels past max_out."""
+    from weasal_tpu_torch.ops.cuda.inverse_lists import run_sums_plain
     rng = np.random.default_rng(3)
     b, n = 3, 900
     pts = torch.from_numpy(
@@ -153,12 +153,15 @@ def test_voxel_sums_in_sorted_order(dl, max_out):
                       torch.full_like(seg, max_out))
     src = torch.where(valid[..., None], src, torch.zeros_like(src))
     want_sums, want_counts = run_sums_plain(src, seg, max_out)
-    lo, hi = run_bounds(seg, max_out)
+    bounds = np.stack([np.searchsorted(row, np.arange(max_out + 1))
+                       for row in seg.numpy()]) + np.arange(b)[:, None] * n
+    lo, hi = bounds[:, :-1].reshape(-1), bounds[:, 1:].reshape(-1)
     flat = src.reshape(-1, 3)
     sums = torch.zeros((b * max_out, 3))
     for r in range(b * max_out):
         for e in range(int(lo[r]), int(hi[r])):
             sums[r] = sums[r] + flat[e]
     assert torch.equal(sums.reshape(b, max_out, 3), want_sums)
-    assert torch.equal((hi - lo).float().reshape(b, max_out), want_counts)
+    assert torch.equal(torch.from_numpy(hi - lo).float().reshape(b, max_out),
+                       want_counts)
     assert int((want_counts > 0).sum()) > b * 10

@@ -183,9 +183,8 @@ extern "C" int kpconv_bwd_launch(const float* q, const float* s,
       if (err) return err;
     }
     // Every support row of dX is written, an empty list as zeros
-    err = inverse_lists::launch_inverse_sum(inv_off, inv_off + 1, inv_ent,
-                                            xws, (long long)b * ns, cin, dx,
-                                            st);
+    err = inverse_lists::launch_inverse_sum(inv_off, inv_ent, xws,
+                                            (long long)b * ns, cin, dx, st);
     if (err) return err;
   }
   // With rows = 0 the depth is empty and the core writes zeros.

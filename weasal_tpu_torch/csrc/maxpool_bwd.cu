@@ -218,6 +218,6 @@ extern "C" int maxpool_bwd_launch(const float* x, const int32_t* nb,
     const int err = (int)cudaGetLastError();
     if (err) return err;
   }
-  return inverse_lists::launch_inverse_sum(inv_off, inv_off + 1, inv_ent, ws,
+  return inverse_lists::launch_inverse_sum(inv_off, inv_ent, ws,
                                            (long long)b * ns, c_dim, dx, st);
 }

@@ -10,15 +10,20 @@ atomics in the order the threads reach them.
 - `build_inverse_lists(inds, ns, k)`: for index rows inds [B, Nq, >=k]
   (column j < k; an index outside 0..ns-1 is a shadow), each support's
   slots (b*Nq + q)*k + j in ascending order, as CSR offsets [B*ns + 1]
-  and entries. Kernel: count, scan, atomic fill, then each segment
-  sorted; plain version: a stable sort of the slots by support.
+  and entries. Kernel: a memset and one launch in four phases (an
+  atomic count that gives each slot an arrival in its segment, a
+  multi-block scan, a fill at offset + arrival into scratch, then each
+  segment's slots written at their ranks by one warp); plain version: a
+  stable sort of the slots by support.
 - `inverse_sum(src, inv, rows)`: row r of the result is the sum of the
   rows src[e] over r's list, added in the list's order from 0.0. Kernel:
-  one warp per row; plain version: `index_add_` (in order on the CPU).
+  a group of lanes per row (a warp for C > 16, 1-4 lanes below);
+  plain version: `index_add_` (in order on the CPU).
 - `run_sums(src, seg, n_out)`: the sums of src [B, N, C] over the runs of
   equal values of a non-decreasing seg [B, N] (the grid subsample's
-  voxels), and the runs' lengths. Kernel: `torch.searchsorted` for the
-  run bounds, then the row sums over them; plain version: `scatter_add_`.
+  voxels), and the runs' lengths. Kernel: the row sums with each run's
+  bounds found by binary search in the launch, which writes the lengths
+  too; plain version: `scatter_add_`.
 - `GatherRows`: x[b, inds[b, q, j]] (a zero row for a shadow) whose
   backward is `inverse_sum` over the inverse lists on the card and
   `scatter_rows` (`index_add_`, in order on the CPU) elsewhere, which is
@@ -33,7 +38,8 @@ backward on the card that is given none raises (`require_lists`).
 The kernels are bounded by bytes (indices and rows read once, rows
 written once); both read nothing back to the host, so a CUDA graph
 captures them. A CPU tensor runs the plain versions; a CUDA tensor
-launches the kernels or raises.
+launches the kernels or raises. Each C function is resolved, with its
+argument types, once per process (`_c_function`).
 """
 
 from __future__ import annotations
@@ -46,6 +52,32 @@ import torch
 from weasal_tpu_torch.ops.cuda.build import check, load_library
 from weasal_tpu_torch.ops.cuda import kpconv_fwd
 from weasal_tpu_torch.utils.device import use_kernel
+
+
+_C_ARGS = {
+    "inverse_lists_build_scratch_words": (ctypes.c_longlong,
+                                          [ctypes.c_longlong] * 2),
+    "inverse_lists_build_launch": (
+        ctypes.c_int, [ctypes.c_void_p] + [ctypes.c_int] * 5
+        + [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 3),
+    "inverse_sum_launch": (ctypes.c_int, [ctypes.c_void_p] * 3
+                           + [ctypes.c_longlong, ctypes.c_int]
+                           + [ctypes.c_void_p] * 2),
+    "run_sums_launch": (ctypes.c_int, [ctypes.c_void_p] + [ctypes.c_int] * 3
+                        + [ctypes.c_void_p, ctypes.c_int]
+                        + [ctypes.c_void_p] * 3),
+}
+_c_functions = {}
+
+
+def _c_function(name: str):
+    """The C function `name` of the library, its types set once."""
+    fn = _c_functions.get(name)
+    if fn is None:
+        fn = getattr(load_library("inverse_lists"), name)
+        fn.restype, fn.argtypes = _C_ARGS[name]
+        _c_functions[name] = fn
+    return fn
 
 
 class InverseLists(NamedTuple):
@@ -86,26 +118,23 @@ def build_inverse_lists(inds: torch.Tensor, ns: int,
     if not use_kernel(inds):
         return build_inverse_lists_plain(inds, ns, k)
     if inds.dtype != torch.int32 or inds.dim() != 3 \
-            or inds.stride(2) != 1 or inds.stride(1) != inds.shape[2] \
-            or inds.stride(0) != inds.shape[1] * inds.shape[2]:
+            or not inds.is_contiguous():
         raise ValueError("build_inverse_lists takes contiguous int32 "
                          "[B, Nq, ld] indices")
     if not 1 <= k <= inds.shape[2]:
         raise ValueError(f"k={k} outside 1..{inds.shape[2]}")
     b, nq, ld = inds.shape
     dev = inds.device
-    count = torch.empty(b * ns, dtype=torch.int32, device=dev)
+    words = _c_function("inverse_lists_build_scratch_words")(b * ns,
+                                                            b * nq * k)
+    scratch = torch.empty(words, dtype=torch.int32, device=dev)
     offsets = torch.empty(b * ns + 1, dtype=torch.int32, device=dev)
     entries = torch.empty(max(b * nq * k, 1), dtype=torch.int32, device=dev)
-    fn = load_library("inverse_lists").inverse_lists_build_launch
-    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 5 \
-        + [ctypes.c_void_p] * 4
-    fn.restype = ctypes.c_int
     build_inverse_lists.launches += 1
-    check(fn(inds.data_ptr(), b, nq, k, ld, ns, count.data_ptr(),
-             offsets.data_ptr(), entries.data_ptr(),
-             torch.cuda.current_stream(dev).cuda_stream),
-          "build_inverse_lists")
+    check(_c_function("inverse_lists_build_launch")(
+        inds.data_ptr(), b, nq, k, ld, ns, scratch.data_ptr(), words,
+        offsets.data_ptr(), entries.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream), "build_inverse_lists")
     return InverseLists(offsets, entries)
 
 
@@ -169,19 +198,6 @@ def inverse_sum_plain(src: torch.Tensor, inv: InverseLists,
     return out[:rows]
 
 
-def _sum_launch(lo, hi, ent, src, rows, dst):
-    fn = load_library("inverse_lists").inverse_sum_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int,
-                                           ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    inverse_sum.launches += 1
-    check(fn(lo.data_ptr(), hi.data_ptr(),
-             None if ent is None else ent.data_ptr(), src.data_ptr(), rows,
-             src.shape[1], dst.data_ptr(),
-             torch.cuda.current_stream(src.device).cuda_stream),
-          "inverse_sum")
-
-
 def _check_src(src: torch.Tensor):
     if src.dtype != torch.float32 or src.dim() != 2 \
             or not src.is_contiguous():
@@ -199,7 +215,11 @@ def inverse_sum(src: torch.Tensor, inv: InverseLists,
         raise ValueError(f"{inv.offsets.shape[0] - 1} lists for {rows} rows")
     dst = torch.empty((rows, src.shape[1]), dtype=torch.float32,
                       device=src.device)
-    _sum_launch(inv.offsets, inv.offsets[1:], inv.entries, src, rows, dst)
+    inverse_sum.launches += 1
+    check(_c_function("inverse_sum_launch")(
+        inv.offsets.data_ptr(), inv.entries.data_ptr(), src.data_ptr(),
+        rows, src.shape[1], dst.data_ptr(),
+        torch.cuda.current_stream(src.device).cuda_stream), "inverse_sum")
     return dst
 
 
@@ -218,20 +238,6 @@ def run_sums_plain(src: torch.Tensor, seg: torch.Tensor, n_out: int):
     return sums[:, :n_out], counts[:, :n_out]
 
 
-def run_bounds(seg: torch.Tensor, n_out: int):
-    """(lo, hi) [B*n_out] int32: the flat row range [lo, hi) of each run
-    j < n_out of a non-decreasing seg [B, N] (empty where j is absent),
-    found by `torch.searchsorted` on the device, with no host read."""
-    b, n = seg.shape
-    bounds = torch.arange(n_out + 1, device=seg.device,
-                          dtype=seg.dtype).expand(b, n_out + 1).contiguous()
-    edges = torch.searchsorted(seg.contiguous(), bounds).to(torch.int32)
-    edges = edges + (torch.arange(b, device=seg.device, dtype=torch.int32)
-                     * n)[:, None]
-    return (edges[:, :-1].contiguous().reshape(-1),
-            edges[:, 1:].contiguous().reshape(-1))
-
-
 def run_sums(src: torch.Tensor, seg: torch.Tensor, n_out: int):
     """(sums [B, n_out, C], counts [B, n_out] as src's dtype) of the runs
     of src [B, N, C] rows over a non-decreasing seg [B, N] (values >=
@@ -241,12 +247,17 @@ def run_sums(src: torch.Tensor, seg: torch.Tensor, n_out: int):
     b, n, c = src.shape
     flat = src.reshape(b * n, c)
     _check_src(flat)
-    lo, hi = run_bounds(seg, n_out)
-    sums = torch.empty((b * n_out, c), dtype=torch.float32,
-                       device=src.device)
-    _sum_launch(lo, hi, None, flat, b * n_out, sums)
-    counts = (hi - lo).to(src.dtype).reshape(b, n_out)
-    return sums.reshape(b, n_out, c), counts
+    if seg.dtype != torch.int64 or tuple(seg.shape) != (b, n) \
+            or not seg.is_contiguous():
+        raise ValueError("run_sums takes a contiguous int64 [B, N] seg")
+    sums = torch.empty((b, n_out, c), dtype=torch.float32, device=src.device)
+    counts = torch.empty((b, n_out), dtype=torch.float32, device=src.device)
+    inverse_sum.launches += 1
+    check(_c_function("run_sums_launch")(
+        seg.data_ptr(), b, n, n_out, flat.data_ptr(), c, sums.data_ptr(),
+        counts.data_ptr(), torch.cuda.current_stream(src.device).cuda_stream),
+        "run_sums")
+    return sums, counts
 
 
 def scatter_rows(values: torch.Tensor, inds: torch.Tensor,
