@@ -104,7 +104,27 @@ Phases, in order; any failure exits non-zero:
    per vote batch (7 A, 12 B), one vote batch's replay against the
    eager body bit for bit, the plys, pseudo labels and class weights;
    ms per vote batch and update, voted points/s, the refinement's host
-   seconds, the peak memory.
+   seconds, the peak memory;
+9. the pseudo-label stage on phase 6's tile at full VaihingenPLConfig
+   width (`run_pseudo_label`; 5 levels, 4 spheres of 24 m, dropout, the
+   contrast loss), on refined labels it writes (the tile's ground truth
+   with a seeded 30 % set to 10, and class weights): the entry point
+   `weasal_tpu_torch.train_Vaihingen3D_PseudoLabel.run` for 2 graphed
+   epochs of 10 steps with 5 validation batches, the same again in a
+   fresh trainer (losses and checkpoint bit-equal) and a resume, with
+   the checks of phase 6 and 13 A, 10 B, 10 C, 4 D, 14 list builds and 9
+   row sums a step (13 A, 10 B, 4 row sums a validation batch); one more
+   epoch profiled (busy share, kernel events against the counters);
+   kernels A-D, the lists and the row sums against their plain versions
+   at the PL loop's shapes, as phases 2, 4 and 5 do, and the GEMM core's
+   drift at the widest PL conv (256 -> 256, depth 3840); one PL kernel step,
+   eager and replayed, against an f64 plain step on one shared pyramid
+   from the seeded state with one dropout mask and one contrast draw;
+   `train_step`'s launches and ms at the PL plan, profiles of a step, of
+   the contrast loss and of the dropout mask; one acquisition (a vote of
+   2, every step and vote batch replayed, the ground-truth ledger grown
+   by `added_labels_per_epoch` points that iteration 1 trains on); and
+   `test_models --on test` on the PL log (plys, launches, finite votes).
 Phases 3 and 5 end with a profile of one step, by kernel family. Checks
 of agreement (each kernel against its plain version and against itself
 on a repeat, the GEMM core's drift, the forward and the training step
@@ -114,7 +134,10 @@ launch counts and finite values in phases 3 and 5 fail it at once. The last line
 the line before it holds the kernels' numbers as JSON, each kernel's
 bound counting its GEMM operations at the 3xTF32 rate of the tensor
 cores and the rest at the f32 rate (`f32_bound_ms`: all at the f32
-rate). Imports nothing of JAX or weasal_tpu.
+rate), its launches on each main path (`launches_by_path`: inference,
+the training steps, the WL loop, WL active learning, the PL stage) and
+its sums at the PL loop's shapes (`pl_ms`, `pl_plain_ms`,
+`pl_bound_ms`). Imports nothing of JAX or weasal_tpu.
 
 Kernels B and C run their three products (y @ W; g @ W^T and y^T @ g)
 through one GEMM core, weasal_tpu_torch/csrc/kpconv_common.cuh: wgmma
@@ -230,6 +253,16 @@ BUCKET_PERCENTILE = 80
 # Phase 8: anchors added per training file by the acquisition (fewer
 # where the tile has fewer unused ones)
 AL_ADDED = 100
+# Phase 9: the pseudo-label stage on phase 6's tile, trained on refined
+# labels of its own (the tile's ground truth with a seeded PL_UNLABELED
+# of its points set to 10, 'no label'); the contrast loss's reference
+# points of the f64 check (its draw's size)
+PL_LOG = "Log_phase9"
+PL_UNLABELED = 0.3
+PL_ARGS = ("--weak_label_log", PL_LOG, "--epoch_steps", "10",
+           "--validation_size", "5", "--seed", str(SEED),
+           "--al_iterations", "0")
+PL_SLC = 1000
 # Failed checks of agreement, reported at once and failing the run at its
 # end (see the module docstring); PREFIX names the shapes being checked
 FAILED: list = []
@@ -474,19 +507,20 @@ def stage_ms(fn, names, reps: int = 5) -> dict:
             for key in names}
 
 
-def check_gemm_bias(log, seed):
+def check_gemm_bias(log, seed, shape=(3, 5712, 34, 15, 512, 256)):
     """Mean signed and rms relative error to f64 of the GEMM core's y @ W
-    (kernel B) and y^T @ g (kernel C) at the main path's widest conv
-    (3 x 5712 rows, K 34, 512 -> 256) on positive operands, over the
-    outputs above a tenth of the largest, beside cuBLAS f32 on the same
-    products. On positive operands a sum that drops low bits always the
-    same way (the tensor cores' accumulation truncates) shows as a mean
-    error; it must stay below GEMM_BIAS_MAX."""
+    (kernel B) and y^T @ g (kernel C) at a conv of `shape` (spheres,
+    rows, K, kernel points, Cin, Cout; by default the WL main path's
+    widest) on positive operands, over the outputs above a tenth of the
+    largest, beside cuBLAS f32 on the same products. On positive operands
+    a sum that drops low bits always the same way (the tensor cores'
+    accumulation truncates) shows as a mean error; it must stay below
+    GEMM_BIAS_MAX."""
     from weasal_tpu_torch.ops.cuda.kpconv_bwd import kpconv_bwd
     from weasal_tpu_torch.ops.cuda.kpconv_fwd import kpconv_fwd_with_y
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
-    b, n, k, n_kp, cin, cout = 3, 5712, 34, 15, 512, 256
+    b, n, k, n_kp, cin, cout = shape
     s = torch.rand((b, n, 3), generator=gen, device=dev) * 4 - 2
     q = s + 0.05
     nb = torch.randint(0, n, (b, n, k), generator=gen, device=dev,
@@ -1013,11 +1047,12 @@ def clone_state(model, opt_state):
             {k: v.clone() for k, v in opt_state.items()})
 
 
-def replayed_step(net, opt, data, config, plan):
+def replayed_step(net, opt, data, config, plan, step_kw=None):
     """One training step on the pyramid `data` as a replay of a captured
     CUDA graph (train/graphs.StepGraph: warm-up, state restored, capture,
     replay); returns its loss. The parameters' `.grad` hold the replay's
-    gradients."""
+    gradients. `step_kw` goes to `step_on_batch` (a pseudo-label step's
+    contrast flag, dropout mask and drawn points)."""
     from weasal_tpu_torch.train.graphs import StepGraph
     from weasal_tpu_torch.train.step import (class_weights, label_table,
                                              step_on_batch, step_outputs)
@@ -1028,7 +1063,8 @@ def replayed_step(net, opt, data, config, plan):
 
     def body(inputs, out):
         loss, acc = step_on_batch(net, opt, data, config, lr_t,
-                                  class_w=class_w, table=table)
+                                  class_w=class_w, table=table,
+                                  **(step_kw or {}))
         out["stats"][0].copy_(loss)
         out["stats"][1].copy_(acc)
 
@@ -1126,7 +1162,7 @@ def witness_runs() -> dict:
 
 def compare_train_steps(model, opt_state, batch, config, log, plan=None,
                         label: str = "kernels", witness: bool = False,
-                        held: bool = True):
+                        held: bool = True, step_kw=None):
     """One step with the kernels and one on the plain versions (f32), from
     the same state and pyramid, each held to the same step on the plain
     versions in f64; with `plan`, also one replay of the kernel step
@@ -1134,7 +1170,9 @@ def compare_train_steps(model, opt_state, batch, config, log, plan=None,
     with `witness`, the runs of `witness_runs`, each read on the tensor
     of the kernel step's largest share (not held). `label` names the
     kernel step in the log; held=False reads the errors and fails no
-    check. The model is left after the last f32 step. Returns the
+    check; `step_kw` goes to every step (`step_on_batch`: a pseudo-label
+    step's contrast flag, dropout mask and drawn points, the same in each
+    run). The model is left after the last f32 step. Returns the
     errors."""
     import copy
     import dataclasses
@@ -1142,10 +1180,13 @@ def compare_train_steps(model, opt_state, batch, config, log, plan=None,
     from weasal_tpu_torch.utils.device import plain_ops
     check = expect if held else (lambda ok, msg: None)
     state0, opt0 = clone_state(model, opt_state)
+    def double(t):
+        return None if t is None else t.double()
+
     f64 = dataclasses.replace(
         batch, points=tuple(p.double() for p in batch.points),
         features=batch.features.double(), center_pts=batch.center_pts.double(),
-        cloud_lb=batch.cloud_lb.double(), region_lb=batch.region_lb.double())
+        cloud_lb=double(batch.cloud_lb), region_lb=double(batch.region_lb))
     model64 = copy.deepcopy(model).double()
     runs = {}
     labels = [("f64", model64, f64, torch.float64),
@@ -1165,10 +1206,11 @@ def compare_train_steps(model, opt_state, batch, config, log, plan=None,
             if run in extra:
                 stack.enter_context(swapped(extra[run][1]))
             if run == "graph":
-                loss = replayed_step(net, opt, data, config, plan)
+                loss = replayed_step(net, opt, data, config, plan, step_kw)
             else:
                 loss, _ = step_on_batch(net, opt, data, config,
-                                        config.learning_rate)
+                                        config.learning_rate,
+                                        **(step_kw or {}))
         grads = {n: p.grad.double() for n, p in net.named_parameters()}
         moved = {k: v.double() - state0[k].double()
                  for k, v in net.state_dict().items() if v.is_floating_point()}
@@ -1615,30 +1657,18 @@ def check_loop_shapes(trainer, card, log):
                       dispatch_gap_ms=gaps)
 
 
-def run_loop(counted, per_step, per_val, card, train_step_ms, work, log):
-    """Phase 6: the weak-label training loop through its entry point
-    (`weasal_tpu_torch.train_Vaihingen3D_WeakLabel.run`) at full
-    VaihingenWLConfig width on a synthetic tile: 2 epochs, then a resume
-    from `current_chkp.tar` for a third. Launch counts are set to 0 just
-    before each run and read just after. Checks (each fails the run at
-    its end): finite losses, one log row per real step, the validation
-    lines, zero neighbor drops, the launches per real step and per
-    validation batch, the checkpoint equal to the trained state and the
-    state after resume equal to the checkpoint. Then one more epoch of the
-    resumed trainer (no validation, nothing saved) under torch.profiler:
-    the loop's device time by family and its busy share. The tile and the
-    logs go into `work`. Returns the report, the launches of its runs and
-    the tile's data root."""
-    from weasal_tpu_torch.data.synthetic import make_vaihingen_like_root
+def entry_runs(run, root, logdir, repeat_dir, args, counted, per_step,
+               per_val, card, log, what: str = "loop"):
+    """An entry point's `run` on the tile at `root` three times: 2 epochs
+    into `logdir`, the same 2 seeded epochs again in a fresh trainer into
+    `repeat_dir` (every loss and the checkpoint bit-equal), then a resume
+    from `logdir`'s `current_chkp.tar` for a third. Launch counts are set
+    to 0 just before each run and read just after; each run is checked by
+    `_loop_report`, the checkpoint against the trained state and the
+    state after resume against the checkpoint. Returns the reports, the
+    repeat's comparison, the last trainer, the launches summed over the
+    runs and the peak device memory."""
     from weasal_tpu_torch.train.trainer import ModelTrainer
-    from weasal_tpu_torch.train_Vaihingen3D_WeakLabel import run
-
-    t0 = time.perf_counter()
-    root = make_vaihingen_like_root(
-        os.path.join(work, "Vaihingen3D"), extent=LOOP_EXTENT,
-        density=LOOP_DENSITY, seed=SEED)
-    scene_s = time.perf_counter() - t0
-    logdir = os.path.join(work, "log")
     chkp = os.path.join(logdir, "checkpoints", "current_chkp.tar")
     restored = {}
     load_checkpoint = ModelTrainer.load_checkpoint
@@ -1665,7 +1695,6 @@ def run_loop(counted, per_step, per_val, card, train_step_ms, work, log):
     ModelTrainer._flush_log = keep_losses
     torch.cuda.reset_peak_memory_stats()
     runs, total = [], {fn.__name__: 0 for fn in counted}
-    repeat_dir = os.path.join(work, "log_repeat")
     try:
         # "repeat": the first run's two seeded epochs again, in a
         # fresh trainer: its losses and checkpoint must be bit equal
@@ -1677,19 +1706,19 @@ def run_loop(counted, per_step, per_val, card, train_step_ms, work, log):
             for fn in counted:
                 fn.launches = 0
             t0 = time.perf_counter()
-            trainer = run([out, "--data_root", root, *LOOP_ARGS,
-                           *extra])
+            trainer = run([out, "--data_root", root, *args, *extra])
             torch.cuda.synchronize()
             wall_s = time.perf_counter() - t0
             launches = {fn.__name__: fn.launches for fn in counted}
             runs.append(_loop_report(label, trainer, out, epochs,
                                      launches, per_step, per_val,
-                                     wall_s, card, log))
+                                     wall_s, card, log, what=what))
             if label == "repeat":
                 repeat = compare_repeat(
                     losses.get(logdir, []), losses.get(repeat_dir, []),
                     chkp, os.path.join(repeat_dir, "checkpoints",
-                                       "current_chkp.tar"), card, log)
+                                       "current_chkp.tar"), card, log,
+                    what=what)
             for k, v in launches.items():
                 total[k] += v
             if label == "run":
@@ -1700,7 +1729,7 @@ def run_loop(counted, per_step, per_val, card, train_step_ms, work, log):
                                        trainer.model.state_dict())
                        and _same_state(saved["optimizer_state_dict"],
                                        trainer.opt_state),
-                       "loop: current_chkp.tar differs from the "
+                       f"{what}: current_chkp.tar differs from the "
                        "trained state")
             elif label == "resume":
                 expect(restored.get("epoch") == 2
@@ -1708,21 +1737,26 @@ def run_loop(counted, per_step, per_val, card, train_step_ms, work, log):
                                        saved["model_state_dict"])
                        and _same_state(restored["opt"],
                                        saved["optimizer_state_dict"]),
-                       "loop: the state after resume differs from the "
+                       f"{what}: the state after resume differs from the "
                        "checkpoint")
-                expect(trainer.epoch == 3, "loop: resume ended at epoch "
+                expect(trainer.epoch == 3, f"{what}: resume ended at epoch "
                        f"{trainer.epoch}, expected 3")
     finally:
         ModelTrainer.load_checkpoint = load_checkpoint
         ModelTrainer._flush_log = flush_log
         os.environ.pop("WEASAL_LOOP_STATS", None)
-    peak = torch.cuda.max_memory_allocated()
-    first = trainer.datasets[0]
+    return dict(runs=runs, repeat=repeat, trainer=trainer, total=total,
+                peak=torch.cuda.max_memory_allocated())
 
-    # The loop's device busy share: one more epoch under the profiler,
-    # whose kernel events by name give the launches as the card ran
-    # them, beside the counters that each replay advances by its
-    # capture's counts (taken again where the profiler lost events)
+
+def profile_epoch(trainer, counted, per_step, total, card, log,
+                  what: str = "loop"):
+    """One more epoch of `trainer` (no validation, nothing saved) under
+    torch.profiler: its device time by family and busy share, and its
+    kernel events by name, which must count the launches that the
+    counters add up from the replays (taken again where the profiler lost
+    events). Adds the epoch's launches to `total`; returns the report."""
+    first = trainer.datasets[0]
     trainer.config.saving = False
     for attempt in range(PROFILE_TRIES):
         trainer.config.max_epoch = trainer.epoch + 1
@@ -1739,19 +1773,19 @@ def run_loop(counted, per_step, per_val, card, train_step_ms, work, log):
         want = {k: per_step.get(k, 0) * (steps + warm) for k in launches}
         for k, v in launches.items():
             total[k] += v
-        log(f"[{card}] loop profiled epoch {attempt + 1}: {steps} steps, "
+        log(f"[{card}] {what} profiled epoch {attempt + 1}: {steps} steps, "
             f"launches by the counters {launches}, by kernel events "
             f"{observed}")
         if observed == launches:
             break
-    expect(launches == want, f"loop profiled epoch: launches {launches}, "
+    expect(launches == want, f"{what} profiled epoch: launches {launches}, "
            f"expected {want} for {steps} steps")
-    expect(observed == launches, f"loop profiled epoch: kernel events "
+    expect(observed == launches, f"{what} profiled epoch: kernel events "
            f"{observed} against the counters {launches} in "
            f"{PROFILE_TRIES} profiles")
     busy = sum(r[2] for r in rows)
     families = kernel_families(rows)
-    log(f"[{card}] loop epoch (graphed) under torch.profiler: {steps} "
+    log(f"[{card}] {what} epoch (graphed) under torch.profiler: {steps} "
         f"steps, wall "
         f"{wall:.1f} ms ({wall / max(steps, 1):.2f} ms per step), device "
         f"busy {busy:.1f} ms ({busy / max(steps, 1):.2f} ms per step, "
@@ -1759,9 +1793,40 @@ def run_loop(counted, per_step, per_val, card, train_step_ms, work, log):
     for fam, count, ms in families:
         log(f"[{card}]   {ms:9.3f} ms {count:5d}x  "
             f"{100 * ms / busy:5.1f}%  {fam}")
-    profile = dict(steps=steps, wall_ms=wall, busy_ms=busy,
-                   launches=launches, observed_launches=observed,
-                   profiles=attempt + 1, families=families)
+    return dict(steps=steps, wall_ms=wall, busy_ms=busy,
+                launches=launches, observed_launches=observed,
+                profiles=attempt + 1, families=families)
+
+
+def run_loop(counted, per_step, per_val, card, train_step_ms, work, log):
+    """Phase 6: the weak-label training loop through its entry point
+    (`weasal_tpu_torch.train_Vaihingen3D_WeakLabel.run`) at full
+    VaihingenWLConfig width on a synthetic tile: 2 epochs, then a resume
+    from `current_chkp.tar` for a third. Launch counts are set to 0 just
+    before each run and read just after. Checks (each fails the run at
+    its end): finite losses, one log row per real step, the validation
+    lines, zero neighbor drops, the launches per real step and per
+    validation batch, the checkpoint equal to the trained state and the
+    state after resume equal to the checkpoint. Then one more epoch of the
+    resumed trainer (no validation, nothing saved) under torch.profiler:
+    the loop's device time by family and its busy share. The tile and the
+    logs go into `work`. Returns the report, the launches of its runs and
+    the tile's data root."""
+    from weasal_tpu_torch.data.synthetic import make_vaihingen_like_root
+    from weasal_tpu_torch.train_Vaihingen3D_WeakLabel import run
+
+    t0 = time.perf_counter()
+    root = make_vaihingen_like_root(
+        os.path.join(work, "Vaihingen3D"), extent=LOOP_EXTENT,
+        density=LOOP_DENSITY, seed=SEED)
+    scene_s = time.perf_counter() - t0
+    logdir = os.path.join(work, "log")
+    loop = entry_runs(run, root, logdir, os.path.join(work, "log_repeat"),
+                      LOOP_ARGS, counted, per_step, per_val, card, log)
+    runs, repeat, trainer = loop["runs"], loop["repeat"], loop["trainer"]
+    total, peak = loop["total"], loop["peak"]
+    first = trainer.datasets[0]
+    profile = profile_epoch(trainer, counted, per_step, total, card, log)
     kernel_sums, at_plan = check_loop_shapes(trainer, card, log)
     dispatch = measure_dispatch(
         trainer, root, work, counted, per_step, per_val, card, log)
@@ -1791,7 +1856,8 @@ def run_loop(counted, per_step, per_val, card, train_step_ms, work, log):
                 train_step_at_plan=at_plan, dispatch=dispatch), total, root
 
 
-def compare_repeat(losses_a, losses_b, chkp_a, chkp_b, card, log):
+def compare_repeat(losses_a, losses_b, chkp_a, chkp_b, card, log,
+                   what: str = "loop"):
     """Two seeded runs of the loop's two epochs, each in a fresh trainer:
     every loss (the flushes' f32 values) and the checkpoint's payload
     (epoch, parameters, BatchNorm statistics, momentum; the saving path
@@ -1808,13 +1874,13 @@ def compare_repeat(losses_a, losses_b, chkp_a, chkp_b, card, log):
     differ = [k for k in a["model_state_dict"]
               if not torch.equal(a["model_state_dict"][k],
                                  b["model_state_dict"][k])]
-    log(f"[{card}] loop repeat: {len(losses_b)} losses "
+    log(f"[{card}] {what} repeat: {len(losses_b)} losses "
         f"{'bit-equal' if same_losses else 'DIFFER'} to the first run's; "
         f"checkpoint {'bit-equal' if same_state else 'DIFFERS'}"
         + (f" ({len(differ)} tensors, e.g. {differ[:3]})" if differ else ""))
-    expect(same_losses, "loop repeat: the losses of two seeded runs differ: "
-           f"{losses_a} against {losses_b}")
-    expect(same_state, "loop repeat: the checkpoints of two seeded runs "
+    expect(same_losses, f"{what} repeat: the losses of two seeded runs "
+           f"differ: {losses_a} against {losses_b}")
+    expect(same_state, f"{what} repeat: the checkpoints of two seeded runs "
            "differ")
     return dict(losses_equal=same_losses, checkpoint_equal=same_state,
                 steps=len(losses_b), differing_tensors=differ)
@@ -2278,32 +2344,33 @@ def measure_dispatch(trainer, root, work, counted, per_step, per_val, card,
 
 
 def _loop_report(label, trainer, logdir, epochs, launches, per_step,
-                 per_val, wall_s, card, log):
-    """Checks and numbers of one run of phase 6."""
+                 per_val, wall_s, card, log, what: str = "loop"):
+    """Checks and numbers of one run of an entry point's loop (`what`:
+    phase 6's "loop", phase 9's "PL loop")."""
     rows = _log_rows(logdir)
     steps = sum(e["steps"] for e in trainer.epoch_times)
     batches = sum(v["batches"] for v in trainer.val_times)
     losses = [float(r[2]) for r in rows]
-    expect(len(rows) == steps > 0, f"loop {label}: {len(rows)} log rows for "
+    expect(len(rows) == steps > 0, f"{what} {label}: {len(rows)} log rows for "
            f"{steps} real steps")
-    expect(all(np.isfinite(losses)), f"loop {label}: non-finite losses")
+    expect(all(np.isfinite(losses)), f"{what} {label}: non-finite losses")
     with open(os.path.join(logdir, "val_IoUs.txt")) as f:
         n_val = len(f.readlines())
-    expect(n_val == epochs, f"loop {label}: {n_val} validation lines, "
+    expect(n_val == epochs, f"{what} {label}: {n_val} validation lines, "
            f"expected {epochs}")
     expect(len(trainer.epoch_drops) == len(trainer.epoch_times)
            and not any(trainer.epoch_drops),
-           f"loop {label}: neighbor drops {trainer.epoch_drops}")
+           f"{what} {label}: neighbor drops {trainer.epoch_drops}")
     counts = trainer.graph_counts()
     expect(trainer.graphed and counts["train_replayed_steps"] == steps
            and counts["eval_replays"] == batches,
-           f"loop {label}: {counts} for {steps} steps and {batches} "
+           f"{what} {label}: {counts} for {steps} steps and {batches} "
            "validation batches: not every step and batch was replayed")
     # Each capture's warm-up runs one step (batch) on the card
     want = {k: per_step.get(k, 0) * (steps + counts["train_warmups"])
             + per_val.get(k, 0) * (batches + counts["eval_warmups"])
             for k in launches}
-    expect(launches == want, f"loop {label}: launches {launches}, "
+    expect(launches == want, f"{what} {label}: launches {launches}, "
            f"expected {want} for {steps} replayed steps and {batches} "
            f"replayed validation batches and their graphs' warm-ups "
            f"({counts})")
@@ -2328,23 +2395,23 @@ def _loop_report(label, trainer, logdir, epochs, launches, per_step,
             for v in trainer.val_times]
     train_ds = trainer.datasets[0]
     setup = dict(subsample_s=train_ds.setup_seconds["subsample"],
-                 anchors_s=train_ds.setup_seconds["anchors"],
+                 anchors_s=train_ds.setup_seconds.get("anchors", 0.0),
                  calibration_s=trainer.calibration_seconds)
-    log(f"[{card}] loop {label}: {len(trainer.epoch_times)} epochs, {steps} "
+    log(f"[{card}] {what} {label}: {len(trainer.epoch_times)} epochs, {steps} "
         f"real steps, {batches} validation batches in {wall_s:.1f} s; "
         f"graphs {counts}; launches {launches}; losses {losses}; mIoU "
         f"{trainer.last_mIoU:.2f} %")
     for r in epochs_rep:
         parts = ", ".join(f"{k[:-12]} {r[k]:.2f}" for k in r
                           if k.endswith("_ms_per_step"))
-        log(f"[{card}] loop {label} epoch {r['epoch']}: "
+        log(f"[{card}] {what} {label} epoch {r['epoch']}: "
             f"{r['ms_per_step']:.2f} ms per step over the epoch"
             + (f" ({parts} ms per step)" if parts else "")
             + f", {r['points_per_s']:.0f} real points/s")
     for v in vals:
-        log(f"[{card}] loop {label} validation after epoch {v['epoch']}: "
+        log(f"[{card}] {what} {label} validation after epoch {v['epoch']}: "
             f"{v['ms_per_batch']:.2f} ms per batch ({v['batches']} batches)")
-    log(f"[{card}] loop {label}: host ms between dispatches "
+    log(f"[{card}] {what} {label}: host ms between dispatches "
         f"{[round(g, 2) for g in gaps]}; ms per step over the epochs after "
         f"the first: {steady if steady is None else round(steady, 2)}")
     return dict(label=label, steps=steps, val_batches=batches,
@@ -2352,6 +2419,419 @@ def _loop_report(label, trainer, logdir, epochs, launches, per_step,
                 wall_s=wall_s, dispatch_gaps_ms=gaps,
                 step_ms_steady=steady, epochs=epochs_rep, validation=vals,
                 setup=setup, mIoU=trainer.last_mIoU)
+
+
+def pl_expected(config):
+    """Launches per pseudo-label training step and per eval (validation
+    or vote) batch: 3L-2 searches, one B (and one C) per KPConv, one D per
+    strided shortcut; the inverse lists of the L conv edges, the L-1 pool
+    and the L-1 upsample edges and the contrast loss's drawn rows; the row
+    sums of the L-1 upsample gathers, the drawn rows' gather and the L-1
+    voxel sums of the pyramid (an eval batch: the voxel sums)."""
+    from weasal_tpu_torch import KPFCNN
+    from weasal_tpu_torch.models.blocks import kpconv_modules
+    net = KPFCNN(config, tuple(range(config.num_classes)) + (10,), (10,))
+    n_l, convs = config.num_layers, len(kpconv_modules(net))
+    per_step = {"radius_search": 3 * n_l - 2, "kpconv_fwd": convs,
+                "kpconv_bwd": convs, "maxpool_bwd": len(strided_pools(net)),
+                "build_inverse_lists": n_l + 2 * (n_l - 1) + 1,
+                "inverse_sum": 2 * (n_l - 1) + 1}
+    per_val = {"radius_search": 3 * n_l - 2, "kpconv_fwd": convs,
+               "inverse_sum": n_l - 1}
+    return per_step, per_val
+
+
+def write_pl_labels(root):
+    """Phase 9's refined labels under `root`/PseudoLabels/PL_LOG: the
+    training tile's subsampled ground truth with a seeded PL_UNLABELED of
+    it set to 10, and seeded class weights. Returns (truth, pseudo)."""
+    from weasal_tpu_torch.utils.ply import read_ply
+    cloud = "Vaihingen3D_Training"
+    truth = read_ply(os.path.join(root, "input_0.240_torch", f"{cloud}.ply")
+                     )["class"].astype(np.int32)
+    rng = np.random.default_rng(SEED)
+    pseudo = np.where(rng.random(truth.shape[0]) < PL_UNLABELED, 10, truth)
+    out = os.path.join(root, "PseudoLabels", PL_LOG)
+    os.makedirs(out, exist_ok=True)
+    np.savetxt(os.path.join(out, f"{cloud}_t20_pseudo.txt"), pseudo,
+               fmt="%i")
+    np.savetxt(os.path.join(out, "Vaihingen3D_t20_weight.txt"),
+               rng.uniform(0.5, 2.0, (1, 9)), fmt="%.3f")
+    return truth, pseudo
+
+
+def check_pl_shapes(trainer, per_step, card, log):
+    """Phase 9 at the pseudo-label loop's own shapes, after its runs: a
+    batch of its resident source assembled on the card into a pyramid on
+    the plain versions. On it A, B, C and D are held to their plain
+    versions as in phases 2 and 4, and the GEMM core's drift is held at
+    the widest conv as phase 2 holds it; one kernel training step from the
+    seeded initial state (dropout mask and contrast draw given: a seeded
+    mask, PL_SLC labeled points), eager and replayed, to an f64 step as
+    in phase 5, and the same batch's pyramid built LOOP_F64_PYRAMIDS - 1
+    times more, each read (not held) against its own f64 step as phase 6
+    reads its rebuilds; the inverse lists and row sums of one `train_step`
+    checked and timed as in phase 5. Then `train_step` on the loop's
+    batches (launches per step, synchronized ms) and profiles of one
+    step, of the contrast loss (forward and backward) and of the dropout
+    mask at the step's shapes. Returns the kernels' sums and the
+    readings."""
+    global PREFIX
+    from weasal_tpu_torch import KPFCNN, init_opt_state, train_step
+    from weasal_tpu_torch.data.loader import BatchPrefetcher
+    from weasal_tpu_torch.data.resident import (ResidentBatchSource,
+                                                assemble_level0_device)
+    from weasal_tpu_torch.models import losses
+    from weasal_tpu_torch.models.blocks import dropout_keep, kpconv_modules
+    from weasal_tpu_torch.ops.pyramid import batch_from_device_pyramid
+    from weasal_tpu_torch.train.graphs import COUNTED, launch_counts
+    from weasal_tpu_torch.utils.device import plain_ops
+    config, plan, dev = trainer.config, trainer.plan, trainer.device
+    seed = torch.tensor(SEED, dtype=torch.int64, device=dev)
+    train_ds = trainer.datasets[0]
+    source = ResidentBatchSource(train_ds, plan, dev)
+    batches = [b for b, _ in BatchPrefetcher(
+        source, LOOP_CHECK_BATCHES, dev, rng=np.random.default_rng(SEED),
+        extra_arrays=source.resident.arrays)]
+    @torch.no_grad()
+    def pyramid(batch):
+        t = assemble_level0_device(batch, config, plan, augment=True,
+                                   spec=trainer.spec)
+        with plain_ops():
+            return batch_from_device_pyramid(
+                t["points0"], t["mask0"], t["features"], t["labels"],
+                config, plan, t["center_pts"], rotations=t["rotations"],
+                cloud_lb=t["cloud_lb"], region_inds=t["region_inds"],
+                region_masks=t["region_masks"],
+                region_point_masks=t["region_point_masks"],
+                region_lb=t["region_lb"])
+
+    pyrs = [pyramid(batches[0]) for _ in range(LOOP_F64_PYRAMIDS)]
+    pyr = pyrs[0]
+    log(f"phase 9: kernels vs plain versions at the PL loop's shapes, "
+        f"{plan}, {int(pyr.masks[0].sum())} real level-0 points")
+    PREFIX = "PL shapes: "
+    try:
+        with torch.no_grad():
+            checks = dict(radius_search=check_radius_search(pyr, config,
+                                                            plan, log),
+                          kpconv_fwd=check_kpconv(trainer.model, pyr, log,
+                                                  SEED))
+        checks["kpconv_bwd"] = check_kpconv_bwd(trainer.model, pyr, log,
+                                                SEED)
+        checks["maxpool_bwd"] = check_maxpool_bwd(trainer.model, pyr, log,
+                                                  SEED)
+        sums = {k: v[1] for k, v in checks.items()}
+        shapes = {k: v[0] for k, v in checks.items()}
+        # the drift check of phase 2 at the PL's widest conv (its GEMMs'
+        # depth Kp x Cin up to 3840 on few rows)
+        _, wide = max(kpconv_modules(trainer.model),
+                      key=lambda m: m[1].weights.shape[1]
+                      * m[1].weights.shape[2])
+        n_kp, cin, cout = wide.weights.shape
+        gemm_bias = check_gemm_bias(log, SEED, shape=(
+            config.batch_num, plan.num_points[wide.layer_ind],
+            plan.conv_neighbors[wide.layer_ind], n_kp, cin, cout))
+        b, n0 = pyr.labels.shape
+        keep = dropout_keep((b, n0, config.first_features_dim),
+                            config.dropout, seed)
+        labeled = ((pyr.labels >= 0) & (pyr.labels < config.num_classes)
+                   & pyr.masks[0]).reshape(-1).nonzero().flatten()
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        slc = labeled[torch.randint(labeled.numel(), (PL_SLC,),
+                                    generator=gen, device=dev)]
+        runs = []
+        for i, p in enumerate(pyrs):
+            # pyramids 1.. are the same batch's built again (their voxel
+            # sums add with atomics on the plain versions), each stepped
+            # with the same mask and drawn points: read, not held, and
+            # not replayed
+            net = KPFCNN(config,
+                         tuple(int(v) for v in train_ds.label_values),
+                         tuple(int(v) for v in train_ds.ignored_labels),
+                         generator=torch.Generator().manual_seed(0)).to(dev)
+            runs.append(compare_train_steps(
+                net, init_opt_state(net), p, config, log,
+                plan=plan if i == 0 else None,
+                label="PL step, kernels" + (f", pyramid {i}" if i else ""),
+                held=i == 0, step_kw=dict(use_contrast=True,
+                                          dropout_keep=keep, slc_idx=slc)))
+            del net
+        comparison = runs[0]
+        shares = [r["share"] for r in runs]
+        prints = [pyramid_print(p) for p in pyrs]
+        comparison.update(pyramid_prints=prints, pyramid_shares=shares)
+        log(f"[{card}] f64 PL step (first batch): share of the f64 "
+            f"allowance {comparison['share']:.3f} (held); the batch's "
+            f"pyramid built {LOOP_F64_PYRAMIDS} times: prints {prints}, "
+            f"shares {[round(v, 3) for v in shares]} (read)")
+    finally:
+        PREFIX = ""
+
+    def step(batch):
+        return train_step(trainer.model, trainer.opt_state, batch, config,
+                          plan, trainer.lr, device=dev,
+                          class_w=trainer.class_w, table=trainer.table,
+                          spec=trainer.spec, seed=SEED, use_contrast=True)
+
+    log("phase 9: the inverse lists and the row sums at the PL loop's "
+        "shapes")
+    PREFIX = "PL shapes: "
+    try:
+        sums["inverse_lists"] = check_inverse_lists(
+            record_inverse_calls(lambda: step(batches[0])), log)
+    finally:
+        PREFIX = ""
+    for fn in COUNTED:
+        fn.launches = 0
+    sync_ms = []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(batch)
+        torch.cuda.synchronize()
+        sync_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = launch_counts()
+    want = {k: v * len(batches) for k, v in per_step.items()}
+    expect(launches == want, f"phase 9 train_step: launches {launches} in "
+           f"{len(batches)} steps, expected {want}")
+    log(f"[{card}] PL train_step on {len(batches)} loop batches: "
+        f"synchronized {[round(v, 2) for v in sync_ms]} ms; launches "
+        f"{launches}")
+    rows, busy, wall = profile_step(lambda: step(batches[1]), log,
+                                    "PL train_step")
+    # the contrast loss and the dropout mask alone, at the step's shapes
+    trainer.model.eval()
+    with torch.no_grad():
+        logits = trainer.model(pyr)
+    c = logits.shape[-1]
+    flat = logits.reshape(-1, c).detach().requires_grad_()
+    raw = pyr.labels.reshape(-1)
+    flat_labels = torch.where(raw >= 0, raw,
+                              torch.full_like(raw, config.num_classes + 1))
+
+    def contrast():
+        loss = losses.contrast_loss(flat, flat_labels,
+                                    pyr.masks[0].reshape(-1),
+                                    config.num_classes,
+                                    config.contrast_thd / 100.0, seed=seed)
+        loss.backward()
+
+    torch.cuda.reset_peak_memory_stats()
+    c_rows, c_busy, _ = profile_step(contrast, log,
+                                     "PL contrast loss (forward and "
+                                     "backward)")
+    c_peak = torch.cuda.max_memory_allocated()
+    d_rows, d_busy, _ = profile_step(
+        lambda: dropout_keep((b, n0, config.first_features_dim),
+                             config.dropout, seed), log,
+        "PL dropout mask")
+    log(f"[{card}] PL step device {busy:.2f} ms ({100 * busy / wall:.1f} % "
+        f"of its wall {wall:.2f} ms); the contrast loss {c_busy:.2f} ms "
+        f"({100 * c_busy / busy:.1f} % of the step; peak allocation "
+        f"while it ran {c_peak / 2**20:.0f} MiB, on {flat.shape[0]} "
+        f"rows), the "
+        f"dropout mask {d_busy:.2f} ms ({100 * d_busy / busy:.1f} %)")
+    return sums, dict(compare=comparison, sync_ms=sync_ms,
+                      launches=launches, shapes=shapes, gemm_bias=gemm_bias,
+                      step_profile=dict(busy_ms=busy, wall_ms=wall,
+                                        families=kernel_families(rows)),
+                      contrast=dict(busy_ms=c_busy, share=c_busy / busy,
+                                    peak_bytes=c_peak,
+                                    families=kernel_families(c_rows)),
+                      dropout_mask=dict(busy_ms=d_busy,
+                                        share=d_busy / busy,
+                                        families=kernel_families(d_rows)))
+
+
+def run_pseudo_label(root, work, counted, card, log):
+    """Phase 9: the pseudo-label stage at full VaihingenPLConfig width on
+    phase 6's tile, through its entry point
+    (`weasal_tpu_torch.train_Vaihingen3D_PseudoLabel.run`) on refined
+    labels written by `write_pl_labels`: 2 graphed epochs of 10 steps
+    with 5 validation batches, again in a fresh trainer (losses and
+    checkpoint bit-equal), then a resume (`entry_runs`, with the launches
+    per step and per validation batch of `pl_expected`); one more epoch
+    profiled (`profile_epoch`); the kernels and the f64 step at the loop's
+    shapes (`check_pl_shapes`); one acquisition (`--al_iterations 1
+    --epoch_schedule 1,1`, a vote of 2: every training step, validation
+    and vote batch replayed, the ground-truth ledger grown by
+    `added_labels_per_epoch` points, iteration 1 trained on their ground
+    truth); `test_models --on test` on the PL log (1 vote: the plys, the
+    launches, finite votes). Returns the report and the launches of its
+    main-path runs."""
+    import pickle
+    from weasal_tpu_torch.config import VaihingenPLConfig
+    from weasal_tpu_torch.test_models import main as test_models
+    from weasal_tpu_torch.train.tester import ModelTester
+    from weasal_tpu_torch.train.trainer import ModelTrainer
+    from weasal_tpu_torch.train_Vaihingen3D_PseudoLabel import run
+    from weasal_tpu_torch.utils.ply import read_ply
+
+    cloud = "Vaihingen3D_Training"
+    truth, pseudo = write_pl_labels(root)
+    config = VaihingenPLConfig()
+    config.num_classes = 9
+    per_step, per_val = pl_expected(config)
+    log(f"phase 9: {truth.shape[0]} training points, "
+        f"{int((pseudo == 10).sum())} without a label; launches expected "
+        f"per step {per_step}, per eval batch {per_val}")
+
+    def add(total, part):
+        for k, v in part.items():
+            total[k] = total.get(k, 0) + v
+
+    cwd = os.getcwd()
+    os.chdir(work)
+    report = {}
+    try:
+        logdir = os.path.join(work, "pl_log")
+        loop = entry_runs(run, root, logdir, os.path.join(work,
+                                                          "pl_log_repeat"),
+                          PL_ARGS, counted, per_step, per_val, card, log,
+                          what="PL loop")
+        trainer, total = loop["trainer"], loop["total"]
+        profile = profile_epoch(trainer, counted, per_step, total, card,
+                                log, what="PL loop")
+        kernel_sums, at_plan = check_pl_shapes(trainer, per_step, card, log)
+        loop_ms = [r["step_ms_steady"] for r in loop["runs"]
+                   if r["step_ms_steady"]]
+        log(f"[{card}] PL loop ms per step (epochs after each run's "
+            f"first): {[round(v, 2) for v in loop_ms]}; peak device memory "
+            f"of the 3 runs {loop['peak'] / 2**20:.1f} MiB; {trainer.plan}")
+        report.update(runs=loop["runs"], repeat=loop["repeat"],
+                      plan=vars(trainer.plan), peak_bytes=loop["peak"],
+                      profile=profile, kernels=kernel_sums,
+                      at_plan=at_plan, per_step=per_step, per_val=per_val)
+
+        # one acquisition
+        ledger_file = os.path.join(root, "input_0.240_torch",
+                                   f"{cloud}_al_groundTruth_IDs.pkl")
+
+        def ledger():
+            with open(ledger_file, "rb") as f:
+                return [int(v) for v in np.asarray(pickle.load(f)).ravel()]
+
+        ledgers, trainers = {}, []
+        extend, train = ModelTester._extend_gt_ledger, ModelTrainer.train
+
+        def keep_ledgers(self, dataset, all_probs):
+            ledgers["before"] = ledger()
+            extend(self, dataset, all_probs)
+            ledgers["after"] = ledger()
+
+        def keep_trainer(self, *args, **kwargs):
+            trainers.append(self)
+            return train(self, *args, **kwargs)
+
+        def vote_launches(tester):
+            graph = tester._eval_graph
+            batches = sum(v["batches"] for v in tester.vote_times)
+            expect(tester.graphed and graph.replays == batches,
+                   f"phase 9: {graph.replays} vote replays for {batches} "
+                   "vote batches")
+            return {k: per_val.get(k, 0) * (batches + graph.warmup_steps)
+                    for k in per_val}
+
+        for fn in counted:
+            fn.launches = 0
+        al_dir = os.path.join(work, "results", "PseudoLabel", PL_LOG)
+        t0 = time.perf_counter()
+        ModelTester._extend_gt_ledger = keep_ledgers
+        ModelTrainer.train = keep_trainer
+        try:
+            last = run([al_dir, "--data_root", root, *PL_ARGS,
+                        "--al_iterations", "1", "--epoch_schedule", "1,1",
+                        "--al_votes", "2"])
+        finally:
+            ModelTester._extend_gt_ledger = extend
+            ModelTrainer.train = train
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in counted}
+        add(total, launches)
+        want = {}
+        for t in trainers:
+            counts = t.graph_counts()
+            steps = sum(e["steps"] for e in t.epoch_times)
+            batches = sum(v["batches"] for v in t.val_times)
+            expect(counts["train_replayed_steps"] == steps
+                   and counts["eval_replays"] == batches,
+                   f"phase 9: training {counts} for {steps} steps and "
+                   f"{batches} validation batches")
+            add(want, {k: per_step.get(k, 0)
+                       * (steps + counts["train_warmups"])
+                       + per_val.get(k, 0)
+                       * (batches + counts["eval_warmups"])
+                       for k in launches})
+        tester = last.testers[0] if getattr(last, "testers", None) else None
+        expect(tester is not None and len(trainers) == 2,
+               f"phase 9: {len(trainers)} trainings and "
+               f"{0 if tester is None else 1} acquisition")
+        if tester is not None:
+            add(want, vote_launches(tester))
+        expect(launches == want, f"phase 9 entry point: launches "
+               f"{launches}, expected {want}")
+        before, after = ledgers.get("before", []), ledgers.get("after", [])
+        added = last.config.added_labels_per_epoch
+        gained = last.datasets[0].input_labels[0]
+        expect(len(after) == len(before) + added and len(set(after))
+               == len(after) and np.array_equal(gained[after], truth[after]),
+               f"phase 9: GT ledger {len(before)} -> {len(after)} points "
+               f"({len(set(after))} distinct), expected +{added} trained "
+               "on their ground truth")
+        with open(os.path.join(al_dir, "training_iteration1.txt")) as f:
+            header = f.readline()
+        expect(header.rstrip().endswith(f"ground truth labels: "
+                                        f"{len(after)}"),
+               f"phase 9: iteration 1's log header {header.strip()!r}")
+        vote = dict(tester.vote_times[0]) if tester is not None else {}
+        log(f"[{card}] phase 9 entry point with one acquisition: "
+            f"{wall_s:.1f} s; GT ledger {len(before)} -> {len(after)}; "
+            f"acquisition vote {vote.get('batches')} batches in "
+            f"{vote.get('seconds', 0.0):.2f} s; launches {launches}")
+        report["entry"] = dict(wall_s=wall_s, ledger=[len(before),
+                                                      len(after)],
+                               vote=vote, launches=launches)
+
+        # the workflow's last step: test_models on the PL log
+        for fn in counted:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        tm = test_models(["--log", al_dir, "--on", "test", "--num_votes",
+                          "1", "--data_root", root])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in counted}
+        add(total, launches)
+        want = vote_launches(tm)
+        expect(launches == {k: want.get(k, 0) for k in launches},
+               f"phase 9 test_models --on test: launches {launches}, "
+               f"expected {want}")
+        out = os.path.join("test", "PseudoLabel", PL_LOG)
+        n_eval = len(tm.dataset.validation_labels[0])
+        test_cloud = os.path.basename(tm.dataset.files[0])
+        for sub in ("predictions", "probs", "potentials"):
+            path = os.path.join(out, sub, test_cloud)
+            ok = os.path.exists(path)
+            if ok and sub != "potentials":
+                ok = read_ply(path)["x"].shape[0] == n_eval
+            expect(ok, f"phase 9 test_models --on test: {path} missing or "
+                   f"not {n_eval} points")
+        expect(all(np.isfinite(p).all() for p in tm.test_probs),
+               "phase 9 test_models --on test: non-finite votes")
+        vote = dict(tm.vote_times[0])
+        log(f"[{card}] phase 9 test_models --on test: {wall_s:.1f} s; "
+            f"vote {vote['batches']} batches in {vote['seconds']:.2f} s "
+            f"({1e3 * vote['seconds'] / vote['batches']:.2f} ms a batch, "
+            f"{vote['points'] / vote['seconds']:.0f} voted points/s); "
+            f"{n_eval} points projected; launches {launches}")
+        report["test_models"] = dict(wall_s=wall_s, vote=vote,
+                                     launches=launches)
+    finally:
+        os.chdir(cwd)
+    return report, total
+
 
 
 def main(argv=None) -> int:
@@ -2544,39 +3024,66 @@ def main(argv=None) -> int:
         log("phase 8: testing and weak-label active learning on the card")
         al, al_launches = run_active_learning(root, work, counted, expected,
                                               per_val, card, log)
+        # ---- phase 9: the pseudo-label stage on the loop's tile
+        log("phase 9: the pseudo-label stage on the card")
+        pl, pl_launches = run_pseudo_label(root, work, counted, card, log)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     def line_fields(sums):
         return {k: v for k, v in sums.items() if k != "split"}
 
-    def main_path(name):
-        return (eval_launches.get(name, 0) + launches[name]
-                + loop_launches[name] + al_launches[name])
+    paths = dict(inference=eval_launches, train_step=launches,
+                 wl_loop=loop_launches, wl_active_learning=al_launches,
+                 pl_stage=pl_launches)
 
-    # The largest error of each kernel at either main path's shapes
+    def by_path(name):
+        return {path: counts.get(name, 0) for path, counts in paths.items()}
+
+    def main_path(name):
+        return sum(by_path(name).values())
+
+    def pl_fields(name):
+        """The kernel's sums at the pseudo-label loop's shapes."""
+        sums = pl["kernels"].get(name) or pl["kernels"]["inverse_lists"][name]
+        return {f"pl_{k}": sums[k] for k in ("ms", "plain_ms", "bound_ms")}
+
+    # The largest error of each kernel at any main path's shapes
     for name, phase_sum in (("radius_search", a_sum), ("kpconv_fwd", b_sum),
                             ("kpconv_bwd", c_sum), ("maxpool_bwd", d_sum)):
         phase_sum["max_abs_err"] = max(
-            phase_sum["max_abs_err"], loop["kernels"][name]["max_abs_err"])
+            phase_sum["max_abs_err"], loop["kernels"][name]["max_abs_err"],
+            pl["kernels"][name]["max_abs_err"])
 
     kernels = [
         dict(name="radius_search", route="cuda",
              source="weasal_tpu_torch/csrc/radius_search.cu",
              replaces="weasal_tpu/ops/pallas/radius_pallas.py:196",
-             launches=main_path("radius_search"), library_ms=None, **a_sum),
+             launches=main_path("radius_search"),
+             launches_by_path=by_path("radius_search"),
+             **pl_fields("radius_search"), library_ms=None,
+             **a_sum),
         dict(name="kpconv_fwd", route="cuda",
              source="weasal_tpu_torch/csrc/kpconv_fwd.cu",
              replaces="weasal_tpu/ops/pallas/kpconv_banded.py:478",
-             launches=main_path("kpconv_fwd"), library_ms=None, **b_sum),
+             launches=main_path("kpconv_fwd"),
+             launches_by_path=by_path("kpconv_fwd"),
+             **pl_fields("kpconv_fwd"), library_ms=None,
+             **b_sum),
         dict(name="kpconv_bwd", route="cuda",
              source="weasal_tpu_torch/csrc/kpconv_bwd.cu",
              replaces="weasal_tpu/ops/pallas/kpconv_banded.py:550",
-             launches=main_path("kpconv_bwd"), library_ms=None, **c_sum),
+             launches=main_path("kpconv_bwd"),
+             launches_by_path=by_path("kpconv_bwd"),
+             **pl_fields("kpconv_bwd"), library_ms=None,
+             **c_sum),
         dict(name="maxpool_bwd", route="cuda",
              source="weasal_tpu_torch/csrc/maxpool_bwd.cu",
              replaces="weasal_tpu/ops/pallas/maxpool_banded.py:159",
-             launches=main_path("maxpool_bwd"), library_ms=None, **d_sum),
+             launches=main_path("maxpool_bwd"),
+             launches_by_path=by_path("maxpool_bwd"),
+             **pl_fields("maxpool_bwd"), library_ms=None,
+             **d_sum),
         # C's and D's dX sum over these lists in their own launches; the
         # standalone row sums are the other scatter-adds of the step. No
         # pallas_call computes them (the TPU kernels sum by membership
@@ -2585,11 +3092,15 @@ def main(argv=None) -> int:
              source="weasal_tpu_torch/csrc/inverse_lists.cu",
              replaces=None, helper_of=["kpconv_bwd", "maxpool_bwd"],
              launches=main_path("build_inverse_lists"),
+             launches_by_path=by_path("build_inverse_lists"),
+             **pl_fields("build_inverse_lists"),
              **line_fields(inv_sums["build_inverse_lists"])),
         dict(name="inverse_sum", route="cuda",
              source="weasal_tpu_torch/csrc/inverse_lists.cu",
              replaces=None, helper_of=["kpconv_bwd", "maxpool_bwd"],
              launches=main_path("inverse_sum"),
+             launches_by_path=by_path("inverse_sum"),
+             **pl_fields("inverse_sum"),
              **line_fields(inv_sums["inverse_sum"])),
     ]
     if args.out:
@@ -2611,7 +3122,8 @@ def main(argv=None) -> int:
                            inverse_lists=inv_sums,
                            inverse_lists_adversarial=inv_adversarial,
                            deterministic_step=deterministic,
-                           active_learning=al, al_launches=al_launches), f,
+                           active_learning=al, al_launches=al_launches,
+                           pseudo_label=pl, pl_launches=pl_launches), f,
                       indent=1)
     if FAILED:
         print(f"chip_smoke: {len(FAILED)} checks failed", file=sys.stderr)

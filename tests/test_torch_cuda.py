@@ -32,7 +32,13 @@ held to an f64 step from one state and pyramid (L2 error <= 1e-3 x norm
 applies the new rate; the validation graph equals `eval_batch` (1e-6), and a vote batch's
 replay equals the eager body bit for bit (probabilities, labels, `d2`);
 `load_checkpoint` and the vote buffer's `load` keep every captured
-address; a capture that meets a host synchronization raises. Needs an
+address; a capture that meets a host synchronization raises. The
+pseudo-label stage (5 levels, dropout, the contrast loss): a graphed
+epoch launches 13 A, 10 B, 10 C, 4 D, 14 list builds and 9 row sums a
+step and 13 A, 10 B, 4 row sums a validation batch; a replayed step
+equals the eager one (1e-6) and redraws with its seed; the dropout mask
+and the contrast draw on the card equal the CPU's; the contrast loss's
+gradient repeats bit for bit. Needs an
 NVIDIA GPU with nvcc; skips elsewhere. On the machine with the card
 (which has no JAX) run
 
@@ -41,6 +47,7 @@ NVIDIA GPU with nvcc; skips elsewhere. On the machine with the card
 
 import ctypes
 import math
+import os
 
 import numpy as np
 import pytest
@@ -999,3 +1006,197 @@ def test_capture_with_a_host_sync_raises(dev, synth_wl):
     with pytest.raises(RuntimeError, match="capturing the syncing step"):
         graph.run()
     assert graph.graph is None and graph.replays == 0
+
+
+# ------------------------------------------------ the pseudo-label stage
+
+@pytest.fixture(scope="module")
+def synth_pl(tmp_path_factory):
+    """A small synthetic Vaihingen root with refined pseudo labels (the
+    ground truth, 30 % of it set to 10), the pseudo-label stage's 5-level
+    architecture at 16 features on 8 m spheres, and its training and
+    validation datasets."""
+    from weasal_tpu_torch.config import VaihingenPLConfig
+    from weasal_tpu_torch.data.datasets import Vaihingen3DPLDataset
+    from weasal_tpu_torch.data.synthetic import make_vaihingen_like_root
+
+    class Small(VaihingenPLConfig):
+        in_radius = 8.0
+        first_subsampling_dl = 0.4
+        first_features_dim = 16
+        batch_num = 2
+        max_epoch = 1
+        epoch_steps = 2
+        validation_size = 1
+        weak_label_log = "WL"
+        saving = False
+
+    root = make_vaihingen_like_root(
+        str(tmp_path_factory.mktemp("card_pl") / "Vaihingen3D"),
+        extent=30.0, density=5.0, seed=11)
+    cfg = Small()
+    val = Vaihingen3DPLDataset(cfg, split="validation", data_root=root,
+                               rng=np.random.default_rng(1))
+    truth = val.input_labels[0]
+    out = f"{root}/PseudoLabels/WL"
+    os.makedirs(out, exist_ok=True)
+    np.savetxt(f"{out}/Vaihingen3D_Training_t20_pseudo.txt", np.where(
+        np.random.default_rng(2).random(truth.shape[0]) < 0.3, 10, truth),
+        fmt="%i")
+    train = Vaihingen3DPLDataset(cfg, split="training", data_root=root,
+                                 rng=np.random.default_rng(0))
+    return cfg, train, val
+
+
+def test_pl_loop_launches_the_kernels(dev, synth_pl):
+    """One graphed epoch of the pseudo-label stage, with the contrast loss
+    and dropout: per step 13 A, 10 B, 10 C, 4 D, 14 inverse-list builds
+    and 9 row sums; per validation batch 13 A, 10 B, 4 row sums."""
+    from weasal_tpu_torch.ops.cuda.inverse_lists import inverse_sum
+    from weasal_tpu_torch.train.graphs import COUNTED, launch_counts
+    from weasal_tpu_torch.train.trainer import ModelTrainer
+    cfg, train, val = synth_pl
+    trainer = ModelTrainer(cfg, train, device=dev)
+    assert trainer.mode == "pseudo" and trainer.graphed
+    for fn in COUNTED:
+        fn.launches = 0
+    trainer.train(train, val)
+    torch.cuda.synchronize()
+    counts = trainer.graph_counts()
+    steps = trainer.epoch_times[0]["steps"]
+    batches = trainer.val_times[0]["batches"]
+    assert steps == cfg.epoch_steps and batches == 1
+    assert counts["train_replayed_steps"] == steps
+    assert counts["eval_replays"] == batches
+    assert list(counts["train_runs_by"]) == ["large x1 contrast"]
+    steps += counts["train_warmups"]
+    batches += counts["eval_warmups"]
+    per_step = {"radius_search": 13, "kpconv_fwd": 10, "kpconv_bwd": 10,
+                "maxpool_bwd": 4, "build_inverse_lists": 14,
+                "inverse_sum": 9}
+    per_val = {"radius_search": 13, "kpconv_fwd": 10, "inverse_sum": 4}
+    want = {k: per_step.get(k, 0) * steps + per_val.get(k, 0) * batches
+            for k in launch_counts()}
+    assert launch_counts() == want
+    assert inverse_sum.launches == want["inverse_sum"]
+    assert all(np.isfinite(v).all() for v in trainer.validation_probs)
+
+
+def _pl_pyramid(dev, synth_pl, seed=3):
+    from weasal_tpu_torch import KPFCNN, init_opt_state
+    from weasal_tpu_torch.data import resident as res
+    from weasal_tpu_torch.ops.pyramid import batch_from_device_pyramid
+    cfg, train, _ = synth_pl
+    plan = train.calibration(num_samples=8)
+    spec = res.feature_spec(train.name, cfg.in_features_dim)
+    src = res.ResidentBatchSource(train, plan, dev)
+    small, _ = src.next_batch(np.random.default_rng(seed), augment=True)
+    batch = {k: torch.from_numpy(v.astype(np.int64) if k == "noise_seed"
+                                 else v).to(dev) for k, v in small.items()}
+    batch.update(src.resident.arrays)
+    with torch.no_grad():
+        t = res.assemble_level0_device(batch, cfg, plan, True, spec)
+        with plain_ops():
+            pyr = batch_from_device_pyramid(
+                t["points0"], t["mask0"], t["features"], t["labels"], cfg,
+                plan, t["center_pts"], rotations=t["rotations"])
+    model = KPFCNN(cfg, tuple(int(v) for v in train.label_values),
+                   tuple(int(v) for v in train.ignored_labels),
+                   generator=torch.Generator().manual_seed(seed)).to(dev)
+    return cfg, plan, model, init_opt_state(model), pyr
+
+
+def test_pl_step_replay_equals_eager(dev, synth_pl):
+    """A pseudo-label step (dropout and the contrast draw from a seed on
+    the card) replayed from a captured graph against the same step run
+    eagerly from the same state: the same loss and state to 1e-6; from
+    that state again, a replay with another seed draws anew and one with
+    the same seed repeats its loss."""
+    from weasal_tpu_torch.train.graphs import StepGraph
+    from weasal_tpu_torch.train.step import (class_weights, label_table,
+                                             step_on_batch, step_outputs)
+    cfg, plan, model, opt, pyr = _pl_pyramid(dev, synth_pl)
+    state0 = {k: v.clone() for k, v in model.state_dict().items()}
+    opt0 = {k: v.clone() for k, v in opt.items()}
+    class_w, table = class_weights(cfg, dev), label_table(model, dev)
+    seed = torch.zeros((), dtype=torch.int64, device=dev)
+    lr_t = torch.full((), cfg.learning_rate, device=dev)
+
+    def body(inputs, out):
+        loss, acc = step_on_batch(model, opt, pyr, cfg, lr_t,
+                                  class_w=class_w, table=table, seed=seed,
+                                  use_contrast=True)
+        out["stats"][0].copy_(loss)
+        out["stats"][1].copy_(acc)
+
+    runs = {}
+    for graphed in (False, True):
+        model.load_state_dict(state0)
+        for k in opt:
+            opt[k].copy_(opt0[k])
+        seed.fill_(7)
+        example = {"placeholder": torch.zeros((1, 1))}
+        graph = StepGraph("PL test step", body, example, 1, dev,
+                          step_outputs(plan, dev, steps=1),
+                          lambda: (list(model.parameters())
+                                   + list(model.buffers())
+                                   + list(opt.values())), graphed=graphed)
+        graph.load(example)
+        graph.run()
+        torch.cuda.synchronize()
+        runs[graphed] = (float(graph.out["stats"][0, 0]),
+                         {k: v.clone() for k, v in
+                          model.state_dict().items()})
+    assert graph.graph is not None
+    assert runs[True][0] == pytest.approx(runs[False][0], rel=1e-6)
+    for k, v in runs[False][1].items():
+        torch.testing.assert_close(runs[True][1][k], v, rtol=1e-6,
+                                   atol=1e-7)
+    # from the same state: another seed, another draw; the same seed, the
+    # same step
+    for value, same in ((8, False), (7, True)):
+        model.load_state_dict(state0)
+        for k in opt:
+            opt[k].copy_(opt0[k])
+        seed.fill_(value)
+        graph.run()
+        assert (float(graph.out["stats"][0, 0]) == runs[True][0]) == same
+
+
+def test_pl_draws_on_card_equal_cpu(dev):
+    from weasal_tpu_torch.models import losses
+    from weasal_tpu_torch.models.blocks import dropout_keep
+    from weasal_tpu_torch.utils import prng
+    seed = torch.tensor(12345, dtype=torch.int64)
+    shape = (2, 3001, 64)
+    assert torch.equal(dropout_keep(shape, 0.5, seed.to(dev)).cpu(),
+                       dropout_keep(shape, 0.5, seed))
+    rng = np.random.default_rng(0)
+    certain = torch.from_numpy(rng.random(20000) < 0.2)
+    valid = certain | torch.from_numpy(rng.random(20000) < 0.5)
+    u = prng.uniform(seed.reshape(1), 1000, losses.CONTRAST_STREAM)[0]
+    cpu = losses.contrast_draw(certain, valid, u)
+    card = losses.contrast_draw(certain.to(dev), valid.to(dev), u.to(dev))
+    assert bool(certain[card.cpu()].all())
+    assert torch.equal(card.cpu(), cpu)
+
+
+def test_pl_contrast_backward_repeats_bit_for_bit(dev):
+    """The contrast loss's gradient on the card (its drawn rows' gather
+    summed over inverse lists) is the same over 3 calls."""
+    from weasal_tpu_torch.models import losses
+    rng = np.random.default_rng(1)
+    n, c = 30000, 9
+    logits = torch.from_numpy(rng.normal(size=(n, c)).astype(np.float32))
+    raw = rng.integers(0, 9, n)
+    labels = torch.from_numpy(np.where(rng.random(n) < 0.4, 10, raw))
+    valid = torch.from_numpy(rng.random(n) < 0.95)
+    seed = torch.tensor(3, dtype=torch.int64, device=dev)
+
+    def grad():
+        x = logits.to(dev).requires_grad_()
+        losses.contrast_loss(x, labels.to(dev), valid.to(dev), c, 0.2,
+                             seed=seed).backward()
+        return (x.grad,)
+
+    assert _bits_repeat(grad)

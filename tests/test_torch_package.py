@@ -28,7 +28,9 @@ def test_import_loads_no_jax_or_weasal_tpu():
     code = ("import sys, weasal_tpu_torch, weasal_tpu_torch.infer, "
             "weasal_tpu_torch.ops.pyramid, weasal_tpu_torch.data.demo, "
             "weasal_tpu_torch.data.level0, chip_smoke, "
-            "weasal_tpu_torch.train_Vaihingen3D_WeakLabel\n"
+            "weasal_tpu_torch.train_Vaihingen3D_WeakLabel, "
+            "weasal_tpu_torch.train_Vaihingen3D_PseudoLabel, "
+            "weasal_tpu_torch.test_models\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'weasal_tpu', 'sklearn', "
             "'matplotlib')]\n"

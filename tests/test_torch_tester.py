@@ -12,7 +12,8 @@ batches with the votes smoothed on the host. Checked:
   arm and for the random arm (the latter on the same votes);
 - then the port alone: a vote interrupted after its first vote
   checkpoint and resumed from `vote_chkp_train.pkl` equals an
-  uninterrupted one; the 'pseudo' mode and the 'ERF' split raise;
+  uninterrupted one; the 'pseudo' mode on a weak-label configuration and
+  the 'ERF' split raise;
 - the vote update's `d2` mask (the squared norms of the augmented
   points) against the JAX `DeviceVoteAccumulator`'s `use_d2` branch on
   one batch, bit for bit.
@@ -201,7 +202,9 @@ def test_vote_resumes_from_its_checkpoint(votes, tmp_path, monkeypatch):
 
 def test_pseudo_mode_and_erf_split_raise(votes):
     ptester, ptest, pcfg = votes["port"][:3]
-    with pytest.raises(NotImplementedError, match="pseudo"):
+    # a weak-label configuration builds a KPFCNN_mprm, which the 'pseudo'
+    # mode (KPFCNN, tests/test_torch_pl_loop.py) does not vote with
+    with pytest.raises(ValueError, match="pseudo"):
         ModelTester(pcfg, ptest, votes["pchkp"], mode="pseudo",
                     device="cpu")
 

@@ -372,3 +372,73 @@ class VaihingenWLConfig(Config):
 
     saving = True
     saving_path = None
+
+
+class VaihingenPLConfig(Config):
+    """Vaihingen3D pseudo-label model and training session
+    (train_Vaihingen3D_PseudoLabel.py:32-106)."""
+    dataset = "Vaihingen3DPL"
+    num_classes = None
+    dataset_task = ""
+    input_threads = 10
+
+    architecture = ["simple", "resnetb", "resnetb_strided", "resnetb",
+                    "resnetb_strided", "resnetb", "resnetb_strided",
+                    "resnetb", "resnetb_strided", "resnetb",
+                    "nearest_upsample", "unary",
+                    "nearest_upsample", "unary",
+                    "nearest_upsample", "unary",
+                    "nearest_upsample", "unary"]
+
+    num_kernel_points = 15
+    in_radius = 24
+    first_subsampling_dl = 0.24
+    conv_radius = 2.5
+    deform_radius = 6.0
+    KP_extent = 1.0
+    KP_influence = "linear"
+    aggregation_mode = "sum"
+    first_features_dim = 64
+    in_features_dim = 4
+    modulated = False
+    use_batch_norm = True
+    batch_norm_momentum = 0.02
+
+    deform_fitting_mode = "point2point"
+    deform_fitting_power = 1.0
+    deform_lr_factor = 0.1
+    repulse_extent = 1.2
+
+    max_epoch = 150
+    learning_rate = 0.01
+    momentum = 0.98
+    lr_decays = {i: 0.1 ** (1 / 150) for i in range(1, 150)}
+    grad_clip_norm = 100.0
+
+    batch_num = 4
+    epoch_steps = 200
+    validation_size = 200
+    checkpoint_gap = 75
+
+    augment_scale_anisotropic = True
+    augment_symmetries = [True, True, True]
+    augment_rotation = "vertical"
+    augment_scale_min = 0.2
+    augment_scale_max = 1.8
+    augment_noise = 0.06
+    augment_color = 0.7
+
+    dropout = 0.5
+    contrast_start = 0
+    contrast_thd = 20
+
+    active_learning_iterations = 20
+    added_labels_per_epoch = 5000
+
+    model_name = "KPFCNN"
+    weak_label_log = ""
+
+    class_w = [1, 1, 1, 1, 1, 1, 1, 1, 1]
+
+    saving = True
+    saving_path = None

@@ -4,8 +4,10 @@ potential-driven sphere sampler.
 Counterpart of weasal_tpu/data/datasets.py: `CloudSegmentationDataset`
 (:42-781) for the splits 'training', 'validation' and 'test' (with
 `test_on_train`, the training clouds voted on for pseudo-labels and
-active learning), `_Vaihingen3DBase` (:787-841) and
-`Vaihingen3DWLDataset` (:843). The sampler draws the same
+active learning), `_Vaihingen3DBase` (:787-841),
+`Vaihingen3DWLDataset` (:843) and `Vaihingen3DPLDataset` (:848-873),
+whose training split reads the refined pseudo labels and overlays the
+ground truth of its point ledger. The sampler draws the same
 random numbers in the same order as the JAX package, so one seed gives
 both the same spheres. Differences by design:
 
@@ -16,12 +18,13 @@ both the same spheres. Differences by design:
 - The caches are the port's own, never the JAX package's sklearn
   pickles: `input_{dl:.3f}_torch/` holds the subsampled ply, the coarse
   potential points, the projection indices and the anchor sets (numpy
-  arrays and dicts), and the trees are rebuilt from them; shape plans go
-  to `shape_plans_torch.json`.
+  arrays and dicts) and the pseudo-label stage's ground-truth ledger
+  (`<cloud>_al_groundTruth_IDs.pkl`), and the trees are rebuilt from
+  them; shape plans go to `shape_plans_torch.json`.
 - Anchor subsampling draws from `random.Random(ANCHOR_SEED)`.
 - The plan has no band windows.
-The 'ERF' split (which the JAX tester refuses to vote on), and the
-pseudo-label and DALES datasets, are not ported.
+The 'ERF' split (which the JAX tester refuses to vote on) and the DALES
+datasets are not ported.
 """
 
 from __future__ import annotations
@@ -89,6 +92,10 @@ class CloudSegmentationDataset:
         self.ignored_labels = np.array(self.ignored_label_values,
                                        dtype=np.int32)
         self.label_to_idx = {l: i for i, l in enumerate(self.label_values)}
+        if 10 in self.label_to_idx:
+            # PL stage: an uncertain pseudo label keeps its raw value 10,
+            # which the contrast loss reads as unlabeled
+            self.label_to_idx[10] = 10
 
         config.num_classes = self.num_classes - len(self.ignored_labels)
         config.dataset_task = "cloud_segmentation"
@@ -190,6 +197,7 @@ class CloudSegmentationDataset:
                            sub_labels.astype(np.int32)],
                           ["x", "y", "z", "intensity", "class"])
 
+            sub_labels = self._training_labels(cloud_name, sub_labels)
             self.input_trees.append(cKDTree(sub_points))
             self.input_colors.append(sub_colors)
             self.input_labels.append(sub_labels)
@@ -227,6 +235,12 @@ class CloudSegmentationDataset:
                         pickle.dump([proj_inds, labels], f)
                 self.test_proj.append(proj_inds)
                 self.validation_labels.append(labels)
+
+    def _training_labels(self, cloud_name: str,
+                         sub_labels: np.ndarray) -> np.ndarray:
+        """Hook: the pseudo-label datasets swap in refined pseudo labels
+        for training."""
+        return sub_labels
 
     def load_evaluation_points(self, file_path: str) -> np.ndarray:
         """The points of a split's prepared ply (f64 [N, 3])."""
@@ -661,3 +675,41 @@ class _Vaihingen3DBase(CloudSegmentationDataset):
 class Vaihingen3DWLDataset(_Vaihingen3DBase):
     name = "Vaihingen3D"
     weak_labels = True
+
+
+class Vaihingen3DPLDataset(_Vaihingen3DBase):
+    """The pseudo-label stage's Vaihingen3D: the class 10 'Ignore' marks
+    points without a pseudo label; the training split trains on
+    `<data_root>/PseudoLabels/<weak_label_log>/<cloud>_t<thd>_pseudo.txt`
+    with the ground truth of the points in the cloud's ledger
+    (`<cloud>_al_groundTruth_IDs.pkl` in the port's cache, extended by
+    each acquisition) written over it; iteration 0 starts an empty
+    ledger."""
+    name = "Vaihingen3D"
+    label_to_names = {**_Vaihingen3DBase.label_to_names, 10: "Ignore"}
+    ignored_label_values = (10,)
+
+    def gt_ledger_file(self, cloud_name: str) -> str:
+        return join(self.tree_path, cloud_name + "_al_groundTruth_IDs.pkl")
+
+    def _training_labels(self, cloud_name, sub_labels):
+        if self.split != "training":
+            return sub_labels
+        cfg = self.config
+        pseudo_file = join(
+            self.path, "PseudoLabels", cfg.weak_label_log,
+            f"{cloud_name}_t{int(cfg.contrast_thd)}_pseudo.txt")
+        labels = np.genfromtxt(pseudo_file).astype(np.int32)
+        if labels.shape != sub_labels.shape:
+            raise ValueError(
+                f"{pseudo_file}: {labels.shape[0]} pseudo labels for "
+                f"{sub_labels.shape[0]} subsampled points")
+        gt_file = self.gt_ledger_file(cloud_name)
+        if self.al_iteration:
+            with open(gt_file, "rb") as f:
+                gt_ids = np.asarray(pickle.load(f), dtype=np.int64)
+            labels[gt_ids] = sub_labels[gt_ids]
+        else:
+            with open(gt_file, "wb") as f:
+                pickle.dump([], f)
+        return labels

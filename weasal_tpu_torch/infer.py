@@ -1,10 +1,11 @@
-"""Weak-label inference: level-0 or resident batches in, class
+"""Inference of both stages: level-0 or resident batches in, class
 probabilities out.
 
 Counterpart of the eval step of weasal_tpu/train/tester.py:93-131 and
 weasal_tpu/train/trainer.py:406-447 on the fused path: the pyramid is
-built on the device, `KPFCNN_mprm` runs in eval mode, and a softmax turns
-its fused logits into probabilities. `eval_step` takes level-0 arrays;
+built on the device, the model runs in eval mode (no dropout), and a
+softmax turns its logits (`KPFCNN_mprm`'s fused ones, `KPFCNN`'s only
+output, tester.py:125) into probabilities. `eval_step` takes level-0 arrays;
 `eval_batch`, the training loop's validation step, also takes a resident
 batch and returns probabilities and labels in `input_inds` order; its
 body, `eval_body`, writes them (and the squared norms `d2` of the
@@ -63,7 +64,8 @@ def _probs(model, t: dict, config, plan) -> torch.Tensor:
         region_masks=t.get("region_masks"),
         region_point_masks=t.get("region_point_masks"),
         region_lb=t.get("region_lb"))
-    logits, _cla_logits, _cam = model(batch)
+    out = model(batch)
+    logits = out[0] if isinstance(out, tuple) else out
     return torch.softmax(logits, dim=-1)
 
 
@@ -71,7 +73,8 @@ def eval_step(model, arrays: Mapping, config, plan, device=None
               ) -> torch.Tensor:
     """Probabilities [B, N_0, C] for one level-0 batch.
 
-    :param model: a KPFCNN_mprm whose parameters lie on `device`
+    :param model: a KPFCNN_mprm or a KPFCNN whose parameters lie on
+        `device`
     :param arrays: assemble_level0 output (numpy arrays or tensors)
     :param device: default ``cuda``; raises where CUDA is absent
     """

@@ -1,10 +1,14 @@
-"""KPFCNN_mprm, the weak-label multi-path region mining network.
+"""The networks of the two training stages.
 
 Counterpart of weasal_tpu/models/architectures.py: `_encoder_plan` (:56),
-`_decoder_plan` (:84) and `KPFCNN_mprm` (:164-233): encoder, elevation
+`_decoder_plan` (:84), `KPFCNN` (:109-162), the pseudo-label stage's
+encoder-decoder with skip concats, dropout and a two-unary head, and
+`KPFCNN_mprm` (:164-233), the weak-label network: encoder, elevation
 attention, MPRM 4-path heads, per-path global-average class logits, the
 shared nearest-upsample decoder run on the four class-map streams as one
 channel-concatenated gather, and the elementwise-max fusion.
+`model_for_config` picks one by `config.model_name`, as the JAX trainer's
+`_model_for_config` (weasal_tpu/train/trainer.py:107-118) does.
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ from torch import nn
 
 from weasal_tpu_torch.models.blocks import (
     ElevationAttention, MultiPathAttention, NearestUpsampleBlock,
-    UnaryBlock, block_decider)
+    UnaryBlock, block_decider, dropout)
 from weasal_tpu_torch.ops.kpconv import global_average
 
 
@@ -75,20 +79,89 @@ def _split_channels(x, widths):
         off += w
 
 
-class KPFCNN_mprm(nn.Module):
-    """Weak-label multi-path network; forward(batch) returns
-    (logits [B, N_0, C], cla_logits [4 x [B, C]], cam [4 x [B, N_0, C]])
-    with the paths in the order (no, pa, sa, ca)."""
+def _check_labels(config, lbl_values, ign_lbls):
+    if getattr(config, "compute_dtype", "float32") != "float32":
+        raise NotImplementedError("only compute_dtype float32 is ported")
+    if len(lbl_values) - len(ign_lbls) != config.num_classes:
+        raise ValueError("label values minus ignored labels must give "
+                         "config.num_classes classes")
+
+
+class KPFCNN(nn.Module):
+    """Pseudo-label segmentation network; forward(batch) returns the
+    logits [B, N_0, C].
+
+    In training mode dropout (`config.dropout`) acts before the head; its
+    mask comes from `dropout_keep` (a bool tensor of the head's input
+    shape) or is drawn from `dropout_seed` (models/blocks.dropout). As in
+    the JAX package, `head_softmax` ends in a leaky ReLU."""
+    mode = "pseudo"
 
     def __init__(self, config, lbl_values: Sequence[int],
                  ign_lbls: Sequence[int],
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if getattr(config, "compute_dtype", "float32") != "float32":
-            raise NotImplementedError("only compute_dtype float32 is ported")
-        if len(lbl_values) - len(ign_lbls) != config.num_classes:
-            raise ValueError("label values minus ignored labels must give "
-                             "config.num_classes classes")
+        _check_labels(config, lbl_values, ign_lbls)
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        self.lbl_values = tuple(lbl_values)
+        self.ign_lbls = tuple(ign_lbls)
+        num_classes = len(lbl_values) - len(ign_lbls)
+        enc, skips, skip_dims, _in, out_dim, layer, r = _encoder_plan(config)
+        self.encoder_skips = tuple(skips)
+        self.encoder_blocks = nn.ModuleList([
+            block_decider(b, rr, di, do, li, config,
+                          (f"encoder_blocks_{i}",), generator)
+            for i, (b, rr, di, do, li) in enumerate(enc)])
+        dec, concats = _decoder_plan(config, skip_dims, layer, r, out_dim)
+        self.decoder_concats = tuple(concats)
+        self.decoder_blocks = nn.ModuleList([
+            block_decider(b, rr, di, do, li, config,
+                          (f"decoder_blocks_{i}",), generator)
+            for i, (b, rr, di, do, li) in enumerate(dec)])
+        head_in = dec[-1][3] if dec else out_dim
+        self.head_mlp = UnaryBlock(head_in, config.first_features_dim,
+                                   False, 0.0, generator)
+        self.head_softmax = UnaryBlock(config.first_features_dim,
+                                       num_classes, False, 0.0, generator)
+        self.dropout_rate = float(getattr(config, "dropout", 0) or 0)
+
+    def forward(self, batch, dropout_seed: Optional[torch.Tensor] = None,
+                dropout_keep: Optional[torch.Tensor] = None):
+        x = batch.features
+        mask0 = batch.masks[0]
+        skip_x = []
+        for block_i, block in enumerate(self.encoder_blocks):
+            if block_i in self.encoder_skips:
+                skip_x.append(x)
+            x = block(x, batch)
+        level = len(batch.points) - 1
+        for block_i, block in enumerate(self.decoder_blocks):
+            if block_i in self.decoder_concats:
+                x = torch.cat([x, skip_x.pop()], dim=-1)
+            if isinstance(block, UnaryBlock):
+                x = block(x, batch.masks[level])
+            else:
+                x = block(x, batch)
+                level -= 1
+        if self.training:
+            x = dropout(x, self.dropout_rate, seed=dropout_seed,
+                        keep=dropout_keep)
+        x = self.head_mlp(x, mask0)
+        return self.head_softmax(x, mask0)
+
+
+class KPFCNN_mprm(nn.Module):
+    """Weak-label multi-path network; forward(batch) returns
+    (logits [B, N_0, C], cla_logits [4 x [B, C]], cam [4 x [B, N_0, C]])
+    with the paths in the order (no, pa, sa, ca)."""
+    mode = "weak"
+
+    def __init__(self, config, lbl_values: Sequence[int],
+                 ign_lbls: Sequence[int],
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        _check_labels(config, lbl_values, ign_lbls)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.lbl_values = tuple(lbl_values)
@@ -138,3 +211,20 @@ class KPFCNN_mprm(nn.Module):
         no, pa, sa, ca = paths
         x = torch.maximum(torch.maximum(no, pa), torch.maximum(sa, ca))
         return x, cla_logits, paths
+
+
+def model_for_config(config, label_values: Sequence[int],
+                     ignored_labels: Sequence[int],
+                     generator: Optional[torch.Generator] = None
+                     ) -> nn.Module:
+    """The network of `config.model_name` ('KPFCNN_mprm', the default, or
+    'KPFCNN'); its `mode` attribute names the training stage ('weak' or
+    'pseudo')."""
+    name = getattr(config, "model_name", "KPFCNN_mprm")
+    classes = {"KPFCNN_mprm": KPFCNN_mprm, "KPFCNN": KPFCNN}
+    if name not in classes:
+        raise ValueError(f"Unsupported model: {name}")
+    return classes[name](config, tuple(int(v) for v in label_values),
+                         tuple(int(v) for v in ignored_labels),
+                         generator=generator)
+

@@ -25,12 +25,46 @@ from torch import nn
 
 from weasal_tpu_torch.kernels.kernel_points import load_kernels
 from weasal_tpu_torch.ops import kpconv as ops
+from weasal_tpu_torch.utils import prng
 
 LEAKY_SLOPE = 0.1
+# The threefry stream (utils/prng) of the dropout masks; the contrast
+# loss draws from another stream of the same step seed
+DROPOUT_STREAM = 0
 
 
 def leaky_relu(x):
     return torch.nn.functional.leaky_relu(x, negative_slope=LEAKY_SLOPE)
+
+
+def dropout_keep(shape, rate: float, seed: torch.Tensor) -> torch.Tensor:
+    """The keep mask of `dropout`: uniforms of the step's threefry bits
+    (utils/prng.uniform over the flattened shape, on the seed's device)
+    below 1 - rate, as flax's Dropout draws `bernoulli(1 - rate)`.
+
+    :param seed: a 0-d or 1-element integer tensor (values < 2^32); it
+        stays on the device, so a captured graph draws a new mask on each
+        replay of a new seed
+    """
+    n = math.prod(int(d) for d in shape)
+    u = prng.uniform(seed.reshape(1), n, DROPOUT_STREAM)
+    return (u < 1.0 - rate).reshape(shape)
+
+
+def dropout(x: torch.Tensor, rate: float, seed=None,
+            keep=None) -> torch.Tensor:
+    """Dropout in training mode, as flax.linen.Dropout: kept elements
+    divided by 1 - rate, the others 0. The mask is `keep` when given (a
+    bool tensor of x's shape), else `dropout_keep(x.shape, rate, seed)`;
+    never torch's global generator."""
+    if not rate:
+        return x
+    if keep is None:
+        if seed is None:
+            raise ValueError("dropout in training mode needs a seed tensor "
+                             "or a keep mask")
+        keep = dropout_keep(x.shape, rate, seed)
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 def _uniform(shape, bound: float, generator: torch.Generator):

@@ -1,21 +1,23 @@
-"""Vote a trained weak-label model over the training, validation or test
-clouds.
+"""Vote a trained weak-label or pseudo-label model over the training,
+validation or test clouds.
 
 Counterpart of the root test_models.py:33-100: picks the newest matching
 log (`last_<DS>` aliases over `results/<stage>/Log_*`) or an explicit
 one, reloads its parameters.txt and votes with `train/tester.ModelTester`
 (validation_size 200, as the JAX script sets it); `--on train` votes on
 the training clouds (the test split with `test_on_train`) and writes the
-predictions that pseudo-label refinement reads.
+predictions that pseudo-label refinement reads; a pseudo-label log
+(`last_Vaihingen3DPL`, results/PseudoLabel/) votes with its `KPFCNN`
+into test/PseudoLabel/, the workflow's last step (`--on test`).
 
     python -m weasal_tpu_torch.test_models [--log last_Vaihingen3DWL |
-        results/WeakLabel/Log_x] [--on train|validation|test]
+        last_Vaihingen3DPL | results/WeakLabel/Log_x]
+        [--on train|validation|test]
         [--data_root data/Vaihingen3D] [--num_votes N] [--chkp file]
         [--resume Log_dir] [--device cuda|cpu]
 
 Runs on CUDA unless `--device cpu` is given; where CUDA is absent it
-raises. Only the Vaihingen3D weak-label stage is ported: DALES and the
-pseudo-label logs raise.
+raises. Only Vaihingen3D is ported: DALES logs raise.
 """
 
 from __future__ import annotations
@@ -27,13 +29,15 @@ import sys
 import numpy as np
 
 from weasal_tpu_torch.config import Config
-from weasal_tpu_torch.data.datasets import Vaihingen3DWLDataset
+from weasal_tpu_torch.data.datasets import (Vaihingen3DPLDataset,
+                                            Vaihingen3DWLDataset)
 from weasal_tpu_torch.train.tester import ModelTester
 from weasal_tpu_torch.utils.device import resolve_device
 
 DEFAULT_VOTES = {"Vaihingen3DWL": 20, "Vaihingen3DPL": 20,
                  "DALESWL": 2, "DALESPL": 2}
-DATASETS = {"Vaihingen3DWL": Vaihingen3DWLDataset}
+DATASETS = {"Vaihingen3DWL": Vaihingen3DWLDataset,
+            "Vaihingen3DPL": Vaihingen3DPLDataset}
 
 
 def model_choice(chosen_log: str, results_root: str = "results") -> str:
@@ -92,8 +96,8 @@ def main(argv=None):
     config.dropout = 0
     if config.dataset not in DATASETS:
         raise NotImplementedError(
-            f"dataset {config.dataset!r}: only the Vaihingen3D weak-label "
-            "stage is ported")
+            f"dataset {config.dataset!r}: only the Vaihingen3D stages are "
+            "ported")
 
     split = args.on
     test_on_train = split == "train"
@@ -106,9 +110,11 @@ def main(argv=None):
                                        data_root=args.data_root)
     tester = ModelTester(config, dataset, chosen_chkp, device=device)
     tester.dataset = dataset
+    stage_dir = ("WeakLabel" if config.dataset.endswith("WL")
+                 else "PseudoLabel")
     tester.cloud_segmentation_test(dataset, num_votes,
                                    test_on_train=test_on_train,
-                                   stage_dir="WeakLabel",
+                                   stage_dir=stage_dir,
                                    resume=args.resume is not None)
     return tester
 

@@ -1,11 +1,15 @@
-"""SGD of the weak-label stage, reproducing the JAX package's optax chain.
+"""SGD of both training stages, reproducing the JAX package's optax chain.
 
-Counterpart of `make_optimizer` (weasal_tpu/train/trainer.py:88-105) in
-weak mode with the update of :358-361:
+Counterpart of `make_optimizer` (weasal_tpu/train/trainer.py:88-105) with
+the update of :358-361:
 
     g <- g * (max_norm / |g|) when the global norm |g| >= max_norm
-                              (optax.clip_by_global_norm: no epsilon, so
+                              (clip "norm", the weak-label stage's
+                              optax.clip_by_global_norm: no epsilon, so
                               not torch.nn.utils.clip_grad_norm_)
+      or g <- clamp(g, -max_norm, max_norm)
+                              (clip "value", the pseudo-label stage's
+                              optax.clip, elementwise)
     g <- g + weight_decay * p (optax.add_decayed_weights)
     t <- g + momentum * t     (optax.trace, from zeros)
     u <- -lr * t, p <- p + u  (the trainer's scaling and apply_updates,
@@ -40,9 +44,12 @@ def init_opt_state(model: nn.Module) -> Dict[str, torch.Tensor]:
     return {name: torch.zeros_like(p) for name, p in _named_params(model)}
 
 
+CLIP_MODES = ("norm", "value")
+
+
 @torch.no_grad()
 def sgd_step(model: nn.Module, opt_state: Dict[str, torch.Tensor], config,
-             lr: Union[float, torch.Tensor]) -> None:
+             lr: Union[float, torch.Tensor], clip: str = "norm") -> None:
     """Apply one update from the parameters' `.grad` (a missing gradient
     counts as zero, and `.grad` is left as it was); updates the parameters
     and `opt_state` in place. Multi-tensor (`torch._foreach_*`) ops: a
@@ -50,7 +57,10 @@ def sgd_step(model: nn.Module, opt_state: Dict[str, torch.Tensor], config,
 
     `lr` is a float or a 0-d f32 tensor on the parameters' device; a CUDA
     graph captures the tensor's address, so the trainer's per-epoch decay
-    (`lr_t.fill_`) reaches every later replay."""
+    (`lr_t.fill_`) reaches every later replay. `clip` is "norm" or
+    "value" (see the module docstring)."""
+    if clip not in CLIP_MODES:
+        raise ValueError(f"clip must be one of {CLIP_MODES}, not {clip!r}")
     named = _named_params(model)
     if set(opt_state) != {name for name, _ in named}:
         raise ValueError("opt_state does not hold one buffer per parameter")
@@ -59,7 +69,10 @@ def sgd_step(model: nn.Module, opt_state: Dict[str, torch.Tensor], config,
              for p in params]
     traces = [opt_state[name] for name, _ in named]
     max_norm = float(config.grad_clip_norm)
-    if max_norm > 0:
+    if max_norm > 0 and clip == "value":
+        grads = torch._foreach_clamp_max(
+            torch._foreach_clamp_min(grads, -max_norm), max_norm)
+    elif max_norm > 0:
         norm = torch.linalg.vector_norm(
             torch.stack(torch._foreach_norm(grads)))
         scale = torch.where(norm < max_norm, torch.ones_like(norm),

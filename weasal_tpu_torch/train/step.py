@@ -1,13 +1,20 @@
-"""Weak-label training step: one batch in, one SGD update out.
+"""Training step of both stages: one batch in, one SGD update out.
 
-Counterpart of the weak-mode branch of `step_core`
-(weasal_tpu/train/trainer.py:257-365) on the fused path: a resident batch
-(`flat_inds`, data/resident.py) is first assembled into level-0 arrays on
-the device, as :259-267 do; a level-0 batch goes on as it is. The pyramid
-is built on the device, `KPFCNN_mprm` runs in training mode (BatchNorm on
-batch statistics, running statistics updated), the loss is
-`region_mprm_loss` (or `class_logits_loss`, by `config.loss_type`), the
-backward runs kernels C and D, and `sgd_step` applies the update.
+Counterpart of `step_core` (weasal_tpu/train/trainer.py:257-365) on the
+fused path: a resident batch (`flat_inds`, data/resident.py) is first
+assembled into level-0 arrays on the device, as :259-267 do; a level-0
+batch goes on as it is. The pyramid is built on the device, the model
+runs in training mode (BatchNorm on batch statistics, running statistics
+updated), the backward runs kernels C and D, and `sgd_step` applies the
+update. The stage follows the model's `mode`:
+- 'weak' (`KPFCNN_mprm`): `region_mprm_loss` (or `class_logits_loss`,
+  by `config.loss_type`), the gradients clipped by their global norm;
+- 'pseudo' (`KPFCNN`, :317-343): the weighted cross-entropy on the
+  pseudo labels through the label table (raw 10 -> ignored), plus
+  `contrast_loss` when `use_contrast` is set (from the epoch
+  `contrast_start` on), the gradients clipped by value. Dropout and the
+  contrast draw take the step's seed tensor (`step_seed` in a pack),
+  which never leaves the device.
 
 `step_body` is the step on fixed-shape inputs with its results written
 into preallocated tensors: what the trainer runs eagerly or captures in a
@@ -40,23 +47,70 @@ def label_table(model, device) -> torch.Tensor:
         device=device)
 
 
+def seed_tensor(seed, device) -> torch.Tensor:
+    """A step seed (an int or a tensor) as a 0-d int64 tensor on
+    `device`."""
+    return torch.as_tensor(seed, dtype=torch.int64).reshape(()).to(device)
+
+
+def pseudo_loss(logits, batch, config, class_w, table, use_contrast: bool,
+                seed: Optional[torch.Tensor] = None,
+                slc_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The pseudo-label stage's loss of `step_core` (trainer.py:328-343):
+    cross-entropy on the targets through `table`, plus, with
+    `use_contrast`, the contrast loss on the flattened logits (labels
+    below 0 as num_classes + 1, the level-0 mask as valid, threshold
+    `contrast_thd` / 100)."""
+    targets = losses.label_targets(batch.labels, table)
+    loss = losses.softmax_cross_entropy(logits, targets, class_w)
+    if use_contrast:
+        c = logits.shape[-1]
+        raw = batch.labels.reshape(-1)
+        flat_labels = torch.where(raw >= 0, raw,
+                                  torch.full_like(raw, config.num_classes
+                                                  + 1))
+        loss = loss + losses.contrast_loss(
+            logits.reshape(-1, c), flat_labels, batch.masks[0].reshape(-1),
+            config.num_classes,
+            float(getattr(config, "contrast_thd", 20)) / 100.0,
+            seed=seed, slc_idx=slc_idx)
+    return loss
+
+
 def step_on_batch(model, opt_state: Dict[str, torch.Tensor], batch, config,
                   lr: float, class_w: Optional[torch.Tensor] = None,
-                  table: Optional[torch.Tensor] = None
+                  table: Optional[torch.Tensor] = None,
+                  seed: Optional[torch.Tensor] = None,
+                  use_contrast: bool = False,
+                  dropout_keep: Optional[torch.Tensor] = None,
+                  slc_idx: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One update of `model` on a PyramidBatch; returns (loss, accuracy) as
     0-d tensors. The parameters' `.grad` keep this step's gradients.
     `class_w` and `table` (from `class_weights` and `label_table`) are
-    made here when the caller does not pass them."""
+    made here when the caller does not pass them. A 'pseudo' model takes
+    the step's `seed` (a 0-d integer tensor on the device; default 0),
+    `use_contrast`, and, to replay given draws, the dropout mask
+    `dropout_keep` and the contrast loss's `slc_idx`."""
     model.train()
     model.zero_grad(set_to_none=True)
-    logits, cla_logits, cam = model(batch)
+    mode = getattr(model, "mode", "weak")
+    if mode == "pseudo":
+        dev = batch.features.device
+        seed = (torch.zeros((), dtype=torch.int64, device=dev)
+                if seed is None else seed_tensor(seed, dev))
+        logits = model(batch, dropout_seed=seed, dropout_keep=dropout_keep)
+    else:
+        logits, cla_logits, cam = model(batch)
     if class_w is None:
         class_w = class_weights(config, logits.device)
     if table is None:
         table = label_table(model, logits.device)
     loss_type = config.loss_type
-    if loss_type == "region_mprm_loss":
+    if mode == "pseudo":
+        loss = pseudo_loss(logits, batch, config, class_w, table,
+                           use_contrast, seed=seed, slc_idx=slc_idx)
+    elif loss_type == "region_mprm_loss":
         loss = losses.region_mprm_loss(
             cam, batch.region_inds, batch.region_masks,
             batch.region_point_masks, batch.region_lb, class_w,
@@ -69,7 +123,10 @@ def step_on_batch(model, opt_state: Dict[str, torch.Tensor], batch, config,
                           losses.label_targets(batch.labels, table),
                           batch.masks[0])
     loss.backward()
-    sgd_step(model, opt_state, config, lr)
+    # the weak-label stage clips by global norm, the pseudo-label stage by
+    # value (the JAX trainer's choice, trainer.py:182)
+    sgd_step(model, opt_state, config, lr,
+             clip="norm" if mode == "weak" else "value")
     return loss.detach(), acc
 
 
@@ -86,7 +143,8 @@ def step_outputs(plan, device, steps: int = 0) -> Dict[str, torch.Tensor]:
 def step_body(model, opt_state: Dict[str, torch.Tensor], inputs: Mapping,
               config, plan, lr: Union[float, torch.Tensor],
               out: Dict[str, torch.Tensor], class_w: Optional[torch.Tensor],
-              table: torch.Tensor, spec=None) -> None:
+              table: torch.Tensor, spec=None,
+              use_contrast: bool = False) -> None:
     """One training step on fixed-shape tensors, with no read back to the
     host: the counterpart of one iteration of the JAX trainer's step scan.
 
@@ -98,6 +156,9 @@ def step_body(model, opt_state: Dict[str, torch.Tensor], inputs: Mapping,
         place: loss and accuracy in "stats", the drop vector (all zero:
         the port's kernels drop nothing) in "drops"
     :param class_w, table: from `class_weights` and `label_table`
+    :param use_contrast: a 'pseudo' step adds the contrast loss; its
+        draws and the dropout mask take the seed `inputs["step_seed"]`
+        (0-d; 0 when absent)
     """
     device = out["stats"].device
     with torch.no_grad():
@@ -110,7 +171,9 @@ def step_body(model, opt_state: Dict[str, torch.Tensor], inputs: Mapping,
             region_point_masks=t.get("region_point_masks"),
             region_lb=t.get("region_lb"))
     loss, acc = step_on_batch(model, opt_state, batch, config, lr,
-                              class_w=class_w, table=table)
+                              class_w=class_w, table=table,
+                              seed=inputs.get("step_seed"),
+                              use_contrast=use_contrast)
     with torch.no_grad():
         out["stats"][0].copy_(loss)
         out["stats"][1].copy_(acc)
@@ -120,11 +183,13 @@ def step_body(model, opt_state: Dict[str, torch.Tensor], inputs: Mapping,
 def train_step(model, opt_state: Dict[str, torch.Tensor], arrays: Mapping,
                config, plan, lr: float, device=None,
                class_w: Optional[torch.Tensor] = None,
-               table: Optional[torch.Tensor] = None, spec=None
+               table: Optional[torch.Tensor] = None, spec=None,
+               seed=0, use_contrast: bool = False
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One weak-label training step on a level-0 or a resident batch.
+    """One training step on a level-0 or a resident batch.
 
-    :param model: a KPFCNN_mprm whose parameters lie on `device`
+    :param model: a KPFCNN_mprm (weak-label step) or a KPFCNN
+        (pseudo-label step) whose parameters lie on `device`
     :param opt_state: its momentum buffers (`init_opt_state`), updated in
         place like the parameters and the BatchNorm running statistics
     :param arrays: assemble_level0 output (numpy arrays or tensors), or a
@@ -136,6 +201,9 @@ def train_step(model, opt_state: Dict[str, torch.Tensor], arrays: Mapping,
         `label_table`); made per call when left out
     :param spec: the resident feature recipe (data/resident.feature_spec);
         needed with a resident batch
+    :param seed, use_contrast: a pseudo-label step's seed (int or tensor)
+        of its dropout mask and contrast draw, and whether it adds the
+        contrast loss
     :return: (loss, accuracy, drops) as tensors on `device`; drops is the
         [(2L-1) + (3L-2)] dropped-neighbor vector of the JAX step, all
         zero because the port's kernels drop nothing
@@ -151,6 +219,7 @@ def train_step(model, opt_state: Dict[str, torch.Tensor], arrays: Mapping,
     if table is None:
         table = label_table(model, device)
     out = step_outputs(plan, device)
-    step_body(model, opt_state, arrays, config, plan, lr, out, class_w,
-              table, spec=spec)
+    inputs = dict(arrays, step_seed=seed_tensor(seed, device))
+    step_body(model, opt_state, inputs, config, plan, lr, out, class_w,
+              table, spec=spec, use_contrast=use_contrast)
     return out["stats"][0], out["stats"][1], out["drops"]

@@ -1,18 +1,23 @@
-"""Voting inference and the weak-label active-learning acquisition.
+"""Voting inference and the active-learning acquisitions of both stages.
 
-Counterpart of `ModelTester` in weasal_tpu/train/tester.py:37-498 in
-weak mode ('weak' = KPFCNN_mprm) on one device, after the reference's
-ModelTesterWL (utils/tester_WeakLabel.py): spheres are drawn by minimum
+Counterpart of `ModelTester` in weasal_tpu/train/tester.py:37-534 on one
+device, in weak mode ('weak' = KPFCNN_mprm) and pseudo mode ('pseudo' =
+KPFCNN), after the reference's ModelTesterWL
+(utils/tester_WeakLabel.py): spheres are drawn by minimum
 potential (rng `default_rng(11)`, augmented, as the reference's test
 loaders augment) until every point has been voted on `num_votes` times;
 each sphere's softmax probabilities are smoothed into full-cloud buffers
 (factor 0.95), only at points whose augmented coordinates lie within
 0.7 * in_radius of the sphere's center; the final probabilities are
 projected onto the split's points and written as prediction, probability
-and potential plys plus pickles, or, in an active-learning pass, rank the
-unused anchors of every training cloud and extend its anchor ledger
-(`<cloud>_subsampled_anchors.pkl`) by `added_labels_per_epoch`, by
-entropy x class rarity or, with `al_acquisition = "random"`, at random.
+and potential plys plus pickles, or, in an active-learning pass, extend
+every training cloud's ledger by `added_labels_per_epoch`: in weak mode
+the unused anchors of its anchor ledger
+(`<cloud>_subsampled_anchors.pkl`) ranked by entropy x class rarity, in
+pseudo mode the unused points of its ground-truth ledger
+(`<cloud>_al_groundTruth_IDs.pkl`, `_extend_gt_ledger`, :500-534)
+ranked by entropy x exp(class weight of the predicted class); with
+`al_acquisition = "random"` either at random.
 
 The checkpoint is the port's own `torch.save` file
 (train/trainer.ModelTrainer.save_checkpoint). On a CUDA device with the
@@ -24,9 +29,8 @@ votes are smoothed on the host, as the JAX package's host branch does.
 A vote checkpoint (`vote_chkp_<split>.pkl`) at every vote boundary lets
 `resume=True` continue an interrupted pass; a stall watchdog guards the
 loop on the card. Not ported: the confusion plot (`conf_matrix.plot`,
-:432; matplotlib), whose counts are written as text instead; the 'pseudo'
-mode and its ground-truth ledger (`_extend_gt_ledger`, :500), which need
-`KPFCNN` (the PL stage); data-parallel voting.
+:432; matplotlib), whose counts are written as text instead;
+data-parallel voting.
 """
 
 from __future__ import annotations
@@ -44,7 +48,7 @@ from weasal_tpu_torch.data.level0 import Level0BatchSource
 from weasal_tpu_torch.data.loader import BatchPrefetcher
 from weasal_tpu_torch.data.resident import ResidentBatchSource, feature_spec
 from weasal_tpu_torch.infer import eval_body
-from weasal_tpu_torch.models.architectures import KPFCNN_mprm
+from weasal_tpu_torch.models.architectures import model_for_config
 from weasal_tpu_torch.train.graphs import EvalGraph
 from weasal_tpu_torch.train.trainer import resolve_resident
 from weasal_tpu_torch.train.vote import DeviceVoteAccumulator
@@ -58,13 +62,14 @@ TEST_RADIUS_RATIO = 0.7
 
 
 class ModelTester:
-    """Votes a trained weak-label model over a dataset's clouds.
+    """Votes a trained model over a dataset's clouds.
 
     :param config: the trained model's configuration
     :param dataset: the split to vote on (its shape plan is the
         training's: calibration reads the same cache)
     :param chkp_path: a `ModelTrainer` checkpoint
-    :param mode: 'weak' (default for KPFCNN_mprm); 'pseudo' raises
+    :param mode: 'weak' or 'pseudo' (default: the stage of the model that
+        `config.model_name` builds; another raises)
     :param device: default ``cuda``; raises where CUDA is absent
 
     On a CUDA device with the resident input each vote batch replays a
@@ -73,20 +78,16 @@ class ModelTester:
 
     def __init__(self, config, dataset, chkp_path: str,
                  mode: Optional[str] = None, device=None):
-        self.mode = mode or ("weak" if getattr(
-            config, "model_name", "KPFCNN_mprm") == "KPFCNN_mprm"
-            else "pseudo")
-        if self.mode != "weak":
-            raise NotImplementedError(
-                f"tester mode {self.mode!r}: only 'weak' (KPFCNN_mprm) is "
-                "ported; the 'pseudo' mode comes with the PL stage")
         self.device = resolve_device(device)
         configure_precision()
         self.config = config
-        self.model = KPFCNN_mprm(
-            config, tuple(int(v) for v in dataset.label_values),
-            tuple(int(v) for v in dataset.ignored_labels),
+        self.model = model_for_config(
+            config, dataset.label_values, dataset.ignored_labels,
             generator=torch.Generator().manual_seed(0)).to(self.device)
+        self.mode = mode or self.model.mode
+        if self.model.mode != self.mode:
+            raise ValueError(f"mode {self.mode!r} does not vote with a "
+                             f"{type(self.model).__name__}")
         self.plan = dataset.calibration()
         payload = torch.load(chkp_path, map_location=self.device,
                              weights_only=True)
@@ -297,8 +298,10 @@ class ModelTester:
                     pickle.dump(all_probs, f)
                 self._save_clouds(dataset, proj_probs, test_path,
                                   test_on_train)
-        else:
+        elif self.mode == "weak":
             self._extend_anchor_ledger(dataset, all_probs, all_pseudo_lbs)
+        else:
+            self._extend_gt_ledger(dataset, all_probs)
 
     # ------------------------------------------------------------------
 
@@ -420,3 +423,37 @@ class ModelTester:
                 pickle.dump(anchor_inds_sub, f)
             print(f"{cloud_name}: anchor ledger -> "
                   f"{len(anchor_inds_sub)} anchors")
+
+    def _extend_gt_ledger(self, dataset, all_probs):
+        """Add `added_labels_per_epoch` points per training file to its
+        ground-truth ledger, ranked by entropy x exp(class weight of the
+        predicted class) (the reference policy) or, with `al_acquisition`
+        "random", in a permutation seeded by (ledger size, file, 913)."""
+        config = self.config
+        random_arm = getattr(config, "al_acquisition",
+                             "entropy") == "random"
+        for i, cloud_name in enumerate(dataset.cloud_names_split):
+            probs = all_probs[cloud_name + ".ply"]
+            gt_file = dataset.gt_ledger_file(cloud_name)
+            with open(gt_file, "rb") as f:
+                gt_ids = np.asarray(pickle.load(f), dtype=np.int64)
+            used = np.zeros(probs.shape[0], bool)
+            used[gt_ids.ravel()] = True
+            if random_arm:
+                r = np.random.default_rng([int(used.sum()), i, 913])
+                sort_ids = r.permutation(probs.shape[0])
+            else:
+                entropy = -np.sum(probs * np.log2(probs + 1e-12), axis=1)
+                class_w = np.asarray(config.class_w, np.float64)
+                combined = entropy * np.exp(class_w[np.argmax(probs,
+                                                              axis=1)])
+                sort_ids = np.argsort(-combined)
+            sort_ids = sort_ids[~used[sort_ids]]
+            n_add = config.added_labels_per_epoch
+            if len(sort_ids) < n_add:
+                raise ValueError(
+                    "Not enough point labels left for the next iteration")
+            gt_ids = np.append(gt_ids, sort_ids[:n_add]).astype(np.int64)
+            with open(gt_file, "wb") as f:
+                pickle.dump(gt_ids, f)
+            print(f"{cloud_name}: GT ledger -> {len(gt_ids)} points")

@@ -1,8 +1,9 @@
-"""Weak-label training loop: sampling, steps, logs, checkpoints and
+"""Training loop of both stages: sampling, steps, logs, checkpoints and
 per-epoch validation.
 
 Counterpart of `ModelTrainer` in weasal_tpu/train/trainer.py on its fused
-path (the pyramid built on the device), weak mode, one device:
+path (the pyramid built on the device), one device, in weak mode
+(`KPFCNN_mprm`) or pseudo mode (`KPFCNN`, by `config.model_name`):
 `__init__` (:121-233), `save_checkpoint` and `load_checkpoint`
 (:535-577), `train` (:582-957), `_resolve_steps_per_dispatch`
 (:980-998), `_flush_log` (:1000-1024) and `cloud_segmentation_validation`
@@ -29,11 +30,21 @@ metas, and validation keeps its argmax and labels on the device and
 fetches them once. The port's kernels drop no neighbor, so the drop
 vector of each step is zero; each epoch sums it and a non-zero sum
 raises, where the JAX package would widen its band windows.
+
+In pseudo mode the gradients are clipped by value, no batch is skipped,
+the log header counts the ground-truth ledger's points, and each step
+takes a seed for its dropout mask and contrast draw from a host stream
+of its own per active-learning iteration (the counterpart of the JAX
+trainer's `PRNGKey(al_iteration)`, :586), shipped in the pack as
+`step_seed`; from the epoch `contrast_start` on the steps add the
+contrast loss, a graph of its own per bucket (JAX compiles
+`use_contrast` as a static argument).
 """
 
 from __future__ import annotations
 
 import os
+import pickle
 import time
 from os.path import exists, join
 from typing import Dict, List, Optional
@@ -45,7 +56,7 @@ from weasal_tpu_torch.data.level0 import Level0BatchSource
 from weasal_tpu_torch.data.loader import BatchPrefetcher
 from weasal_tpu_torch.data.resident import ResidentBatchSource, feature_spec
 from weasal_tpu_torch.infer import eval_body
-from weasal_tpu_torch.models.architectures import KPFCNN_mprm
+from weasal_tpu_torch.models.architectures import model_for_config
 from weasal_tpu_torch.train.graphs import EvalGraph, StepGraph
 from weasal_tpu_torch.train.optim import init_opt_state
 from weasal_tpu_torch.train.step import (class_weights, label_table,
@@ -66,6 +77,8 @@ AUTO_STEPS_PER_DISPATCH = 1
 FLUSH_STEPS = 20
 # The WEASAL_TRACE_DIR profiler window: steps of epoch 0
 TRACE_START, TRACE_STEPS = 20, 60
+# Entropy of the pseudo-label steps' seed stream, beside the AL iteration
+SEED_STREAM = 0x5EED
 
 
 def resolve_resident(value, device: torch.device) -> bool:
@@ -85,7 +98,7 @@ def _has_regions(metas) -> bool:
 
 
 class ModelTrainer:
-    """Drives the weak-label training of one active-learning iteration.
+    """Drives the training of one active-learning iteration.
 
     :param dataset: the training dataset (labels and shape plan)
     :param chkp_path: checkpoint to restore (None = fresh)
@@ -96,12 +109,14 @@ class ModelTrainer:
     :param graphs: on a CUDA device with the resident input, replay
         captured CUDA graphs (default); False runs the same steps eagerly
         (the reference the graphs are held to)
+    :param stage_dir: the results subdirectory of a new log (WeakLabel |
+        PseudoLabel)
     """
 
     def __init__(self, config, dataset, chkp_path: Optional[str] = None,
                  finetune: bool = False, device=None,
                  generator: Optional[torch.Generator] = None,
-                 graphs: bool = True):
+                 graphs: bool = True, stage_dir: str = "WeakLabel"):
         self.device = resolve_device(device)
         configure_precision()
         self.config = config
@@ -109,10 +124,11 @@ class ModelTrainer:
         self.step = 0
         if generator is None:
             generator = torch.Generator().manual_seed(0)
-        self.model = KPFCNN_mprm(
-            config, tuple(int(v) for v in dataset.label_values),
-            tuple(int(v) for v in dataset.ignored_labels),
+        self.model = model_for_config(
+            config, dataset.label_values, dataset.ignored_labels,
             generator=generator).to(self.device)
+        # The model owns the stage: 'weak' or 'pseudo'
+        self.mode = self.model.mode
         self.opt_state = init_opt_state(self.model)
         self.table = label_table(self.model, self.device)
         self.class_w = class_weights(config, self.device)
@@ -152,7 +168,8 @@ class ModelTrainer:
         if config.saving:
             if config.saving_path is None:
                 config.saving_path = time.strftime(
-                    "results/WeakLabel/Log_%Y-%m-%d_%H-%M-%S", time.gmtime())
+                    f"results/{stage_dir}/Log_%Y-%m-%d_%H-%M-%S",
+                    time.gmtime())
             os.makedirs(config.saving_path, exist_ok=True)
             config.save()
         # Per epoch: host-clock seconds (ending in the last flush's
@@ -237,9 +254,11 @@ class ModelTrainer:
                 + list(self.opt_state.values()))
 
     def _step_graph(self, tag: str, steps: int, pack, extra) -> StepGraph:
-        """The runner of `steps` steps of bucket `tag`, made on first use
-        (its graph is captured at its first run)."""
-        key = (tag, steps)
+        """The runner of `steps` steps of bucket `tag` (with the contrast
+        loss when the epoch's steps add it), made on first use (its graph
+        is captured at its first run)."""
+        contrast = self._use_contrast
+        key = (tag, steps, contrast)
         graph = self._step_graphs.get(key)
         if graph is None:
             plan = self.plan_small if tag == "small" else self.plan
@@ -248,9 +267,11 @@ class ModelTrainer:
             def body(inputs, out):
                 step_body(self.model, self.opt_state, inputs, config, plan,
                           self.lr_t, out, self.class_w, self.table,
-                          spec=spec)
+                          spec=spec, use_contrast=contrast)
 
-            graph = StepGraph(f"{tag} training step x{steps}", body, pack,
+            name = f"{tag} training step x{steps}" + (
+                " with the contrast loss" if contrast else "")
+            graph = StepGraph(name, body, pack,
                               steps, self.device,
                               step_outputs(plan, self.device, steps=steps),
                               self._state_tensors, extra=extra,
@@ -263,6 +284,12 @@ class ModelTrainer:
         runner, a tail of n < K steps as n runs of the one-step runner.
         Each step's (loss, accuracy) goes to the log ring, its drops to
         the epoch's sum; returns the ring rows written."""
+        if self.mode == "pseudo":
+            # one seed a step, in step order: K steps a replay draw what
+            # K single steps draw
+            pack = dict(pack, step_seed=torch.from_numpy(
+                self._seeds.integers(0, 2 ** 32, size=n_real,
+                                     dtype=np.int64)))
         if n_real == K:
             graph = self._step_graph(tag, K, pack, extra)
             graph.load(pack)
@@ -296,8 +323,8 @@ class ModelTrainer:
             train_replayed_steps=sum(g.replays * g.steps for g in steps),
             eval_warmups=sum(g.warmup_steps for g in evals),
             eval_replays=sum(g.replays for g in evals),
-            train_runs_by={f"{tag} x{k}": g.runs
-                           for (tag, k), g in self._step_graphs.items()})
+            train_runs_by={f"{tag} x{k}" + (" contrast" if c else ""): g.runs
+                           for (tag, k, c), g in self._step_graphs.items()})
 
     def validation_parts(self):
         """(batch source, runner, vote accumulator) of the last validation
@@ -317,6 +344,8 @@ class ModelTrainer:
         config = self.config
         self.al_iteration = al_iteration
         rng = np.random.default_rng(42 + al_iteration)
+        self._seeds = np.random.default_rng([SEED_STREAM, al_iteration])
+        self._use_contrast = False
 
         if config.saving:
             log_file = join(config.saving_path,
@@ -364,8 +393,8 @@ class ModelTrainer:
         trace_dir = os.environ.get("WEASAL_TRACE_DIR")
         trace = None
         trace_done = not trace_dir
-        self._watchdog = StallWatchdog.from_config(config, "train[weak]",
-                                                   self.device)
+        self._watchdog = StallWatchdog.from_config(
+            config, f"train[{self.mode}]", self.device)
 
         def keep(metas) -> bool:
             if _has_regions(metas):
@@ -373,6 +402,8 @@ class ModelTrainer:
             # A streak of batches without regions is progress too
             self._watchdog.beat()
             return False
+        # Only the weak-label stage skips batches (trainer.py:720)
+        keep_fn = keep if self.mode == "weak" else None
         try:
             t0 = time.time()
             last_display = time.time()
@@ -384,9 +415,12 @@ class ModelTrainer:
                 epoch_points = 0
                 buckets: Dict[str, int] = {}
                 stamps: List[float] = []
+                self._use_contrast = (
+                    self.mode == "pseudo" and self.epoch >= getattr(
+                        config, "contrast_start", 1 << 30))
                 prefetcher = BatchPrefetcher(source, config.epoch_steps,
                                              self.device, rng=rng, pack=K,
-                                             keep_fn=keep)
+                                             keep_fn=keep_fn)
                 epoch_t0 = time.perf_counter()
                 batch_iter = iter(prefetcher)
                 while True:
@@ -570,6 +604,15 @@ class ModelTrainer:
 
     def _log_header(self, train_dataset, al_iteration) -> str:
         cfg = self.config
+        if self.mode == "pseudo":
+            gt_count = 0
+            for cloud_name in train_dataset.cloud_names_split:
+                gt_file = train_dataset.gt_ledger_file(cloud_name)
+                if exists(gt_file):
+                    with open(gt_file, "rb") as f:
+                        gt_count += len(pickle.load(f))
+            return ("epochs steps out_loss offset_loss train_accuracy time "
+                    f"\tground truth labels: {gt_count}\n")
         n_files = len(train_dataset.cloud_names_split)
         init = (getattr(cfg, "initial_labels_per_file", 0) * n_files
                 + al_iteration * getattr(cfg, "added_labels_per_epoch", 0)
