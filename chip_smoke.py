@@ -39,7 +39,9 @@ Phases, in order; any failure exits non-zero:
    step with the kernels, one on the plain versions and one replay of
    the kernel step captured in a CUDA graph (train/graphs.StepGraph),
    each f32 step held to an f64 step, from the seeded initial state and
-   one shared pyramid (loss, every gradient, the updated state), with a
+   one shared pyramid (loss, every gradient, the updated state; the f64
+   and plain steps take the kernel step's leaky-ReLU signs and max-pool
+   winners, so that a tie within f32 rounding turns no branch), with a
    witness of the kernel step's largest share (the plain step with its
    sums in the kernels' order and in seeded random orders, and kernel
    B's forward before the plain backward, each read on that tensor); the
@@ -124,7 +126,24 @@ Phases, in order; any failure exits non-zero:
    the contrast loss and of the dropout mask; one acquisition (a vote of
    2, every step and vote batch replayed, the ground-truth ledger grown
    by `added_labels_per_epoch` points that iteration 1 trains on); and
-   `test_models --on test` on the PL log (plys, launches, finite votes).
+   `test_models --on test` on the PL log (plys, launches, finite votes);
+10. the DALES workflow (`run_dales`) on a synthetic DALES-like root of 3
+   training and validation tiles and 2 test tiles, each 500 m a side (a
+   real DALES tile's extent, ~1.8 M points a tile after the 0.4 m
+   subsampling), without color: the graphed WL loop at full
+   DALESWLConfig width (128 features; `train_DALES_WeakLabel.run`, as
+   phase 6 runs Vaihingen3D's: 2 epochs, the repeat, bit-equal, and a
+   resume), a profiled epoch, A-D, the lists and the sums against their
+   plain versions at its shapes with each conv's GEMM shape logged, the
+   GEMM core's drift at its deepest conv (1024 -> 512, depth 15360), and
+   its kernel step, eager and replayed, against an f64 step on 3 builds
+   of one pyramid (`check_stage_shapes`); `test_models --on train` (1
+   vote, every training tile), the refinement at its DALES default of
+   10 %, the graphed PL loop at DALESPLConfig (`train_DALES_PseudoLabel.run`,
+   on labels written from the ground truth, with the refinement's class
+   weights) with the same checks, and `test_models --on test` (1 vote,
+   every test tile): launches, plys per tile, finite votes, ms per vote
+   batch and voted points/s, host set-up seconds and peak memory.
 Phases 3 and 5 end with a profile of one step, by kernel family. Checks
 of agreement (each kernel against its plain version and against itself
 on a repeat, the GEMM core's drift, the forward and the training step
@@ -135,9 +154,10 @@ the line before it holds the kernels' numbers as JSON, each kernel's
 bound counting its GEMM operations at the 3xTF32 rate of the tensor
 cores and the rest at the f32 rate (`f32_bound_ms`: all at the f32
 rate), its launches on each main path (`launches_by_path`: inference,
-the training steps, the WL loop, WL active learning, the PL stage) and
-its sums at the PL loop's shapes (`pl_ms`, `pl_plain_ms`,
-`pl_bound_ms`). Imports nothing of JAX or weasal_tpu.
+the training steps, the WL loop, WL active learning, the PL stage, the
+DALES WL and PL paths) and its sums at the PL loop's and the DALES
+loops' shapes (`pl_ms`, `pl_plain_ms`, `pl_bound_ms`, and the same with
+`dales_wl_` and `dales_pl_`). Imports nothing of JAX or weasal_tpu.
 
 Kernels B and C run their three products (y @ W; g @ W^T and y^T @ g)
 through one GEMM core, weasal_tpu_torch/csrc/kpconv_common.cuh: wgmma
@@ -220,10 +240,18 @@ PROBS_ATOL = 1e-4
 # training steps before them added f32 atomics in another order on every
 # run, and from the states they ended in, the outcome of this check varied
 # from run to run, with an f32 FFMA GEMM in kernels B and C as much as
-# with the 3xTF32 one.
+# with the 3xTF32 one. The f64 and plain steps take the kernel step's
+# branches (its leaky ReLUs' signs and max pools' winners, `Branches`):
+# at DALES's shapes a branch within f32 rounding of a tie, taken the
+# other way by one of the steps, read several times the allowance, and
+# the plain step's own turns inflated it. A branch of the kernel step
+# that the f64 step's own values would turn must lie within TIE_RATIO
+# times the plain f32 step's largest deviation from the f64 step at that
+# call, so a fault that moves a value across a tie still fails.
 LOSS_RTOL = 1e-5
 F64_RATIO = 4.0
 F64_FLOOR = 1e-3
+TIE_RATIO = 4.0
 N_BATCHES = 3
 N_TRAIN_STEPS = 4
 SEED = 0
@@ -263,6 +291,22 @@ PL_ARGS = ("--weak_label_log", PL_LOG, "--epoch_steps", "10",
            "--validation_size", "5", "--seed", str(SEED),
            "--al_iterations", "0")
 PL_SLC = 1000
+# Phase 10: the DALES workflow on a synthetic DALES-like root of
+# DALES_TILES training and validation tiles (the lexically last one
+# validates) and DALES_TEST_TILES test tiles, each DALES_EXTENT m a side (a
+# real DALES tile's extent) at DALES_DENSITY points / m^2 (about 3.1 M raw
+# and 1.8 M subsampled points a tile), at full DALESWLConfig and
+# DALESPLConfig width. With 3 training tiles the phase took 295 s of the
+# script's 650 on an H100, much of it host set-up, votes and refinement
+# that grow with the tiles; 2 training tiles keep the script near half its
+# time limit
+DALES_TILES = 3
+DALES_TEST_TILES = 2
+DALES_EXTENT = 500.0
+DALES_DENSITY = 10.0
+DALES_LOG = "Log_phase10"
+DALES_ARGS = ("--epoch_steps", "10", "--validation_size", "5",
+              "--seed", str(SEED), "--al_iterations", "0")
 # Failed checks of agreement, reported at once and failing the run at its
 # end (see the module docstring); PREFIX names the shapes being checked
 FAILED: list = []
@@ -501,7 +545,7 @@ def stage_ms(fn, names, reps: int = 5) -> dict:
     """Mean device ms a call of fn() of each kernel whose name contains
     one of `names` (torch.profiler; None where the profiler kept none)."""
     fn()
-    rows, _ = profiled_kernels(fn, reps)
+    rows, *_ = profiled_kernels(fn, reps)
     return {key: (sum(t for name, _, t in rows if key in name) / reps
                   if any(key in name for name, _, _ in rows) else None)
             for key in names}
@@ -808,7 +852,7 @@ def device_split(fn, reps: int = 10) -> dict:
     """{kernel name: mean device ms a call} of fn() (torch.profiler over
     `reps` calls after a warm-up call; memsets are "Memset (Device)")."""
     fn()
-    rows, _ = profiled_kernels(fn, reps)
+    rows, *_ = profiled_kernels(fn, reps)
     return {name: ms / reps for name, _, ms in rows}
 
 
@@ -1160,6 +1204,117 @@ def witness_runs() -> dict:
     return runs
 
 
+class Branches:
+    """The branches that one step's forward takes: each leaky ReLU's sign
+    and each max pool's winners (ties share the gradient, as kernel D
+    shares it). Recorded in the kernel step's forward and replayed, call
+    by call, in the forwards of the steps it is held to, so that an
+    activation or a pooled pair that lies within f32 rounding of a tie
+    takes the same branch in every run: the f64 step is then the exact
+    step of the kernel step's branches, and the comparison holds the
+    kernels' arithmetic, not the turn of a tie (one turned kink or
+    winner moves its row's gradient by its own size, and BatchNorm
+    spreads that over the channel). A replay must make the recorded
+    number of calls. The plain step's replay keeps its inputs; the f64
+    step's counts the branches that its own values would take the other
+    way, each at its distance to the tie (|x| of a kink, the gap from a
+    pool's maximum to the kernel step's winner), and `beyond` those
+    farther than TIE_RATIO times the plain f32 step's largest deviation
+    from the f64 step at that call (the gap: twice that): a kernel fault
+    that moves an activation across zero or changes a winner by more
+    than f32 rounding then counts there instead of being absorbed."""
+
+    def __init__(self):
+        from weasal_tpu_torch.models import blocks
+        from weasal_tpu_torch.ops import kpconv as ops_mod
+        self.blocks, self.ops = blocks, ops_mod
+        self.max_pool = ops_mod.max_pool
+        self.recorded = {"kink": [], "pool": []}
+        self.calls = {"kink": 0, "pool": 0}
+        self.run, self.plain_inputs = None, {}
+        self.turned = dict(kink=0, pool=0, beyond=0, worst=0.0)
+
+    def _record_kink(self, x):
+        self.recorded["kink"].append(x > 0)
+        return torch.nn.functional.leaky_relu(
+            x, negative_slope=self.blocks.LEAKY_SLOPE)
+
+    def _record_pool(self, x, inds, inverse=None):
+        from weasal_tpu_torch.ops.cuda.kpconv_fwd import gather_neighbors
+        out = self.max_pool(x, inds, inverse)
+        with torch.no_grad():
+            won = (gather_neighbors(x, inds, 0.0) == out[:, :, None]).float()
+            self.recorded["pool"].append(won / won.sum(dim=2, keepdim=True))
+        return out
+
+    def _next(self, kind, x):
+        """The recorded branch of this call; in the plain replay, keeps x;
+        in the f64 replay, returns x's deviation from the plain step's."""
+        i = self.calls[kind]
+        if i >= len(self.recorded[kind]):
+            raise AssertionError(f"a replay makes more {kind} calls than "
+                                 f"the recorded {len(self.recorded[kind])}")
+        self.calls[kind] += 1
+        key, dev = (kind, i), None
+        if self.run == "plain":
+            self.plain_inputs[key] = x.detach().clone()
+        elif self.run == "f64":
+            plain = self.plain_inputs.pop(key)
+            dev = float((x.detach() - plain.double()).abs().max())
+        return self.recorded[kind][i], dev
+
+    def _count(self, kind, turned, dist, margin):
+        """Counts the f64 step's turned branches and those beyond
+        `margin`."""
+        dist = dist[turned]
+        self.turned[kind] += int(turned.sum())
+        if dist.numel():
+            far = float(dist.max())
+            self.turned["beyond"] += int((dist > margin).sum())
+            self.turned["worst"] = max(self.turned["worst"],
+                                       far / margin if margin > 0
+                                       else float("inf"))
+
+    def _replay_kink(self, x):
+        mask, dev = self._next("kink", x)
+        if dev is not None:
+            with torch.no_grad():
+                self._count("kink", mask != (x > 0), x.abs(),
+                            TIE_RATIO * dev)
+        return torch.where(mask, x, x * self.blocks.LEAKY_SLOPE)
+
+    def _replay_pool(self, x, inds, inverse=None):
+        from weasal_tpu_torch.ops.cuda.kpconv_fwd import gather_neighbors
+        share, dev = self._next("pool", x)
+        share = share.to(x.dtype)
+        pooled = gather_neighbors(x, inds, 0.0)
+        if dev is not None:
+            with torch.no_grad():
+                chosen = torch.where(share > 0, pooled,
+                                     torch.inf).amin(dim=2)
+                gap = pooled.amax(dim=2) - chosen
+                self._count("pool", gap > 0, gap, 2 * TIE_RATIO * dev)
+        return (pooled * share).sum(dim=2)
+
+    def recording(self):
+        return swapped([(self.blocks, "leaky_relu", self._record_kink),
+                        (self.ops, "max_pool", self._record_pool)])
+
+    @contextlib.contextmanager
+    def replaying(self, run=None):
+        """Replays the recorded branches; `run` 'plain' keeps the inputs
+        of each call, 'f64' (after 'plain') counts the turned branches."""
+        self.run, self.calls = run, {"kink": 0, "pool": 0}
+        with swapped([(self.blocks, "leaky_relu", self._replay_kink),
+                      (self.ops, "max_pool", self._replay_pool)]):
+            yield
+        made = {k: len(v) for k, v in self.recorded.items()}
+        if self.calls != made:
+            raise AssertionError(f"a replay made {self.calls} calls, the "
+                                 f"recorded step {made}")
+        self.run = None
+
+
 def compare_train_steps(model, opt_state, batch, config, log, plan=None,
                         label: str = "kernels", witness: bool = False,
                         held: bool = True, step_kw=None):
@@ -1172,8 +1327,9 @@ def compare_train_steps(model, opt_state, batch, config, log, plan=None,
     kernel step in the log; held=False reads the errors and fails no
     check; `step_kw` goes to every step (`step_on_batch`: a pseudo-label
     step's contrast flag, dropout mask and drawn points, the same in each
-    run). The model is left after the last f32 step. Returns the
-    errors."""
+    run). The steps held to each other take the kernel step's branches
+    (`Branches`); the graph replays the kernel step with its own. The
+    model is left after the last f32 step. Returns the errors."""
     import copy
     import dataclasses
     from weasal_tpu_torch.train.step import step_on_batch
@@ -1189,12 +1345,17 @@ def compare_train_steps(model, opt_state, batch, config, log, plan=None,
         cloud_lb=double(batch.cloud_lb), region_lb=double(batch.region_lb))
     model64 = copy.deepcopy(model).double()
     runs = {}
-    labels = [("f64", model64, f64, torch.float64),
-              ("kernels", model, batch, None), ("plain", model, batch, None)]
+    # the kernel step first: it records the branches the others replay;
+    # the plain step before the f64 one, which reads the plain step's
+    # deviation at each branch
+    labels = [("kernels", model, batch, None),
+              ("plain", model, batch, None),
+              ("f64", model64, f64, torch.float64)]
     if plan is not None:
         labels.append(("graph", model, batch, None))
     extra = witness_runs() if witness else {}
     labels += [(run, model, batch, None) for run in extra]
+    branches = Branches()
     for run, net, data, dtype in labels:
         net.load_state_dict({k: v.to(dtype or v.dtype)
                              if v.is_floating_point() else v
@@ -1205,6 +1366,10 @@ def compare_train_steps(model, opt_state, batch, config, log, plan=None,
                 stack.enter_context(plain_ops())
             if run in extra:
                 stack.enter_context(swapped(extra[run][1]))
+            if run == "kernels":
+                stack.enter_context(branches.recording())
+            elif run != "graph":
+                stack.enter_context(branches.replaying(run))
             if run == "graph":
                 loss = replayed_step(net, opt, data, config, plan, step_kw)
             else:
@@ -1219,7 +1384,13 @@ def compare_train_steps(model, opt_state, batch, config, log, plan=None,
     loss_k, loss_p = runs["kernels"][0], runs["plain"][0]
     check(abs(loss_k - loss_p) <= LOSS_RTOL * abs(loss_p),
            f"train step loss {loss_k} vs plain {loss_p}")
-    result = dict(loss=loss_k, loss_plain=loss_p, loss_f64=runs["f64"][0])
+    turned = dict(branches.turned)
+    check(turned["beyond"] == 0,
+          f"the f64 step turns {turned['beyond']} of the kernel step's "
+          f"branches by more than {TIE_RATIO} x the plain step's deviation "
+          f"(worst {turned['worst']:.3g} x)")
+    result = dict(loss=loss_k, loss_plain=loss_p, loss_f64=runs["f64"][0],
+                  turned=turned)
 
     def allowance(part, name):
         ref = runs["f64"][part][name]
@@ -1255,7 +1426,11 @@ def compare_train_steps(model, opt_state, batch, config, log, plan=None,
             f"f64 over gradients and state changes: {worst['rel']:.2e} "
             f"({who}), {worst['plain_rel']:.2e} plain; worst ratio "
             f"{worst['ratio']:.2f}, {worst['ratio_of']}; largest share of "
-            f"the allowed error {worst['share']:.3f}, {worst['share_of']}")
+            f"the allowed error {worst['share']:.3f}, {worst['share_of']}; "
+            f"the f64 step's own values turn {turned['kink']} kinks and "
+            f"{turned['pool']} pool winners of the kernel step's, "
+            f"{turned['beyond']} beyond their margin (the farthest at "
+            f"{turned['worst']:.3f} of it)")
         if who == "kernels":
             result.update(kernel_rel=worst.pop("rel"), **worst)
         else:
@@ -1341,6 +1516,8 @@ def run_training(config, plan, batches, dev, counted, expected, log):
 GEMM_FAMILIES = ("B GEMM y@W (3xTF32)", "C GEMM g@W^T (3xTF32)",
                  "C GEMM y^T@g (3xTF32)")
 SPLITK_SUM = "splitk_sum_kernel"
+# The host event that ties the profiler's clock to time.perf_counter()
+PROFILE_MARK = "chip_smoke: profile start"
 # Kernel families of a step's device time: (label, substrings of the
 # kernel name); the first match wins, anything else is "other". The
 # GEMM core comes before the generic "gemm" match.
@@ -1382,15 +1559,20 @@ def kernel_families(rows):
                   key=lambda r: -r[2])
 
 
-def profiled_kernels(fn, reps: int = 1):
-    """([(kernel name, launches, device ms)] largest first, wall ms) of
-    `reps` calls of fn() under torch.profiler. A split-K sum launch is
-    named after the GEMM core's tile kernel that ran before it."""
-    from torch.profiler import ProfilerActivity, profile
+def profiled_kernels(fn, reps: int = 1, window=None):
+    """([(kernel name, launches, device ms)] largest first, wall ms, busy
+    ms) of `reps` calls of fn() under torch.profiler. Busy is the length
+    of the union of the kernels' intervals on the card (where kernels
+    overlap, less than the sum of their times); with `window`, a function
+    that returns a (start, end) of time.perf_counter() seconds after the
+    calls, only of their parts inside it. A split-K sum launch is named
+    after the GEMM core's tile kernel that ran before it."""
+    from torch.profiler import ProfilerActivity, profile, record_function
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+        with record_function(PROFILE_MARK):
+            t0 = time.perf_counter()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
@@ -1410,7 +1592,18 @@ def profiled_kernels(fn, reps: int = 1):
         sums[name] = (n + 1, t + e.self_device_time_total / 1e3)
     rows = sorted(((k, n, t) for k, (n, t) in sums.items()),
                   key=lambda r: -r[2])
-    return rows, wall
+    # the profiler's clock (us) at t0: host and kernel events share it
+    lo, hi = float("-inf"), float("inf")
+    if window is not None:
+        mark = next(e.time_range.start for e in prof.events()
+                    if e.name == PROFILE_MARK)
+        lo, hi = (mark + (t - t0) * 1e6 for t in window())
+    busy, end = 0.0, lo
+    for e in events:
+        start = max(e.time_range.start, end)
+        end = max(min(e.time_range.end, hi), end)
+        busy += max(end - start, 0.0)
+    return rows, wall, busy / 1e3
 
 
 def gemm_part_ms(fn, families, reps: int = 5, tries: int = 6) -> dict:
@@ -1426,7 +1619,7 @@ def gemm_part_ms(fn, families, reps: int = 5, tries: int = 6) -> dict:
     are checked apart)."""
     fn()
     for _ in range(tries):
-        rows, _ = profiled_kernels(fn, reps)
+        rows, *_ = profiled_kernels(fn, reps)
         kept = {}
         for name, count, ms in rows:
             key = (family(name), name.startswith(SPLITK_SUM))
@@ -1494,17 +1687,20 @@ def observed_calls(rows) -> dict:
 
 def profile_step(step, log, label: str, top: int = 12):
     """Device time of one call of `step` by kernel name (torch.profiler);
-    returns (rows, busy ms, wall ms). Busy is the sum of kernel self
-    times, so the idle share is 1 - busy / wall."""
-    rows, wall = profiled_kernels(step)
-    busy = sum(r[2] for r in rows)
+    returns (rows, busy ms, wall ms). Busy is the union of the kernels'
+    intervals (`profiled_kernels`), so the idle share is 1 - busy / wall;
+    the families' shares are of the summed kernel time."""
+    rows, wall, busy = profiled_kernels(step)
+    summed = sum(r[2] for r in rows)
     log(f"profile of one {label}: wall {wall:.3f} ms, device busy "
-        f"{busy:.3f} ms ({100 * busy / wall:.1f}%), {len(rows)} kernels")
+        f"{busy:.3f} ms ({100 * busy / wall:.1f}%), kernel times summed "
+        f"{summed:.3f} ms, {len(rows)} kernels")
     for name, count, ms in rows[:top]:
         log(f"  {ms:9.3f} ms {count:4d}x  {name[:90]}")
     log(f"by family ({sum(r[1] for r in rows)} launches):")
     for family, count, ms in kernel_families(rows):
-        log(f"  {ms:9.3f} ms {count:5d}x  {100 * ms / busy:5.1f}%  {family}")
+        log(f"  {ms:9.3f} ms {count:5d}x  {100 * ms / summed:5.1f}%  "
+            f"{family}")
     return rows, busy, wall
 
 
@@ -1749,6 +1945,12 @@ def entry_runs(run, root, logdir, repeat_dir, args, counted, per_step,
                 peak=torch.cuda.max_memory_allocated())
 
 
+def epoch_window(record):
+    """(start, end) in time.perf_counter() seconds of a trainer's epoch
+    (an entry of `epoch_times`)."""
+    return record["start"], record["start"] + record["seconds"]
+
+
 def profile_epoch(trainer, counted, per_step, total, card, log,
                   what: str = "loop"):
     """One more epoch of `trainer` (no validation, nothing saved) under
@@ -1763,11 +1965,14 @@ def profile_epoch(trainer, counted, per_step, total, card, log,
         for fn in counted:
             fn.launches = 0
         warm0 = trainer.graph_counts()["train_warmups"]
-        rows, _ = profiled_kernels(lambda: trainer.train(first, None))
+        # the epoch's own clock: the audit and the votes' materialization
+        # after it run inside the profile
+        rows, _, busy = profiled_kernels(
+            lambda: trainer.train(first, None), window=lambda: epoch_window(
+                trainer.epoch_times[-1]))
         launches = {fn.__name__: fn.launches for fn in counted}
         observed = observed_calls(rows)
         steps = trainer.epoch_times[-1]["steps"]
-        # the epoch's own clock (the audit after it runs on the host)
         wall = 1e3 * trainer.epoch_times[-1]["seconds"]
         warm = trainer.graph_counts()["train_warmups"] - warm0
         want = {k: per_step.get(k, 0) * (steps + warm) for k in launches}
@@ -1783,17 +1988,20 @@ def profile_epoch(trainer, counted, per_step, total, card, log,
     expect(observed == launches, f"{what} profiled epoch: kernel events "
            f"{observed} against the counters {launches} in "
            f"{PROFILE_TRIES} profiles")
-    busy = sum(r[2] for r in rows)
+    summed = sum(r[2] for r in rows)
     families = kernel_families(rows)
     log(f"[{card}] {what} epoch (graphed) under torch.profiler: {steps} "
         f"steps, wall "
         f"{wall:.1f} ms ({wall / max(steps, 1):.2f} ms per step), device "
         f"busy {busy:.1f} ms ({busy / max(steps, 1):.2f} ms per step, "
-        f"{100 * busy / wall:.1f} % of the wall)")
+        f"{100 * busy / wall:.1f} % of the wall: the union of the kernels' "
+        f"intervals inside the epoch's clock); kernel times summed over "
+        f"the profile {summed:.1f} ms")
     for fam, count, ms in families:
         log(f"[{card}]   {ms:9.3f} ms {count:5d}x  "
-            f"{100 * ms / busy:5.1f}%  {fam}")
+            f"{100 * ms / summed:5.1f}%  {fam}")
     return dict(steps=steps, wall_ms=wall, busy_ms=busy,
+                busy_share=busy / wall, summed_ms=summed,
                 launches=launches, observed_launches=observed,
                 profiles=attempt + 1, families=families)
 
@@ -1911,7 +2119,6 @@ def run_active_learning(root, work, counted, per_step, per_val, card, log):
     from weasal_tpu_torch.train.tester import ModelTester
     from weasal_tpu_torch.train.trainer import ModelTrainer
     from weasal_tpu_torch.train_Vaihingen3D_WeakLabel import run
-    from weasal_tpu_torch.utils.ply import read_ply
 
     log_name = "Log_phase8"
     logdir = os.path.join(work, "results", "WeakLabel", log_name)
@@ -1942,15 +2149,6 @@ def run_active_learning(root, work, counted, per_step, per_val, card, log):
     def keep_trainer(self, *args, **kwargs):
         trainers.append(self)
         return train(self, *args, **kwargs)
-
-    def vote_launches(tester):
-        graph = tester._eval_graph
-        batches = sum(v["batches"] for v in tester.vote_times)
-        expect(tester.graphed and graph.replays == batches,
-               f"phase 8: {graph.replays} vote replays for {batches} vote "
-               "batches")
-        return {k: per_val.get(k, 0) * (batches + graph.warmup_steps)
-                for k in per_val}
 
     def add(total, part):
         for k, v in part.items():
@@ -1998,7 +2196,7 @@ def run_active_learning(root, work, counted, per_step, per_val, card, log):
         expect(tester is not None and len(trainers) == 2,
                f"phase 8: {len(trainers)} trainings and "
                f"{0 if tester is None else 1} acquisition")
-        add(want, vote_launches(tester))
+        add(want, vote_launches(tester, per_val, "phase 8"))
         expect(launches == want, f"phase 8 entry point: launches "
                f"{launches}, expected {want}")
         before, after = ledgers.get("before", []), ledgers.get("after", [])
@@ -2077,30 +2275,10 @@ def run_active_learning(root, work, counted, per_step, per_val, card, log):
             wall_s = time.perf_counter() - t0
             launches = {fn.__name__: fn.launches for fn in counted}
             add(total, launches)
-            want = vote_launches(tm)
-            expect(launches == {k: want.get(k, 0) for k in launches},
-                   f"phase 8 test_models --on {on}: launches {launches}, "
-                   f"expected {want}")
-            out = os.path.join("test", "WeakLabel", log_name)
-            n_eval = len(tm.dataset.validation_labels[0])
-            for sub in ("predictions", "probs", "potentials"):
-                path = os.path.join(out, sub, f"{cloud}.ply")
-                ok = os.path.exists(path)
-                if ok and sub != "potentials":
-                    ok = read_ply(path)["x"].shape[0] == n_eval
-                expect(ok, f"phase 8 test_models --on {on}: {path} missing "
-                       f"or not {n_eval} points")
-            finite = all(np.isfinite(p).all() for p in tm.test_probs)
-            expect(finite, f"phase 8 test_models --on {on}: non-finite "
-                   "votes")
-            vote = dict(tm.vote_times[0])
-            log(f"[{card}] phase 8 test_models --on {on}: {wall_s:.1f} s; "
-                f"vote {vote['batches']} batches in {vote['seconds']:.2f} s "
-                f"({1e3 * vote['seconds'] / vote['batches']:.2f} ms a batch, "
-                f"{vote['points'] / vote['seconds']:.0f} voted points/s); "
-                f"{n_eval} points projected; launches {launches}")
-            report[f"test_{on}"] = dict(wall_s=wall_s, vote=vote,
-                                        launches=launches)
+            log(f"[{card}] phase 8 test_models --on {on}: {wall_s:.1f} s")
+            report[f"test_{on}"] = dict(wall_s=wall_s, **vote_report(
+                tm, per_val, "WeakLabel", log_name, [cloud],
+                f"phase 8 test_models --on {on}", card, log, launches))
 
         t0 = time.perf_counter()
         out_dir = refine(["--weak_label_log", log_name, "--data_root",
@@ -2246,10 +2424,11 @@ def measure_dispatch(trainer, root, work, counted, per_step, per_val, card,
         busy = {}
         for graphed in (True, False):
             runner = by_mode[graphed]
-            rows, _ = profiled_kernels(lambda: _dispatch_epoch(runner))
-            b = sum(r[2] for r in rows)
             # the epoch's own clock: the plan-saturation audit after it
-            # runs on the host, inside the profile but outside the epoch
+            # runs inside the profile
+            rows, _, b = profiled_kernels(
+                lambda: _dispatch_epoch(runner),
+                window=lambda: epoch_window(runner.epoch_times[-1]))
             steps = runner.epoch_times[-1]["steps"]
             wall = 1e3 * runner.epoch_times[-1]["seconds"]
             busy["graphed" if graphed else "eager"] = dict(
@@ -2460,39 +2639,55 @@ def write_pl_labels(root):
     return truth, pseudo
 
 
-def check_pl_shapes(trainer, per_step, card, log):
-    """Phase 9 at the pseudo-label loop's own shapes, after its runs: a
-    batch of its resident source assembled on the card into a pyramid on
-    the plain versions. On it A, B, C and D are held to their plain
-    versions as in phases 2 and 4, and the GEMM core's drift is held at
-    the widest conv as phase 2 holds it; one kernel training step from the
-    seeded initial state (dropout mask and contrast draw given: a seeded
-    mask, PL_SLC labeled points), eager and replayed, to an f64 step as
-    in phase 5, and the same batch's pyramid built LOOP_F64_PYRAMIDS - 1
-    times more, each read (not held) against its own f64 step as phase 6
-    reads its rebuilds; the inverse lists and row sums of one `train_step`
-    checked and timed as in phase 5. Then `train_step` on the loop's
-    batches (launches per step, synchronized ms) and profiles of one
-    step, of the contrast loss (forward and backward) and of the dropout
-    mask at the step's shapes. Returns the kernels' sums and the
-    readings."""
+def gemm_shape(conv, batch) -> tuple:
+    """(M, N, K) of a KPConv's product y @ W on `batch`: the rows of all
+    its spheres, Cout and Kp x Cin."""
+    n_kp, cin, cout = conv.weights.shape
+    rows = batch.points[conv.layer_ind + int(conv.strided)].shape
+    return rows[0] * rows[1], cout, n_kp * cin
+
+
+def check_stage_shapes(trainer, per_step, card, log, what):
+    """A stage's kernels and step at its loop's own shapes, after the
+    loop's runs (phases 9 and 10; `what` names the stage in the log):
+    LOOP_CHECK_BATCHES batches of its resident source (a fresh epoch's
+    draws; in weak mode those with regions), the first assembled on the
+    card into a pyramid on the plain versions. On it A, B, C and D are
+    held to their plain versions as in phases 2 and 4, each conv's GEMM
+    shape (M, N, K) is logged, and the GEMM core's drift is held at the
+    deepest conv as phase 2 holds it; one kernel training step from the
+    seeded initial state, eager and replayed, to an f64 step as in phase
+    5 (a pseudo-label step with its dropout mask and contrast draw given:
+    a seeded mask, PL_SLC labeled points), and the same batch's pyramid
+    built LOOP_F64_PYRAMIDS - 1 times more, each read (not held) against
+    its own f64 step as phase 6 reads its rebuilds; the inverse lists and
+    row sums of one `train_step` checked and timed as in phase 5. Then
+    `train_step` on the batches (launches per step, synchronized ms) and a
+    profile of one step. Returns the kernels' sums, the readings, the
+    pyramid and the step function."""
     global PREFIX
-    from weasal_tpu_torch import KPFCNN, init_opt_state, train_step
+    from weasal_tpu_torch import init_opt_state, train_step
     from weasal_tpu_torch.data.loader import BatchPrefetcher
     from weasal_tpu_torch.data.resident import (ResidentBatchSource,
                                                 assemble_level0_device)
-    from weasal_tpu_torch.models import losses
+    from weasal_tpu_torch.models.architectures import model_for_config
     from weasal_tpu_torch.models.blocks import dropout_keep, kpconv_modules
     from weasal_tpu_torch.ops.pyramid import batch_from_device_pyramid
     from weasal_tpu_torch.train.graphs import COUNTED, launch_counts
     from weasal_tpu_torch.utils.device import plain_ops
     config, plan, dev = trainer.config, trainer.plan, trainer.device
+    pseudo = trainer.mode == "pseudo"
     seed = torch.tensor(SEED, dtype=torch.int64, device=dev)
     train_ds = trainer.datasets[0]
     source = ResidentBatchSource(train_ds, plan, dev)
-    batches = [b for b, _ in BatchPrefetcher(
+    drawn = list(BatchPrefetcher(
         source, LOOP_CHECK_BATCHES, dev, rng=np.random.default_rng(SEED),
-        extra_arrays=source.resident.arrays)]
+        extra_arrays=source.resident.arrays))
+    batches = [b for b, metas in drawn
+               if pseudo or any(m["has_regions"] for m in metas)]
+    expect(len(batches) >= 3, f"{what}: {len(batches)} of {len(drawn)} "
+           "batches have regions")
+
     @torch.no_grad()
     def pyramid(batch):
         t = assemble_level0_device(batch, config, plan, augment=True,
@@ -2508,9 +2703,9 @@ def check_pl_shapes(trainer, per_step, card, log):
 
     pyrs = [pyramid(batches[0]) for _ in range(LOOP_F64_PYRAMIDS)]
     pyr = pyrs[0]
-    log(f"phase 9: kernels vs plain versions at the PL loop's shapes, "
-        f"{plan}, {int(pyr.masks[0].sum())} real level-0 points")
-    PREFIX = "PL shapes: "
+    log(f"{what}: kernels vs plain versions at the loop's shapes, {plan}, "
+        f"{int(pyr.masks[0].sum())} real level-0 points")
+    PREFIX = f"{what} shapes: "
     try:
         with torch.no_grad():
             checks = dict(radius_search=check_radius_search(pyr, config,
@@ -2523,48 +2718,56 @@ def check_pl_shapes(trainer, per_step, card, log):
                                                   SEED)
         sums = {k: v[1] for k, v in checks.items()}
         shapes = {k: v[0] for k, v in checks.items()}
-        # the drift check of phase 2 at the PL's widest conv (its GEMMs'
-        # depth Kp x Cin up to 3840 on few rows)
-        _, wide = max(kpconv_modules(trainer.model),
-                      key=lambda m: m[1].weights.shape[1]
-                      * m[1].weights.shape[2])
+        convs = kpconv_modules(trainer.model)
+        gemms = {name: gemm_shape(conv, pyr) for name, conv in convs}
+        log(f"{what}: GEMM shapes (M, N, K) of y @ W by conv: {gemms}")
+        # the drift check of phase 2 at the deepest conv (the largest
+        # Kp x Cin; its rows as the plan gives them)
+        name, wide = max(convs, key=lambda m: gemms[m[0]][2])
         n_kp, cin, cout = wide.weights.shape
+        level = wide.layer_ind + int(wide.strided)
+        log(f"{what}: GEMM core drift at the deepest conv {name}, (M, N, "
+            f"K) = {gemms[name]}")
         gemm_bias = check_gemm_bias(log, SEED, shape=(
-            config.batch_num, plan.num_points[wide.layer_ind],
+            config.batch_num, plan.num_points[level],
             plan.conv_neighbors[wide.layer_ind], n_kp, cin, cout))
-        b, n0 = pyr.labels.shape
-        keep = dropout_keep((b, n0, config.first_features_dim),
-                            config.dropout, seed)
-        labeled = ((pyr.labels >= 0) & (pyr.labels < config.num_classes)
-                   & pyr.masks[0]).reshape(-1).nonzero().flatten()
-        gen = torch.Generator(device=dev).manual_seed(SEED)
-        slc = labeled[torch.randint(labeled.numel(), (PL_SLC,),
-                                    generator=gen, device=dev)]
+        step_kw = None
+        if pseudo:
+            b, n0 = pyr.labels.shape
+            keep = dropout_keep((b, n0, config.first_features_dim),
+                                config.dropout, seed)
+            labeled = ((pyr.labels >= 0)
+                       & (pyr.labels < config.num_classes)
+                       & pyr.masks[0]).reshape(-1).nonzero().flatten()
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            slc = labeled[torch.randint(labeled.numel(), (PL_SLC,),
+                                        generator=gen, device=dev)]
+            step_kw = dict(use_contrast=True, dropout_keep=keep,
+                           slc_idx=slc)
         runs = []
         for i, p in enumerate(pyrs):
             # pyramids 1.. are the same batch's built again (their voxel
             # sums add with atomics on the plain versions), each stepped
-            # with the same mask and drawn points: read, not held, and
-            # not replayed
-            net = KPFCNN(config,
-                         tuple(int(v) for v in train_ds.label_values),
-                         tuple(int(v) for v in train_ds.ignored_labels),
-                         generator=torch.Generator().manual_seed(0)).to(dev)
+            # with the same draws: read, not held, and not replayed
+            net = model_for_config(
+                config, train_ds.label_values, train_ds.ignored_labels,
+                generator=torch.Generator().manual_seed(0)).to(dev)
             runs.append(compare_train_steps(
                 net, init_opt_state(net), p, config, log,
                 plan=plan if i == 0 else None,
-                label="PL step, kernels" + (f", pyramid {i}" if i else ""),
-                held=i == 0, step_kw=dict(use_contrast=True,
-                                          dropout_keep=keep, slc_idx=slc)))
+                label=f"{what} step, kernels" + (f", pyramid {i}" if i
+                                                 else ""),
+                held=i == 0, step_kw=step_kw))
             del net
         comparison = runs[0]
         shares = [r["share"] for r in runs]
         prints = [pyramid_print(p) for p in pyrs]
         comparison.update(pyramid_prints=prints, pyramid_shares=shares)
-        log(f"[{card}] f64 PL step (first batch): share of the f64 "
-            f"allowance {comparison['share']:.3f} (held); the batch's "
-            f"pyramid built {LOOP_F64_PYRAMIDS} times: prints {prints}, "
-            f"shares {[round(v, 3) for v in shares]} (read)")
+        log(f"[{card}] f64 {what} step (first batch): share of the f64 "
+            f"allowance {comparison['share']:.3f} (held; replayed "
+            f"{comparison['graph']['share']:.3f}); the batch's pyramid "
+            f"built {LOOP_F64_PYRAMIDS} times: prints {prints}, shares "
+            f"{[round(v, 3) for v in shares]} (read)")
     finally:
         PREFIX = ""
 
@@ -2572,11 +2775,10 @@ def check_pl_shapes(trainer, per_step, card, log):
         return train_step(trainer.model, trainer.opt_state, batch, config,
                           plan, trainer.lr, device=dev,
                           class_w=trainer.class_w, table=trainer.table,
-                          spec=trainer.spec, seed=SEED, use_contrast=True)
+                          spec=trainer.spec, seed=SEED, use_contrast=pseudo)
 
-    log("phase 9: the inverse lists and the row sums at the PL loop's "
-        "shapes")
-    PREFIX = "PL shapes: "
+    log(f"{what}: the inverse lists and the row sums at the loop's shapes")
+    PREFIX = f"{what} shapes: "
     try:
         sums["inverse_lists"] = check_inverse_lists(
             record_inverse_calls(lambda: step(batches[0])), log)
@@ -2593,13 +2795,34 @@ def check_pl_shapes(trainer, per_step, card, log):
         sync_ms.append((time.perf_counter() - t0) * 1e3)
     launches = launch_counts()
     want = {k: v * len(batches) for k, v in per_step.items()}
-    expect(launches == want, f"phase 9 train_step: launches {launches} in "
+    expect(launches == want, f"{what} train_step: launches {launches} in "
            f"{len(batches)} steps, expected {want}")
-    log(f"[{card}] PL train_step on {len(batches)} loop batches: "
+    log(f"[{card}] {what} train_step on {len(batches)} loop batches: "
         f"synchronized {[round(v, 2) for v in sync_ms]} ms; launches "
         f"{launches}")
     rows, busy, wall = profile_step(lambda: step(batches[1]), log,
-                                    "PL train_step")
+                                    f"{what} train_step")
+    return sums, dict(compare=comparison, sync_ms=sync_ms,
+                      launches=launches, shapes=shapes, gemm_shapes=gemms,
+                      widest_gemm=dict(conv=name, mnk=gemms[name]),
+                      gemm_bias=gemm_bias,
+                      step_profile=dict(busy_ms=busy, wall_ms=wall,
+                                        families=kernel_families(rows))
+                      ), pyr, step
+
+
+def check_pl_shapes(trainer, per_step, card, log):
+    """Phase 9 at the pseudo-label loop's own shapes: `check_stage_shapes`,
+    then profiles of the contrast loss (forward and backward) and of the
+    dropout mask at the step's shapes. Returns the kernels' sums and the
+    readings."""
+    from weasal_tpu_torch.models import losses
+    from weasal_tpu_torch.models.blocks import dropout_keep
+    config, dev = trainer.config, trainer.device
+    seed = torch.tensor(SEED, dtype=torch.int64, device=dev)
+    sums, at_plan, pyr, _ = check_stage_shapes(trainer, per_step, card,
+                                               log, "phase 9 PL")
+    busy = at_plan["step_profile"]["busy_ms"]
     # the contrast loss and the dropout mask alone, at the step's shapes
     trainer.model.eval()
     with torch.no_grad():
@@ -2622,26 +2845,24 @@ def check_pl_shapes(trainer, per_step, card, log):
                                      "PL contrast loss (forward and "
                                      "backward)")
     c_peak = torch.cuda.max_memory_allocated()
+    b, n0 = pyr.labels.shape
     d_rows, d_busy, _ = profile_step(
         lambda: dropout_keep((b, n0, config.first_features_dim),
                              config.dropout, seed), log,
         "PL dropout mask")
-    log(f"[{card}] PL step device {busy:.2f} ms ({100 * busy / wall:.1f} % "
-        f"of its wall {wall:.2f} ms); the contrast loss {c_busy:.2f} ms "
+    log(f"[{card}] PL step device {busy:.2f} ms "
+        f"({100 * busy / at_plan['step_profile']['wall_ms']:.1f} % of its "
+        f"wall); the contrast loss {c_busy:.2f} ms "
         f"({100 * c_busy / busy:.1f} % of the step; peak allocation "
         f"while it ran {c_peak / 2**20:.0f} MiB, on {flat.shape[0]} "
         f"rows), the "
         f"dropout mask {d_busy:.2f} ms ({100 * d_busy / busy:.1f} %)")
-    return sums, dict(compare=comparison, sync_ms=sync_ms,
-                      launches=launches, shapes=shapes, gemm_bias=gemm_bias,
-                      step_profile=dict(busy_ms=busy, wall_ms=wall,
-                                        families=kernel_families(rows)),
-                      contrast=dict(busy_ms=c_busy, share=c_busy / busy,
-                                    peak_bytes=c_peak,
-                                    families=kernel_families(c_rows)),
-                      dropout_mask=dict(busy_ms=d_busy,
-                                        share=d_busy / busy,
-                                        families=kernel_families(d_rows)))
+    at_plan.update(contrast=dict(busy_ms=c_busy, share=c_busy / busy,
+                                 peak_bytes=c_peak,
+                                 families=kernel_families(c_rows)),
+                   dropout_mask=dict(busy_ms=d_busy, share=d_busy / busy,
+                                     families=kernel_families(d_rows)))
+    return sums, at_plan
 
 
 def run_pseudo_label(root, work, counted, card, log):
@@ -2666,7 +2887,6 @@ def run_pseudo_label(root, work, counted, card, log):
     from weasal_tpu_torch.train.tester import ModelTester
     from weasal_tpu_torch.train.trainer import ModelTrainer
     from weasal_tpu_torch.train_Vaihingen3D_PseudoLabel import run
-    from weasal_tpu_torch.utils.ply import read_ply
 
     cloud = "Vaihingen3D_Training"
     truth, pseudo = write_pl_labels(root)
@@ -2724,15 +2944,6 @@ def run_pseudo_label(root, work, counted, card, log):
             trainers.append(self)
             return train(self, *args, **kwargs)
 
-        def vote_launches(tester):
-            graph = tester._eval_graph
-            batches = sum(v["batches"] for v in tester.vote_times)
-            expect(tester.graphed and graph.replays == batches,
-                   f"phase 9: {graph.replays} vote replays for {batches} "
-                   "vote batches")
-            return {k: per_val.get(k, 0) * (batches + graph.warmup_steps)
-                    for k in per_val}
-
         for fn in counted:
             fn.launches = 0
         al_dir = os.path.join(work, "results", "PseudoLabel", PL_LOG)
@@ -2769,7 +2980,7 @@ def run_pseudo_label(root, work, counted, card, log):
                f"phase 9: {len(trainers)} trainings and "
                f"{0 if tester is None else 1} acquisition")
         if tester is not None:
-            add(want, vote_launches(tester))
+            add(want, vote_launches(tester, per_val, "phase 9"))
         expect(launches == want, f"phase 9 entry point: launches "
                f"{launches}, expected {want}")
         before, after = ledgers.get("before", []), ledgers.get("after", [])
@@ -2804,34 +3015,239 @@ def run_pseudo_label(root, work, counted, card, log):
         wall_s = time.perf_counter() - t0
         launches = {fn.__name__: fn.launches for fn in counted}
         add(total, launches)
-        want = vote_launches(tm)
-        expect(launches == {k: want.get(k, 0) for k in launches},
-               f"phase 9 test_models --on test: launches {launches}, "
-               f"expected {want}")
-        out = os.path.join("test", "PseudoLabel", PL_LOG)
-        n_eval = len(tm.dataset.validation_labels[0])
-        test_cloud = os.path.basename(tm.dataset.files[0])
-        for sub in ("predictions", "probs", "potentials"):
-            path = os.path.join(out, sub, test_cloud)
-            ok = os.path.exists(path)
-            if ok and sub != "potentials":
-                ok = read_ply(path)["x"].shape[0] == n_eval
-            expect(ok, f"phase 9 test_models --on test: {path} missing or "
-                   f"not {n_eval} points")
-        expect(all(np.isfinite(p).all() for p in tm.test_probs),
-               "phase 9 test_models --on test: non-finite votes")
-        vote = dict(tm.vote_times[0])
-        log(f"[{card}] phase 9 test_models --on test: {wall_s:.1f} s; "
-            f"vote {vote['batches']} batches in {vote['seconds']:.2f} s "
-            f"({1e3 * vote['seconds'] / vote['batches']:.2f} ms a batch, "
-            f"{vote['points'] / vote['seconds']:.0f} voted points/s); "
-            f"{n_eval} points projected; launches {launches}")
-        report["test_models"] = dict(wall_s=wall_s, vote=vote,
-                                     launches=launches)
+        log(f"[{card}] phase 9 test_models --on test: {wall_s:.1f} s")
+        report["test_models"] = dict(wall_s=wall_s, **vote_report(
+            tm, per_val, "PseudoLabel", PL_LOG, ["Vaihingen3D_Testing"],
+            "phase 9 test_models --on test", card, log, launches))
     finally:
         os.chdir(cwd)
     return report, total
 
+
+
+def vote_launches(tester, per_val, what):
+    """The launches of a tester's vote pass, `per_val` for each of its
+    batches and graph warm-ups; checks that every vote batch was a
+    replay."""
+    graph = tester._eval_graph
+    batches = sum(v["batches"] for v in tester.vote_times)
+    expect(tester.graphed and graph.replays == batches,
+           f"{what}: {graph.replays} vote replays for {batches} vote "
+           "batches")
+    return {k: n * (batches + graph.warmup_steps)
+            for k, n in per_val.items()}
+
+
+def vote_report(tm, per_val, stage_dir, log_name, clouds, what, card, log,
+                launches):
+    """Checks and numbers of one `test_models` pass (phases 8-10): every
+    vote batch replayed, the launches of its replays and warm-up, the
+    clouds voted, one prediction, probability and potential ply per cloud
+    (the first two with the cloud's points), finite votes; ms per vote
+    batch and voted points/s."""
+    from weasal_tpu_torch.utils.ply import read_ply
+    per_pass = vote_launches(tm, per_val, what)
+    want = {k: per_pass.get(k, 0) for k in launches}
+    expect(launches == want, f"{what}: launches {launches}, expected {want}")
+    expect(tm.dataset.cloud_names_split == clouds,
+           f"{what}: voted {tm.dataset.cloud_names_split}, expected {clouds}")
+    out = os.path.join("test", stage_dir, log_name)
+    for i, name in enumerate(tm.dataset.cloud_names_split):
+        n_eval = len(tm.dataset.validation_labels[i])
+        for sub in ("predictions", "probs", "potentials"):
+            path = os.path.join(out, sub, f"{name}.ply")
+            ok = os.path.exists(path)
+            if ok and sub != "potentials":
+                ok = read_ply(path)["x"].shape[0] == n_eval
+            expect(ok, f"{what}: {path} missing or not {n_eval} points")
+    expect(all(np.isfinite(p).all() for p in tm.test_probs),
+           f"{what}: non-finite votes")
+    vote = dict(tm.vote_times[0])
+    n_sub = sum(len(lbl) for lbl in tm.dataset.input_labels)
+    n_eval = sum(len(lbl) for lbl in tm.dataset.validation_labels)
+    log(f"[{card}] {what}: {len(clouds)} clouds ({n_sub} subsampled "
+        f"points, {n_eval} projected), vote {vote['batches']} batches in "
+        f"{vote['seconds']:.2f} s "
+        f"({1e3 * vote['seconds'] / vote['batches']:.2f} ms a batch, "
+        f"{vote['points'] / vote['seconds']:.0f} voted points/s); launches "
+        f"{launches}")
+    return dict(vote=vote, launches=launches, clouds=len(clouds))
+
+
+def run_dales(work, counted, wl_per, card, log):
+    """Phase 10: the DALES workflow at full width, through the entry
+    points, on a synthetic DALES-like root (DALES_TILES training and
+    validation tiles and DALES_TEST_TILES test tiles of DALES_EXTENT m):
+    (i) the graphed WL loop (`train_DALES_WeakLabel.run`, DALESWLConfig:
+    2 epochs of 10 steps with 5 validation batches, the same again in a
+    fresh trainer, bit-equal, and a resume; `entry_runs`, with `wl_per`,
+    the WL launches per step and per validation batch), one more epoch
+    profiled, and the kernels and the f64 step at its shapes
+    (`check_stage_shapes`); (ii) `test_models --on train` (1 vote) over
+    the training tiles, the refinement at the DALES default threshold
+    (10 %: one pseudo-label file per training tile and the class
+    weights), then the graphed PL loop (`train_DALES_PseudoLabel.run`,
+    DALESPLConfig) on labels written from the ground truth (a seeded
+    PL_UNLABELED set to 10: 20 WL steps leave the refinement no confident
+    label) with the refinement's class weights, its profiled epoch and
+    its kernel checks, and `test_models --on test` (1 vote) over every
+    test tile. Returns the report and the launches of the WL and the PL
+    paths (loops, profiled epochs, votes)."""
+    from weasal_tpu_torch.config import DALESPLConfig
+    from weasal_tpu_torch.data.synthetic import make_dales_like_root
+    from weasal_tpu_torch.pseudoLabel_refinement import main as refine
+    from weasal_tpu_torch.test_models import main as test_models
+    from weasal_tpu_torch.train_DALES_PseudoLabel import run as run_pl
+    from weasal_tpu_torch.train_DALES_WeakLabel import run as run_wl
+    from weasal_tpu_torch.utils.ply import read_ply
+
+    t0 = time.perf_counter()
+    root = make_dales_like_root(
+        os.path.join(work, "DALES"), extent=DALES_EXTENT,
+        density=DALES_DENSITY, seed=SEED, train_tiles=DALES_TILES,
+        test_tiles=DALES_TEST_TILES)
+    n_tiles = DALES_TILES + DALES_TEST_TILES
+    scene_s = time.perf_counter() - t0
+    training = [f"tile_{i:02d}" for i in range(DALES_TILES - 1)]
+    test = [f"test_tile_{i:02d}" for i in range(DALES_TEST_TILES)]
+    log(f"phase 10: {n_tiles} DALES-like tiles of {DALES_EXTENT:.0f} m in "
+        f"{scene_s:.1f} s of host ({scene_s / n_tiles:.2f} s a tile); "
+        f"training {training}, test {test}")
+    wl_step, wl_val = wl_per
+    pl_config = DALESPLConfig()
+    pl_config.num_classes = 9
+    pl_step, pl_val = pl_expected(pl_config)
+    report = dict(scene_s=scene_s, tiles=n_tiles)
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        # (i) the WL loop
+        wl_log = os.path.join(work, "results", "WeakLabel", DALES_LOG)
+        loop = entry_runs(run_wl, root, wl_log,
+                          os.path.join(work, "dales_wl_repeat"), DALES_ARGS,
+                          counted, wl_step, wl_val, card, log,
+                          what="DALES WL loop")
+        trainer, wl_total = loop["trainer"], loop["total"]
+        train_ds = trainer.datasets[0]
+        expect(train_ds.cloud_names_split == training,
+               f"phase 10: WL training tiles {train_ds.cloud_names_split}")
+        n_points = [len(l) for l in train_ds.input_labels]
+        profile = profile_epoch(trainer, counted, wl_step, wl_total, card,
+                                log, what="DALES WL loop")
+        wl_sums, wl_at, _, _ = check_stage_shapes(trainer, wl_step, card,
+                                                  log, "phase 10 DALES WL")
+        setup = loop["runs"][0]["setup"]
+        log(f"[{card}] DALES WL loop: training tiles of {n_points} "
+            f"subsampled points, {[len(a) for a in train_ds.anchors]} "
+            f"anchors; host set-up of the first run: "
+            + ", ".join(f"{k} {v:.2f} s" for k, v in setup.items())
+            + f" ({setup['subsample_s'] / (len(training) + 1):.2f} s a tile"
+            f" to subsample with its trees, "
+            f"{setup['anchors_s'] / len(training):.2f} s a tile for "
+            f"anchors); peak device memory of the 3 runs "
+            f"{loop['peak'] / 2**20:.1f} MiB; {trainer.plan}")
+        report["wl"] = dict(runs=loop["runs"], repeat=loop["repeat"],
+                            plan=vars(trainer.plan), peak_bytes=loop["peak"],
+                            profile=profile, kernels=wl_sums, at_plan=wl_at,
+                            tile_points=n_points, per_step=wl_step,
+                            per_val=wl_val)
+        del trainer, loop
+
+        # (ii) test_models --on train, the refinement
+        for fn in counted:
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tm = test_models(["--log", wl_log, "--on", "train", "--num_votes",
+                          "1", "--data_root", root])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in counted}
+        for k, v in launches.items():
+            wl_total[k] += v
+        report["test_train"] = dict(
+            wall_s=wall_s, peak_bytes=torch.cuda.max_memory_allocated(),
+            **vote_report(tm, wl_val, "WeakLabel", DALES_LOG, training,
+                          "phase 10 test_models --on train", card, log,
+                          launches))
+        del tm
+        t0 = time.perf_counter()
+        out_dir = refine(["--weak_label_log", DALES_LOG, "--data_root",
+                          root])
+        refine_s = time.perf_counter() - t0
+        weights = np.loadtxt(os.path.join(out_dir, "DALES_t10_weight.txt"))
+        no_label = []
+        for i, name in enumerate(training):
+            path = os.path.join(out_dir, f"{name}_t10_pseudo.txt")
+            labels = np.loadtxt(path) if os.path.exists(path) else []
+            expect(len(labels) == n_points[i], f"phase 10 refinement: "
+                   f"{len(labels)} pseudo labels for {name}'s "
+                   f"{n_points[i]} points")
+            no_label.append(int(np.sum(np.asarray(labels) == 10)))
+        expect(weights.shape == (9,) and np.isfinite(weights).all(),
+               f"phase 10 refinement: class weights {weights}")
+        log(f"[{card}] phase 10 test_models --on train: {wall_s:.1f} s, peak "
+            f"device memory {report['test_train']['peak_bytes'] / 2**20:.1f}"
+            f" MiB; refinement (threshold 10): {refine_s:.2f} s of host for "
+            f"{sum(n_points)} points ({no_label} no-label by tile); weights "
+            f"{np.round(weights, 3).tolist()}")
+        report.update(refine_s=refine_s, no_label=no_label)
+
+        # the PL stage's labels: the ground truth, PL_UNLABELED set to 10
+        rng = np.random.default_rng(SEED)
+        for name in training:
+            truth = read_ply(os.path.join(root, "input_0.400_torch",
+                                          f"{name}.ply"))["class"]
+            np.savetxt(os.path.join(out_dir, f"{name}_t10_pseudo.txt"),
+                       np.where(rng.random(truth.shape[0]) < PL_UNLABELED,
+                                10, truth), fmt="%i")
+        pl_log = os.path.join(work, "results", "PseudoLabel", DALES_LOG)
+        loop = entry_runs(run_pl, root, pl_log,
+                          os.path.join(work, "dales_pl_repeat"),
+                          ("--weak_label_log", DALES_LOG, *DALES_ARGS),
+                          counted, pl_step, pl_val, card, log,
+                          what="DALES PL loop")
+        trainer, pl_total = loop["trainer"], loop["total"]
+        expect(trainer.config.class_w == list(weights),
+               f"phase 10: the PL stage's class weights "
+               f"{trainer.config.class_w}, the refinement's {weights}")
+        profile = profile_epoch(trainer, counted, pl_step, pl_total, card,
+                                log, what="DALES PL loop")
+        pl_sums, pl_at, _, _ = check_stage_shapes(trainer, pl_step, card,
+                                                  log, "phase 10 DALES PL")
+        log(f"[{card}] DALES PL loop: peak device memory of the 3 runs "
+            f"{loop['peak'] / 2**20:.1f} MiB; {trainer.plan}")
+        report["pl"] = dict(runs=loop["runs"], repeat=loop["repeat"],
+                            plan=vars(trainer.plan), peak_bytes=loop["peak"],
+                            profile=profile, kernels=pl_sums, at_plan=pl_at,
+                            per_step=pl_step, per_val=pl_val)
+        del trainer, loop
+
+        # test_models --on test over every test tile
+        for fn in counted:
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tm = test_models(["--log", pl_log, "--on", "test", "--num_votes",
+                          "1", "--data_root", root])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in counted}
+        for k, v in launches.items():
+            pl_total[k] += v
+        expect(not tm.dataset.has_labels, "phase 10 test_models --on test: "
+               "the test tiles' labels were read")
+        report["test_test"] = dict(
+            wall_s=wall_s, peak_bytes=torch.cuda.max_memory_allocated(),
+            **vote_report(tm, pl_val, "PseudoLabel", DALES_LOG, test,
+                          "phase 10 test_models --on test", card, log,
+                          launches))
+        log(f"[{card}] phase 10 test_models --on test: {wall_s:.1f} s; peak "
+            f"device memory {report['test_test']['peak_bytes'] / 2**20:.1f} "
+            "MiB")
+    finally:
+        os.chdir(cwd)
+    return report, wl_total, pl_total
 
 
 def main(argv=None) -> int:
@@ -2863,6 +3279,11 @@ def main(argv=None) -> int:
 
     def log(msg):
         print(msg, flush=True)
+
+    t_start = time.perf_counter()
+
+    def phase(msg):
+        log(f"{msg} [{time.perf_counter() - t_start:.0f} s]")
 
     # ---- phase 1: setup
     card = card_line()
@@ -2899,7 +3320,7 @@ def main(argv=None) -> int:
         ref_batch = batch_from_device_pyramid(
             t["points0"], t["mask0"], t["features"], t["labels"], config,
             plan, t["center_pts"], rotations=t["rotations"])
-    log("phase 2: kernels vs plain versions")
+    phase("phase 2: kernels vs plain versions")
     with torch.no_grad():
         a_rows, a_sum = check_radius_search(ref_batch, config, plan, log)
         b_rows, b_sum = check_kpconv(model, ref_batch, log, SEED)
@@ -2907,7 +3328,7 @@ def main(argv=None) -> int:
     gemm_bias = check_gemm_bias(log, SEED)
 
     # ---- phase 3: the inference path
-    log("phase 3: eval_step on the card")
+    phase("phase 3: eval_step on the card")
     counted = (radius_search, kpconv_fwd, kpconv_bwd, maxpool_bwd,
                build_inverse_lists, inverse_sum)
     for fn in counted:
@@ -2958,13 +3379,13 @@ def main(argv=None) -> int:
         "eval_step")
 
     # ---- phase 4: kernels C and D against their plain versions
-    log("phase 4: backward kernels vs plain versions")
+    phase("phase 4: backward kernels vs plain versions")
     c_rows, c_sum = check_kpconv_bwd(model, ref_batch, log, SEED)
     d_rows, d_sum = check_maxpool_bwd(model, ref_batch, log, SEED)
     gemm_sums.update(log_gemm_sums(c_rows, ("gemm_g_wt", "gemm_yt_g"), log))
 
     # ---- phase 5: the training path
-    log(f"phase 5: train_step on the card, {N_TRAIN_STEPS} steps")
+    phase(f"phase 5: train_step on the card, {N_TRAIN_STEPS} steps")
     per_val = dict(expected)
     # Per step: the inverse lists of every edge a backward sums over (3
     # conv, 2 pool, 2 upsample edges and the region members), the row
@@ -3012,7 +3433,7 @@ def main(argv=None) -> int:
     deterministic = run_deterministic_step(log)
 
     # ---- phase 6: the training loop (phase 7 inside it)
-    log("phase 6: the weak-label training loop on the card")
+    phase("phase 6: the weak-label training loop on the card")
     import shutil
     import tempfile
     work = tempfile.mkdtemp(prefix="chip_smoke_loop_")
@@ -3021,12 +3442,16 @@ def main(argv=None) -> int:
             counted, expected, per_val, card, statistics.mean(train_ms[1:]),
             work, log)
         # ---- phase 8: testing and active learning on the loop's tile
-        log("phase 8: testing and weak-label active learning on the card")
+        phase("phase 8: testing and weak-label active learning on the card")
         al, al_launches = run_active_learning(root, work, counted, expected,
                                               per_val, card, log)
         # ---- phase 9: the pseudo-label stage on the loop's tile
-        log("phase 9: the pseudo-label stage on the card")
+        phase("phase 9: the pseudo-label stage on the card")
         pl, pl_launches = run_pseudo_label(root, work, counted, card, log)
+        # ---- phase 10: the DALES workflow on DALES-like tiles
+        phase("phase 10: the DALES workflow on the card")
+        dales, dales_wl, dales_pl = run_dales(work, counted,
+                                              (expected, per_val), card, log)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3035,7 +3460,7 @@ def main(argv=None) -> int:
 
     paths = dict(inference=eval_launches, train_step=launches,
                  wl_loop=loop_launches, wl_active_learning=al_launches,
-                 pl_stage=pl_launches)
+                 pl_stage=pl_launches, dales_wl=dales_wl, dales_pl=dales_pl)
 
     def by_path(name):
         return {path: counts.get(name, 0) for path, counts in paths.items()}
@@ -3043,17 +3468,25 @@ def main(argv=None) -> int:
     def main_path(name):
         return sum(by_path(name).values())
 
+    stage_kernels = dict(pl=pl["kernels"], dales_wl=dales["wl"]["kernels"],
+                         dales_pl=dales["pl"]["kernels"])
+
     def pl_fields(name):
-        """The kernel's sums at the pseudo-label loop's shapes."""
-        sums = pl["kernels"].get(name) or pl["kernels"]["inverse_lists"][name]
-        return {f"pl_{k}": sums[k] for k in ("ms", "plain_ms", "bound_ms")}
+        """The kernel's sums at the shapes of the pseudo-label loop
+        (`pl_*`) and of the DALES loops (`dales_wl_*`, `dales_pl_*`)."""
+        fields = {}
+        for prefix, kernels in stage_kernels.items():
+            sums = kernels.get(name) or kernels["inverse_lists"][name]
+            fields.update({f"{prefix}_{k}": sums[k]
+                           for k in ("ms", "plain_ms", "bound_ms")})
+        return fields
 
     # The largest error of each kernel at any main path's shapes
     for name, phase_sum in (("radius_search", a_sum), ("kpconv_fwd", b_sum),
                             ("kpconv_bwd", c_sum), ("maxpool_bwd", d_sum)):
         phase_sum["max_abs_err"] = max(
             phase_sum["max_abs_err"], loop["kernels"][name]["max_abs_err"],
-            pl["kernels"][name]["max_abs_err"])
+            *(k[name]["max_abs_err"] for k in stage_kernels.values()))
 
     kernels = [
         dict(name="radius_search", route="cuda",
@@ -3123,8 +3556,11 @@ def main(argv=None) -> int:
                            inverse_lists_adversarial=inv_adversarial,
                            deterministic_step=deterministic,
                            active_learning=al, al_launches=al_launches,
-                           pseudo_label=pl, pl_launches=pl_launches), f,
+                           pseudo_label=pl, pl_launches=pl_launches,
+                           dales=dales, dales_wl_launches=dales_wl,
+                           dales_pl_launches=dales_pl), f,
                       indent=1)
+    phase("chip_smoke: every phase ran")
     if FAILED:
         print(f"chip_smoke: {len(FAILED)} checks failed", file=sys.stderr)
         return 1

@@ -10,8 +10,10 @@ inverse neighbor lists built inside a captured graph equal eager ones, and
 the plain stable sort's on adversarial indices (tests/_inverse_cases.py);
 the row sums and voxel run sums at C from 1 to 512, and over workspaces at
 C's and D's widths, equal the sums added in list order bit for bit. The GEMM core of B and C is also held to f64 products at shapes
-that reach each of its edges and at the main path's widest conv, and,
-on positive operands there, to a mean relative error below 3e-8; B's
+that reach each of its edges, at the main path's widest conv and at
+DALES's first (Cin 3) and widest (1024 -> 512, depth 15360) convs, and,
+on positive operands at both widest convs, to a mean relative error below
+3e-8; B's
 influences equal the plain version's bit for bit; and
 B's and C's launches write nothing outside their buffers (guard bands of
 a sentinel around each) and refuse a split-K workspace too short. Kernel
@@ -19,7 +21,8 @@ A runs the point sets built to break its column rule
 (tests/_cell_search_cases.py) and a level-0-sized batch, equal to the
 plain version and the same on a second call, writes only its output and
 scratch, and refuses a scratch too short or misaligned. D runs at the
-main path's K (14, 29) and past its mask's 32 and 64 slots. The training
+main path's K (14, 29), past its mask's 32 and 64 slots and at 256
+channels (DALES's weak-label shortcut). The training
 loop's input: the resident assembly and the vote buffers on the card
 equal their CPU runs (1e-5 and 1e-6; the jitter's threefry bits are
 equal, its normals within 4 ulp: log1p and sqrt round otherwise on the
@@ -243,7 +246,7 @@ def test_kpconv_bwd_kernel_matches_plain(dev, influence):
 # channel chunks), K past the 32-slot mask and past the 64-slot one
 # (the slots beyond it gathered again)
 @pytest.mark.parametrize("k,c", [(14, 64), (29, 128), (14, 80), (40, 128),
-                                 (70, 7)])
+                                 (70, 7), (31, 256)])
 def test_maxpool_bwd_kernel_matches_plain(dev, k, c):
     g = torch.Generator(device=dev).manual_seed(3)
     b, nq, ns = 2, 400, 600
@@ -466,7 +469,10 @@ def test_card_backward_without_inverse_lists_raises(dev):
 # multiple of its 32-deep stage) and 360, Cout 32 and 40 (narrower than
 # the 128-wide tile) and 256, Cin 512 (depth 7680), an odd Cin and Cout
 # (4-byte copies instead of 16-byte ones), and the main path's widest
-# conv (multi_att.simple1: 3 spheres of 5712 rows, K = 34, 512 -> 256).
+# conv (multi_att.simple1: 3 spheres of 5712 rows, K = 34, 512 -> 256);
+# DALES's first conv (Cin 3: depth 45) and its weak-label model's widest
+# (multi_att.simple1 at 128 features: 1024 -> 512, depth 15360, on 2
+# spheres of the deepest level's few hundred rows).
 GEMM_CASES = {
     "kpcin60-cout32": dict(b=2, nq=300, ns=500, k=20, cin=4, cout=32),
     "kpcin360-cout40": dict(b=2, nq=300, ns=500, k=20, cin=24, cout=40),
@@ -474,6 +480,8 @@ GEMM_CASES = {
     "cin512-cout256": dict(b=2, nq=333, ns=400, k=16, cin=512, cout=256),
     "odd-strides": dict(b=2, nq=129, ns=200, k=9, cin=5, cout=7),
     "widest": dict(b=3, nq=5712, ns=5712, k=34, cin=512, cout=256),
+    "dales-first": dict(b=2, nq=6000, ns=6000, k=28, cin=3, cout=64),
+    "dales-widest": dict(b=2, nq=640, ns=640, k=36, cin=1024, cout=512),
 }
 
 
@@ -522,8 +530,17 @@ def test_gemm_core_sums_do_not_drift(dev):
     errs one way) y @ W and y^T @ g at the widest conv keep a mean
     relative error to f64 below 3e-8 (a stage's twelve wgmmas in one
     chain drifted by -2.2e-7)."""
-    q, s, nb, x, kpts, w, grad = _conv_problem(dev, 8,
-                                               **GEMM_CASES["widest"])
+    _assert_no_drift(dev, "widest")
+
+
+def test_gemm_core_sums_do_not_drift_at_dales_depth(dev):
+    """As above at DALES's widest conv, whose depth (15360) is twice the
+    Vaihingen3D model's."""
+    _assert_no_drift(dev, "dales-widest")
+
+
+def _assert_no_drift(dev, case):
+    q, s, nb, x, kpts, w, grad = _conv_problem(dev, 8, **GEMM_CASES[case])
     x, w, grad = x.abs(), w.abs(), grad.abs()
     out, y = kpconv_fwd_with_y(q, s, nb, x, kpts, w, 1.5, "linear")
     _, dw = kpconv_bwd(q, s, nb, y, kpts, w, grad, 1.5, "linear",

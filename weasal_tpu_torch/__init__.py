@@ -9,15 +9,16 @@ backward), and an SGD update; entry point `train_step` with
 `init_opt_state`. The training loop (datasets, potential sampler,
 resident input, validation, checkpoints): `ModelTrainer`, driven by
 `python -m weasal_tpu_torch.train_Vaihingen3D_WeakLabel` and
-`python -m weasal_tpu_torch.train_Vaihingen3D_PseudoLabel`, which also
-run the active-learning iterations; voting and acquisition:
+`python -m weasal_tpu_torch.train_Vaihingen3D_PseudoLabel` (and their
+DALES twins `train_DALES_WeakLabel`, `train_DALES_PseudoLabel`), which
+also run the active-learning iterations; voting and acquisition:
 `ModelTester` (`python -m weasal_tpu_torch.test_models`); pseudo-label
 refinement: `python -m weasal_tpu_torch.pseudoLabel_refinement`. See
 README.md, section "PyTorch/CUDA port".
 """
 
-from weasal_tpu_torch.config import (Config, VaihingenPLConfig,
-                                     VaihingenWLConfig)
+from weasal_tpu_torch.config import (Config, DALESPLConfig, DALESWLConfig,
+                                     VaihingenPLConfig, VaihingenWLConfig)
 from weasal_tpu_torch.infer import eval_step
 from weasal_tpu_torch.interop import from_jax_opt_state, from_jax_variables
 from weasal_tpu_torch.models.architectures import KPFCNN, KPFCNN_mprm
@@ -26,7 +27,8 @@ from weasal_tpu_torch.train.step import train_step
 from weasal_tpu_torch.train.tester import ModelTester
 from weasal_tpu_torch.train.trainer import ModelTrainer
 
-__all__ = ["Config", "VaihingenWLConfig", "VaihingenPLConfig", "KPFCNN",
+__all__ = ["Config", "VaihingenWLConfig", "VaihingenPLConfig",
+           "DALESWLConfig", "DALESPLConfig", "KPFCNN",
            "KPFCNN_mprm", "eval_step",
            "train_step", "init_opt_state", "ModelTrainer", "ModelTester",
            "from_jax_variables", "from_jax_opt_state"]

@@ -442,3 +442,57 @@ class VaihingenPLConfig(Config):
 
     saving = True
     saving_path = None
+
+
+class DALESWLConfig(VaihingenWLConfig):
+    """DALES weak-label model and training session
+    (train_DALES_WeakLabel.py:19-43): 128 features, no color."""
+    dataset = "DALESWL"
+
+    in_radius = 16
+    sub_radius = 5
+    first_subsampling_dl = 0.4
+    in_features_dim = 3
+    first_features_dim = 128
+    # DALES's batch-norm momentum is 0.98 (torch convention: the running
+    # statistics take 0.98 of each batch's); Vaihingen3D's is 0.02
+    batch_norm_momentum = 0.98
+
+    max_epoch = 100
+    batch_num = 2
+    epoch_steps = 400
+    checkpoint_gap = 50
+
+    augment_scale_min = 0.9
+    augment_scale_max = 1.1
+    augment_noise = 0.01
+
+    active_learning_iterations = 10
+    initial_labels_per_file = 7000
+    subsample_method = "balanced"
+    added_labels_per_epoch = 1000
+    subsample_labels = active_learning_iterations > 0
+
+
+class DALESPLConfig(VaihingenPLConfig):
+    """DALES pseudo-label model and training session
+    (train_DALES_PseudoLabel.py:20-40)."""
+    dataset = "DALESPL"
+
+    in_radius = 16
+    first_subsampling_dl = 0.4
+    in_features_dim = 3
+
+    max_epoch = 200
+    batch_num = 4
+    epoch_steps = 100
+    lr_decays = {i: 0.1 ** (1 / 200) for i in range(1, 200)}
+
+    augment_scale_min = 0.9
+    augment_scale_max = 1.1
+    augment_noise = 0.01
+
+    contrast_thd = 10
+
+    active_learning_iterations = 20
+    added_labels_per_epoch = 5000

@@ -7,9 +7,12 @@ Counterpart of weasal_tpu/data/datasets.py: `CloudSegmentationDataset`
 active learning), `_Vaihingen3DBase` (:787-841),
 `Vaihingen3DWLDataset` (:843) and `Vaihingen3DPLDataset` (:848-873),
 whose training split reads the refined pseudo labels and overlays the
-ground truth of its point ledger. The sampler draws the same
-random numbers in the same order as the JAX package, so one seed gives
-both the same spheres. Differences by design:
+ground truth of its point ledger, and the multi-tile, colorless DALES
+datasets `_DALESBase` (:880-958), `DALESWLDataset` (:961) and
+`DALESPLDataset` (:966-975), whose test split is a list of tiles. The
+sampler draws the same random numbers in the same order as the JAX
+package, so one seed gives both the same spheres (a cloud without colors
+draws no color drop). Differences by design:
 
 - scipy's cKDTree replaces sklearn's KDTree; radius queries return each
   row sorted ascending (ops/neighbors.query_radius), where sklearn
@@ -23,8 +26,7 @@ both the same spheres. Differences by design:
   them; shape plans go to `shape_plans_torch.json`.
 - Anchor subsampling draws from `random.Random(ANCHOR_SEED)`.
 - The plan has no band windows.
-The 'ERF' split (which the JAX tester refuses to vote on) and the DALES
-datasets are not ported.
+The 'ERF' split (which the JAX tester refuses to vote on) is not ported.
 """
 
 from __future__ import annotations
@@ -137,7 +139,11 @@ class CloudSegmentationDataset:
         return join(self.path, self.train_dir)
 
     def _in_split(self, i: int) -> bool:
-        in_test = self.all_splits[i] == self.test_split
+        # a multi-tile dataset's test split is a list of tiles
+        test_split = self.test_split
+        in_test = (self.all_splits[i] in test_split
+                   if isinstance(test_split, (list, tuple, set))
+                   else self.all_splits[i] == test_split)
         if self.split == "test":
             return in_test
         if self.split == "validation":
@@ -161,6 +167,10 @@ class CloudSegmentationDataset:
     def prepare_ply(self):
         raise NotImplementedError
 
+    def _sub_has_colors(self) -> bool:
+        """Whether the prepared plys carry an `intensity` column."""
+        return True
+
     # ------------------------------------------------------------------
     # Subsampled cloud caches
     # ------------------------------------------------------------------
@@ -174,28 +184,37 @@ class CloudSegmentationDataset:
         dl = self.config.first_subsampling_dl
         os.makedirs(self.tree_path, exist_ok=True)
 
+        has_colors = self._sub_has_colors()
         for i, file_path in enumerate(self.files):
             t0 = time.time()
             cloud_name = self.cloud_names_split[i]
             sub_ply_file = join(self.tree_path, f"{cloud_name}.ply")
+            sub_colors = None
             if exists(sub_ply_file):
                 data = read_ply(sub_ply_file)
                 sub_points = np.vstack((data["x"], data["y"], data["z"])).T
                 sub_labels = data["class"].astype(np.int32)
-                sub_colors = data["intensity"].astype(np.float32)[:, None]
+                if has_colors:
+                    sub_colors = data["intensity"].astype(np.float32)[:, None]
             else:
                 data = read_ply(file_path)
                 points = np.vstack((data["x"], data["y"],
                                     data["z"])).T.astype(np.float32)
                 labels = data["class"].astype(np.int32)
-                colors = data["intensity"].astype(np.float32)[:, None]
-                sub_points, sub_colors, sub_labels = grid_subsample(
-                    points, dl, features=colors, labels=labels)
-                sub_colors = sub_colors / 255.0
+                fields, names = [], ["x", "y", "z"]
+                if has_colors:
+                    colors = data["intensity"].astype(np.float32)[:, None]
+                    sub_points, sub_colors, sub_labels = grid_subsample(
+                        points, dl, features=colors, labels=labels)
+                    sub_colors = sub_colors / 255.0
+                    fields.append(sub_colors.astype(np.float32))
+                    names.append("intensity")
+                else:
+                    sub_points, sub_labels = grid_subsample(
+                        points, dl, labels=labels)
                 write_ply(sub_ply_file,
-                          [sub_points, sub_colors.astype(np.float32),
-                           sub_labels.astype(np.int32)],
-                          ["x", "y", "z", "intensity", "class"])
+                          [sub_points, *fields, sub_labels.astype(np.int32)],
+                          names + ["class"])
 
             sub_labels = self._training_labels(cloud_name, sub_labels)
             self.input_trees.append(cKDTree(sub_points))
@@ -465,7 +484,8 @@ class CloudSegmentationDataset:
             else:
                 scale, R = np.ones(3, np.float32), np.eye(3, dtype=np.float32)
             color_keep = 1.0
-            if augment and rng.random() > cfg.augment_color:
+            if (augment and self.input_colors[cloud_ind] is not None
+                    and rng.random() > cfg.augment_color):
                 color_keep = 0.0
             return dict(points=None, features=None, labels=None,
                         input_inds=input_inds, cloud_ind=cloud_ind,
@@ -475,7 +495,8 @@ class CloudSegmentationDataset:
 
         points = self._cloud_points_f32(cloud_ind)
         input_points = (points[input_inds] - center).astype(np.float32)
-        colors = self.input_colors[cloud_ind][input_inds]
+        colors = (self.input_colors[cloud_ind][input_inds]
+                  if self.input_colors[cloud_ind] is not None else None)
 
         if has_labels:
             raw = self.input_labels[cloud_ind][input_inds]
@@ -493,7 +514,8 @@ class CloudSegmentationDataset:
             aug_points, scale, R = input_points, np.ones(3, np.float32), \
                 np.eye(3, dtype=np.float32)
 
-        if augment and rng.random() > cfg.augment_color:
+        if augment and colors is not None \
+                and rng.random() > cfg.augment_color:
             colors = colors * 0
 
         features = self._sphere_features(colors, aug_points, center)
@@ -677,17 +699,13 @@ class Vaihingen3DWLDataset(_Vaihingen3DBase):
     weak_labels = True
 
 
-class Vaihingen3DPLDataset(_Vaihingen3DBase):
-    """The pseudo-label stage's Vaihingen3D: the class 10 'Ignore' marks
-    points without a pseudo label; the training split trains on
-    `<data_root>/PseudoLabels/<weak_label_log>/<cloud>_t<thd>_pseudo.txt`
-    with the ground truth of the points in the cloud's ledger
-    (`<cloud>_al_groundTruth_IDs.pkl` in the port's cache, extended by
-    each acquisition) written over it; iteration 0 starts an empty
-    ledger."""
-    name = "Vaihingen3D"
-    label_to_names = {**_Vaihingen3DBase.label_to_names, 10: "Ignore"}
-    ignored_label_values = (10,)
+class PseudoLabelLedger:
+    """The pseudo-label stage's training labels, shared by its datasets:
+    the training split trains on `<data_root>/PseudoLabels/
+    <weak_label_log>/<cloud>_t<thd>_pseudo.txt` with the ground truth of
+    the points in the cloud's ledger (`<cloud>_al_groundTruth_IDs.pkl` in
+    the port's cache, extended by each acquisition) written over it;
+    iteration 0 starts an empty ledger."""
 
     def gt_ledger_file(self, cloud_name: str) -> str:
         return join(self.tree_path, cloud_name + "_al_groundTruth_IDs.pkl")
@@ -713,3 +731,116 @@ class Vaihingen3DPLDataset(_Vaihingen3DBase):
             with open(gt_file, "wb") as f:
                 pickle.dump([], f)
         return labels
+
+
+class Vaihingen3DPLDataset(PseudoLabelLedger, _Vaihingen3DBase):
+    """The pseudo-label stage's Vaihingen3D: the class 10 'Ignore' marks
+    points without a pseudo label (PseudoLabelLedger)."""
+    name = "Vaihingen3D"
+    label_to_names = {**_Vaihingen3DBase.label_to_names, 10: "Ignore"}
+    ignored_label_values = (10,)
+
+
+# ----------------------------------------------------------------------------
+# DALES
+# ----------------------------------------------------------------------------
+
+class _DALESBase(CloudSegmentationDataset):
+    """DALES: many tiles, no color. The 29 training and validation tiles
+    and the 11 test tiles of the real dataset, or, for a root without
+    them, the layout discovered from its plys: the sorted `test_*` tiles
+    are the test split, the lexically last of the other tiles is the
+    validation tile (as 5190_54400 is among the real names), the rest
+    train."""
+    label_to_names = {0: "Unknown", 1: "Ground", 2: "Vegetation", 3: "Cars",
+                      4: "Trucks", 5: "Power", 6: "Fences", 7: "Poles",
+                      8: "Buildings"}
+    cloud_names = ["5080_54435", "5085_54320", "5095_54440", "5095_54455",
+                   "5100_54495", "5105_54405", "5105_54460", "5110_54320",
+                   "5110_54460", "5110_54475", "5110_54495", "5115_54480",
+                   "5130_54355", "5135_54495", "5140_54445", "5145_54340",
+                   "5145_54405", "5145_54460", "5145_54470", "5145_54480",
+                   "5150_54340", "5160_54330", "5165_54390", "5165_54395",
+                   "5180_54435", "5180_54485", "5185_54390", "5185_54485",
+                   "5190_54400",
+                   "test_5080_54400", "test_5080_54470", "test_5100_54440",
+                   "test_5100_54490", "test_5120_54445", "test_5135_54430",
+                   "test_5135_54435", "test_5140_54390", "test_5150_54325",
+                   "test_5155_54335", "test_5175_54395"]
+    all_splits = list(range(40))
+    validation_split = 28
+    # index of the first test tile: the number of training and validation
+    # tiles
+    _n_trainval = 29
+
+    def __init__(self, config, *args, data_root: Optional[str] = None,
+                 **kwargs):
+        path = data_root or join("data", self.name)
+        real_layout = all(exists(join(path, n + ".ply"))
+                          for n in _DALESBase.cloud_names)
+        if not real_layout and os.path.isdir(path):
+            names = sorted(
+                f[:-4] for f in os.listdir(path)
+                if f.endswith(".ply") and os.path.isfile(join(path, f)))
+            trainval = [n for n in names if not n.startswith("test_")]
+            test = [n for n in names if n.startswith("test_")]
+            if len(trainval) >= 2 and test:
+                self.cloud_names = trainval + test
+                self.all_splits = list(range(len(self.cloud_names)))
+                self.validation_split = len(trainval) - 1
+                self._n_trainval = len(trainval)
+            # else the real names stay, and their missing files raise
+        super().__init__(config, *args, data_root=data_root, **kwargs)
+
+    def _test_split(self, test_on_train: bool):
+        if test_on_train:
+            return list(range(0, self._n_trainval - 1))
+        return list(range(self._n_trainval, len(self.cloud_names)))
+
+    def _sub_has_colors(self) -> bool:
+        return False
+
+    def prepare_ply(self):
+        """Offset-reduce the split's raw tiles into its prepared plys
+        (points relative to the first tile's first point)."""
+        ply_dir = self._split_dir()
+        os.makedirs(ply_dir, exist_ok=True)
+        data = read_ply(join(self.path, self.cloud_names[0] + ".ply"))
+        self.coord_offset = np.vstack((data["x"][0], data["y"][0],
+                                       data["z"][0])).T
+        for i, cloud_name in enumerate(self.cloud_names):
+            if not self._in_split(i):
+                continue
+            cloud_file = join(ply_dir, cloud_name + ".ply")
+            if exists(cloud_file):
+                continue
+            data = read_ply(join(self.path, cloud_name + ".ply"))
+            points = np.vstack((data["x"], data["y"], data["z"])).T
+            points = (points - self.coord_offset).astype(np.float32)
+            classes = data["scalar_Classification"].astype(np.int32)
+            write_ply(cloud_file, [points, classes], ["x", "y", "z", "class"])
+
+    def _sphere_features(self, colors, aug_points, center):
+        # [ones, absolute height, reduced height]
+        ones = np.ones((aug_points.shape[0], 1), np.float32)
+        fdim = self.config.in_features_dim
+        if fdim == 1:
+            return ones
+        if fdim == 3:
+            return np.hstack((
+                ones, aug_points[:, 2:] + center[:, 2:].astype(np.float32),
+                aug_points[:, 2:])).astype(np.float32)
+        raise ValueError("DALES supports in_features_dim 1 or 3")
+
+
+class DALESWLDataset(_DALESBase):
+    name = "DALES"
+    weak_labels = True
+
+
+class DALESPLDataset(PseudoLabelLedger, _DALESBase):
+    """The pseudo-label stage's DALES: the class 10 'Ignore' marks points
+    without a pseudo label (PseudoLabelLedger)."""
+    name = "DALES"
+    label_to_names = {**_DALESBase.label_to_names, 10: "Ignore"}
+    ignored_label_values = (10,)

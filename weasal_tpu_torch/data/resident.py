@@ -45,12 +45,16 @@ def feature_spec(dataset_name: str, in_features_dim: int) -> Tuple[str, ...]:
         return {1: ("ones",),
                 2: ("ones", "color0"),
                 4: ("ones", "color0", "abs_z", "red_z")}[in_features_dim]
+    if name.startswith("dales"):
+        return {1: ("ones",),
+                3: ("ones", "abs_z", "red_z")}[in_features_dim]
     raise ValueError(f"no feature spec for dataset {dataset_name!r}")
 
 
 class ResidentClouds:
     """One split's clouds as flat tensors on `device`, with the host-side
-    base row of each cloud."""
+    base row of each cloud. Each cloud is padded to the largest; the
+    colors (`res_colors`) are held only where a cloud has them."""
 
     def __init__(self, dataset, device):
         clouds = [dataset._cloud_points_f32(i)
@@ -64,7 +68,10 @@ class ResidentClouds:
                 f"{n_clouds} clouds x {nmax} max points = {S} rows")
         pts = np.zeros((S, 3), np.float32)
         labels = np.full(S, -1, np.int32)
-        colors = np.zeros((S, dataset.input_colors[0].shape[1]), np.float32)
+        # a dataset's clouds all have colors, or none has (DALES)
+        first = dataset.input_colors[0]
+        colors = (np.zeros((S, first.shape[1]), np.float32)
+                  if first is not None else None)
 
         self.base = np.arange(n_clouds, dtype=np.int64) * nmax
         self.sizes = [c.shape[0] for c in clouds]
@@ -75,12 +82,14 @@ class ResidentClouds:
             pts[b:b + c.shape[0]] = c
             labels[b:b + c.shape[0]] = table[
                 np.asarray(dataset.input_labels[i], np.int64)]
-            colors[b:b + c.shape[0]] = dataset.input_colors[i]
+            if colors is not None:
+                colors[b:b + c.shape[0]] = dataset.input_colors[i]
 
         self.arrays: Dict[str, torch.Tensor] = {
             "res_points": torch.from_numpy(pts).to(device),
-            "res_labels": torch.from_numpy(labels).to(device),
-            "res_colors": torch.from_numpy(colors).to(device)}
+            "res_labels": torch.from_numpy(labels).to(device)}
+        if colors is not None:
+            self.arrays["res_colors"] = torch.from_numpy(colors).to(device)
 
 
 class ResidentBatchSource:
@@ -235,14 +244,13 @@ def assemble_level0_device(batch: Dict, config, plan: ShapePlan,
     labels = torch.where(mask0, batch["res_labels"][inds],
                          torch.full_like(inds, -1, dtype=torch.int32))
 
-    cols = batch["res_colors"][inds] * batch["color_keep"][:, None, None]
-
     columns = []
     for tok in spec:
         if tok == "ones":
             columns.append(torch.ones((B, n0, 1), device=dev))
         elif tok == "color0":
-            columns.append(cols[..., 0:1])
+            columns.append(batch["res_colors"][inds][..., 0:1]
+                           * batch["color_keep"][:, None, None])
         elif tok == "abs_z":
             columns.append(pts[..., 2:3] + centers[:, None, 2:3])
         elif tok == "red_z":

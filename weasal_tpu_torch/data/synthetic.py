@@ -1,12 +1,13 @@
-"""Synthetic aerial-LiDAR scenes in the raw Vaihingen3D format.
+"""Synthetic aerial-LiDAR scenes in the raw Vaihingen3D and DALES formats.
 
 Counterpart of weasal_tpu/data/synthetic.py: `district_style` (:54),
-`synthetic_scene` (:80), `composed_scene` (:205) and
-`make_vaihingen_like_root` (:235), with the same random draws in the same
-order, so that one seed writes byte-equal plys in both packages. The
-tests and `chip_smoke.py` train on these scenes: a smooth terrain,
-buildings with roofs and facades, trees, shrubs, cars, fences and
-powerlines, labeled with the Vaihingen3D 9-class nomenclature.
+`synthetic_scene` (:80), `composed_scene` (:205),
+`make_vaihingen_like_root` (:235) and `make_dales_like_root` (:270), with
+the same random draws in the same order, so that one seed writes
+byte-equal plys in both packages. The tests and `chip_smoke.py` train on
+these scenes: a smooth terrain, buildings with roofs and facades, trees,
+shrubs, cars, fences and powerlines, labeled with the Vaihingen3D 9-class
+nomenclature (the DALES tiles reuse its ids as their 9 classes).
 """
 
 from __future__ import annotations
@@ -260,4 +261,40 @@ def make_vaihingen_like_root(root: str,
                   [pts.astype(np.float64), inten, lbl.astype(np.int32)],
                   ["x", "y", "z", "scalar_Intensity",
                    "scalar_Classification"])
+    return root
+
+
+def make_dales_like_root(root: str,
+                         tile_names=("5080_54435", "5085_54320",
+                                     "test_5080_54400"),
+                         extent: float = 80.0,
+                         density: float = 4.0,
+                         seed: int = 10,
+                         styled: bool = False,
+                         train_tiles: int = 0,
+                         test_tiles: int = 0) -> str:
+    """Write raw DALES-format tiles to root: x/y/z float64 and
+    scalar_Classification, no intensity.
+
+    Tile i draws from `default_rng(seed + i)`; `styled` gives each tile a
+    district style of its own. `train_tiles`/`test_tiles` > 0 replace
+    `tile_names` with styled tiles `tile_00`.. and `test_tile_00`..; the
+    datasets' root discovery (data/datasets._DALESBase) makes the
+    lexically last `tile_*` the validation tile, so `train_tiles` counts
+    training and validation tiles, as DALES's 29 do.
+    """
+    os.makedirs(root, exist_ok=True)
+    if train_tiles or test_tiles:
+        styled = True
+        tile_names = ([f"tile_{i:02d}" for i in range(train_tiles)]
+                      + [f"test_tile_{i:02d}" for i in range(test_tiles)])
+    for i, name in enumerate(tile_names):
+        path = join(root, name + ".ply")
+        if os.path.exists(path):
+            continue
+        rng = np.random.default_rng(seed + i)
+        style = district_style(rng) if styled else None
+        pts, _intensity, lbl = synthetic_scene(rng, extent, density, style)
+        write_ply(path, [pts.astype(np.float64), lbl.astype(np.int32)],
+                  ["x", "y", "z", "scalar_Classification"])
     return root

@@ -7,7 +7,7 @@ the refined pseudo-label txt files and the class-weight file of the
 pseudo-label stage. Host numpy only; it runs the same on any machine.
 
     python -m weasal_tpu_torch.pseudoLabel_refinement \\
-        --weak_label_log Log_... [--threshold 20] [--data_root ...]
+        --weak_label_log Log_... [--threshold T] [--data_root ...]
 """
 
 from __future__ import annotations
@@ -21,9 +21,10 @@ from weasal_tpu_torch.train.refinement import refine_pseudo_labels
 def main(argv=None) -> str:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--weak_label_log", required=True)
-    parser.add_argument("--threshold", type=int, default=20,
-                        help="max-probability cutoff in percent "
-                             "(default 20; 10 for DALES)")
+    parser.add_argument("--threshold", type=int, default=None,
+                        help="max-probability cutoff in percent (default: "
+                             "the log's dataset's, 20 for Vaihingen3D, 10 "
+                             "for DALES)")
     parser.add_argument("--data_root", default=None)
     args = parser.parse_args(argv)
     return refine_pseudo_labels(args.weak_label_log, args.threshold,

@@ -8,16 +8,19 @@ one, reloads its parameters.txt and votes with `train/tester.ModelTester`
 the training clouds (the test split with `test_on_train`) and writes the
 predictions that pseudo-label refinement reads; a pseudo-label log
 (`last_Vaihingen3DPL`, results/PseudoLabel/) votes with its `KPFCNN`
-into test/PseudoLabel/, the workflow's last step (`--on test`).
+into test/PseudoLabel/, the workflow's last step (`--on test`). A DALES
+log (`last_DALESWL`, `last_DALESPL`) votes every tile of the split: `--on
+train` the training tiles, `--on test` the `test_*` tiles, whose labels
+are not read.
 
     python -m weasal_tpu_torch.test_models [--log last_Vaihingen3DWL |
-        last_Vaihingen3DPL | results/WeakLabel/Log_x]
-        [--on train|validation|test]
-        [--data_root data/Vaihingen3D] [--num_votes N] [--chkp file]
+        last_Vaihingen3DPL | last_DALESWL | last_DALESPL |
+        results/WeakLabel/Log_x] [--on train|validation|test]
+        [--data_root data/<dataset>] [--num_votes N] [--chkp file]
         [--resume Log_dir] [--device cuda|cpu]
 
 Runs on CUDA unless `--device cpu` is given; where CUDA is absent it
-raises. Only Vaihingen3D is ported: DALES logs raise.
+raises.
 """
 
 from __future__ import annotations
@@ -29,15 +32,21 @@ import sys
 import numpy as np
 
 from weasal_tpu_torch.config import Config
-from weasal_tpu_torch.data.datasets import (Vaihingen3DPLDataset,
+from weasal_tpu_torch.data.datasets import (DALESPLDataset, DALESWLDataset,
+                                            Vaihingen3DPLDataset,
                                             Vaihingen3DWLDataset)
 from weasal_tpu_torch.train.tester import ModelTester
 from weasal_tpu_torch.utils.device import resolve_device
 
+# Batches of a vote epoch (the voting config's validation_size), as the
+# JAX script sets it; the vote's end is tested between epochs
+VOTE_EPOCH_BATCHES = 200
 DEFAULT_VOTES = {"Vaihingen3DWL": 20, "Vaihingen3DPL": 20,
                  "DALESWL": 2, "DALESPL": 2}
 DATASETS = {"Vaihingen3DWL": Vaihingen3DWLDataset,
-            "Vaihingen3DPL": Vaihingen3DPLDataset}
+            "Vaihingen3DPL": Vaihingen3DPLDataset,
+            "DALESWL": DALESWLDataset,
+            "DALESPL": DALESPLDataset}
 
 
 def model_choice(chosen_log: str, results_root: str = "results") -> str:
@@ -91,13 +100,9 @@ def main(argv=None):
                                             "current_chkp.tar")
     config = Config()
     config.load(chosen_log)
-    config.validation_size = 200
+    config.validation_size = VOTE_EPOCH_BATCHES
     config.input_threads = 10
     config.dropout = 0
-    if config.dataset not in DATASETS:
-        raise NotImplementedError(
-            f"dataset {config.dataset!r}: only the Vaihingen3D stages are "
-            "ported")
 
     split = args.on
     test_on_train = split == "train"

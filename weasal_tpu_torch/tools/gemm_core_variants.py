@@ -28,9 +28,9 @@ The controls (CONTROLS) run the same f64 steps with the kernels of the
 build as it is, but with kernel B's forward replaced by plain PyTorch
 that differs from B's plain version only in rounding: the plain version
 itself, its neighbor sum in the reverse order, and its neighbor sum in
-f64 rounded once. A share above 1 there is f32 rounding that the f64
-check cannot tell from a fault (an elementwise maximum or a leaky ReLU
-that turns the other way), not a kernel's error.
+f64 rounded once. The f64 and plain steps take the kernel step's
+leaky-ReLU signs and max-pool winners (chip_smoke.Branches), so a turned
+branch no longer reads as a share above 1.
 
 C's and D's scatters add with f32 atomics, so a share moves from run to
 run; the turns show by how much. Needs one NVIDIA GPU with nvcc.
@@ -292,7 +292,7 @@ def step_times(cs, config, model, pyr) -> dict:
         step_on_batch(model, opt, pyr, config, config.learning_rate)
 
     step()
-    rows, _ = cs.profiled_kernels(step)
+    rows, *_ = cs.profiled_kernels(step)
     core = sum(ms for name, _, ms in rows
                if "tf32x3_gemm_kernel" in name or
                name.startswith(cs.SPLITK_SUM))

@@ -33,6 +33,9 @@ from weasal_tpu_torch.data.anchors import weak_label_masks
 from weasal_tpu_torch.utils.ply import read_ply
 
 NO_LABEL = 10   # the 'no-label' class (pseudoLabel_refinement.py:141)
+# The threshold each dataset's pseudo-label stage reads its labels at
+# (its config's contrast_thd)
+DEFAULT_THRESHOLD = {"Vaihingen3D": 20, "DALES": 10}
 
 
 def get_weak_labels_per_point(cloud_name: str, sub_folder: str,
@@ -54,7 +57,7 @@ def get_weak_labels_per_point(cloud_name: str, sub_folder: str,
 
 
 def refine_pseudo_labels(weak_label_log: str,
-                         threshold: int,
+                         threshold: Optional[int] = None,
                          results_root: str = "results/WeakLabel",
                          test_root: str = "test/WeakLabel",
                          data_root: Optional[str] = None,
@@ -62,12 +65,14 @@ def refine_pseudo_labels(weak_label_log: str,
     """Refine the predictions of one weak-label log; returns the
     PseudoLabels output directory.
 
-    :param threshold: max-probability cutoff in percent (20 for
-        Vaihingen3D, 10 for DALES)
+    :param threshold: max-probability cutoff in percent (default: the
+        log's dataset's, DEFAULT_THRESHOLD)
     """
     if config is None:
         config = Config()
         config.load(join(results_root, weak_label_log))
+    if threshold is None:
+        threshold = DEFAULT_THRESHOLD[config.dataset[:-2]]
 
     base_path = join(test_root, weak_label_log)
     data_folder = data_root or join("data", config.dataset[:-2])

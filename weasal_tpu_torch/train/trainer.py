@@ -485,6 +485,7 @@ class ModelTrainer:
                     self._close_trace(trace, trace_dir, trace_t0)
                     trace, trace_done = None, True
                 self.epoch_times.append(dict(epoch=self.epoch,
+                                             start=epoch_t0,
                                              seconds=epoch_s,
                                              steps=epoch_real_steps,
                                              points=epoch_points,
