@@ -78,7 +78,8 @@ Phases, in order; any failure exits non-zero:
    against their plain versions (as in phases 2 and 4) and, on the first
    batch, the kernel training step held to an f64 one (as in phase 5),
    and read again on the same batch's pyramid built twice more (each
-   pyramid's hash and share of the f64 allowance logged, not held),
+   pyramid's hash equal to the first's, its share of the f64 allowance
+   within SHARE_REPEAT_RTOL of it),
    and `train_step` timed at the loop's plan, synchronized and back to
    back, beside the loop's step and phase 5's, after the inverse lists
    and row sums of one step checked and timed as in phase 5;
@@ -143,7 +144,22 @@ Phases, in order; any failure exits non-zero:
    on labels written from the ground truth, with the refinement's class
    weights) with the same checks, and `test_models --on test` (1 vote,
    every test tile): launches, plys per tile, finite votes, ms per vote
-   batch and voted points/s, host set-up seconds and peak memory.
+   batch and voted points/s, host set-up seconds and peak memory;
+11. the pseudo-label stage with deformable convs (`run_deformable`):
+   VaihingenPLConfig at full width with its layer-3 resnetb and layer-4
+   blocks deformable, on phase 9's tile and labels, through the PL entry
+   point's stage runner: one graphed epoch of 10 steps (K = 1) with 2
+   validation batches, again in a fresh trainer (losses, offset losses
+   and checkpoint bit-equal), every step replayed, 13 A, 10 B and 10 C
+   (7 rigid convs and the 3 offset convs), 4 D, 14 builds and 12 row
+   sums a step, the offset loss finite and non-zero; the checkpoint exported to the
+   reference's torch format and reloaded into a fresh trainer and into
+   `ModelTester` (eval probabilities bit-equal, momentum zero) and
+   voted once by `test_models --on test --chkp` the exported file; one
+   more epoch profiled; A-D, the lists and the sums against their plain
+   versions and the kernel step against f64 at its shapes
+   (`check_stage_shapes`); the deformable convs' device ms and peak
+   memory.
 Phases 3 and 5 end with a profile of one step, by kernel family. Checks
 of agreement (each kernel against its plain version and against itself
 on a repeat, the GEMM core's drift, the forward and the training step
@@ -155,9 +171,10 @@ bound counting its GEMM operations at the 3xTF32 rate of the tensor
 cores and the rest at the f32 rate (`f32_bound_ms`: all at the f32
 rate), its launches on each main path (`launches_by_path`: inference,
 the training steps, the WL loop, WL active learning, the PL stage, the
-DALES WL and PL paths) and its sums at the PL loop's and the DALES
-loops' shapes (`pl_ms`, `pl_plain_ms`, `pl_bound_ms`, and the same with
-`dales_wl_` and `dales_pl_`). Imports nothing of JAX or weasal_tpu.
+DALES WL and PL paths, the deformable PL path) and its sums at the PL
+loop's, the DALES loops' and the deformable PL loop's shapes (`pl_ms`,
+`pl_plain_ms`, `pl_bound_ms`, and the same with `dales_wl_`, `dales_pl_`
+and `deform_pl_`). Imports nothing of JAX or weasal_tpu.
 
 Kernels B and C run their three products (y @ W; g @ W^T and y^T @ g)
 through one GEMM core, weasal_tpu_torch/csrc/kpconv_common.cuh: wgmma
@@ -252,6 +269,12 @@ LOSS_RTOL = 1e-5
 F64_RATIO = 4.0
 F64_FLOOR = 1e-3
 TIE_RATIO = 4.0
+# One batch's plain pyramid built again is bit-equal (its voxel sums add
+# in a fixed order), so its f64 shares differ only by the plain f32 step
+# the allowance is made of: C's and D's plain dX add with index_add_,
+# atomics in no fixed order on the card (a few 1e-5 of a share on an
+# H100)
+SHARE_REPEAT_RTOL = 1e-3
 N_BATCHES = 3
 N_TRAIN_STEPS = 4
 SEED = 0
@@ -307,6 +330,18 @@ DALES_DENSITY = 10.0
 DALES_LOG = "Log_phase10"
 DALES_ARGS = ("--epoch_steps", "10", "--validation_size", "5",
               "--seed", str(SEED), "--al_iterations", "0")
+# Phase 11: the pseudo-label stage with deformable convs on phase 9's tile
+# and labels; the blocks made deformable (by index in VaihingenPLConfig's
+# architecture: the layer-3 resnetb, the strided block from layer 3 and
+# the layer-4 resnetb) and one graphed epoch of 10 steps a replay at a
+# time with 2 validation batches
+DEFORM_LOG = "Log_phase11"
+DEFORM_BLOCKS = {7: "resnetb_deformable", 8: "resnetb_deformable_strided",
+                 9: "resnetb_deformable"}
+DEFORM_ARGS = ("--weak_label_log", PL_LOG, "--epoch_steps", "10",
+               "--validation_size", "2", "--max_epoch", "1",
+               "--steps_per_dispatch", "1", "--seed", str(SEED),
+               "--al_iterations", "0")
 # Failed checks of agreement, reported at once and failing the run at its
 # end (see the module docstring); PREFIX names the shapes being checked
 FAILED: list = []
@@ -457,14 +492,14 @@ def check_radius_search(batch, config, plan, log):
 
 
 def check_kpconv(model, batch, log, seed):
-    from weasal_tpu_torch.models.blocks import conv_inputs, kpconv_modules
+    from weasal_tpu_torch.models.blocks import conv_inputs, kernel_convs
     from weasal_tpu_torch.ops.cuda.kpconv_fwd import (kpconv_fwd,
                                                       kpconv_fwd_plain,
                                                       kpconv_fwd_with_y)
     gen = torch.Generator(device=batch.features.device).manual_seed(seed)
     rows, t_k, t_p, t_b, t_f32 = [], 0.0, 0.0, 0.0, 0.0
     ops_t, gemm_t, bytes_t, worst = 0.0, 0.0, 0.0, 0.0
-    for name, conv in kpconv_modules(model):
+    for name, conv in kernel_convs(model):
         q, s, nb, q_mask = conv_inputs(conv.strided, conv.layer_ind, batch)
         kp, w = conv.kernel_points, conv.weights.detach()
         cin = w.shape[1]
@@ -610,7 +645,7 @@ def first_conv(model):
 
 
 def check_kpconv_bwd(model, batch, log, seed):
-    from weasal_tpu_torch.models.blocks import conv_inputs, kpconv_modules
+    from weasal_tpu_torch.models.blocks import conv_inputs, kernel_convs
     from weasal_tpu_torch.ops.cuda.kpconv_bwd import (kpconv_bwd,
                                                       kpconv_bwd_plain)
     from weasal_tpu_torch.ops.cuda.kpconv_fwd import kpconv_fwd_plain_with_y
@@ -621,7 +656,7 @@ def check_kpconv_bwd(model, batch, log, seed):
     skip_dx = first_conv(model)
     ws_gen = torch.Generator(device=batch.features.device).manual_seed(
         seed + 1)
-    for name, conv in kpconv_modules(model):
+    for name, conv in kernel_convs(model):
         q, s, nb, q_mask = conv_inputs(conv.strided, conv.layer_ind, batch)
         kp, w = conv.kernel_points, conv.weights.detach()
         n_kp, cin, cout = w.shape
@@ -899,10 +934,11 @@ def check_inverse_lists(calls, log, totals: bool = True, reps: int = 10):
     lists equal the plain stable sort's, eager and replayed from a CUDA
     graph; every row sum and voxel sum equals `ordered_row_sums` /
     `ordered_run_sums` bit for bit (and is within f32 rounding of the
-    plain version, whose `index_add_` / `scatter_add_` adds with atomics
-    on the card: at the step's shapes within MAXPOOL_RTOL and
-    MAXPOOL_ATOL_REL, at adversarial ones within the bound on two orders
-    of an f32 sum); every call repeats bit for bit. Times: CUDA events around a call
+    plain version, whose `index_add_` adds with atomics on the card: at
+    the step's shapes within MAXPOOL_RTOL and MAXPOOL_ATOL_REL, at
+    adversarial ones within the bound on two orders of an f32 sum; the
+    voxel sums' plain version adds in the kernel's order and equals it
+    bit for bit); every call repeats bit for bit. Times: CUDA events around a call
     (kernel, plain version, library call), and the device time of the
     kernel's launches and of the library call's from torch.profiler,
     split by kernel name. The library calls compute the same function
@@ -973,7 +1009,9 @@ def check_inverse_lists(calls, log, totals: bool = True, reps: int = 10):
                 def library():
                     out = torch.zeros((rows + 1, c), device=src.device)
                     return out.index_add_(0, tgt, src)
-                n_bytes = 4.0 * (src.numel() + rows * c + rows + 1 + total)
+                # the rows the lists name, read once (a workspace's shadow
+                # slots are in no list), the sums written, the lists read
+                n_bytes = 4.0 * (total * c + rows * c + rows + 1 + total)
                 shape = f"src{list(src.shape)} -> {rows} rows"
             else:
                 src, seg, n_out = args
@@ -1002,6 +1040,10 @@ def check_inverse_lists(calls, log, totals: bool = True, reps: int = 10):
             exact = all(torch.equal(a, w) for a, w in zip(got, want))
             expect(exact, f"inverse_sum {shape}: differs from the sums in "
                    "list order")
+            if kind == "runs":
+                expect(all(torch.equal(a, b) for a, b in zip(got, ref)),
+                       f"run_sums {shape}: the plain voxel sums differ "
+                       "from the kernel's")
             # The plain versions add with atomics on the card, in no fixed
             # order. The step's lists hold tens of terms, and the kernels
             # stay within MAXPOOL_RTOL / MAXPOOL_ATOL_REL of them there;
@@ -1722,6 +1764,17 @@ def pyramid_print(pyr) -> str:
     return h.hexdigest()[:10]
 
 
+def expect_one_share(what, prints, shares):
+    """The plain pyramid of one batch, built again, repeats bit for bit
+    (its voxel sums add in a fixed order), and the f64 step's share read
+    on it within SHARE_REPEAT_RTOL."""
+    spread = (max(shares) - min(shares)) / max(max(shares), 1e-30)
+    expect(len(set(prints)) == 1 and spread <= SHARE_REPEAT_RTOL,
+           f"{what}: one batch's plain pyramid built {len(prints)} times "
+           f"gave prints {prints} and f64 shares {shares} (spread "
+           f"{spread:.2e}, limit {SHARE_REPEAT_RTOL})")
+
+
 def check_loop_shapes(trainer, card, log):
     """The kernels and the step at the loop's own shapes, after its runs:
     LOOP_CHECK_BATCHES batches of the loop's resident source (the
@@ -1733,9 +1786,9 @@ def check_loop_shapes(trainer, card, log):
     drift of one sign in B's outputs: the GEMM core's drift before its
     chains were cut put this batch at 1.66-1.70 of its allowance); the
     first batch's pyramid is built LOOP_F64_PYRAMIDS times, and each
-    later one's hash and share of the f64 allowance are read beside the
-    first's (not held: whether the pyramid's bits, and the share, vary
-    within a run). Then
+    later one's hash must equal the first's and its share of the f64
+    allowance lie within SHARE_REPEAT_RTOL of it (`expect_one_share`).
+    Then
     the inverse-list builds and row sums of one `train_step` on the
     first batch with regions, checked and timed as in phase 5 (their
     device split by kernel name), and `train_step` on the batches that
@@ -1796,8 +1849,9 @@ def check_loop_shapes(trainer, card, log):
 
         runs = []
         for i, p in enumerate(pyrs):
-            # pyramids 1.. are the same batch's built again (their voxel
-            # sums add with atomics on the plain versions): read, not held
+            # pyramids 1.. are the same batch's built again: their bits
+            # must repeat (the plain voxel sums add in a fixed order), and
+            # so the f64 step's share, up to the plain step's atomics
             net = fresh()
             runs.append(compare_train_steps(
                 net, init_opt_state(net), p, config, log,
@@ -1811,7 +1865,8 @@ def check_loop_shapes(trainer, card, log):
         log(f"[{card}] f64 step at the loop's shapes (first batch): share "
             f"of the f64 allowance {comparison['share']:.3f} (held); the "
             f"batch's pyramid built {LOOP_F64_PYRAMIDS} times: prints "
-            f"{prints}, shares {[round(v, 3) for v in shares]} (read)")
+            f"{prints}, shares {shares}")
+        expect_one_share("phase 6", prints, shares)
         expect(len(batches) >= 3, f"{len(batches)} of {len(drawn)} loop "
                "batches have regions")
     finally:
@@ -2602,19 +2657,22 @@ def _loop_report(label, trainer, logdir, epochs, launches, per_step,
 
 def pl_expected(config):
     """Launches per pseudo-label training step and per eval (validation
-    or vote) batch: 3L-2 searches, one B (and one C) per KPConv, one D per
-    strided shortcut; the inverse lists of the L conv edges, the L-1 pool
-    and the L-1 upsample edges and the contrast loss's drawn rows; the row
-    sums of the L-1 upsample gathers, the drawn rows' gather and the L-1
-    voxel sums of the pyramid (an eval batch: the voxel sums)."""
+    or vote) batch: 3L-2 searches, one B (and one C) per KPConv that the
+    kernels compute (a deformable conv's offset conv among them), one D
+    per strided shortcut; the inverse lists of the L conv edges, the L-1
+    pool and the L-1 upsample edges and the contrast loss's drawn rows;
+    the row sums of the L-1 upsample gathers, the drawn rows' gather, the
+    deformable convs' neighbor gathers and the L-1 voxel sums of the
+    pyramid (an eval batch: the voxel sums)."""
     from weasal_tpu_torch import KPFCNN
-    from weasal_tpu_torch.models.blocks import kpconv_modules
+    from weasal_tpu_torch.models.blocks import kernel_convs, kpconv_modules
     net = KPFCNN(config, tuple(range(config.num_classes)) + (10,), (10,))
-    n_l, convs = config.num_layers, len(kpconv_modules(net))
+    n_l, convs = config.num_layers, len(kernel_convs(net))
+    deformable = sum(m.params.deformable for _, m in kpconv_modules(net))
     per_step = {"radius_search": 3 * n_l - 2, "kpconv_fwd": convs,
                 "kpconv_bwd": convs, "maxpool_bwd": len(strided_pools(net)),
                 "build_inverse_lists": n_l + 2 * (n_l - 1) + 1,
-                "inverse_sum": 2 * (n_l - 1) + 1}
+                "inverse_sum": 2 * (n_l - 1) + 1 + deformable}
     per_val = {"radius_search": 3 * n_l - 2, "kpconv_fwd": convs,
                "inverse_sum": n_l - 1}
     return per_step, per_val
@@ -2659,8 +2717,9 @@ def check_stage_shapes(trainer, per_step, card, log, what):
     seeded initial state, eager and replayed, to an f64 step as in phase
     5 (a pseudo-label step with its dropout mask and contrast draw given:
     a seeded mask, PL_SLC labeled points), and the same batch's pyramid
-    built LOOP_F64_PYRAMIDS - 1 times more, each read (not held) against
-    its own f64 step as phase 6 reads its rebuilds; the inverse lists and
+    built LOOP_F64_PYRAMIDS - 1 times more, each stepped against its own
+    f64 step, their prints and shares held as phase 6 holds its
+    rebuilds; the inverse lists and
     row sums of one `train_step` checked and timed as in phase 5. Then
     `train_step` on the batches (launches per step, synchronized ms) and a
     profile of one step. Returns the kernels' sums, the readings, the
@@ -2671,7 +2730,7 @@ def check_stage_shapes(trainer, per_step, card, log, what):
     from weasal_tpu_torch.data.resident import (ResidentBatchSource,
                                                 assemble_level0_device)
     from weasal_tpu_torch.models.architectures import model_for_config
-    from weasal_tpu_torch.models.blocks import dropout_keep, kpconv_modules
+    from weasal_tpu_torch.models.blocks import dropout_keep, kernel_convs
     from weasal_tpu_torch.ops.pyramid import batch_from_device_pyramid
     from weasal_tpu_torch.train.graphs import COUNTED, launch_counts
     from weasal_tpu_torch.utils.device import plain_ops
@@ -2718,7 +2777,7 @@ def check_stage_shapes(trainer, per_step, card, log, what):
                                                   SEED)
         sums = {k: v[1] for k, v in checks.items()}
         shapes = {k: v[0] for k, v in checks.items()}
-        convs = kpconv_modules(trainer.model)
+        convs = kernel_convs(trainer.model)
         gemms = {name: gemm_shape(conv, pyr) for name, conv in convs}
         log(f"{what}: GEMM shapes (M, N, K) of y @ W by conv: {gemms}")
         # the drift check of phase 2 at the deepest conv (the largest
@@ -2746,9 +2805,9 @@ def check_stage_shapes(trainer, per_step, card, log, what):
                            slc_idx=slc)
         runs = []
         for i, p in enumerate(pyrs):
-            # pyramids 1.. are the same batch's built again (their voxel
-            # sums add with atomics on the plain versions), each stepped
-            # with the same draws: read, not held, and not replayed
+            # pyramids 1.. are the same batch's built again, each stepped
+            # with the same draws: their bits must repeat, their shares
+            # up to the plain step's atomics (not replayed)
             net = model_for_config(
                 config, train_ds.label_values, train_ds.ignored_labels,
                 generator=torch.Generator().manual_seed(0)).to(dev)
@@ -2767,7 +2826,8 @@ def check_stage_shapes(trainer, per_step, card, log, what):
             f"allowance {comparison['share']:.3f} (held; replayed "
             f"{comparison['graph']['share']:.3f}); the batch's pyramid "
             f"built {LOOP_F64_PYRAMIDS} times: prints {prints}, shares "
-            f"{[round(v, 3) for v in shares]} (read)")
+            f"{shares}")
+        expect_one_share(what, prints, shares)
     finally:
         PREFIX = ""
 
@@ -3250,6 +3310,262 @@ def run_dales(work, counted, wl_per, card, log):
     return report, wl_total, pl_total
 
 
+def deformable_pl_config():
+    """VaihingenPLConfig with DEFORM_BLOCKS made deformable: its layer-3
+    resnetb and its layer-4 blocks (KPConv-PyTorch's train_S3DIS.py
+    pattern, whence the PL config's deform_radius, repulse_extent and
+    deform_lr_factor); widths, levels and spheres are the PL config's."""
+    from weasal_tpu_torch.config import VaihingenPLConfig
+    arch = list(VaihingenPLConfig.architecture)
+    for i, name in DEFORM_BLOCKS.items():
+        if name.replace("_deformable", "") != arch[i]:
+            raise AssertionError(f"block {i} is {arch[i]}, not {name}'s "
+                                 "rigid twin")
+        arch[i] = name
+    return type("DeformablePLConfig", (VaihingenPLConfig,),
+                {"architecture": arch})
+
+
+def time_deformable_convs(model, pyr, card, log):
+    """Each deformable conv of `model` at its shapes on `pyr`: forward
+    and forward + backward (dX, dW, the offset conv's and the offsets'
+    gradients, with the edge's inverse lists built once) in CUDA-event ms
+    and in device busy ms (torch.profiler), the peak device memory of one
+    forward + backward above what was allocated before it, and the size
+    of its largest tensor, the differences [B, Nq, K, Kp, 3]."""
+    from weasal_tpu_torch.models.blocks import (conv_inputs, conv_inverse,
+                                                kpconv_modules)
+    dev = pyr.features.device
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    model.eval()
+    rows = []
+    for name, conv in kpconv_modules(model):
+        if not conv.params.deformable:
+            continue
+        q, s, nb, _ = conv_inputs(conv.strided, conv.layer_ind, pyr)
+        inverse = conv_inverse(conv.strided, conv.layer_ind, pyr)
+        n_kp, cin, cout = conv.weights.shape
+        x = torch.randn((s.shape[0], s.shape[1], cin), generator=gen,
+                        device=dev, requires_grad=True)
+        g = torch.randn((q.shape[0], q.shape[1], cout), generator=gen,
+                        device=dev)
+
+        def forward():
+            with torch.no_grad():
+                return conv(q, s, nb, x, inverse)
+
+        def forward_backward():
+            torch.autograd.backward(conv(q, s, nb, x, inverse), g)
+
+        forward_backward()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        forward_backward()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - before
+        fwd_ms, fb_ms = cuda_ms(forward), cuda_ms(forward_backward)
+        _, _, fwd_busy = profiled_kernels(forward, reps=3)
+        _, _, fb_busy = profiled_kernels(forward_backward, reps=3)
+        diffs = 4.0 * q.shape[0] * q.shape[1] * nb.shape[2] * n_kp * 3
+        row = dict(conv=name, shape=[*q.shape[:2], s.shape[1], nb.shape[2],
+                                     cin, cout],
+                   fwd_ms=fwd_ms, fwd_bwd_ms=fb_ms,
+                   fwd_busy_ms=fwd_busy / 3, fwd_bwd_busy_ms=fb_busy / 3,
+                   peak_bytes=peak, diffs_bytes=diffs)
+        rows.append(row)
+        log(f"[{card}] deformable {name}: q{list(q.shape[:2])} "
+            f"Ns={s.shape[1]} K={nb.shape[2]} {cin}->{cout}: forward "
+            f"{fwd_ms:.3f} ms (device busy {fwd_busy / 3:.3f}), forward + "
+            f"backward {fb_ms:.3f} ms (busy {fb_busy / 3:.3f}); peak "
+            f"{peak / 2**20:.1f} MiB above the allocated, the differences "
+            f"{diffs / 2**20:.1f} MiB")
+    model.zero_grad(set_to_none=True)
+    return rows
+
+
+def run_deformable(root, work, counted, card, log):
+    """Phase 11: the pseudo-label stage with deformable convs at full
+    VaihingenPLConfig width (`deformable_pl_config`) on phase 9's tile and
+    refined labels, through the PL entry point's stage runner with that
+    configuration: one graphed epoch of 10 steps (K = 1) with 2 validation
+    batches, the same again in a fresh trainer (losses, offset losses and
+    checkpoint bit-equal); the checks of `_loop_report` with the launches
+    of `pl_expected` (the offset convs on B and C, one row sum more a
+    deformable conv); the offset loss finite and non-zero at every step.
+    The run's checkpoint exported to the reference's format
+    (`python -m weasal_tpu_torch.export_torch_checkpoint`), reloaded into
+    a fresh trainer (momentum zero, epoch 1) and into `ModelTester`: eval
+    probabilities on a validation batch bit-equal to the trained model's;
+    `test_models --on test` with the exported file (1 vote). Then one
+    more epoch profiled (`profile_epoch`: ms a graphed step, busy share),
+    the kernels and the f64 step at the loop's shapes
+    (`check_stage_shapes`) and the deformable convs' times and memory
+    (`time_deformable_convs`).
+    Returns the report and the launches of its main-path runs."""
+    import copy
+    import dataclasses
+    from weasal_tpu_torch.data.loader import BatchPrefetcher
+    from weasal_tpu_torch.data.resident import (ResidentBatchSource,
+                                                assemble_level0_device)
+    from weasal_tpu_torch.export_torch_checkpoint import main as export
+    from weasal_tpu_torch.ops.pyramid import batch_from_device_pyramid
+    from weasal_tpu_torch.test_models import main as test_models
+    from weasal_tpu_torch.train import stage
+    from weasal_tpu_torch.train.tester import ModelTester
+    from weasal_tpu_torch.train.trainer import ModelTrainer
+    from weasal_tpu_torch.train_Vaihingen3D_PseudoLabel import STAGE
+
+    cls = deformable_pl_config()
+    deform_stage = dataclasses.replace(STAGE, config_cls=cls)
+    config = cls()
+    config.num_classes = 9
+    per_step, per_val = pl_expected(config)
+    log(f"phase 11: architecture {config.architecture}, deform layers "
+        f"{config.deform_layers}; launches expected per step {per_step}, "
+        f"per eval batch {per_val}")
+    total = {fn.__name__: 0 for fn in counted}
+
+    def add(part):
+        for k, v in part.items():
+            total[k] += v
+
+    results = os.path.join(work, "results", "PseudoLabel")
+    logdir = os.path.join(results, DEFORM_LOG)
+    repeat_dir = os.path.join(results, DEFORM_LOG + "_repeat")
+    chkp = os.path.join(logdir, "checkpoints", "current_chkp.tar")
+    # every step's loss and offset loss at full precision, per run
+    seen = {}
+    flush_log = ModelTrainer._flush_log
+
+    def keep(self, pending, log_file, al_iteration):
+        seen.setdefault(self.config.saving_path, []).extend(
+            (float(p[2]), float(p[5])) for p in pending)
+        return flush_log(self, pending, log_file, al_iteration)
+
+    cwd = os.getcwd()
+    os.chdir(work)
+    report, runs = {}, []
+    ModelTrainer._flush_log = keep
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        for label, out in (("run", logdir), ("repeat", repeat_dir)):
+            for fn in counted:
+                fn.launches = 0
+            t0 = time.perf_counter()
+            trainer = stage.run(deform_stage,
+                                [out, "--data_root", root, *DEFORM_ARGS])
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            launches = {fn.__name__: fn.launches for fn in counted}
+            add(launches)
+            runs.append(_loop_report(label, trainer, out, 1, launches,
+                                     per_step, per_val, wall_s, card, log,
+                                     what="deformable PL loop"))
+            if label == "run":
+                first = trainer
+        peak = torch.cuda.max_memory_allocated()
+        ModelTrainer._flush_log = flush_log
+        repeat = compare_repeat(
+            [v for v, _ in seen.get(logdir, [])],
+            [v for v, _ in seen.get(repeat_dir, [])], chkp,
+            os.path.join(repeat_dir, "checkpoints", "current_chkp.tar"),
+            card, log, what="deformable PL loop")
+        offsets = [r for _, r in seen.get(logdir, [])]
+        same_offsets = offsets == [r for _, r in seen.get(repeat_dir, [])]
+        logged = [float(r[3]) for r in _log_rows(logdir)]
+        expect(len(offsets) == runs[0]["steps"] and same_offsets
+               and all(np.isfinite(offsets)) and min(offsets) > 0
+               and min(logged) > 0,
+               f"phase 11: offset losses {offsets} (repeat "
+               f"{'equal' if same_offsets else 'DIFFERS'}), logged "
+               f"{logged}: each must be finite and non-zero")
+        log(f"[{card}] phase 11 offset losses (the fitting regularizer) "
+            f"per step: {offsets}; the repeat's "
+            f"{'bit-equal' if same_offsets else 'DIFFER'}; peak device "
+            f"memory of the 2 runs {peak / 2**20:.1f} MiB")
+        trainer = first
+        saved = torch.load(chkp, map_location="cpu", weights_only=True)
+        expect(_same_state(saved["model_state_dict"],
+                           trainer.model.state_dict()),
+               "phase 11: current_chkp.tar differs from the trained state")
+
+        # export to the reference's format and reload it
+        exported = os.path.join(work, "phase11_reference_chkp.tar")
+        export([chkp, exported])
+        ref = torch.load(exported, map_location="cpu", weights_only=True)
+        groups = [len(g["params"])
+                  for g in ref["optimizer_state_dict"]["param_groups"]]
+        cfg2 = copy.copy(trainer.config)
+        cfg2.saving = False
+        train_ds, val_ds = trainer.datasets
+        fresh = ModelTrainer(cfg2, train_ds, chkp_path=exported,
+                             device=trainer.device, stage_dir="PseudoLabel")
+        tester = ModelTester(cfg2, val_ds, exported, device=trainer.device)
+        zero = all(float(v.abs().max()) == 0.0
+                   for v in fresh.opt_state.values())
+        source = ResidentBatchSource(val_ds, trainer.plan, trainer.device)
+        batch, _ = next(iter(BatchPrefetcher(
+            source, 1, trainer.device, rng=np.random.default_rng(SEED),
+            augment=True, extra_arrays=source.resident.arrays)))
+        with torch.no_grad():
+            t = assemble_level0_device(batch, cfg2, trainer.plan,
+                                       augment=True, spec=trainer.spec)
+            pyr = batch_from_device_pyramid(
+                t["points0"], t["mask0"], t["features"], t["labels"],
+                cfg2, trainer.plan, t["center_pts"],
+                rotations=t["rotations"])
+            probs = []
+            for net in (trainer.model, fresh.model, tester.model):
+                net.eval()
+                probs.append(torch.softmax(net(pyr), dim=-1))
+        equal = [torch.equal(p, probs[0]) for p in probs[1:]]
+        expect(all(equal) and zero and fresh.epoch == 1,
+               f"phase 11: the exported checkpoint reloaded: eval "
+               f"probabilities bit-equal (trainer, tester) {equal}, "
+               f"momentum zero {zero}, epoch {fresh.epoch}")
+        log(f"[{card}] phase 11 export: {len(ref['model_state_dict'])} "
+            f"reference keys, SGD groups of {groups} parameters; reloaded "
+            f"into a fresh trainer and ModelTester: eval probabilities "
+            f"bit-equal {equal}, momentum zero {zero}, epoch {fresh.epoch}")
+        del fresh, tester
+
+        for fn in counted:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        tm = test_models(["--log", logdir, "--on", "test", "--num_votes",
+                          "1", "--data_root", root, "--chkp", exported])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in counted}
+        add(launches)
+        log(f"[{card}] phase 11 test_models --on test with the exported "
+            f"checkpoint: {wall_s:.1f} s")
+        vote = dict(wall_s=wall_s, **vote_report(
+            tm, per_val, "PseudoLabel", DEFORM_LOG, ["Vaihingen3D_Testing"],
+            "phase 11 test_models --on test", card, log, launches))
+        del tm
+
+        profile = profile_epoch(trainer, counted, per_step, total, card,
+                                log, what="deformable PL loop")
+        kernel_sums, at_plan, shapes_pyr, _ = check_stage_shapes(
+            trainer, per_step, card, log, "phase 11 deformable PL")
+        deform = time_deformable_convs(trainer.model, shapes_pyr, card, log)
+        report.update(runs=runs, repeat=repeat, offset_losses=offsets,
+                      offset_losses_logged=logged, peak_bytes=peak,
+                      plan=vars(trainer.plan), per_step=per_step,
+                      per_val=per_val, kernels=kernel_sums, at_plan=at_plan,
+                      export=dict(reference_keys=len(ref["model_state_dict"]),
+                                  param_groups=groups, probs_equal=equal,
+                                  momentum_zero=zero),
+                      test_models=vote, deformable_convs=deform,
+                      profile=profile)
+    finally:
+        ModelTrainer._flush_log = flush_log
+        os.chdir(cwd)
+    return report, total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="",
@@ -3452,6 +3768,9 @@ def main(argv=None) -> int:
         phase("phase 10: the DALES workflow on the card")
         dales, dales_wl, dales_pl = run_dales(work, counted,
                                               (expected, per_val), card, log)
+        # ---- phase 11: deformable convs, checkpoints across formats
+        phase("phase 11: the deformable pseudo-label stage on the card")
+        deform, deform_pl = run_deformable(root, work, counted, card, log)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3460,7 +3779,8 @@ def main(argv=None) -> int:
 
     paths = dict(inference=eval_launches, train_step=launches,
                  wl_loop=loop_launches, wl_active_learning=al_launches,
-                 pl_stage=pl_launches, dales_wl=dales_wl, dales_pl=dales_pl)
+                 pl_stage=pl_launches, dales_wl=dales_wl, dales_pl=dales_pl,
+                 deformable_pl=deform_pl)
 
     def by_path(name):
         return {path: counts.get(name, 0) for path, counts in paths.items()}
@@ -3469,11 +3789,13 @@ def main(argv=None) -> int:
         return sum(by_path(name).values())
 
     stage_kernels = dict(pl=pl["kernels"], dales_wl=dales["wl"]["kernels"],
-                         dales_pl=dales["pl"]["kernels"])
+                         dales_pl=dales["pl"]["kernels"],
+                         deform_pl=deform["kernels"])
 
     def pl_fields(name):
         """The kernel's sums at the shapes of the pseudo-label loop
-        (`pl_*`) and of the DALES loops (`dales_wl_*`, `dales_pl_*`)."""
+        (`pl_*`), of the DALES loops (`dales_wl_*`, `dales_pl_*`) and of
+        the deformable PL loop (`deform_pl_*`)."""
         fields = {}
         for prefix, kernels in stage_kernels.items():
             sums = kernels.get(name) or kernels["inverse_lists"][name]
@@ -3558,7 +3880,8 @@ def main(argv=None) -> int:
                            active_learning=al, al_launches=al_launches,
                            pseudo_label=pl, pl_launches=pl_launches,
                            dales=dales, dales_wl_launches=dales_wl,
-                           dales_pl_launches=dales_pl), f,
+                           dales_pl_launches=dales_pl, deformable=deform,
+                           deformable_pl_launches=deform_pl), f,
                       indent=1)
     phase("chip_smoke: every phase ran")
     if FAILED:

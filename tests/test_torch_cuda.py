@@ -41,7 +41,12 @@ epoch launches 13 A, 10 B, 10 C, 4 D, 14 list builds and 9 row sums a
 step and 13 A, 10 B, 4 row sums a validation batch; a replayed step
 equals the eager one (1e-6) and redraws with its seed; the dropout mask
 and the contrast draw on the card equal the CPU's; the contrast loss's
-gradient repeats bit for bit. Needs an
+gradient repeats bit for bit. Kernel A at K of 300 and 768 (the
+deformable layers' wide searches) equals the plain version; the plain
+voxel sums on the card equal the `run_sums` kernel bit for bit, and
+three plain builds of one batch's pyramid are bit-equal (and equal the
+kernels' build); a deformable pseudo-label step (layers 3-4 deformable)
+repeats bit for bit, eager twice and replayed from a graph. Needs an
 NVIDIA GPU with nvcc; skips elsewhere. On the machine with the card
 (which has no JAX) run
 
@@ -105,6 +110,28 @@ def test_radius_search_kernel_equals_plain(dev, grid, k):
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert float(ovf.sum()) == 0.0
+
+
+@pytest.mark.parametrize("k", [300, 768])
+def test_radius_search_kernel_at_wide_k(dev, k):
+    """K of several hundred, as the deformable layers' wider searches
+    give (up to MAX_K): hundreds of hits a query, lists cut to K more
+    than once at K = 300, a block of one warp; equal to the plain
+    version and the same on a second call."""
+    g = torch.Generator(device=dev).manual_seed(k)
+    b, nq, ns = 2, 200, 1500
+    s = torch.rand((b, ns, 3), generator=g, device=dev) * 6 - 3
+    q = s[:, :nq].contiguous()
+    qm = torch.rand((b, nq), generator=g, device=dev) > 0.1
+    sm = torch.rand((b, ns), generator=g, device=dev) > 0.1
+    got, ovf = radius_search(q, s, qm, sm, 3.0, k)
+    again, _ = radius_search(q, s, qm, sm, 3.0, k)
+    want = radius_search_plain(q, s, qm, sm, 3.0, k)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(again, got)
+    assert float(ovf.sum()) == 0.0
+    hits = (got < ns).sum(dim=-1)[qm]
+    assert int(hits.max()) >= 300        # full rows at K = 300
 
 
 @pytest.mark.parametrize("case", list(CELL_CASES))
@@ -1217,3 +1244,132 @@ def test_pl_contrast_backward_repeats_bit_for_bit(dev):
         return (x.grad,)
 
     assert _bits_repeat(grad)
+
+
+# --------------------------------------- plain voxel sums, deformable convs
+
+def test_plain_run_sums_on_card_equal_the_kernel(dev):
+    """The plain voxel sums (`run_sums_plain`, a pass per rank within the
+    runs) on the card equal the `run_sums` kernel bit for bit, sums and
+    counts, and repeat, at widths 3 and 64."""
+    from weasal_tpu_torch.ops.cuda.inverse_lists import (run_sums,
+                                                         run_sums_plain)
+    seg, n_out = run_case()
+    seg = seg.to(dev)
+    for c_dim in (3, 64):
+        g = torch.Generator(device=dev).manual_seed(c_dim)
+        src = torch.randn((*seg.shape, c_dim), generator=g, device=dev)
+        got = _bits_repeat(lambda: run_sums_plain(src, seg, n_out))
+        want = run_sums(src, seg, n_out)
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[1], want[1])
+
+
+def _deform_pl(dev, synth_pl, seed=3):
+    """synth_pl's configuration with its layer-3 resnetb and its layer-4
+    blocks deformable (chip_smoke.py phase 11's pattern), its training
+    dataset and plan, a model and momentum on the card and one batch's
+    level-0 tensors."""
+    from weasal_tpu_torch import KPFCNN, init_opt_state
+    from weasal_tpu_torch.data import resident as res
+    cfg, train, _ = synth_pl
+    arch = list(cfg.architecture)
+    arch[7:10] = ["resnetb_deformable", "resnetb_deformable_strided",
+                  "resnetb_deformable"]
+    dcfg = type("DeformSmall", (type(cfg),), {"architecture": arch})()
+    assert dcfg.deform_layers == [False, False, False, True, True]
+    ds = type(train)(dcfg, split="training", data_root=train.path,
+                     rng=np.random.default_rng(0))
+    plan = ds.calibration(num_samples=8)
+    spec = res.feature_spec(ds.name, dcfg.in_features_dim)
+    src = res.ResidentBatchSource(ds, plan, dev)
+    small, _ = src.next_batch(np.random.default_rng(seed), augment=True)
+    batch = {k: torch.from_numpy(v.astype(np.int64) if k == "noise_seed"
+                                 else v).to(dev) for k, v in small.items()}
+    batch.update(src.resident.arrays)
+    with torch.no_grad():
+        t = res.assemble_level0_device(batch, dcfg, plan, True, spec)
+    model = KPFCNN(dcfg, tuple(int(v) for v in ds.label_values),
+                   tuple(int(v) for v in ds.ignored_labels),
+                   generator=torch.Generator().manual_seed(seed)).to(dev)
+    return dcfg, plan, model, init_opt_state(model), t
+
+
+def _plain_pyramid(t, cfg, plan):
+    from weasal_tpu_torch.ops.pyramid import batch_from_device_pyramid
+    with torch.no_grad(), plain_ops():
+        return batch_from_device_pyramid(
+            t["points0"], t["mask0"], t["features"], t["labels"], cfg, plan,
+            t["center_pts"], rotations=t["rotations"])
+
+
+def test_plain_pyramid_builds_are_bit_equal(dev, synth_pl):
+    """Three builds of one batch's pyramid on the plain versions are bit
+    equal (the voxel sums add in a fixed order), and equal the kernels'
+    build."""
+    from weasal_tpu_torch.ops.pyramid import batch_from_device_pyramid
+    cfg, plan, _, _, t = _deform_pl(dev, synth_pl)
+    pyrs = [_plain_pyramid(t, cfg, plan) for _ in range(3)]
+    with torch.no_grad():
+        pyrs.append(batch_from_device_pyramid(
+            t["points0"], t["mask0"], t["features"], t["labels"], cfg, plan,
+            t["center_pts"], rotations=t["rotations"]))
+    for other in pyrs[1:]:
+        for field in ("points", "masks", "neighbors", "pools", "upsamples"):
+            for a, b in zip(getattr(pyrs[0], field), getattr(other, field)):
+                assert torch.equal(a, b), field
+
+
+def test_deformable_step_repeats_bit_for_bit(dev, synth_pl):
+    """A pseudo-label step of the deformable network on the card (its
+    rigid convs and offset convs on kernels B and C, the deformable convs
+    in plain PyTorch with the neighbor gather's dX over inverse lists),
+    eager twice and replayed from a captured graph, from one state and
+    pyramid: loss, offset loss and every updated tensor bit-equal; the
+    offset loss is finite and positive, and every offset parameter
+    moves."""
+    from weasal_tpu_torch.train.graphs import StepGraph
+    from weasal_tpu_torch.train.step import (class_weights, label_table,
+                                             step_on_batch, step_outputs)
+    cfg, plan, model, opt, t = _deform_pl(dev, synth_pl)
+    pyr = _plain_pyramid(t, cfg, plan)
+    state0 = {k: v.clone() for k, v in model.state_dict().items()}
+    opt0 = {k: v.clone() for k, v in opt.items()}
+    class_w, table = class_weights(cfg, dev), label_table(model, dev)
+    seed = torch.full((), 7, dtype=torch.int64, device=dev)
+
+    def body(inputs, out):
+        loss, acc, reg = step_on_batch(
+            model, opt, pyr, cfg, cfg.learning_rate, class_w=class_w,
+            table=table, seed=seed, use_contrast=True,
+            with_offset_loss=True)
+        out["stats"][0].copy_(loss)
+        out["stats"][1].copy_(acc)
+        out["stats"][2].copy_(reg)
+
+    runs = []
+    for graphed in (False, False, True):
+        model.load_state_dict(state0)
+        for k in opt:
+            opt[k].copy_(opt0[k])
+        example = {"placeholder": torch.zeros((1, 1))}
+        graph = StepGraph("deformable step", body, example, 1, dev,
+                          step_outputs(plan, dev, steps=1),
+                          lambda: (list(model.parameters())
+                                   + list(model.buffers())
+                                   + list(opt.values())), graphed=graphed)
+        graph.load(example)
+        graph.run()
+        torch.cuda.synchronize()
+        runs.append((graph.out["stats"][0].clone(),
+                     {k: v.clone() for k, v in model.state_dict().items()}))
+    assert graph.graph is not None
+    stats, state = runs[0]
+    assert math.isfinite(float(stats[2])) and float(stats[2]) > 0
+    for other_stats, other_state in runs[1:]:
+        assert torch.equal(other_stats, stats)
+        for k, v in state.items():
+            assert torch.equal(other_state[k], v), k
+    moved = [k for k in state if "offset" in k and "kernel_points" not in k
+             and not torch.equal(state[k], state0[k])]
+    assert len(moved) == 6

@@ -78,11 +78,23 @@ def test_kernel_wrapper_on_cpu_is_the_plain_version():
 
 
 def test_unported_variants_raise():
-    t = [torch.from_numpy(a) for a in _problem(3)]
-    with pytest.raises(NotImplementedError):
-        ops.kpconv(*t, ops.KPConvParams(0.9, aggregation="closest"))
+    """'closest' aggregation is ported (`kpconv_dense`; equal to the JAX
+    XLA path at rtol 1e-4, atol 1e-5, as the sum convs above); an
+    unknown aggregation or influence, and a deformable conv without its
+    offsets, raise."""
+    args = _problem(3)
+    t = [torch.from_numpy(a) for a in args]
+    want, _ = jops.kpconv(*[jnp.asarray(a) for a in args],
+                          jops.KPConvParams(0.9, aggregation="closest"))
+    got = ops.kpconv(*t, ops.KPConvParams(0.9, aggregation="closest"))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-5)
+    with pytest.raises(ValueError):
+        ops.kpconv(*t, ops.KPConvParams(0.9, aggregation="max"))
     with pytest.raises(ValueError):
         ops.kpconv(*t, ops.KPConvParams(0.9, influence="cubic"))
+    with pytest.raises(ValueError):
+        ops.kpconv(*t, ops.KPConvParams(0.9, deformable=True))
 
 
 def test_pooling_ops_match_jax():

@@ -32,7 +32,10 @@ def test_import_loads_no_jax_or_weasal_tpu():
             "weasal_tpu_torch.train_Vaihingen3D_PseudoLabel, "
             "weasal_tpu_torch.train_DALES_WeakLabel, "
             "weasal_tpu_torch.train_DALES_PseudoLabel, "
-            "weasal_tpu_torch.test_models\n"
+            "weasal_tpu_torch.test_models, "
+            "weasal_tpu_torch.export_torch_checkpoint, "
+            "weasal_tpu_torch.utils.checkpoint, "
+            "weasal_tpu_torch.utils.torch_interop\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'weasal_tpu', 'sklearn', "
             "'matplotlib')]\n"

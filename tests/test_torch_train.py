@@ -284,12 +284,14 @@ def test_sgd_with_a_tensor_lr_matches_optax_across_an_lr_change():
 
 
 def test_sgd_refuses_deformable_offsets_and_foreign_state():
+    """Offset parameters are no longer refused: they train in the deform
+    group (tests/test_torch_deformable.py holds that update to optax);
+    a state that does not hold one buffer per parameter is refused."""
     class Offsets(nn.Module):
         def __init__(self):
             super().__init__()
             self.offset_mlp = nn.Parameter(torch.zeros(3))
-    with pytest.raises(NotImplementedError):
-        init_opt_state(Offsets())
+    assert set(init_opt_state(Offsets())) == {"offset_mlp"}
     model = _TwoParams(np.zeros((2, 2), np.float32),
                        np.zeros(2, np.float32))
     with pytest.raises(ValueError):

@@ -100,8 +100,13 @@ constexpr int kSearchThreads = 128;
 constexpr int kBatch = 4;          // candidate loads a thread keeps in flight
 constexpr int kRegisterK = 16;     // largest K kept in registers
 constexpr int kSpare = 32;         // list room beyond K before a cut to K
-constexpr int kListBytes = 96 * 1024;   // a search block's lists, at most
-constexpr int kMaxK = 256;
+// A search block's lists: its thread count halves until they fit in
+// kListBytes, down to one warp, whose lists at kMaxK take kMaxListBytes
+// (the deformable layers' wide searches: K of several hundred)
+constexpr int kListBytes = 96 * 1024;
+constexpr int kMaxK = 768;
+constexpr int kMaxListBytes = 32 * (kMaxK + kSpare) * 8;   // 200 KB
+static_assert(kMaxListBytes <= 227 * 1024, "over the H100's block limit");
 constexpr int kMaxDevices = 64;    // devices whose attributes are cached
 constexpr unsigned kFull = 0xffffffffu;
 constexpr unsigned long long kNoKey = ~0ull;
@@ -399,9 +404,10 @@ int launch_search(const float* q, const uint8_t* qm, const float4* sorted,
     threads >>= 1;
   const int list_bytes = MAXK > 0 ? 0 : threads * cap * 8;
   if constexpr (MAXK == 0) {
-    // the lists of any K take at most kListBytes
+    // the lists of any K take at most kMaxListBytes
     static std::atomic<bool> done[kMaxDevices];
-    const int err = allow_shared_once(search_kernel<MAXK>, kListBytes, done);
+    const int err =
+        allow_shared_once(search_kernel<MAXK>, kMaxListBytes, done);
     if (err) return err;
   }
   const unsigned blocks = (unsigned)((n + threads - 1) / threads);
@@ -426,7 +432,7 @@ extern "C" long long radius_search_scratch_words(int b, int ns) {
 // out [B, Nq, K] i32, all contiguous; scratch of scratch_words 4-byte
 // words, 16-byte aligned, at least radius_search_scratch_words(B, Ns).
 // Returns cudaGetLastError() after the two launches,
-// cudaErrorInvalidValue for a K outside 1..256 or a scratch too short or
+// cudaErrorInvalidValue for a K outside 1..768 or a scratch too short or
 // misaligned.
 extern "C" int radius_search_launch(const float* q, const float* s,
                                     const uint8_t* q_mask,

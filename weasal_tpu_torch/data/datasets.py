@@ -571,6 +571,13 @@ class CloudSegmentationDataset:
         bkt = float(getattr(cfg, "plan_bucket_percentile", 0.0))
         if bkt > 0.0:
             key += "_b{:g}".format(bkt)
+        deform = getattr(cfg, "deform_layers", None) or []
+        if any(deform):
+            # deformable layers search wider (data/batching.layer_radii):
+            # their neighbor budgets are their own
+            key += "_d{}_{:.3f}".format(
+                "".join("1" if d else "0" for d in deform),
+                cfg.deform_radius / cfg.conv_radius)
         return key
 
     def _load_plans(self) -> Dict:

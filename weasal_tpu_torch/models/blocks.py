@@ -148,31 +148,95 @@ class UnaryBlock(nn.Module):
 
 
 class KPConv(nn.Module):
-    """Rigid kernel point convolution: `weights` [Kp, Cin, Cout] and a
-    `kernel_points` [Kp, 3] buffer posed from `pose_seed`."""
+    """Kernel point convolution: `weights` [Kp, Cin, Cout] and a
+    `kernel_points` [Kp, 3] buffer posed from `pose_seed`.
+
+    A deformable conv (weasal_tpu/models/blocks.py:177-205) also holds an
+    `offset_conv`, a rigid KPConv of its own inputs to (p_dim + modulated)
+    * Kp channels posed from `pose_seed + 1`, and an `offset_bias`: its
+    output plus the bias gives each query's kernel-point offsets (times
+    kp_extent) and, modulated, 2 * sigmoid modulations. In training mode
+    each forward keeps the fitting regularizer's inputs in
+    `regularizer_inputs` (:233-246): the squared distances to the nearest
+    neighbor / extent^2 [B, Nq, Kp], the deformed kernel points / extent
+    [B, Nq, Kp, 3] and the real-query mask [B, Nq] (a row with any
+    non-shadow neighbor), all on the device; `deform_terms` collects
+    them."""
 
     def __init__(self, kernel_size: int, p_dim: int, in_channels: int,
                  out_channels: int, kp_extent: float, radius: float,
                  generator: torch.Generator, layer_ind: int, strided: bool,
                  fixed_kernel_points: str = "center",
                  influence: str = "linear", aggregation: str = "sum",
-                 pose_seed: int = 0):
+                 pose_seed: int = 0, deformable: bool = False,
+                 modulated: bool = False):
         super().__init__()
         self.params = ops.KPConvParams(kp_extent=kp_extent,
                                        influence=influence,
-                                       aggregation=aggregation)
+                                       aggregation=aggregation,
+                                       deformable=deformable,
+                                       modulated=modulated)
         self.layer_ind = layer_ind
         self.strided = strided
+        self.p_dim = p_dim
         self.weights = _uniform((kernel_size, in_channels, out_channels),
                                 1.0 / math.sqrt(in_channels * out_channels),
                                 generator)
         kp = load_kernels(radius, kernel_size, p_dim, fixed_kernel_points,
                           rng=np.random.default_rng(pose_seed))
         self.register_buffer("kernel_points", torch.from_numpy(kp))
+        self.regularizer_inputs = None
+        if deformable:
+            offset_dim = (p_dim + int(modulated)) * kernel_size
+            self.offset_conv = KPConv(
+                kernel_size, p_dim, in_channels, offset_dim, kp_extent,
+                radius, generator, layer_ind, strided,
+                fixed_kernel_points=fixed_kernel_points,
+                influence=influence, aggregation=aggregation,
+                pose_seed=pose_seed + 1)
+            self.offset_bias = nn.Parameter(torch.zeros(offset_dim))
 
     def forward(self, q_pts, s_pts, neighb_inds, x, inverse=None):
-        return ops.kpconv(q_pts, s_pts, neighb_inds, x, self.kernel_points,
-                          self.weights, self.params, inverse=inverse)
+        if not self.params.deformable:
+            return ops.kpconv(q_pts, s_pts, neighb_inds, x,
+                              self.kernel_points, self.weights, self.params,
+                              inverse=inverse)
+        n_kp = self.kernel_points.shape[0]
+        extent = self.params.kp_extent
+        feats = self.offset_conv(q_pts, s_pts, neighb_inds, x,
+                                 inverse) + self.offset_bias
+        b, nq = feats.shape[:2]
+        modulations = None
+        if self.params.modulated:
+            offsets = feats[..., :self.p_dim * n_kp]
+            modulations = 2 * torch.sigmoid(feats[..., self.p_dim * n_kp:])
+        else:
+            offsets = feats
+        offsets = offsets.reshape(b, nq, n_kp, self.p_dim) * extent
+        out, min_sq = ops.kpconv_dense(
+            q_pts, s_pts, neighb_inds, x, self.kernel_points, self.weights,
+            self.params, offsets=offsets, modulations=modulations,
+            inverse=inverse)
+        if self.training:
+            q_valid = (neighb_inds < s_pts.shape[1]).any(dim=-1)
+            self.regularizer_inputs = (
+                min_sq / extent ** 2,
+                (self.kernel_points[None, None] + offsets) / extent,
+                q_valid.to(out.dtype))
+        return out
+
+
+def deform_terms(model: nn.Module):
+    """The regularizer inputs that the deformable convs of `model` kept in
+    its last training-mode forward (`KPConv.regularizer_inputs`), in
+    registration order; each conv's are taken (cleared), so a later
+    forward cannot see them. Empty for a rigid network."""
+    terms = []
+    for m in model.modules():
+        if isinstance(m, KPConv) and m.regularizer_inputs is not None:
+            terms.append(m.regularizer_inputs)
+            m.regularizer_inputs = None
+    return terms
 
 
 def conv_inputs(strided: bool, layer_ind: int, batch):
@@ -193,8 +257,6 @@ def conv_inverse(strided: bool, layer_ind: int, batch):
 def _make_kpconv(cfg, block_name: str, in_dim: int, out_dim: int,
                  radius: float, layer_ind: int, path: Tuple[str, ...],
                  generator: torch.Generator) -> KPConv:
-    if "deform" in block_name:
-        raise NotImplementedError("deformable KPConv is not ported")
     seed = zlib.crc32(
         ("/".join(path) + "|"
          + f"{block_name}|{in_dim}|{out_dim}|{radius:.6f}|{layer_ind}"
@@ -205,7 +267,9 @@ def _make_kpconv(cfg, block_name: str, in_dim: int, out_dim: int,
                   fixed_kernel_points=cfg.fixed_kernel_points,
                   influence=cfg.KP_influence,
                   aggregation=cfg.aggregation_mode,
-                  pose_seed=seed & 0x7FFFFFFF)
+                  pose_seed=seed & 0x7FFFFFFF,
+                  deformable="deform" in block_name,
+                  modulated=bool(cfg.modulated))
 
 
 class _ConvBlock(nn.Module):
@@ -429,15 +493,23 @@ class MultiPathAttention(_ConvBlock):
                 self.no_unary(features, mask), self.pa_unary(pa, mask))
 
 
-_SIMPLE = ("simple", "simple_strided")
-_RESNETB = ("resnetb", "resnetb_strided")
+# The JAX decider's names (weasal_tpu/models/blocks.py:613-625): the
+# invariant and equivariant variants are the plain blocks, and a
+# "deformable" name makes its KPConv deformable
+_SIMPLE = tuple(f"simple{kind}{stride}"
+                for kind in ("", "_deformable", "_invariant", "_equivariant")
+                for stride in ("", "_strided"))
+_RESNETB = tuple(f"resnetb{kind}{stride}"
+                 for kind in ("", "_deformable", "_invariant",
+                              "_equivariant")
+                 for stride in ("", "_strided"))
 
 
 def block_decider(block_name: str, radius: float, in_dim: int, out_dim: int,
                   layer_ind: int, config, path: Tuple[str, ...],
                   generator: torch.Generator) -> nn.Module:
-    """Map an architecture-DSL block name to its module. Deformable,
-    invariant, equivariant and max-pool blocks are not ported."""
+    """Map an architecture-DSL block name to its module. The max-pool
+    blocks are not ported."""
     kw = dict(block_name=block_name, in_dim=in_dim, out_dim=out_dim,
               radius=radius, layer_ind=layer_ind, config=config, path=path,
               generator=generator)
@@ -458,3 +530,11 @@ def block_decider(block_name: str, radius: float, in_dim: int, out_dim: int,
 def kpconv_modules(model: nn.Module):
     """(name, KPConv) pairs of a model, in registration order."""
     return [(n, m) for n, m in model.named_modules() if isinstance(m, KPConv)]
+
+
+def kernel_convs(model: nn.Module):
+    """The (name, KPConv) pairs of `kpconv_modules` that kernels B and C
+    compute: every conv but the deformable and 'closest' ones (a
+    deformable conv's offset conv included)."""
+    return [(n, m) for n, m in kpconv_modules(model)
+            if ops.kernel_eligible(m.params)]

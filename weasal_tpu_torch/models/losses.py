@@ -2,8 +2,8 @@
 
 Counterpart of weasal_tpu/models/losses.py: `softmax_cross_entropy`
 (:19), `bce_with_logits` (:42), `class_logits_loss` (:66),
-`region_mprm_loss` (:74), `contrast_loss` (:158-236) and `accuracy`
-(:237), plus the port's own copy of `valid_label_mapper`
+`region_mprm_loss` (:74), `p2p_fitting_regularizer` (:112-157),
+`contrast_loss` (:158-236) and `accuracy` (:237), plus the port's own copy of `valid_label_mapper`
 (weasal_tpu/models/architectures.py:40). Padded rows and padded regions
 are masked out, as in the JAX package.
 
@@ -196,6 +196,36 @@ def region_mprm_loss(cam: Sequence[torch.Tensor],
         total = total + bce_with_logits(mean_logits, region_lb, class_w,
                                         mask=region_masks)
     return total
+
+
+def p2p_fitting_regularizer(terms: Sequence, repulse_extent: float,
+                            deform_fitting_power: float) -> torch.Tensor:
+    """The deformable kernels' fitting and repulsion regularizer
+    (weasal_tpu/models/losses.py:112-157).
+
+    :param terms: per deformable conv (models/blocks.deform_terms), the
+        tuple (min_sq [B, N, Kp] extent-normalized squared distance from
+        each deformed kernel point to its nearest neighbor, deformed_kp
+        [B, N, Kp, 3] extent-normalized positions, q_valid [B, N]
+        real-query mask); the means run over real query rows only
+    :return: a 0-d tensor, deform_fitting_power * (2 * fitting +
+        repulsion); 0 (a Python float) without terms
+    """
+    fitting = 0.0
+    repulsive = 0.0
+    for min_sq, kp, m in terms:
+        denom = m.sum().clamp(min=1.0)
+        k = min_sq.shape[-1]
+        fitting = fitting + (min_sq.abs() * m[..., None]).sum() / (denom * k)
+        diff = kp[..., :, None, :] - kp[..., None, :, :].detach()
+        dist = torch.sqrt((diff * diff).sum(dim=-1) + 1e-12)
+        off_diag = 1.0 - torch.eye(k, dtype=kp.dtype, device=kp.device)
+        rep = torch.clamp(dist - repulse_extent, max=0.0) ** 2 * off_diag
+        # sum_i mean(rep_i) / K: the mean over (real point, i) of each
+        # kernel point's repulsion sum
+        repulsive = repulsive + (rep.sum(dim=-1) * m[..., None]).sum() / (
+            denom * k)
+    return deform_fitting_power * (2 * fitting + repulsive)
 
 
 def accuracy(logits: torch.Tensor, targets: torch.Tensor,

@@ -23,7 +23,7 @@ atomics in the order the threads reach them.
   equal values of a non-decreasing seg [B, N] (the grid subsample's
   voxels), and the runs' lengths. Kernel: the row sums with each run's
   bounds found by binary search in the launch, which writes the lengths
-  too; plain version: `scatter_add_`.
+  too; plain version: the same order, a pass per rank within the runs.
 - `GatherRows`: x[b, inds[b, q, j]] (a zero row for a shadow) whose
   backward is `inverse_sum` over the inverse lists on the card and
   `scatter_rows` (`index_add_`, in order on the CPU) elsewhere, which is
@@ -227,15 +227,27 @@ inverse_sum.launches = 0
 
 
 def run_sums_plain(src: torch.Tensor, seg: torch.Tensor, n_out: int):
-    """(sums [B, n_out, C], counts [B, n_out]) by `scatter_add_`; a seg
-    value of n_out or more is dropped."""
+    """(sums [B, n_out, C], counts [B, n_out]) of the runs of a
+    non-decreasing seg [B, N] (a value of n_out or more is dropped): each
+    run's rows added one after another from 0.0 in row order, on any
+    device, as the kernel adds them (and as the CPU's `scatter_add_`
+    does). Each run's bounds are the lower bounds of j and j + 1 in seg;
+    a loop over the ranks within the runs adds one row to every run a
+    pass. Reads the longest run back to the host."""
     b, n, c = src.shape
-    seg = seg.clamp(max=n_out)
-    sums = torch.zeros((b, n_out + 1, c), dtype=src.dtype, device=src.device)
-    sums.scatter_add_(1, seg[..., None].expand(b, n, c), src)
-    counts = torch.zeros((b, n_out + 1), dtype=src.dtype, device=src.device)
-    counts.scatter_add_(1, seg, torch.ones_like(src[..., 0]))
-    return sums[:, :n_out], counts[:, :n_out]
+    seg = seg.clamp(max=n_out).contiguous()
+    ids = torch.arange(n_out + 1, device=seg.device,
+                       dtype=seg.dtype).expand(b, n_out + 1).contiguous()
+    bounds = torch.searchsorted(seg, ids)
+    start, lens = bounds[:, :-1], bounds[:, 1:] - bounds[:, :-1]
+    sums = torch.zeros((b, n_out, c), dtype=src.dtype, device=src.device)
+    width = int(lens.max()) if lens.numel() else 0
+    for j in range(width):
+        row = (start + j).clamp(max=n - 1)[..., None].expand(b, n_out, c)
+        term = torch.gather(src, 1, row)
+        sums = sums + torch.where((lens > j)[..., None], term,
+                                  torch.zeros_like(term))
+    return sums, lens.to(src.dtype)
 
 
 def run_sums(src: torch.Tensor, seg: torch.Tensor, n_out: int):

@@ -38,7 +38,7 @@ from weasal_tpu_torch.ops.cuda.build import check, load_library
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
              + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_longlong, ctypes.c_void_p])
-MAX_K = 256
+MAX_K = 768
 # The kernel's grid constants (csrc/radius_search.cu): columns per axis,
 # reach = sqrt(r2) * REACH_SCALE + max|coordinate| * ABS_SLACK, at least
 # MIN_REACH.
@@ -297,7 +297,7 @@ def radius_search(queries, supports, q_mask, s_mask, radius, max_count: int,
 
     :param queries: [B, Nq, 3] f32; supports: [B, Ns, 3] f32
     :param q_mask / s_mask: [B, Nq] / [B, Ns] bool validity
-    :param radius: search radius; max_count: row width K (<= 256)
+    :param radius: search radius; max_count: row width K (<= MAX_K, 768)
     :return: (neighbors [B, Nq, K] int32, overflow [B] f32, always 0)
 
     A CPU tensor runs `radius_search_plain`; a CUDA tensor launches the

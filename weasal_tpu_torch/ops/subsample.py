@@ -13,10 +13,12 @@ The fixed version must reproduce the JAX masks bit for bit, because every
 level above depends on them: min-corner origin over valid points,
 ``floor((p - origin) / dl)`` as a true division, clip to ``n_cells - 1``,
 a stable sort of the voxel ids, and ``SHADOW_COORD`` padding. Each
-voxel's members are summed in their stable-sorted order from 0.0: on the
-CPU by ``scatter_add_``, which adds in that order, on the card by the
+voxel's members are summed in their stable-sorted order from 0.0 by the
 fixed-order row sums over each voxel's run (ops/cuda/inverse_lists.
-run_sums), so the barycenters repeat bit for bit from run to run.
+run_sums: the kernel on the card, its plain version, which adds in the
+same order, on the CPU and inside `plain_ops()`), so the barycenters
+repeat bit for bit from run to run and the plain pyramid on the card
+equals the kernels' one.
 """
 
 from __future__ import annotations

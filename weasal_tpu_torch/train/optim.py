@@ -12,36 +12,30 @@ the update of :358-361:
                               optax.clip, elementwise)
     g <- g + weight_decay * p (optax.add_decayed_weights)
     t <- g + momentum * t     (optax.trace, from zeros)
-    u <- -lr * t, p <- p + u  (the trainer's scaling and apply_updates,
+    u <- t, or u <- deform_lr_factor * t for a parameter whose name holds
+                              "offset" (the deform group: optax.masked
+                              scale of `_offset_mask`, :74-105; the trace
+                              is shared, only the update is scaled)
+    u <- -lr * u, p <- p + u  (the trainer's scaling and apply_updates,
                                each rounded as optax rounds it)
 
 The state is one momentum buffer per parameter, keyed by parameter name
 (`init_opt_state`; `interop.from_jax_opt_state` fills it from an optax
-state). Deformable offsets, which train at lr * deform_lr_factor on the
-JAX path, are not ported and raise.
+state).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple, Union
+from typing import Dict, Union
 
 import torch
 from torch import nn
 
 
-def _named_params(model: nn.Module) -> List[Tuple[str, nn.Parameter]]:
-    named = list(model.named_parameters())
-    for name, _ in named:
-        if "offset" in name:
-            raise NotImplementedError(
-                f"deformable offset parameter {name!r}: the deform_lr_factor "
-                "group is not ported")
-    return named
-
-
 def init_opt_state(model: nn.Module) -> Dict[str, torch.Tensor]:
     """Zero momentum buffers, one per parameter, on its device."""
-    return {name: torch.zeros_like(p) for name, p in _named_params(model)}
+    return {name: torch.zeros_like(p)
+            for name, p in model.named_parameters()}
 
 
 CLIP_MODES = ("norm", "value")
@@ -61,7 +55,7 @@ def sgd_step(model: nn.Module, opt_state: Dict[str, torch.Tensor], config,
     "value" (see the module docstring)."""
     if clip not in CLIP_MODES:
         raise ValueError(f"clip must be one of {CLIP_MODES}, not {clip!r}")
-    named = _named_params(model)
+    named = list(model.named_parameters())
     if set(opt_state) != {name for name, _ in named}:
         raise ValueError("opt_state does not hold one buffer per parameter")
     params = [p for _, p in named]
@@ -83,4 +77,12 @@ def sgd_step(model: nn.Module, opt_state: Dict[str, torch.Tensor], config,
                                    alpha=float(config.weight_decay))
     torch._foreach_mul_(traces, float(config.momentum))
     torch._foreach_add_(traces, grads)
-    torch._foreach_add_(params, torch._foreach_mul(traces, -lr))
+    updates = list(traces)
+    # the deform group: the offset convs' weights and the offset biases
+    group = [i for i, (name, _) in enumerate(named) if "offset" in name]
+    if group:
+        scaled = torch._foreach_mul([traces[i] for i in group],
+                                    float(config.deform_lr_factor))
+        for i, u in zip(group, scaled):
+            updates[i] = u
+    torch._foreach_add_(params, torch._foreach_mul(updates, -lr))

@@ -15,6 +15,9 @@ update. The stage follows the model's `mode`:
   `contrast_start` on), the gradients clipped by value. Dropout and the
   contrast draw take the step's seed tensor (`step_seed` in a pack),
   which never leaves the device.
+A network with deformable convs adds `p2p_fitting_regularizer` of their
+regularizer inputs to the loss it differentiates (:304-309, 343); the
+step reports it apart, as the log's `offset_loss`.
 
 `step_body` is the step on fixed-shape inputs with its results written
 into preallocated tensors: what the trainer runs eagerly or captures in a
@@ -29,6 +32,7 @@ import torch
 
 from weasal_tpu_torch.infer import level0_on_device
 from weasal_tpu_torch.models import losses
+from weasal_tpu_torch.models.blocks import deform_terms
 from weasal_tpu_torch.ops.pyramid import batch_from_device_pyramid
 from weasal_tpu_torch.train.optim import sgd_step
 from weasal_tpu_torch.utils.device import configure_precision, resolve_device
@@ -83,10 +87,13 @@ def step_on_batch(model, opt_state: Dict[str, torch.Tensor], batch, config,
                   seed: Optional[torch.Tensor] = None,
                   use_contrast: bool = False,
                   dropout_keep: Optional[torch.Tensor] = None,
-                  slc_idx: Optional[torch.Tensor] = None
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+                  slc_idx: Optional[torch.Tensor] = None,
+                  with_offset_loss: bool = False) -> Tuple[torch.Tensor, ...]:
     """One update of `model` on a PyramidBatch; returns (loss, accuracy) as
-    0-d tensors. The parameters' `.grad` keep this step's gradients.
+    0-d tensors, and the deformable convs' regularizer as a third with
+    `with_offset_loss` (0 for a rigid network). `loss` is the stage's
+    loss; the gradients are those of loss + regularizer. The parameters'
+    `.grad` keep this step's gradients.
     `class_w` and `table` (from `class_weights` and `label_table`) are
     made here when the caller does not pass them. A 'pseudo' model takes
     the step's `seed` (a 0-d integer tensor on the device; default 0),
@@ -102,6 +109,10 @@ def step_on_batch(model, opt_state: Dict[str, torch.Tensor], batch, config,
         logits = model(batch, dropout_seed=seed, dropout_keep=dropout_keep)
     else:
         logits, cla_logits, cam = model(batch)
+    terms = deform_terms(model)
+    reg = (losses.p2p_fitting_regularizer(terms, config.repulse_extent,
+                                          config.deform_fitting_power)
+           if terms else None)
     if class_w is None:
         class_w = class_weights(config, logits.device)
     if table is None:
@@ -122,21 +133,24 @@ def step_on_batch(model, opt_state: Dict[str, torch.Tensor], batch, config,
     acc = losses.accuracy(logits.detach(),
                           losses.label_targets(batch.labels, table),
                           batch.masks[0])
-    loss.backward()
+    (loss if reg is None else loss + reg).backward()
     # the weak-label stage clips by global norm, the pseudo-label stage by
     # value (the JAX trainer's choice, trainer.py:182)
     sgd_step(model, opt_state, config, lr,
              clip="norm" if mode == "weak" else "value")
+    if with_offset_loss:
+        return loss.detach(), acc, (torch.zeros_like(loss.detach())
+                                    if reg is None else reg.detach())
     return loss.detach(), acc
 
 
 def step_outputs(plan, device, steps: int = 0) -> Dict[str, torch.Tensor]:
-    """Zeroed output tensors of `step_body`: "stats" [2] (loss, accuracy)
-    and "drops" [(2L-1) + (3L-2)]; with `steps` > 0 one row of each per
-    step ([steps, 2], [steps, 5L-3])."""
+    """Zeroed output tensors of `step_body`: "stats" [3] (loss, accuracy,
+    offset loss) and "drops" [(2L-1) + (3L-2)]; with `steps` > 0 one row
+    of each per step ([steps, 3], [steps, 5L-3])."""
     lead = (steps,) if steps else ()
     n_drops = 5 * plan.num_layers - 3
-    return {"stats": torch.zeros(*lead, 2, device=device),
+    return {"stats": torch.zeros(*lead, 3, device=device),
             "drops": torch.zeros(*lead, n_drops, device=device)}
 
 
@@ -153,7 +167,8 @@ def step_body(model, opt_state: Dict[str, torch.Tensor], inputs: Mapping,
         model's device (level-0 numpy arrays are moved there first)
     :param lr: a float or a 0-d tensor on the device
     :param out: `step_outputs` tensors (one step's rows), written in
-        place: loss and accuracy in "stats", the drop vector (all zero:
+        place: loss, accuracy and offset loss in "stats", the drop vector
+        (all zero:
         the port's kernels drop nothing) in "drops"
     :param class_w, table: from `class_weights` and `label_table`
     :param use_contrast: a 'pseudo' step adds the contrast loss; its
@@ -170,13 +185,15 @@ def step_body(model, opt_state: Dict[str, torch.Tensor], inputs: Mapping,
             region_masks=t.get("region_masks"),
             region_point_masks=t.get("region_point_masks"),
             region_lb=t.get("region_lb"))
-    loss, acc = step_on_batch(model, opt_state, batch, config, lr,
-                              class_w=class_w, table=table,
-                              seed=inputs.get("step_seed"),
-                              use_contrast=use_contrast)
+    loss, acc, reg = step_on_batch(model, opt_state, batch, config, lr,
+                                   class_w=class_w, table=table,
+                                   seed=inputs.get("step_seed"),
+                                   use_contrast=use_contrast,
+                                   with_offset_loss=True)
     with torch.no_grad():
         out["stats"][0].copy_(loss)
         out["stats"][1].copy_(acc)
+        out["stats"][2].copy_(reg)
         out["drops"].zero_()
 
 

@@ -20,7 +20,8 @@ ranked by entropy x exp(class weight of the predicted class); with
 `al_acquisition = "random"` either at random.
 
 The checkpoint is the port's own `torch.save` file
-(train/trainer.ModelTrainer.save_checkpoint). On a CUDA device with the
+(train/trainer.ModelTrainer.save_checkpoint), the JAX package's `.tar` or
+the reference's torch file (utils/checkpoint.py). On a CUDA device with the
 resident input each vote batch replays a captured CUDA graph of
 `infer.eval_body` (train/graphs.EvalGraph), and the vote update runs
 eagerly on the card (train/vote.DeviceVoteAccumulator with the `d2`
@@ -52,6 +53,7 @@ from weasal_tpu_torch.models.architectures import model_for_config
 from weasal_tpu_torch.train.graphs import EvalGraph
 from weasal_tpu_torch.train.trainer import resolve_resident
 from weasal_tpu_torch.train.vote import DeviceVoteAccumulator
+from weasal_tpu_torch.utils.checkpoint import load_checkpoint_file
 from weasal_tpu_torch.utils.device import configure_precision, resolve_device
 from weasal_tpu_torch.utils.metrics import IoU_from_confusions, fast_confusion
 from weasal_tpu_torch.utils.ply import write_ply
@@ -67,7 +69,8 @@ class ModelTester:
     :param config: the trained model's configuration
     :param dataset: the split to vote on (its shape plan is the
         training's: calibration reads the same cache)
-    :param chkp_path: a `ModelTrainer` checkpoint
+    :param chkp_path: a checkpoint of any format `load_checkpoint_file`
+        reads (the port's, the JAX package's `.tar`, the reference's)
     :param mode: 'weak' or 'pseudo' (default: the stage of the model that
         `config.model_name` builds; another raises)
     :param device: default ``cuda``; raises where CUDA is absent
@@ -89,8 +92,7 @@ class ModelTester:
             raise ValueError(f"mode {self.mode!r} does not vote with a "
                              f"{type(self.model).__name__}")
         self.plan = dataset.calibration()
-        payload = torch.load(chkp_path, map_location=self.device,
-                             weights_only=True)
+        payload = load_checkpoint_file(chkp_path)
         self.model.load_state_dict(payload["model_state_dict"])
         self.model.eval()
         self.epoch = payload["epoch"]

@@ -12,7 +12,9 @@ path (the pyramid built on the device), one device, in weak mode
 train_accuracy time`, `val_IoUs.txt`, `plan_saturation.txt`, the
 potentials plys, `conf.txt` every `checkpoint_gap` epochs, the
 `running_PID.txt` kill file and `checkpoints/current_chkp.tar` with
-`chkp_XXXX_{al}.tar`, here written by `torch.save`.
+`chkp_XXXX_{al}.tar`, here written by `torch.save`; a restore reads the
+port's, the JAX package's and the reference's checkpoints
+(utils/checkpoint.py).
 
 The input is the resident one (data/resident.py) when
 `config.resident_clouds` resolves on ("auto": on a CUDA device), else
@@ -24,7 +26,8 @@ graph per size bucket of the plan (`plan.small`) and one for validation
 batches; a short tail pack replays the bucket's one-step graph once per
 real step. Elsewhere, and with `graphs=False`, the same step bodies run
 eagerly. Nothing in the loop waits for the card per step: each step's
-loss and accuracy go to a device ring buffer that `_flush_log` fetches
+loss, accuracy and offset loss (the deformable convs' regularizer, 0 for
+a rigid network) go to a device ring buffer that `_flush_log` fetches
 every 20 steps or 2 s, the skip of batches without regions reads host
 metas, and validation keeps its argmax and labels on the device and
 fetches them once. The port's kernels drop no neighbor, so the drop
@@ -62,6 +65,7 @@ from weasal_tpu_torch.train.optim import init_opt_state
 from weasal_tpu_torch.train.step import (class_weights, label_table,
                                          step_body, step_outputs)
 from weasal_tpu_torch.train.vote import DeviceVoteAccumulator
+from weasal_tpu_torch.utils.checkpoint import load_checkpoint_file
 from weasal_tpu_torch.utils.device import configure_precision, resolve_device
 from weasal_tpu_torch.utils.metrics import IoU_from_confusions, fast_confusion
 from weasal_tpu_torch.utils.ply import write_ply
@@ -209,20 +213,30 @@ class ModelTrainer:
         os.replace(tmp, target)
 
     def load_checkpoint(self, path: str, finetune: bool = False):
-        """Restore a checkpoint in place (parameters, statistics and
-        momentum keep their tensors, which captured graphs address)."""
-        payload = torch.load(path, map_location=self.device,
-                             weights_only=True)
+        """Restore a checkpoint of any format `load_checkpoint_file`
+        reads (the port's, the JAX package's `.tar`, the reference's), in
+        place: parameters, statistics and momentum keep their tensors,
+        which captured graphs address. A missing or extra key raises. A
+        payload without optimizer state (a reference file) restarts
+        momentum at zero, as the JAX trainer does (:566-571)."""
+        payload = load_checkpoint_file(path)
         self.model.load_state_dict(payload["model_state_dict"])
         if not finetune:
-            opt = payload["optimizer_state_dict"]
-            if set(opt) != set(self.opt_state):
-                raise ValueError("checkpoint optimizer state does not match "
-                                 "the model's parameters")
+            opt = payload.get("optimizer_state_dict")
             with torch.no_grad():
-                for k, v in opt.items():
-                    self.opt_state[k].copy_(v)
-            self.epoch = payload["epoch"]
+                if opt is None:
+                    print("Checkpoint has no optimizer state (reference "
+                          "torch file): momentum restarts from zero.")
+                    for v in self.opt_state.values():
+                        v.zero_()
+                else:
+                    if set(opt) != set(self.opt_state):
+                        raise ValueError("checkpoint optimizer state does "
+                                         "not match the model's "
+                                         "parameters")
+                    for k, v in opt.items():
+                        self.opt_state[k].copy_(v)
+            self.epoch = int(payload["epoch"])
         print("Model restored" + (" for finetuning." if finetune
                                   else " with training state."))
 
@@ -282,8 +296,8 @@ class ModelTrainer:
     def _dispatch(self, tag: str, K: int, pack, n_real: int, extra):
         """Run a pack's n_real steps: a full pack as one run of the K-step
         runner, a tail of n < K steps as n runs of the one-step runner.
-        Each step's (loss, accuracy) goes to the log ring, its drops to
-        the epoch's sum; returns the ring rows written."""
+        Each step's (loss, accuracy, offset loss) goes to the log ring,
+        its drops to the epoch's sum; returns the ring rows written."""
         if self.mode == "pseudo":
             # one seed a step, in step order: K steps a replay draw what
             # K single steps draw
@@ -381,7 +395,7 @@ class ModelTrainer:
             print("level-0 input on CUDA: running eagerly (graphs replay "
                   "the resident input's steps)")
         K = self._resolve_steps_per_dispatch()
-        self._ring = torch.zeros((FLUSH_STEPS + K, 2), device=self.device)
+        self._ring = torch.zeros((FLUSH_STEPS + K, 3), device=self.device)
         self._drops_sum = torch.zeros(5 * self.plan.num_layers - 3,
                                       device=self.device)
 
@@ -445,7 +459,7 @@ class ModelTrainer:
                     wall = time.time() - t0
                     for i, row in enumerate(rows):
                         pending.append((self.epoch, self.step + i, row[0],
-                                        row[1], wall))
+                                        row[1], wall, row[2]))
                     epoch_real_steps += n_real
                     epoch_points += sum(m["n_real"] for ms in metas
                                         for m in ms)
@@ -626,12 +640,12 @@ class ModelTrainer:
         """Fetch the buffered device scalars in one copy and log them."""
         if not pending:
             return
-        values = torch.stack([torch.stack([p[2] for p in pending]),
-                              torch.stack([p[3] for p in pending])], dim=1)
+        values = torch.stack([torch.stack([p[k] for p in pending])
+                              for k in (2, 3, 5)], dim=1)
         values = values.cpu().numpy().astype(np.float64)
-        rows = [(epoch, step, float(ls), 0.0, float(ac), wall)
-                for (epoch, step, _, _, wall), (ls, ac) in zip(pending,
-                                                               values)]
+        rows = [(epoch, step, float(ls), float(rg), float(ac), wall)
+                for (epoch, step, _, _, wall, _), (ls, ac, rg) in zip(
+                    pending, values)]
         if self.config.saving and log_file:
             with open(log_file, "a") as f:
                 for epoch, step, ls, rg, ac, wall in rows:
