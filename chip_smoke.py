@@ -159,7 +159,27 @@ Phases, in order; any failure exits non-zero:
    more epoch profiled; A-D, the lists and the sums against their plain
    versions and the kernel step against f64 at its shapes
    (`check_stage_shapes`); the deformable convs' device ms and peak
-   memory.
+   memory;
+12. the host-pyramid input path (`run_host_pyramid`, config.device_pyramid
+   False, the JAX package's default): the WL entry point with
+   `--host_pyramid` on phase 6's tile at full width (the config's input
+   threads: a ParallelSphereBuilder of 8 workers), 2 graphed epochs of
+   10 steps and 5 validation batches and the same again in a fresh
+   trainer (losses and checkpoint bit-equal), every step and validation
+   batch replayed, 0 A, 12 B, 12 C, 2 D, 8 builds and 6 row sums a step
+   and 0 A and 12 B a validation batch; B, C, D, the lists and the sums
+   against their plain versions and the kernel step (eager and replayed)
+   against f64 on host batches (`check_host_shapes`), the loop's ms a
+   step with its `wait_batch` share and the host build's ms a batch
+   beside phase 6's fused loop; two PL epochs of 10 steps with
+   `--host_pyramid` on phase 9's labels (launches, finite losses, the
+   second epoch's ms a step and its `wait_batch` share);
+   `test_models --host_pyramid --on validation` (1 vote, epochs of
+   HOST_VOTE_BATCHES batches: plys, launches, finite votes); and KPCNN
+   on host-built classification batches of synthetic shape clouds:
+   B, C and D at its shapes against their plain versions, then
+   KPCNN_STEPS eager SGD steps (lr 5e-3, momentum 0.9) whose accuracy
+   over the last 10 must pass KPCNN_MIN_ACC.
 Phases 3 and 5 end with a profile of one step, by kernel family. Checks
 of agreement (each kernel against its plain version and against itself
 on a repeat, the GEMM core's drift, the forward and the training step
@@ -171,10 +191,12 @@ bound counting its GEMM operations at the 3xTF32 rate of the tensor
 cores and the rest at the f32 rate (`f32_bound_ms`: all at the f32
 rate), its launches on each main path (`launches_by_path`: inference,
 the training steps, the WL loop, WL active learning, the PL stage, the
-DALES WL and PL paths, the deformable PL path) and its sums at the PL
-loop's, the DALES loops' and the deformable PL loop's shapes (`pl_ms`,
-`pl_plain_ms`, `pl_bound_ms`, and the same with `dales_wl_`, `dales_pl_`
-and `deform_pl_`). Imports nothing of JAX or weasal_tpu.
+DALES WL and PL paths, the deformable PL path, the host-pyramid WL loop,
+PL epoch and vote, KPCNN's steps) and its sums at the PL loop's, the
+DALES loops', the deformable PL loop's, the host-pyramid WL loop's and
+KPCNN's shapes (`pl_ms`, `pl_plain_ms`, `pl_bound_ms`, and the same with
+`dales_wl_`, `dales_pl_`, `deform_pl_`, `host_wl_` and `kpcnn_`; A runs
+on neither of the last two). Imports nothing of JAX or weasal_tpu.
 
 Kernels B and C run their three products (y @ W; g @ W^T and y^T @ g)
 through one GEMM core, weasal_tpu_torch/csrc/kpconv_common.cuh: wgmma
@@ -342,6 +364,25 @@ DEFORM_ARGS = ("--weak_label_log", PL_LOG, "--epoch_steps", "10",
                "--validation_size", "2", "--max_epoch", "1",
                "--steps_per_dispatch", "1", "--seed", str(SEED),
                "--al_iterations", "0")
+# Phase 12: the host-pyramid input path on phase 6's tile (WL: 2 epochs
+# of 10 steps with 5 validation batches, and their repeat) and phase 9's
+# labels (PL: 2 epochs, the second timed without the capture); the vote's epochs of HOST_VOTE_BATCHES batches
+# (each sphere built on one host thread, as the JAX tester builds them);
+# KPCNN_STEPS SGD steps of KPCNN on classification batches of
+# KPCNN_CLOUDS synthetic shape clouds, whose accuracy over the last 10
+# must pass KPCNN_MIN_ACC (tests/test_classification.py's smoke)
+HOST_LOG = "Log_phase12"
+HOST_ARGS = ("--epoch_steps", "10", "--validation_size", "5",
+             "--seed", str(SEED), "--al_iterations", "0", "--host_pyramid")
+HOST_PL_EPOCHS = 2
+HOST_PL_ARGS = ("--weak_label_log", PL_LOG, "--epoch_steps", "10",
+                "--validation_size", "5", "--max_epoch", str(HOST_PL_EPOCHS),
+                "--seed", str(SEED), "--al_iterations", "0",
+                "--host_pyramid")
+HOST_VOTE_BATCHES = 20
+KPCNN_STEPS = 60
+KPCNN_CLOUDS = 6
+KPCNN_MIN_ACC = 0.65
 # Failed checks of agreement, reported at once and failing the run at its
 # end (see the module docstring); PREFIX names the shapes being checked
 FAILED: list = []
@@ -1909,11 +1950,12 @@ def check_loop_shapes(trainer, card, log):
 
 
 def entry_runs(run, root, logdir, repeat_dir, args, counted, per_step,
-               per_val, card, log, what: str = "loop"):
+               per_val, card, log, what: str = "loop", resume: bool = True):
     """An entry point's `run` on the tile at `root` three times: 2 epochs
     into `logdir`, the same 2 seeded epochs again in a fresh trainer into
-    `repeat_dir` (every loss and the checkpoint bit-equal), then a resume
-    from `logdir`'s `current_chkp.tar` for a third. Launch counts are set
+    `repeat_dir` (every loss and the checkpoint bit-equal), then (unless
+    `resume` is False) a resume from `logdir`'s `current_chkp.tar` for a
+    third. Launch counts are set
     to 0 just before each run and read just after; each run is checked by
     `_loop_report`, the checkpoint against the trained state and the
     state after resume against the checkpoint. Returns the reports, the
@@ -1949,11 +1991,12 @@ def entry_runs(run, root, logdir, repeat_dir, args, counted, per_step,
     try:
         # "repeat": the first run's two seeded epochs again, in a
         # fresh trainer: its losses and checkpoint must be bit equal
-        for label, out, extra, epochs in (
-                ("run", logdir, ("--max_epoch", "2"), 2),
-                ("repeat", repeat_dir, ("--max_epoch", "2"), 2),
-                ("resume", logdir,
-                 ("--resume", logdir, "--max_epoch", "3"), 3)):
+        plans = [("run", logdir, ("--max_epoch", "2"), 2),
+                 ("repeat", repeat_dir, ("--max_epoch", "2"), 2)]
+        if resume:
+            plans.append(("resume", logdir,
+                          ("--resume", logdir, "--max_epoch", "3"), 3))
+        for label, out, extra, epochs in plans:
             for fn in counted:
                 fn.launches = 0
             t0 = time.perf_counter()
@@ -3566,6 +3609,361 @@ def run_deformable(root, work, counted, card, log):
     return report, total
 
 
+def host_expected(per_step, per_val, n_layers):
+    """Launches per host-pyramid training step and eval batch, from the
+    fused path's: no radius search (the host builds the neighbor lists)
+    and none of the L - 1 voxel sums (the host subsamples)."""
+    step = dict(per_step, radius_search=0,
+                inverse_sum=per_step["inverse_sum"] - (n_layers - 1))
+    val = dict(per_val, radius_search=0,
+               inverse_sum=per_val.get("inverse_sum", 0) - (n_layers - 1))
+    return step, val
+
+
+def host_batches(trainer, n, threads):
+    """`n` seeded host batches of the trainer's training dataset (a fresh
+    HostPyramidSource of `threads` workers) on its device, in weak mode
+    those with regions: [(PyramidBatch, its arrays)], and the source's
+    host ms a batch."""
+    from weasal_tpu_torch.data.batch import PyramidBatch
+    from weasal_tpu_torch.data.loader import (BatchPrefetcher,
+                                              HostPyramidSource)
+    source = HostPyramidSource(trainer.datasets[0], trainer.plan, threads)
+    try:
+        drawn = list(BatchPrefetcher(source, n, trainer.device,
+                                     rng=np.random.default_rng(SEED)))
+    finally:
+        source.close()
+    kept = [(PyramidBatch.from_arrays(b), b) for b, metas in drawn
+            if trainer.mode == "pseudo"
+            or any(m["has_regions"] for m in metas)]
+    return kept, 1e3 * source.seconds / max(source.batches, 1)
+
+
+def check_host_shapes(trainer, per_step, card, log, what):
+    """Phase 12's checks at the host-pyramid loop's own shapes, after its
+    runs: LOOP_CHECK_BATCHES seeded host batches of its training dataset
+    (those with regions); on the first, B, C and D against their plain
+    versions as in phases 2 and 4 (A is not on this path), and one kernel
+    training step from the seeded initial state, eager and replayed, held
+    to an f64 step as in phase 5; the inverse lists and row sums of one
+    `train_step` checked and timed as in phase 5; then `train_step` on
+    the batches (launches per step, synchronized ms) and a profile of one
+    step. Returns the kernels' sums and the readings."""
+    global PREFIX
+    from weasal_tpu_torch import init_opt_state, train_step
+    from weasal_tpu_torch.models.architectures import model_for_config
+    from weasal_tpu_torch.train.graphs import COUNTED, launch_counts
+    config, plan, dev = trainer.config, trainer.plan, trainer.device
+    train_ds = trainer.datasets[0]
+    batches, build_ms = host_batches(trainer, LOOP_CHECK_BATCHES,
+                                     config.input_threads)
+    expect(len(batches) >= 3, f"{what}: {len(batches)} of "
+           f"{LOOP_CHECK_BATCHES} host batches have regions")
+    pyr = batches[0][0]
+    log(f"{what}: kernels vs plain versions on host-built lists, {plan}, "
+        f"{int(pyr.masks[0].sum())} real level-0 points; host build "
+        f"{build_ms:.1f} ms a batch ({min(config.input_threads, 8)} "
+        "threads)")
+    PREFIX = f"{what} shapes: "
+    try:
+        with torch.no_grad():
+            checks = dict(kpconv_fwd=check_kpconv(trainer.model, pyr, log,
+                                                  SEED))
+        checks["kpconv_bwd"] = check_kpconv_bwd(trainer.model, pyr, log,
+                                                SEED)
+        checks["maxpool_bwd"] = check_maxpool_bwd(trainer.model, pyr, log,
+                                                  SEED)
+        sums = {k: v[1] for k, v in checks.items()}
+        shapes = {k: v[0] for k, v in checks.items()}
+        net = model_for_config(
+            config, train_ds.label_values, train_ds.ignored_labels,
+            generator=torch.Generator().manual_seed(0)).to(dev)
+        comparison = compare_train_steps(net, init_opt_state(net), pyr,
+                                         config, log, plan=plan,
+                                         label=f"{what} step, kernels")
+        del net
+        log(f"[{card}] f64 {what} step (first host batch): share of the "
+            f"f64 allowance {comparison['share']:.3f} (replayed "
+            f"{comparison['graph']['share']:.3f})")
+    finally:
+        PREFIX = ""
+
+    def step(arrays):
+        return train_step(trainer.model, trainer.opt_state, arrays, config,
+                          plan, trainer.lr, device=dev,
+                          class_w=trainer.class_w, table=trainer.table)
+
+    log(f"{what}: the inverse lists and the row sums at the loop's shapes")
+    PREFIX = f"{what} shapes: "
+    try:
+        sums["inverse_lists"] = check_inverse_lists(
+            record_inverse_calls(lambda: step(batches[0][1])), log)
+    finally:
+        PREFIX = ""
+    for fn in COUNTED:
+        fn.launches = 0
+    sync_ms = []
+    for _, arrays in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(arrays)
+        torch.cuda.synchronize()
+        sync_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = launch_counts()
+    want = {k: per_step.get(k, 0) * len(batches) for k in launches}
+    expect(launches == want, f"{what} train_step: launches {launches} in "
+           f"{len(batches)} steps, expected {want}")
+    log(f"[{card}] {what} train_step on {len(batches)} host batches: "
+        f"synchronized {[round(v, 2) for v in sync_ms]} ms; launches "
+        f"{launches}")
+    rows, busy, wall = profile_step(lambda: step(batches[1][1]), log,
+                                    f"{what} train_step")
+    return sums, dict(compare=comparison, sync_ms=sync_ms,
+                      launches=launches, shapes=shapes,
+                      host_build_ms=build_ms,
+                      step_profile=dict(busy_ms=busy, wall_ms=wall,
+                                        families=kernel_families(rows)))
+
+
+def run_kpcnn(dev, counted, card, log):
+    """Phase 12's classifier: KPCNN at tests/test_classification.py's
+    configuration (`weasal_tpu_torch.config.ShapeClsConfig`) on host-built
+    classification batches of KPCNN_CLOUDS synthetic shape clouds (160
+    points, seeded): B, C and D at its shapes against their plain
+    versions, the inverse lists and row sums of one step, then
+    KPCNN_STEPS eager SGD steps of the cross-entropy on `cloud_label` (lr
+    5e-3, momentum 0.9, optax.sgd's rule) with their launches (set to 0
+    just before, read just after: 0 A, one B and one C a conv, one D a
+    strided shortcut, the same builds and sums every step) and
+    synchronized ms; the mean accuracy of the last 10 must pass
+    KPCNN_MIN_ACC. Returns the report, the kernels' sums and the
+    launches."""
+    global PREFIX
+    import copy
+    from weasal_tpu_torch import KPCNN, ShapeClsConfig
+    from weasal_tpu_torch.data.batching import (
+        assemble_classification_batch, build_sphere_pyramid,
+        calibrate_shape_plan)
+    from weasal_tpu_torch.data.synthetic import synthetic_shape_cloud
+    from weasal_tpu_torch.models import losses
+    from weasal_tpu_torch.models.blocks import kernel_convs
+    cfg = ShapeClsConfig()
+    rng = np.random.default_rng(SEED)
+    plan = calibrate_shape_plan(
+        [synthetic_shape_cloud(rng, i % 3, n=160) for i in range(6)], cfg)
+    build_s = [0.0]
+
+    def batch():
+        t0 = time.perf_counter()
+        clouds = []
+        for _ in range(KPCNN_CLOUDS):
+            label = int(rng.integers(3))
+            pts = synthetic_shape_cloud(rng, label, n=160)
+            clouds.append(dict(
+                pyramid=build_sphere_pyramid(pts, cfg, rng=rng,
+                                             with_upsamples=False),
+                features=np.ones((pts.shape[0], 1), np.float32),
+                label=label))
+        out = assemble_classification_batch(clouds, plan).to(dev)
+        build_s[0] += time.perf_counter() - t0
+        return out
+
+    model = KPCNN(cfg, generator=torch.Generator().manual_seed(SEED))
+    model = model.to(dev).train()
+
+    def sgd(net, trace, data):
+        net.zero_grad(set_to_none=True)
+        out = net(data)
+        target = data.cloud_label.long()
+        losses.softmax_cross_entropy(out, target).backward()
+        with torch.no_grad():
+            for k, p in net.named_parameters():
+                trace[k].mul_(0.9).add_(p.grad)
+                p.sub_(5e-3 * trace[k])
+        return (out.argmax(-1) == target).float().mean()
+
+    first = batch()
+    log(f"KPCNN: {plan}; kernels vs plain versions at its shapes")
+    PREFIX = "KPCNN shapes: "
+    try:
+        with torch.no_grad():
+            checks = dict(kpconv_fwd=check_kpconv(model, first, log, SEED))
+        checks["kpconv_bwd"] = check_kpconv_bwd(model, first, log, SEED)
+        checks["maxpool_bwd"] = check_maxpool_bwd(model, first, log, SEED)
+        spare = copy.deepcopy(model)
+        checks["inverse_lists"] = (None, check_inverse_lists(
+            record_inverse_calls(lambda: sgd(spare, {
+                k: torch.zeros_like(p)
+                for k, p in spare.named_parameters()}, first)), log))
+        del spare
+    finally:
+        PREFIX = ""
+    sums = {k: v[1] for k, v in checks.items()}
+    trace = {k: torch.zeros_like(p) for k, p in model.named_parameters()}
+    for fn in counted:
+        fn.launches = 0
+    accs, step_ms, per_step = [], [], None
+    build_s[0] = 0.0
+    for i in range(KPCNN_STEPS):
+        data = batch()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        accs.append(sgd(model, trace, data))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            per_step = {fn.__name__: fn.launches for fn in counted}
+    launches = {fn.__name__: fn.launches for fn in counted}
+    accs = [float(a) for a in accs]
+    n_conv = len(kernel_convs(model))
+    n_pool = len(strided_pools(model))
+    want = {k: v * KPCNN_STEPS for k, v in per_step.items()}
+    expect(per_step["radius_search"] == 0
+           and per_step["kpconv_fwd"] == per_step["kpconv_bwd"] == n_conv
+           and per_step["maxpool_bwd"] == n_pool
+           and per_step["build_inverse_lists"] > 0 and launches == want,
+           f"KPCNN: launches {launches} in {KPCNN_STEPS} steps, the first "
+           f"{per_step}; expected 0 A, {n_conv} B and C and {n_pool} D a "
+           "step, every step alike")
+    final = float(np.mean(accs[-10:]))
+    expect(final > KPCNN_MIN_ACC, f"KPCNN: mean accuracy of the last 10 "
+           f"steps {final:.3f}, not above {KPCNN_MIN_ACC}: {accs[-10:]}")
+    steady = statistics.mean(step_ms[1:])
+    log(f"[{card}] KPCNN: {KPCNN_STEPS} SGD steps of {KPCNN_CLOUDS} clouds, "
+        f"accuracy of the last 10 {final:.3f}; {steady:.2f} ms a step "
+        f"(synchronized, steps 2..), host build "
+        f"{1e3 * build_s[0] / KPCNN_STEPS:.2f} ms a batch; launches "
+        f"{launches}")
+    return dict(accuracy_last10=final, accs=accs, step_ms=step_ms,
+                step_ms_steady=steady,
+                host_build_ms=1e3 * build_s[0] / KPCNN_STEPS,
+                plan=vars(plan), per_step=per_step), sums, launches
+
+
+def run_host_pyramid(root, work, counted, wl_per, fused_loop, card, log):
+    """Phase 12: the host-pyramid input path (config.device_pyramid =
+    False) through the entry points: the WL loop on phase 6's tile
+    (`entry_runs` without the resume: 2 graphed epochs and their repeat,
+    the launches of `host_expected`), the checks at its shapes
+    (`check_host_shapes`), its ms a step with the `wait_batch` share and
+    the host build's ms a batch beside phase 6's fused loop; two PL
+    epochs on phase 9's labels (ms a step and `wait_batch` share of the
+    second, whose clock holds no capture); `test_models --host_pyramid --on validation`
+    with 1 vote in epochs of HOST_VOTE_BATCHES batches; KPCNN
+    (`run_kpcnn`). A native geometry library that does not build fails
+    the phase. Returns the report, the kernels' sums at the WL loop's and
+    KPCNN's shapes and the launches of each path."""
+    from weasal_tpu_torch import test_models
+    from weasal_tpu_torch.config import VaihingenPLConfig, VaihingenWLConfig
+    from weasal_tpu_torch.data.loader import ParallelSphereBuilder
+    from weasal_tpu_torch.ops import native
+    from weasal_tpu_torch.train_Vaihingen3D_PseudoLabel import run as run_pl
+    from weasal_tpu_torch.train_Vaihingen3D_WeakLabel import run as run_wl
+    if not native.available():
+        raise RuntimeError("phase 12: the native geometry library did not "
+                           "build (g++ and weasal_tpu_torch/cpp/geometry.cpp)")
+    per_step, per_val = host_expected(*wl_per,
+                                      VaihingenWLConfig().num_layers)
+    pl_config = VaihingenPLConfig()
+    pl_config.num_classes = 9
+    pl_step, pl_val = host_expected(*pl_expected(pl_config),
+                                    pl_config.num_layers)
+    log(f"phase 12: launches expected per WL step {per_step}, per WL eval "
+        f"batch {per_val}; per PL step {pl_step}, per PL eval batch "
+        f"{pl_val}")
+    cwd = os.getcwd()
+    os.chdir(work)
+    vote_batches = test_models.VOTE_EPOCH_BATCHES
+    report, paths = {}, {}
+    try:
+        logdir = os.path.join(work, HOST_LOG)
+        loop = entry_runs(run_wl, root, logdir,
+                          os.path.join(work, HOST_LOG + "_repeat"),
+                          HOST_ARGS, counted, per_step, per_val, card, log,
+                          what="host WL loop", resume=False)
+        trainer, paths["host_wl"] = loop["trainer"], loop["total"]
+        source = trainer._train_source[0]
+        builder = getattr(source, "builder", None)
+        expect(not trainer.device_pyramid
+               and isinstance(builder, ParallelSphereBuilder)
+               and builder.max_workers == 8 and builder.pool is None,
+               f"phase 12: the WL loop's source is {source!r}, not the host "
+               "pyramid with 8 builder threads, closed when training ends")
+        build_ms = 1e3 * source.seconds / max(source.batches, 1)
+        epochs = [e for r in loop["runs"] for e in r["epochs"][1:]]
+        shares = [e["wait_batch_ms_per_step"] / e["ms_per_step"]
+                  for e in epochs]
+        host_ms = [r["step_ms_steady"] for r in loop["runs"]]
+        fused_ms = [r["step_ms_steady"] for r in fused_loop["runs"]
+                    if r["step_ms_steady"]]
+        kernel_sums, at_plan = check_host_shapes(trainer, per_step, card,
+                                                 log, "phase 12 host WL")
+        log(f"[{card}] host WL loop: "
+            f"{[round(v, 2) for v in host_ms]} ms a step (second epochs), "
+            f"wait_batch {[round(100 * v, 1) for v in shares]} % of it; "
+            f"host build {build_ms:.1f} ms a batch ({source.batches} "
+            f"batches, 8 threads, in the producer thread); phase 6's fused "
+            f"loop {[round(v, 2) for v in fused_ms]} ms a step; "
+            f"train_step on host batches {at_plan['sync_ms']} ms")
+        report.update(wl=dict(runs=loop["runs"], repeat=loop["repeat"],
+                              plan=vars(trainer.plan),
+                              peak_bytes=loop["peak"], host_ms=host_ms,
+                              wait_share=shares, host_build_ms=build_ms,
+                              fused_ms=fused_ms, at_plan=at_plan,
+                              per_step=per_step, per_val=per_val))
+
+        # the PL epochs, the second timed without the graphs' captures
+        pl_log = os.path.join(work, HOST_LOG + "_pl")
+        for fn in counted:
+            fn.launches = 0
+        os.environ["WEASAL_LOOP_STATS"] = "1"
+        try:
+            t0 = time.perf_counter()
+            pl = run_pl([pl_log, "--data_root", root, *HOST_PL_ARGS])
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        finally:
+            os.environ.pop("WEASAL_LOOP_STATS", None)
+        paths["host_pl"] = {fn.__name__: fn.launches for fn in counted}
+        expect(not pl.device_pyramid and pl.mode == "pseudo",
+               "phase 12: the PL run is not a host-pyramid pseudo-label run")
+        report["pl"] = _loop_report("run", pl, pl_log, HOST_PL_EPOCHS,
+                                    paths["host_pl"], pl_step, pl_val,
+                                    wall_s, card, log,
+                                    what="host PL epochs")
+        second = report["pl"]["epochs"][-1]
+        report["pl"]["wait_share"] = (second["wait_batch_ms_per_step"]
+                                      / second["ms_per_step"])
+        log(f"[{card}] host PL loop: {second['ms_per_step']:.2f} ms a step "
+            f"(second epoch), wait_batch "
+            f"{100 * report['pl']['wait_share']:.1f} % of it")
+
+        # a vote of the WL loop's model
+        test_models.VOTE_EPOCH_BATCHES = HOST_VOTE_BATCHES
+        for fn in counted:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        tm = test_models.main(["--log", logdir, "--on", "validation",
+                               "--num_votes", "1", "--data_root", root,
+                               "--host_pyramid"])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        paths["host_vote"] = {fn.__name__: fn.launches for fn in counted}
+        expect(not tm.device_pyramid, "phase 12: the vote ran fused")
+        report["vote"] = dict(wall_s=wall_s, **vote_report(
+            tm, per_val, "WeakLabel", HOST_LOG, ["Vaihingen3D_Training"],
+            "phase 12 test_models --host_pyramid --on validation", card,
+            log, paths["host_vote"]))
+
+        report["kpcnn"], kpcnn_sums, paths["kpcnn"] = run_kpcnn(
+            trainer.device, counted, card, log)
+    finally:
+        test_models.VOTE_EPOCH_BATCHES = vote_batches
+        os.chdir(cwd)
+    return report, dict(host_wl=kernel_sums, kpcnn=kpcnn_sums), paths
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="",
@@ -3771,6 +4169,10 @@ def main(argv=None) -> int:
         # ---- phase 11: deformable convs, checkpoints across formats
         phase("phase 11: the deformable pseudo-label stage on the card")
         deform, deform_pl = run_deformable(root, work, counted, card, log)
+        # ---- phase 12: the host-pyramid input path and KPCNN
+        phase("phase 12: the host-pyramid input path and KPCNN on the card")
+        host, host_kernels, host_paths = run_host_pyramid(
+            root, work, counted, (expected, per_val), loop, card, log)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3780,7 +4182,7 @@ def main(argv=None) -> int:
     paths = dict(inference=eval_launches, train_step=launches,
                  wl_loop=loop_launches, wl_active_learning=al_launches,
                  pl_stage=pl_launches, dales_wl=dales_wl, dales_pl=dales_pl,
-                 deformable_pl=deform_pl)
+                 deformable_pl=deform_pl, **host_paths)
 
     def by_path(name):
         return {path: counts.get(name, 0) for path, counts in paths.items()}
@@ -3790,17 +4192,24 @@ def main(argv=None) -> int:
 
     stage_kernels = dict(pl=pl["kernels"], dales_wl=dales["wl"]["kernels"],
                          dales_pl=dales["pl"]["kernels"],
-                         deform_pl=deform["kernels"])
+                         deform_pl=deform["kernels"], **host_kernels)
+
+    def sums_of(kernels, name):
+        return kernels.get(name) or kernels["inverse_lists"].get(name)
 
     def pl_fields(name):
         """The kernel's sums at the shapes of the pseudo-label loop
-        (`pl_*`), of the DALES loops (`dales_wl_*`, `dales_pl_*`) and of
-        the deformable PL loop (`deform_pl_*`)."""
+        (`pl_*`), of the DALES loops (`dales_wl_*`, `dales_pl_*`), of
+        the deformable PL loop (`deform_pl_*`), of the host-pyramid WL
+        loop (`host_wl_*`) and of KPCNN (`kpcnn_*`), where it runs: a
+        path whose recorded calls hold none of the kernel's gives none
+        of its fields (no zeros that were never measured)."""
         fields = {}
         for prefix, kernels in stage_kernels.items():
-            sums = kernels.get(name) or kernels["inverse_lists"][name]
-            fields.update({f"{prefix}_{k}": sums[k]
-                           for k in ("ms", "plain_ms", "bound_ms")})
+            sums = sums_of(kernels, name)
+            if sums is not None and sums.get("calls", 1) > 0:
+                fields.update({f"{prefix}_{k}": sums[k]
+                               for k in ("ms", "plain_ms", "bound_ms")})
         return fields
 
     # The largest error of each kernel at any main path's shapes
@@ -3808,7 +4217,8 @@ def main(argv=None) -> int:
                             ("kpconv_bwd", c_sum), ("maxpool_bwd", d_sum)):
         phase_sum["max_abs_err"] = max(
             phase_sum["max_abs_err"], loop["kernels"][name]["max_abs_err"],
-            *(k[name]["max_abs_err"] for k in stage_kernels.values()))
+            *(k[name]["max_abs_err"] for k in stage_kernels.values()
+              if name in k))
 
     kernels = [
         dict(name="radius_search", route="cuda",
@@ -3881,7 +4291,9 @@ def main(argv=None) -> int:
                            pseudo_label=pl, pl_launches=pl_launches,
                            dales=dales, dales_wl_launches=dales_wl,
                            dales_pl_launches=dales_pl, deformable=deform,
-                           deformable_pl_launches=deform_pl), f,
+                           deformable_pl_launches=deform_pl,
+                           host_pyramid=host,
+                           host_launches=host_paths), f,
                       indent=1)
     phase("chip_smoke: every phase ran")
     if FAILED:

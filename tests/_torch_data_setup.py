@@ -9,8 +9,10 @@ not semantics, and `jax_dataset_patches` removes them for a comparison:
   load again.
 - `subsample_anchors` draws from an unseeded `random.Random()`; the port
   from `random.Random(ANCHOR_SEED)`.
-- the JAX grid subsample may run its native C++ library; the port is
-  numpy only, like the JAX package's numpy version.
+- each package's host subsample and fixed-width radius search run its
+  own native C++ library where it is built, else numpy / scipy; the
+  patch makes the JAX package's choice the port's, so that both sides
+  run native code (the same source) or both run numpy and scipy.
 """
 
 import contextlib
@@ -26,6 +28,7 @@ from weasal_tpu.data import datasets as jax_datasets
 from weasal_tpu.ops import native as jax_native
 from weasal_tpu_torch.config import Config as PortConfig
 from weasal_tpu_torch.data.datasets import ANCHOR_SEED
+from weasal_tpu_torch.ops import native as port_native
 from tests.test_datasets import SynthWLConfig
 
 # Scene of the parity tests: extent 30 m, density 5 points / m^2
@@ -74,15 +77,16 @@ def port_config_class(**overrides):
 
 @contextlib.contextmanager
 def jax_dataset_patches():
-    """Sorted KD rows, a seeded anchor generator and the numpy grid
-    subsample for the JAX package's datasets, undone on exit."""
+    """Sorted KD rows, a seeded anchor generator and the port's choice of
+    native or numpy geometry for the JAX package's datasets, undone on
+    exit."""
     mp = pytest.MonkeyPatch()
     try:
         mp.setattr(jax_datasets, "KDTree", SortedKDTree)
         mp.setattr(jax_anchors, "KDTree", SortedKDTree)
         mp.setattr(jax_anchors, "random", types.SimpleNamespace(
             Random=lambda: random.Random(ANCHOR_SEED)))
-        mp.setattr(jax_native, "available", lambda: False)
+        mp.setattr(jax_native, "available", port_native.available)
         yield
     finally:
         mp.undo()

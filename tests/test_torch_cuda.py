@@ -46,7 +46,13 @@ deformable layers' wide searches) equals the plain version; the plain
 voxel sums on the card equal the `run_sums` kernel bit for bit, and
 three plain builds of one batch's pyramid are bit-equal (and equal the
 kernels' build); a deformable pseudo-label step (layers 3-4 deformable)
-repeats bit for bit, eager twice and replayed from a graph. Needs an
+repeats bit for bit, eager twice and replayed from a graph. The
+host-pyramid path (config.device_pyramid False): B, C and D on
+host-built neighbor lists and at KPCNN's shapes equal their plain
+versions (and KPCNN's forward its plain one); a host step replayed from
+a graph equals its eager body bit for bit; a graphed host epoch launches
+0 A, 12 B, 12 C and 2 D a step and 0 A and 12 B a validation batch.
+Needs an
 NVIDIA GPU with nvcc; skips elsewhere. On the machine with the card
 (which has no JAX) run
 
@@ -61,6 +67,7 @@ import numpy as np
 import pytest
 import torch
 
+from weasal_tpu_torch.config import ShapeClsConfig
 from weasal_tpu_torch.ops import kpconv as ops
 from weasal_tpu_torch.ops.cuda import kpconv_bwd as bwd_lib
 from weasal_tpu_torch.ops.cuda import kpconv_fwd as fwd_lib
@@ -1373,3 +1380,184 @@ def test_deformable_step_repeats_bit_for_bit(dev, synth_pl):
     moved = [k for k in state if "offset" in k and "kernel_points" not in k
              and not torch.equal(state[k], state0[k])]
     assert len(moved) == 6
+
+
+# ------------------------------------------------- the host-pyramid path
+
+def _kernels_vs_plain(model, pyr, dev):
+    """B and C at every kernel conv of `model` and D at every strided
+    shortcut, on the neighbor lists of the batch `pyr` (seeded random
+    features and output gradients), against their plain versions;
+    returns the counts of convs and pools checked."""
+    from weasal_tpu_torch.models.blocks import (ResnetBottleneckBlock,
+                                                conv_inputs, kernel_convs)
+    g = torch.Generator(device=dev).manual_seed(0)
+    convs = kernel_convs(model)
+    for name, conv in convs:
+        q, s, nb, _ = conv_inputs(conv.strided, conv.layer_ind, pyr)
+        kp, w = conv.kernel_points, conv.weights.detach()
+        ext, infl = conv.params.kp_extent, conv.params.influence
+        x = torch.randn((s.shape[0], s.shape[1], w.shape[1]), generator=g,
+                        device=dev)
+        out, y = kpconv_fwd_with_y(q, s, nb, x, kp, w, ext, infl)
+        ref, y_plain = kpconv_fwd_plain_with_y(q, s, nb, x, kp, w, ext,
+                                               infl)
+        _close(out, ref, 1e-4, 1e-5)
+        grad = torch.randn(out.shape, generator=g, device=dev)
+        dx, dw = kpconv_bwd(q, s, nb, y, kp, w, grad, ext, infl,
+                            inverse=LazyInverse(nb, s.shape[1]))
+        dx_p, dw_p = kpconv_bwd_plain(q, s, nb, y_plain, kp, w, grad, ext,
+                                      infl)
+        torch.cuda.synchronize()
+        _close(dx, dx_p, 1e-4, 1e-5)
+        _close(dw, dw_p, 1e-4, 1e-5)
+    pools = [m for m in model.modules()
+             if isinstance(m, ResnetBottleneckBlock) and m.KPConv.strided]
+    for m in pools:
+        nb = pyr.pools[m.layer_ind]
+        b, ns = pyr.points[m.layer_ind].shape[:2]
+        x = torch.randint(-3, 3, (b, ns, m.in_dim), generator=g,
+                          device=dev).float()
+        x[:, :, 0].clamp_(max=0.0)
+        grad = torch.randn((b, nb.shape[1], m.in_dim), generator=g,
+                           device=dev)
+        got = maxpool_bwd(x, nb, grad, inverse=LazyInverse(nb, ns))
+        want = maxpool_bwd_plain(x, nb, grad)
+        torch.cuda.synchronize()
+        _close(got, want, 1e-6, 1e-6)
+    return len(convs), len(pools)
+
+
+def test_kernels_equal_plain_on_host_lists(dev, synth_wl):
+    """B, C and D on a host-built batch (data/batching.assemble_batch:
+    supports in grid-subsample order, rows cropped at the plan's
+    widths)."""
+    from weasal_tpu_torch import KPFCNN_mprm
+    cfg, train, _, plan = synth_wl
+    batch, _ = train.next_batch(np.random.default_rng(3), plan)
+    pyr = batch.to(dev)
+    assert pyr.search_overflow is None
+    model = KPFCNN_mprm(cfg, tuple(int(v) for v in train.label_values), (),
+                        generator=torch.Generator().manual_seed(3)).to(dev)
+    assert _kernels_vs_plain(model, pyr, dev) == (12, 2)
+
+
+def test_kernels_equal_plain_at_kpcnn_shapes(dev):
+    """B, C and D at KPCNN's shapes, on a host-built classification
+    batch of synthetic shape clouds; KPCNN's forward on the card against
+    its plain-version forward."""
+    from weasal_tpu_torch import KPCNN
+    from weasal_tpu_torch.data.batching import (
+        assemble_classification_batch, build_sphere_pyramid,
+        calibrate_shape_plan)
+    from weasal_tpu_torch.data.synthetic import synthetic_shape_cloud
+    cfg = ShapeClsConfig()
+    rng = np.random.default_rng(0)
+    plan = calibrate_shape_plan(
+        [synthetic_shape_cloud(rng, i % 3, n=160) for i in range(6)], cfg)
+    clouds = []
+    for i in range(6):
+        pts = synthetic_shape_cloud(rng, i % 3, n=160)
+        clouds.append(dict(pyramid=build_sphere_pyramid(
+            pts, cfg, rng=rng, with_upsamples=False),
+            features=np.ones((pts.shape[0], 1), np.float32), label=i % 3))
+    pyr = assemble_classification_batch(clouds, plan).to(dev)
+    model = KPCNN(cfg, generator=torch.Generator().manual_seed(0)).to(dev)
+    assert _kernels_vs_plain(model, pyr, dev) == (3, 1)
+    model.eval()
+    with torch.no_grad():
+        got = model(pyr)
+        with plain_ops():
+            want = model(pyr)
+    assert got.shape == (6, 3)
+    _close(got, want, 1e-4, 1e-5)
+
+
+def test_host_step_replay_equals_eager_bit_for_bit(dev, synth_wl):
+    """One weak-label step on a host batch (its `arrays()` in a pack, as
+    the trainer's prefetcher carries it) through `step_body`, eager and
+    replayed from a captured graph (the inverse lists built inside it
+    from the static neighbor tensors), from one state: loss, accuracy,
+    drops and every updated tensor bit-equal."""
+    from weasal_tpu_torch import KPFCNN_mprm, init_opt_state
+    from weasal_tpu_torch.data.loader import HostPyramidSource
+    from weasal_tpu_torch.train.graphs import StepGraph
+    from weasal_tpu_torch.train.step import (class_weights, label_table,
+                                             step_body, step_outputs)
+    cfg, train, _, plan = synth_wl
+    source = HostPyramidSource(train, plan)
+    rng = np.random.default_rng(5)
+    for _ in range(20):
+        arrays, metas = source.next_batch(rng, augment=True)
+        if any(m["has_regions"] for m in metas):
+            break
+    pack = {k: torch.from_numpy(np.ascontiguousarray(v[None]))
+            for k, v in arrays.items()}
+    model = KPFCNN_mprm(cfg, tuple(int(v) for v in train.label_values), (),
+                        generator=torch.Generator().manual_seed(2)).to(dev)
+    opt = init_opt_state(model)
+    state0 = {k: v.clone() for k, v in model.state_dict().items()}
+    opt0 = {k: v.clone() for k, v in opt.items()}
+    lr_t = torch.full((), cfg.learning_rate, device=dev)
+    class_w, table = class_weights(cfg, dev), label_table(model, dev)
+
+    def body(inputs, out):
+        step_body(model, opt, inputs, cfg, plan, lr_t, out, class_w, table)
+
+    runs = []
+    for graphed in (False, True):
+        model.load_state_dict(state0)
+        for k in opt:
+            opt[k].copy_(opt0[k])
+        graph = StepGraph("host step", body, pack, 1, dev,
+                          step_outputs(plan, dev, steps=1),
+                          lambda: (list(model.parameters())
+                                   + list(model.buffers())
+                                   + list(opt.values())), graphed=graphed)
+        graph.load(pack)
+        graph.run()
+        torch.cuda.synchronize()
+        runs.append(({k: v.clone() for k, v in graph.out.items()},
+                     {k: v.clone() for k, v in model.state_dict().items()},
+                     {k: v.clone() for k, v in opt.items()}))
+    assert graph.graph is not None and graph.replays == 1
+    (out_e, state_e, opt_e), (out_g, state_g, opt_g) = runs
+    assert math.isfinite(float(out_e["stats"][0, 0]))
+    assert not out_e["drops"].any()
+    for k in out_e:
+        assert torch.equal(out_e[k], out_g[k]), k
+    for k in state_e:
+        assert torch.equal(state_e[k], state_g[k]), k
+    for k in opt_e:
+        assert torch.equal(opt_e[k], opt_g[k]), k
+
+
+def test_host_pyramid_loop_launches_the_kernels(dev, synth_wl):
+    """A graphed weak-label epoch on the host pyramid: every step and
+    validation batch replayed; 0 A, 12 B, 12 C, 2 D a step and 0 A, 12 B
+    a validation batch, the warm-ups counted."""
+    import copy
+    from weasal_tpu_torch.train.trainer import ModelTrainer
+    cfg, train, val, plan = synth_wl
+    cfg = copy.copy(cfg)
+    cfg.device_pyramid = False
+    trainer = ModelTrainer(cfg, train, device=dev)
+    assert not trainer.resident and trainer.graphed
+    counted = (radius_search, kpconv_fwd, kpconv_bwd, maxpool_bwd)
+    for fn in counted:
+        fn.launches = 0
+    trainer.train(train, val)
+    torch.cuda.synchronize()
+    steps = trainer.epoch_times[0]["steps"]
+    batches = trainer.val_times[0]["batches"]
+    assert steps >= 1 and batches == 1
+    counts = trainer.graph_counts()
+    assert counts["train_replayed_steps"] == steps
+    assert counts["eval_replays"] == batches
+    steps += counts["train_warmups"]
+    batches += counts["eval_warmups"]
+    want = {"radius_search": 0, "kpconv_fwd": 12 * (steps + batches),
+            "kpconv_bwd": 12 * steps, "maxpool_bwd": 2 * steps}
+    assert {fn.__name__: fn.launches for fn in counted} == want
+    assert trainer.epoch_drops == [0.0]
+    assert all(np.isfinite(v).all() for v in trainer.validation_probs)

@@ -3,7 +3,8 @@
 Each package writes the scene into a root of its own from one seed, then
 prepares, subsamples, builds anchors, calibrates and samples with the
 same seeds. The JAX side runs with sorted KD rows, a seeded anchor
-generator and its numpy grid subsample (tests/_torch_data_setup.py).
+generator and the port's choice of native or numpy geometry
+(tests/_torch_data_setup.py).
 Everything is held exactly: the plys byte for byte; the subsampled
 points, colors and labels; the anchor sets (centers to 1e-6); the
 projection indices; the calibrated plan; and twenty successive sphere

@@ -35,7 +35,16 @@ def test_import_loads_no_jax_or_weasal_tpu():
             "weasal_tpu_torch.test_models, "
             "weasal_tpu_torch.export_torch_checkpoint, "
             "weasal_tpu_torch.utils.checkpoint, "
-            "weasal_tpu_torch.utils.torch_interop\n"
+            "weasal_tpu_torch.utils.torch_interop, "
+            "weasal_tpu_torch.ops.native, weasal_tpu_torch.data.batching, "
+            "weasal_tpu_torch.data.batch, weasal_tpu_torch.data.loader, "
+            "weasal_tpu_torch.data.synthetic, "
+            "weasal_tpu_torch.models.architectures\n"
+            "from weasal_tpu_torch import KPCNN\n"
+            "from weasal_tpu_torch.data.batching import assemble_batch\n"
+            "from weasal_tpu_torch.data.loader import ParallelSphereBuilder\n"
+            "from weasal_tpu_torch.ops import native\n"
+            "native.available()\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'weasal_tpu', 'sklearn', "
             "'matplotlib')]\n"
@@ -51,6 +60,16 @@ def test_sources_import_no_jax_or_weasal_tpu():
     assert len(files) > 15
     for f in files:
         assert not FORBIDDEN.search(f.read_text()), f
+
+
+def test_native_source_is_the_ports_own_copy():
+    # the port builds its own copy of the JAX package's C++ source: the
+    # same code, only the header comment differs
+    def code(path):
+        text = path.read_text()
+        return text[text.index("#include"):]
+    ours = ROOT / "weasal_tpu_torch" / "cpp" / "geometry.cpp"
+    assert code(ours) == code(ROOT / "weasal_tpu" / "cpp" / "geometry.cpp")
 
 
 def test_entry_point_defaults_to_cuda_and_raises_without_it():

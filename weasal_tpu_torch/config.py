@@ -90,8 +90,16 @@ class Config:
     # Precision of the feature products; only float32 is ported
     compute_dtype = "float32"
     loss_type = "region_mprm_loss"   # or 'class_logits_loss'
-    # Device-resident clouds (data/resident.py): "auto" = on when the
-    # trainer's device is CUDA; True / False force it
+    # Input path: True builds each batch's pyramid on the device (the
+    # fused path: level-0 or resident input, ops/pyramid.py); False takes
+    # the host pyramid (data/batching.assemble_batch, ParallelSphereBuilder
+    # when input_threads > 1). The JAX package defaults to False
+    # (weasal_tpu/config.py:55) and its root scripts opt into the fused
+    # path with --fused; the port defaults to its fused path, and its
+    # entry points take --host_pyramid for the JAX default
+    device_pyramid = True
+    # Device-resident clouds (data/resident.py), fused path only: "auto" =
+    # on when the trainer's device is CUDA; True / False force it
     resident_clouds = "auto"
     # Level-0 sizing percentile of the shape plan (data/batching.py)
     plan_point_percentile = 100.0
@@ -496,3 +504,26 @@ class DALESPLConfig(VaihingenPLConfig):
 
     active_learning_iterations = 20
     added_labels_per_epoch = 5000
+
+
+class ShapeClsConfig(Config):
+    """The KPCNN classifier over synthetic shape clouds
+    (data/synthetic.synthetic_shape_cloud, batches by
+    data/batching.assemble_classification_batch): the JAX package's
+    classification configuration (tests/test_classification.py
+    `ClsConfig`), 16 features, two levels."""
+    dataset = "ShapeCls"
+    num_classes = 3
+    in_features_dim = 1
+    first_features_dim = 16
+    num_kernel_points = 15
+    first_subsampling_dl = 0.3
+    conv_radius = 2.5
+    in_radius = 2.0
+    architecture = ["simple", "resnetb_strided", "resnetb",
+                    "global_average"]
+    use_batch_norm = True
+    batch_norm_momentum = 0.02
+    KP_influence = "linear"
+    aggregation_mode = "sum"
+    fixed_kernel_points = "center"

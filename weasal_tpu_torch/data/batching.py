@@ -1,13 +1,17 @@
-"""Shape plan and the host-side sphere pyramid used to calibrate it.
+"""Shape plan and the host-side sphere pyramid: calibration and the
+host-pyramid input path.
 
 Counterpart of weasal_tpu/data/batching.py: `ShapePlan` (:36),
 `payload_meta` (:95), `fill_region_row` (:110), `grid_rotations` (:138),
-`layer_radii` (:160), `build_sphere_pyramid` (:183) and
-`calibrate_shape_plan` (:236), running on the port's own host subsample
-and radius search. Random draws follow the JAX package's order, so one
-numpy seed gives both packages the same plan, small-sphere bucket
-included. The measured band windows are not ported (the port's kernels
-are exact): a plan written by the JAX package loads without them.
+`layer_radii` (:160), `build_sphere_pyramid` (:183),
+`calibrate_shape_plan` (:236), `assemble_classification_batch` (:318),
+`_pad_points` (:369), `_pad_neighbors` (:378) and `assemble_batch`
+(:399), running on the port's own host subsample and radius search (the
+native library where it is built, ops/native.py). Random draws follow
+the JAX package's order, so one numpy seed gives both packages the same
+plan, small-sphere bucket included, and the same host batches. The
+measured band windows are not ported (the port's kernels are exact): a
+plan written by the JAX package loads without them.
 """
 
 from __future__ import annotations
@@ -18,9 +22,10 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from weasal_tpu_torch.data.batch import PyramidBatch
 from weasal_tpu_torch.kernels.kernel_points import create_3d_rotations
 from weasal_tpu_torch.ops.neighbors import radius_search
-from weasal_tpu_torch.ops.subsample import grid_subsample
+from weasal_tpu_torch.ops.subsample import SHADOW_COORD, grid_subsample
 
 
 @dataclasses.dataclass
@@ -263,3 +268,153 @@ def calibrate_shape_plan(sphere_point_clouds: Sequence[np.ndarray], config,
                         for l in range(L - 1)],
         max_regions=region_budget[0],
         max_region_points=region_budget[1], small=small)
+
+
+def _pad_points(pts: np.ndarray, n: int) -> Tuple[np.ndarray, np.ndarray]:
+    k = min(pts.shape[0], n)
+    out = np.full((n, 3), SHADOW_COORD, dtype=np.float32)
+    out[:k] = pts[:k]
+    mask = np.zeros(n, dtype=bool)
+    mask[:k] = True
+    return out, mask
+
+
+def _pad_neighbors(inds: np.ndarray, n_rows: int, width: int,
+                   n_support_real: int, n_support_pad: int) -> np.ndarray:
+    """Crop or pad an index matrix to [n_rows, width]: rows are
+    distance-sorted, so a crop keeps the nearest. The input shadow
+    (n_support_real) and supports past the padded level size (points a
+    level crop dropped) become the output shadow n_support_pad."""
+    rows = min(inds.shape[0], n_rows)
+    out = np.full((n_rows, width), n_support_pad, dtype=np.int32)
+    w = min(inds.shape[1], width)
+    block = inds[:rows, :w].astype(np.int32).copy()
+    block[block >= min(n_support_real, n_support_pad)] = n_support_pad
+    out[:rows, :w] = block
+    return out
+
+
+def _pad_pyramids(pyramids: Sequence[Dict], plan: ShapePlan,
+                  with_upsamples: bool) -> Dict:
+    """The padded per-level arrays of B sphere pyramids: points, masks,
+    lengths, neighbors, pools and (with_upsamples) upsamples."""
+    B, L = len(pyramids), plan.num_layers
+    points = [np.zeros((B, plan.num_points[l], 3), np.float32)
+              for l in range(L)]
+    masks = [np.zeros((B, plan.num_points[l]), bool) for l in range(L)]
+    neighbors = [np.zeros((B, plan.num_points[l], plan.conv_neighbors[l]),
+                          np.int32) for l in range(L)]
+    pools = [np.zeros((B, plan.num_points[l + 1], plan.pool_neighbors[l]),
+                      np.int32) for l in range(L - 1)]
+    upsamples = [np.zeros((B, plan.num_points[l], plan.up_neighbors),
+                          np.int32) for l in range(L - 1)] \
+        if with_upsamples else []
+    lengths = [np.zeros((B,), np.int32) for _ in range(L)]
+    for b, pyr in enumerate(pyramids):
+        for l in range(L):
+            pts = pyr["points"][l]
+            points[l][b], masks[l][b] = _pad_points(pts, plan.num_points[l])
+            lengths[l][b] = min(pts.shape[0], plan.num_points[l])
+            neighbors[l][b] = _pad_neighbors(
+                pyr["neighbors"][l], plan.num_points[l],
+                plan.conv_neighbors[l], pts.shape[0], plan.num_points[l])
+        for l in range(L - 1):
+            pts = pyr["points"][l]
+            pools[l][b] = _pad_neighbors(
+                pyr["pools"][l], plan.num_points[l + 1],
+                plan.pool_neighbors[l], pts.shape[0], plan.num_points[l])
+            if with_upsamples:
+                upsamples[l][b] = _pad_neighbors(
+                    pyr["upsamples"][l], plan.num_points[l],
+                    plan.up_neighbors, pyr["points"][l + 1].shape[0],
+                    plan.num_points[l + 1])
+    return dict(points=tuple(points), masks=tuple(masks),
+                neighbors=tuple(neighbors), pools=tuple(pools),
+                upsamples=tuple(upsamples), lengths=tuple(lengths))
+
+
+def assemble_classification_batch(clouds: Sequence[Dict],
+                                  plan: ShapePlan) -> PyramidBatch:
+    """Dense classification batch (the reference's
+    `classification_inputs`): conv and pool indices, no upsamples, one
+    label per cloud in `cloud_label`.
+
+    Each element of `clouds`: {'pyramid': build_sphere_pyramid(...,
+    with_upsamples=False), 'features': [n0, F], 'label': int, 'center':
+    [3] optional}. Returns a PyramidBatch of numpy arrays."""
+    B = len(clouds)
+    n0 = plan.num_points[0]
+    F = clouds[0]["features"].shape[1]
+    levels = _pad_pyramids([c["pyramid"] for c in clouds], plan,
+                           with_upsamples=False)
+    features = np.zeros((B, n0, F), np.float32)
+    centers = np.zeros((B, 3), np.float32)
+    cloud_label = np.full((B,), -1, np.int32)
+    for b, s in enumerate(clouds):
+        k0 = min(s["pyramid"]["points"][0].shape[0], n0)
+        features[b, :k0] = s["features"][:k0]
+        centers[b] = s.get("center", np.zeros(3))
+        cloud_label[b] = int(s["label"])
+    return PyramidBatch(**levels, features=features,
+                        labels=np.full((B, n0), -1, np.int32),
+                        center_pts=centers, cloud_label=cloud_label)
+
+
+def assemble_batch(spheres: Sequence[Dict], plan: ShapePlan,
+                   num_classes: int,
+                   rng: Optional[np.random.Generator] = None
+                   ) -> PyramidBatch:
+    """Pad B sphere pyramids and payloads into one PyramidBatch of numpy
+    arrays (the host-pyramid path's batch).
+
+    Each element of `spheres`: {'pyramid': build_sphere_pyramid output,
+    'features': [n0, F], 'labels': [n0] (label-to-idx mapped, optional),
+    'center': [3], 'cloud_lb': [C] multi-hot (optional), 'regions':
+    [(member indices, multi-hot label)] (optional)}. Level 0 is cropped
+    to the plan (the sampler thins oversized spheres before their
+    pyramid); regions go through `fill_region_row`, whose draws come
+    from `rng` in sphere order."""
+    rng = rng or np.random.default_rng()
+    B = len(spheres)
+    n0 = plan.num_points[0]
+    F = spheres[0]["features"].shape[1]
+    levels = _pad_pyramids([s["pyramid"] for s in spheres], plan,
+                           with_upsamples=True)
+    features = np.zeros((B, n0, F), np.float32)
+    labels = np.full((B, n0), -1, np.int32)
+    centers = np.zeros((B, 3), np.float32)
+    R, P = max(plan.max_regions, 1), max(plan.max_region_points, 1)
+    cloud_lb = np.zeros((B, num_classes), np.float32)
+    region_inds = np.full((B, R, P), n0, np.int32)
+    region_masks = np.zeros((B, R), bool)
+    region_point_masks = np.zeros((B, R, P), bool)
+    region_lb = np.zeros((B, R, num_classes), np.float32)
+    for b, s in enumerate(spheres):
+        k0 = min(s["pyramid"]["points"][0].shape[0], n0)
+        features[b, :k0] = s["features"][:k0]
+        if s.get("labels") is not None:
+            labels[b, :k0] = s["labels"][:k0]
+        centers[b] = s.get("center", np.zeros(3))
+        if s.get("cloud_lb") is not None:
+            cloud_lb[b] = s["cloud_lb"]
+        fill_region_row(region_inds[b], region_point_masks[b],
+                        region_masks[b], region_lb[b], s.get("regions"), k0,
+                        rng)
+    return PyramidBatch(**levels, features=features, labels=labels,
+                        center_pts=centers, cloud_lb=cloud_lb,
+                        region_inds=region_inds, region_masks=region_masks,
+                        region_point_masks=region_point_masks,
+                        region_lb=region_lb)
+
+
+def sphere_batch(payloads: Sequence[Dict], pyramids: Sequence[Dict],
+                 plan: ShapePlan, num_classes: int,
+                 rng: np.random.Generator):
+    """(assemble_batch of the payloads' pyramids, their metas): the end
+    of `next_batch` of the datasets and of `ParallelSphereBuilder`."""
+    spheres = [dict(pyramid=pyr, features=p["features"],
+                    labels=p["labels"], center=p["center"],
+                    cloud_lb=p["cloud_lb"], regions=p["regions"])
+               for p, pyr in zip(payloads, pyramids)]
+    metas = [payload_meta(p, plan.num_points[0]) for p in payloads]
+    return assemble_batch(spheres, plan, num_classes, rng=rng), metas

@@ -2,17 +2,20 @@
 potential-driven sphere sampler.
 
 Counterpart of weasal_tpu/data/datasets.py: `CloudSegmentationDataset`
-(:42-781) for the splits 'training', 'validation' and 'test' (with
+(:42-781) for the splits 'training', 'validation', 'test' (with
 `test_on_train`, the training clouds voted on for pseudo-labels and
-active learning), `_Vaihingen3DBase` (:787-841),
-`Vaihingen3DWLDataset` (:843) and `Vaihingen3DPLDataset` (:848-873),
-whose training split reads the refined pseudo labels and overlays the
-ground truth of its point ledger, and the multi-tile, colorless DALES
-datasets `_DALESBase` (:880-958), `DALESWLDataset` (:961) and
-`DALESPLDataset` (:966-975), whose test split is a list of tiles. The
-sampler draws the same random numbers in the same order as the JAX
-package, so one seed gives both the same spheres (a cloud without colors
-draws no color drop). Differences by design:
+active learning) and 'ERF' (one deterministic sphere over the validation
+files, for receptive-field views: no center noise, no potential update,
+no labels; :46-47, 127-138, 356-358, 517-518), with `next_batch`
+(:611-640), the host-pyramid input path's batches, `_Vaihingen3DBase`
+(:787-841), `Vaihingen3DWLDataset` (:843) and `Vaihingen3DPLDataset`
+(:848-873), whose training split reads the refined pseudo labels and
+overlays the ground truth of its point ledger, and the multi-tile,
+colorless DALES datasets `_DALESBase` (:880-958), `DALESWLDataset`
+(:961) and `DALESPLDataset` (:966-975), whose test split is a list of
+tiles. The sampler draws the same random numbers in the same order as
+the JAX package, so one seed gives both the same spheres (a cloud
+without colors draws no color drop). Differences by design:
 
 - scipy's cKDTree replaces sklearn's KDTree; radius queries return each
   row sorted ascending (ops/neighbors.query_radius), where sklearn
@@ -26,7 +29,6 @@ draws no color drop). Differences by design:
   them; shape plans go to `shape_plans_torch.json`.
 - Anchor subsampling draws from `random.Random(ANCHOR_SEED)`.
 - The plan has no band windows.
-The 'ERF' split (which the JAX tester refuses to vote on) is not ported.
 """
 
 from __future__ import annotations
@@ -43,7 +45,8 @@ import numpy as np
 from scipy.spatial import cKDTree
 
 from weasal_tpu_torch.data import anchors as anchor_ops
-from weasal_tpu_torch.data.batching import ShapePlan, calibrate_shape_plan
+from weasal_tpu_torch.data.batching import (
+    ShapePlan, build_sphere_pyramid, calibrate_shape_plan, sphere_batch)
 from weasal_tpu_torch.kernels.kernel_points import create_3d_rotations
 from weasal_tpu_torch.ops.neighbors import query_radius
 from weasal_tpu_torch.ops.subsample import grid_subsample
@@ -57,9 +60,9 @@ class CloudSegmentationDataset:
     """In-memory subsampled clouds and the potential sphere sampler.
 
     Subclasses define the label nomenclature, the file lists and the
-    feature assembly. `split` is 'training', 'validation' or 'test';
-    `test_on_train` makes the test split the training clouds (labels
-    kept).
+    feature assembly. `split` is 'training', 'validation', 'test' or
+    'ERF'; `test_on_train` makes the test split the training clouds
+    (labels kept).
     """
 
     name: str = ""
@@ -77,10 +80,8 @@ class CloudSegmentationDataset:
                  al_iteration: int = 0, data_root: Optional[str] = None,
                  rng: Optional[np.random.Generator] = None,
                  test_on_train: bool = False):
-        if split not in ("training", "validation", "test"):
-            raise NotImplementedError(
-                f"split {split!r}: only 'training', 'validation' and 'test' "
-                "are ported")
+        if split not in ("training", "validation", "test", "ERF"):
+            raise ValueError(f"unknown split {split!r}")
         self.config = config
         self.split = split
         self.test_on_train = test_on_train
@@ -134,7 +135,7 @@ class CloudSegmentationDataset:
     def _split_dir(self) -> str:
         if self.split == "test":
             return join(self.path, self.test_dir)
-        if self.split == "validation":
+        if self.split in ("validation", "ERF"):
             return join(self.path, self.validation_dir)
         return join(self.path, self.train_dir)
 
@@ -146,14 +147,16 @@ class CloudSegmentationDataset:
                    else self.all_splits[i] == test_split)
         if self.split == "test":
             return in_test
-        if self.split == "validation":
+        if self.split in ("validation", "ERF"):
             return self.all_splits[i] == self.validation_split
         return self.all_splits[i] != self.validation_split and not in_test
 
     @property
     def has_labels(self) -> bool:
-        """False for the test split's own clouds (no labels are read)."""
-        return not (self.split == "test" and not self.test_on_train)
+        """False for the test split's own clouds (no labels are read) and
+        for the 'ERF' split (its spheres carry none)."""
+        return not ((self.split == "test" and not self.test_on_train)
+                    or self.split == "ERF")
 
     def _select_files(self):
         ply_dir = self._split_dir()
@@ -236,7 +239,7 @@ class CloudSegmentationDataset:
             self.pot_trees.append(cKDTree(coarse))
 
         # Reprojection indices for full-cloud evaluation
-        if self.split in ("validation", "test"):
+        if self.split in ("validation", "test", "ERF"):
             for i, file_path in enumerate(self.files):
                 proj_file = join(self.tree_path,
                                  f"{self.cloud_names_split[i]}_proj.pkl")
@@ -344,6 +347,10 @@ class CloudSegmentationDataset:
         point_ind = self.argmin_potentials[cloud_ind]
         pot_points = np.asarray(self.pot_trees[cloud_ind].data, dtype=float)
         center = pot_points[point_ind].reshape(1, -1).copy()
+        # 'ERF' wants one deterministic region: no center noise and no
+        # potential update
+        if self.split == "ERF":
+            return cloud_ind, point_ind, center
         center += rng.normal(scale=r / 10, size=center.shape)
 
         pot_inds, dists = query_radius(self.pot_trees[cloud_ind], center, r,
@@ -551,6 +558,29 @@ class CloudSegmentationDataset:
             regions.append((pos, albs[aa].astype(np.float32)))
         buf[input_inds] = -1
         return regions
+
+    def next_batch(self, rng, plan: ShapePlan,
+                   num_spheres: Optional[int] = None,
+                   augment: Optional[bool] = None):
+        """(PyramidBatch of numpy arrays, metas) of B spheres, each
+        sampled, then its pyramid built on the host (`plan`'s widths),
+        then all padded by `assemble_batch`, drawing from `rng` in that
+        order; `augment` defaults to the training split's. The metas
+        (`payload_meta`) drive the vote scatter and the region skip."""
+        b = num_spheres or self.config.batch_num
+        if augment is None:
+            augment = self.split == "training"
+        payloads, pyramids = [], []
+        for _ in range(b):
+            payload = self.sample_sphere(rng, augment=augment,
+                                         max_points=plan.num_points[0])
+            payloads.append(payload)
+            pyramids.append(build_sphere_pyramid(
+                payload["points"], self.config, rng=rng,
+                max_neighbors=plan.conv_neighbors,
+                max_pool_neighbors=plan.pool_neighbors))
+        return sphere_batch(payloads, pyramids, plan,
+                            self.config.num_classes, rng)
 
     # ------------------------------------------------------------------
     # Shape-plan calibration

@@ -1,14 +1,19 @@
 """Synthetic aerial-like sphere payloads, made in memory from a numpy seed.
 
-Counterpart of weasal_tpu/data/demo.py `demo_sphere` (:18) and
-`thin_payload` (:62): geometry statistics near Vaihingen3D at the
-configured radius and voxel size, with no dataset on disk.
+Counterpart of weasal_tpu/data/demo.py `demo_sphere` (:18),
+`thin_payload` (:62) and `demo_batch` (:83): geometry statistics near
+Vaihingen3D at the configured radius and voxel size, with no dataset on
+disk.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 
+from weasal_tpu_torch.data.batching import (
+    ShapePlan, assemble_batch, build_sphere_pyramid, calibrate_shape_plan)
 from weasal_tpu_torch.ops.subsample import grid_subsample
 
 
@@ -68,3 +73,30 @@ def thin_payload(p: dict, n0: int, rng) -> dict:
             regions.append((new, lb))
     return dict(p, points=p["points"][keep], features=p["features"][keep],
                 labels=p["labels"][keep], regions=regions)
+
+
+def demo_batch(config, batch_size: Optional[int] = None, seed: int = 0,
+               density: float = 20.0, plan: Optional[ShapePlan] = None):
+    """(host-pyramid PyramidBatch of numpy arrays, ShapePlan) made in
+    memory from `seed`: B demo spheres, a plan calibrated on them (region
+    budget 8 x max(64, the largest region)) unless `plan` is given, each
+    sphere thinned to the plan and its pyramid built, then
+    `assemble_batch`, with the JAX package's draws in its order."""
+    rng = np.random.default_rng(seed)
+    b = batch_size or config.batch_num
+    payloads = [demo_sphere(rng, config, density) for _ in range(b)]
+    if plan is None:
+        plan = calibrate_shape_plan(
+            [p["points"] for p in payloads], config,
+            region_budget=(8, max(64, max(
+                (r[0].size for p in payloads for r in p["regions"]),
+                default=64))),
+            rng=rng)
+    spheres = []
+    for p in payloads:
+        p = thin_payload(p, plan.num_points[0], rng)
+        pyramid = build_sphere_pyramid(p["points"], config, rng=rng)
+        spheres.append(dict(pyramid=pyramid, features=p["features"],
+                            labels=p["labels"], center=p["center"],
+                            cloud_lb=p["cloud_lb"], regions=p["regions"]))
+    return assemble_batch(spheres, plan, config.num_classes, rng=rng), plan

@@ -1,6 +1,11 @@
-"""Background batch prefetching for the training loop.
+"""Background batch prefetching for the training loop, and the sources
+of host-pyramid batches.
 
-Counterpart of weasal_tpu/data/loader.py:27-165 (`BatchPrefetcher`):
+Counterpart of weasal_tpu/data/loader.py:27-165 (`BatchPrefetcher`) and
+:168-211 (`ParallelSphereBuilder`), with `HostPyramidSource`, which
+turns the host batches of a dataset or a `ParallelSphereBuilder` into
+the flat dicts the prefetcher and the step graphs carry.
+`BatchPrefetcher`:
 
 - a producer thread runs the source's `next_batch` ahead of the consumer
   and queues up to `PREFETCH` ready items; it is the only thread that
@@ -26,10 +31,14 @@ from __future__ import annotations
 
 import queue
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, Iterator, Mapping, Optional
 
 import numpy as np
 import torch
+
+from weasal_tpu_torch.data.batching import build_sphere_pyramid, sphere_batch
 
 # Ready items the producer may hold ahead of the consumer
 PREFETCH = 2
@@ -152,3 +161,82 @@ class BatchPrefetcher:
             except queue.Empty:
                 pass
         self._thread.join()
+
+
+class ParallelSphereBuilder:
+    """Host batches whose sphere pyramids a thread pool builds.
+
+    The spheres are sampled in the calling thread (the potentials keep
+    one writer); then one seed a sphere is drawn from the caller's rng
+    (`integers(0, 2**31, size=B)`), each pyramid is built from its own
+    `default_rng(seed)` in a worker, and `assemble_batch` takes the
+    caller's rng, as the JAX package's builder does. The native library
+    and numpy release the GIL in their loops. The pool starts at the
+    first batch after construction or `close()`.
+    """
+
+    def __init__(self, dataset, max_workers: int = 4):
+        self.dataset = dataset
+        self.max_workers = max_workers
+        self.pool = None
+
+    def next_batch(self, rng, plan, num_spheres=None, augment=None):
+        ds = self.dataset
+        b = num_spheres or ds.config.batch_num
+        if augment is None:
+            augment = ds.split == "training"
+        payloads = [ds.sample_sphere(rng, augment=augment,
+                                     max_points=plan.num_points[0])
+                    for _ in range(b)]
+        seeds = rng.integers(0, 2 ** 31, size=b)
+
+        def build(args):
+            payload, seed = args
+            return build_sphere_pyramid(
+                payload["points"], ds.config,
+                rng=np.random.default_rng(int(seed)),
+                max_neighbors=plan.conv_neighbors,
+                max_pool_neighbors=plan.pool_neighbors)
+
+        if self.pool is None:
+            self.pool = ThreadPoolExecutor(max_workers=self.max_workers)
+        pyramids = list(self.pool.map(build, zip(payloads, seeds)))
+        return sphere_batch(payloads, pyramids, plan, ds.config.num_classes,
+                            rng)
+
+    def close(self):
+        """Stop the workers; a later batch starts new ones."""
+        if self.pool is not None:
+            self.pool.shutdown(wait=True)
+            self.pool = None
+
+
+class HostPyramidSource:
+    """The host-pyramid input of a loop: `next_batch(rng, augment)` gives
+    (`PyramidBatch.arrays()` of a host batch, metas), its pyramids built
+    by `dataset.next_batch`, or with `threads` > 1 by a
+    `ParallelSphereBuilder` of at most 8 workers (the JAX trainer's
+    choice, trainer.py:629-633)."""
+
+    def __init__(self, dataset, plan, threads: int = 1):
+        self.dataset = dataset
+        self.plan = plan
+        threads = max(int(threads or 1), 1)
+        self.builder = (ParallelSphereBuilder(dataset, min(threads, 8))
+                        if threads > 1 else dataset)
+        # Host seconds spent building batches, for callers that report it
+        self.seconds = 0.0
+        self.batches = 0
+
+    def next_batch(self, rng, augment=None):
+        t0 = time.perf_counter()
+        batch, metas = self.builder.next_batch(rng, self.plan,
+                                               augment=augment)
+        self.seconds += time.perf_counter() - t0
+        self.batches += 1
+        return batch.arrays(), metas
+
+    def close(self):
+        """Stop the builder's workers, if it has any."""
+        if isinstance(self.builder, ParallelSphereBuilder):
+            self.builder.close()

@@ -2,12 +2,14 @@
 
 Counterpart of weasal_tpu/data/synthetic.py: `district_style` (:54),
 `synthetic_scene` (:80), `composed_scene` (:205),
-`make_vaihingen_like_root` (:235) and `make_dales_like_root` (:270), with
+`make_vaihingen_like_root` (:235), `make_dales_like_root` (:270) and
+`synthetic_shape_cloud` (:313), the classification task's clouds, with
 the same random draws in the same order, so that one seed writes
-byte-equal plys in both packages. The tests and `chip_smoke.py` train on
-these scenes: a smooth terrain, buildings with roofs and facades, trees,
-shrubs, cars, fences and powerlines, labeled with the Vaihingen3D 9-class
-nomenclature (the DALES tiles reuse its ids as their 9 classes).
+byte-equal plys and clouds in both packages. The tests and
+`chip_smoke.py` train on these scenes: a smooth terrain, buildings with
+roofs and facades, trees, shrubs, cars, fences and powerlines, labeled
+with the Vaihingen3D 9-class nomenclature (the DALES tiles reuse its ids
+as their 9 classes).
 """
 
 from __future__ import annotations
@@ -298,3 +300,27 @@ def make_dales_like_root(root: str,
         write_ply(path, [pts.astype(np.float64), lbl.astype(np.int32)],
                   ["x", "y", "z", "scalar_Classification"])
     return root
+
+
+def synthetic_shape_cloud(rng: np.random.Generator, shape_id: int,
+                          n: int = 256, noise: float = 0.02) -> np.ndarray:
+    """One cloud of the classification task (KPCNN), with the JAX
+    package's draws (weasal_tpu/data/synthetic.py:313-334): 0 = spherical
+    shell, 1 = flat disk, 2 = vertical cylinder surface; unit-ish
+    scale."""
+    if shape_id == 0:
+        v = rng.normal(size=(n, 3))
+        v /= np.linalg.norm(v, axis=1, keepdims=True)
+        pts = v * 1.2
+    elif shape_id == 1:
+        r = np.sqrt(rng.random(n)) * 1.4
+        a = rng.random(n) * 2 * np.pi
+        pts = np.stack([r * np.cos(a), r * np.sin(a), np.zeros(n)], axis=1)
+    elif shape_id == 2:
+        a = rng.random(n) * 2 * np.pi
+        z = (rng.random(n) - 0.5) * 2.4
+        pts = np.stack([np.cos(a), np.sin(a), z], axis=1)
+    else:
+        raise ValueError(shape_id)
+    pts = pts + rng.normal(scale=noise, size=(n, 3))
+    return pts.astype(np.float32)

@@ -1,18 +1,20 @@
-"""Inference of both stages: level-0 or resident batches in, class
-probabilities out.
+"""Inference of both stages: level-0, resident or host-pyramid batches
+in, class probabilities out.
 
 Counterpart of the eval step of weasal_tpu/train/tester.py:93-131 and
-weasal_tpu/train/trainer.py:406-447 on the fused path: the pyramid is
-built on the device, the model runs in eval mode (no dropout), and a
-softmax turns its logits (`KPFCNN_mprm`'s fused ones, `KPFCNN`'s only
-output, tester.py:125) into probabilities. `eval_step` takes level-0 arrays;
-`eval_batch`, the training loop's validation step, also takes a resident
-batch and returns probabilities and labels in `input_inds` order; its
-body, `eval_body`, writes them (and the squared norms `d2` of the
-augmented level-0 points, which the tester's vote mask reads,
-weasal_tpu/train/tester.py:103-131) into preallocated tensors, which is
-what the trainer and the tester run eagerly or capture in a CUDA graph
-(train/graphs.py).
+weasal_tpu/train/trainer.py:406-447: on the fused path the pyramid is
+built on the device; a host-pyramid batch (data/batching.assemble_batch,
+a `PyramidBatch` or its `arrays()` dict; `batch` not a dict in the JAX
+steps) goes to the model as it is. The model runs in eval mode (no
+dropout), and a softmax turns its logits (`KPFCNN_mprm`'s fused ones,
+`KPFCNN`'s only output, tester.py:125) into probabilities. `eval_step`
+takes level-0 arrays or a host batch; `eval_batch`, the training loop's
+validation step, also takes a resident batch and returns probabilities
+and labels in `input_inds` order; its body, `eval_body`, writes them
+(and the squared norms `d2` of the augmented level-0 points, which the
+tester's vote mask reads, weasal_tpu/train/tester.py:103-131, 253-273)
+into preallocated tensors, which is what the trainer and the tester run
+eagerly or capture in a CUDA graph (train/graphs.py).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
+from weasal_tpu_torch.data.batch import PyramidBatch, is_host_pyramid
 from weasal_tpu_torch.ops.pyramid import batch_from_device_pyramid
 from weasal_tpu_torch.utils.device import configure_precision, resolve_device
 
@@ -56,7 +59,18 @@ def _check_model(model, device):
                          f"step runs on {device}; move the model first")
 
 
-def _probs(model, t: dict, config, plan) -> torch.Tensor:
+def input_batch(inputs, config, plan, device, spec=None):
+    """(PyramidBatch on `device`, unsort or None) of a step's inputs: a
+    host-pyramid batch (a PyramidBatch or its `arrays()` dict) moved
+    there as it is, no pyramid built and no search-overflow count
+    (trainer.py:257-275, 353); a level-0 or resident batch through
+    `level0_on_device` and the device pyramid, with the resident
+    assembly's `unsort` (back to `input_inds` order)."""
+    if isinstance(inputs, PyramidBatch):
+        return inputs.to(device), None
+    if is_host_pyramid(inputs):
+        return PyramidBatch.from_arrays(inputs).to(device), None
+    t = level0_on_device(inputs, config, plan, device, spec=spec)
     batch = batch_from_device_pyramid(
         t["points0"], t["mask0"], t["features"], t["labels"], config,
         plan, t["center_pts"], rotations=t.get("rotations"),
@@ -64,27 +78,32 @@ def _probs(model, t: dict, config, plan) -> torch.Tensor:
         region_masks=t.get("region_masks"),
         region_point_masks=t.get("region_point_masks"),
         region_lb=t.get("region_lb"))
+    return batch, t.get("unsort")
+
+
+def _probs(model, batch) -> torch.Tensor:
     out = model(batch)
     logits = out[0] if isinstance(out, tuple) else out
     return torch.softmax(logits, dim=-1)
 
 
-def eval_step(model, arrays: Mapping, config, plan, device=None
-              ) -> torch.Tensor:
-    """Probabilities [B, N_0, C] for one level-0 batch.
+def eval_step(model, arrays, config, plan, device=None) -> torch.Tensor:
+    """Probabilities [B, N_0, C] for one level-0 or host-pyramid batch.
 
     :param model: a KPFCNN_mprm or a KPFCNN whose parameters lie on
         `device`
-    :param arrays: assemble_level0 output (numpy arrays or tensors)
+    :param arrays: assemble_level0 output (numpy arrays or tensors), or a
+        host-pyramid batch (assemble_batch's PyramidBatch or its
+        `arrays()`)
     :param device: default ``cuda``; raises where CUDA is absent
     """
     device = resolve_device(device)
     configure_precision()
     _check_model(model, device)
-    t = to_device(arrays, device)
     model.eval()
     with torch.no_grad():
-        return _probs(model, t, config, plan)
+        batch, _ = input_batch(arrays, config, plan, device)
+        return _probs(model, batch)
 
 
 @torch.no_grad()
@@ -99,16 +118,15 @@ def eval_body(model, inputs: Mapping, config, plan, device, spec=None,
     with its radius (validation ignores it). A resident batch is
     assembled with augmentation (the validation and vote spheres are
     augmented, as in training) and its outputs are gathered back to
-    `input_inds` order; a level-0 batch's outputs stay in its rows'
-    order, which its metas' `input_inds` follow."""
+    `input_inds` order; a level-0 or host-pyramid batch's outputs stay
+    in its rows' order, which its metas' `input_inds` follow."""
     model.eval()
-    t = level0_on_device(inputs, config, plan, device, spec=spec)
-    probs = _probs(model, t, config, plan)
-    labels = t["labels"]
-    pts = t["points0"]
+    batch, unsort = input_batch(inputs, config, plan, device, spec=spec)
+    probs = _probs(model, batch)
+    labels = batch.labels
+    pts = batch.points[0]
     d2 = pts[..., 0] * pts[..., 0] + pts[..., 1] * pts[..., 1] \
         + pts[..., 2] * pts[..., 2]
-    unsort = t.get("unsort")
     if unsort is not None:
         probs = torch.gather(
             probs, 1, unsort[..., None].expand(-1, -1, probs.shape[-1]))

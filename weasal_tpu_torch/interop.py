@@ -3,7 +3,8 @@
 `from_jax_variables` takes the flax `params`, `batch_stats` and
 `constants` trees as nested dicts of numpy arrays and returns the port's
 `state_dict`. The port names its modules after the flax ones, so the map
-is a rename (`encoder_blocks_3/unary1/...` -> `encoder_blocks.3.unary1...`)
+is a rename (`encoder_blocks_3/unary1/...` -> `encoder_blocks.3.unary1...`;
+KPCNN's `block_ops_i` likewise)
 plus one layout change: the flax `mlp` kernel [in, out] becomes the
 `mlp.weight` [out, in] of the port's Linear. `from_jax_opt_state` maps an
 optax momentum trace the same way onto the port's optimizer state
@@ -18,7 +19,8 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-_LIST_TOKEN = re.compile(r"^(encoder_blocks|decoder_blocks)_(\d+)$")
+_LIST_TOKEN = re.compile(
+    r"^(encoder_blocks|decoder_blocks|block_ops)_(\d+)$")
 
 
 def _torch_key(path) -> str:

@@ -6,9 +6,13 @@ encoder-decoder with skip concats, dropout and a two-unary head, and
 `KPFCNN_mprm` (:164-233), the weak-label network: encoder, elevation
 attention, MPRM 4-path heads, per-path global-average class logits, the
 shared nearest-upsample decoder run on the four class-map streams as one
-channel-concatenated gather, and the elementwise-max fusion.
-`model_for_config` picks one by `config.model_name`, as the JAX trainer's
-`_model_for_config` (weasal_tpu/train/trainer.py:107-118) does.
+channel-concatenated gather, and the elementwise-max fusion; and `KPCNN`
+(:236-256), the plain classifier, which the host pyramid's
+classification batches feed (data/batching.assemble_classification_
+batch). `model_for_config` picks one of the two segmentation networks by
+`config.model_name`, as the JAX trainer's `_model_for_config`
+(weasal_tpu/train/trainer.py:107-118) does; `KPCNN` is built by its own
+constructor, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -211,6 +215,47 @@ class KPFCNN_mprm(nn.Module):
         no, pa, sa, ca = paths
         x = torch.maximum(torch.maximum(no, pa), torch.maximum(sa, ca))
         return x, cla_logits, paths
+
+
+class KPCNN(nn.Module):
+    """Plain KPConv classifier; forward(batch) returns the logits [B, C]
+    of a classification batch (`cloud_label` holds the targets).
+
+    The encoder blocks run as the JAX package's `block_ops`; without a
+    'global_average' block in the architecture the last level's features
+    are averaged over its real points. The head is two unary blocks
+    without BatchNorm (`head_mlp` to 1024 channels, `head_softmax` to the
+    classes, each ending in a leaky ReLU, as in the JAX package) on [B,
+    C] rows."""
+
+    def __init__(self, config, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if getattr(config, "compute_dtype", "float32") != "float32":
+            raise NotImplementedError("only compute_dtype float32 is ported")
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        enc = _encoder_plan(config)[0]
+        self.block_ops = nn.ModuleList([
+            block_decider(b, rr, di, do, li, config, (f"block_ops_{i}",),
+                          generator)
+            for i, (b, rr, di, do, li) in enumerate(enc)])
+        # the width of the last block's output (a simple block halves it)
+        width = config.in_features_dim
+        for b, _rr, _di, do, _li in enc:
+            if "global" not in b:
+                width = do // 2 if "simple" in b else do
+        self.head_mlp = UnaryBlock(width, 1024, False, 0.0, generator)
+        self.head_softmax = UnaryBlock(1024, config.num_classes, False, 0.0,
+                                       generator)
+
+    def forward(self, batch):
+        x = batch.features
+        for block in self.block_ops:
+            x = block(x, batch)
+        if x.dim() == 3:
+            x = global_average(x, batch.masks[-1])
+        x = self.head_mlp(x, None)
+        return self.head_softmax(x, None)
 
 
 def model_for_config(config, label_values: Sequence[int],

@@ -509,7 +509,12 @@ def block_decider(block_name: str, radius: float, in_dim: int, out_dim: int,
                   layer_ind: int, config, path: Tuple[str, ...],
                   generator: torch.Generator) -> nn.Module:
     """Map an architecture-DSL block name to its module. The max-pool
-    blocks are not ported."""
+    blocks ('max_pool', 'max_pool_wide') stay unported: the JAX
+    package's `MaxPoolBlock` pools over `pools[layer_ind + 1]`, the edge
+    from level l + 1 into l + 2, one level past the edge a strided block
+    of the same layer reads (weasal_tpu/models/blocks.py:429-436), and
+    sizes its band from the other edge (ADVICE r5); no shipped
+    architecture uses it, so there is no behaviour to hold a port to."""
     kw = dict(block_name=block_name, in_dim=in_dim, out_dim=out_dim,
               radius=radius, layer_ind=layer_ind, config=config, path=path,
               generator=generator)
@@ -524,6 +529,11 @@ def block_decider(block_name: str, radius: float, in_dim: int, out_dim: int,
         return GlobalAverageBlock()
     if block_name == "nearest_upsample":
         return NearestUpsampleBlock(layer_ind)
+    if block_name in ("max_pool", "max_pool_wide"):
+        raise ValueError(
+            f"{block_name}: not ported (the JAX MaxPoolBlock pools over "
+            "pools[layer_ind + 1], one edge past its layer's, "
+            "weasal_tpu/models/blocks.py:429-436)")
     raise ValueError(f"Unknown or unported block name: {block_name}")
 
 

@@ -1,7 +1,12 @@
 """Radius neighbor search: distance-sorted rows, shadow index = Ns.
 
 Counterpart of weasal_tpu/ops/neighbors.py:
-- `radius_search`: host version (scipy cKDTree), for calibration;
+- `radius_search` (:30): host version; a fixed width runs the native
+  library (ops/native.py) where that is available, as the JAX package
+  does (:50-56), else `radius_search_scipy` (:59, cKDTree), as does a
+  width taken from the data (calibration). The native search compares
+  f32 squared distances with the radius, cKDTree f64 distances: the two
+  differ only for supports within rounding of the radius;
 - `query_radius`: sklearn's `KDTree.query_radius` on a cKDTree, for the
   datasets and anchors (rows sorted ascending);
 - `radius_search_fixed` (:124): fixed-shape batched search for the device
@@ -16,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 from scipy.spatial import cKDTree
 
+from weasal_tpu_torch.ops import native
 from weasal_tpu_torch.ops.cuda.radius_search import (
     radius_search as radius_search_kernel, radius_search_plain)
 from weasal_tpu_torch.utils.device import use_kernel
@@ -26,6 +32,16 @@ def radius_search(queries: np.ndarray, supports: np.ndarray, radius: float,
     """Host search: int32 [Nq, W] distance-sorted rows (ties to the lowest
     index), padded with len(supports); W = max_count, or the longest row
     when max_count is 0."""
+    if max_count and native.available():
+        return native.radius_search_native(queries, supports, float(radius),
+                                           max_count)
+    return radius_search_scipy(queries, supports, radius, max_count)
+
+
+def radius_search_scipy(queries: np.ndarray, supports: np.ndarray,
+                        radius: float, max_count: int = 0) -> np.ndarray:
+    """The cKDTree version of `radius_search` (the native search's
+    oracle)."""
     queries = np.asarray(queries, dtype=np.float32)
     supports = np.asarray(supports, dtype=np.float32)
     n_q, n_s = queries.shape[0], supports.shape[0]

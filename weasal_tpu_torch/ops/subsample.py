@@ -2,9 +2,12 @@
 barycenter of its members.
 
 Counterpart of weasal_tpu/ops/subsample.py:
-- `grid_subsample`: host numpy version (`grid_subsample_numpy`, :69),
-  voxel-linear output order, with optional features (voxel means) and
-  labels (voxel majority);
+- `grid_subsample` (:52): host version, voxel-linear output order, with
+  optional features (voxel means) and labels (voxel majority); it runs
+  the native library (ops/native.py) where that is available, as the
+  JAX package does (:63-66), else `grid_subsample_numpy` (:69), which
+  gives the same result bit for bit (both sum each voxel in f64 in point
+  order);
 - `grid_extent_cells` (:145): static per-axis voxel count bound;
 - `grid_subsample_fixed` (:159): fixed-shape batched torch version used by
   the device pyramid.
@@ -30,6 +33,7 @@ import numpy as np
 import torch
 
 # a module reference: inverse_lists imports kpconv_fwd, which imports this
+from weasal_tpu_torch.ops import native
 from weasal_tpu_torch.ops.cuda import inverse_lists
 
 SHADOW_COORD = 1e6
@@ -42,6 +46,17 @@ def grid_subsample(points: np.ndarray, dl: float, *,
     `features`, their voxel means, and with `labels`, the voxel majority
     (ties to the smallest label). Returns the points alone, or the tuple
     (points[, features][, labels]). Sums in f64, results in f32."""
+    if native.available():
+        return native.grid_subsample_native(points, dl, features=features,
+                                            labels=labels)
+    return grid_subsample_numpy(points, dl, features=features,
+                                labels=labels)
+
+
+def grid_subsample_numpy(points: np.ndarray, dl: float, *,
+                         features: Optional[np.ndarray] = None,
+                         labels: Optional[np.ndarray] = None):
+    """The numpy version of `grid_subsample` (its oracle)."""
     points = np.asarray(points, dtype=np.float32)
     origin = points.min(axis=0)
     vox = np.floor((points - origin) / dl).astype(np.int64)

@@ -17,7 +17,10 @@ are not read.
         last_Vaihingen3DPL | last_DALESWL | last_DALESPL |
         results/WeakLabel/Log_x] [--on train|validation|test]
         [--data_root data/<dataset>] [--num_votes N] [--chkp file]
-        [--resume Log_dir] [--device cuda|cpu]
+        [--resume Log_dir] [--host_pyramid] [--device cuda|cpu]
+
+`--host_pyramid` votes on host-built pyramids (config.device_pyramid =
+False), as the JAX script does without `--fused` (:64, 84-85).
 
 Runs on CUDA unless `--device cpu` is given; where CUDA is absent it
 raises.
@@ -84,6 +87,9 @@ def parse_args(argv=None):
     parser.add_argument("--resume", default=None, metavar="LOG_DIR",
                         help="resume an interrupted vote from LOG_DIR's "
                              "vote checkpoint")
+    parser.add_argument("--host_pyramid", action="store_true",
+                        help="build each batch's pyramid on the host "
+                             "(config.device_pyramid = False)")
     parser.add_argument("--device", default=None,
                         help="torch device (default cuda)")
     return parser.parse_args(argv)
@@ -103,6 +109,8 @@ def main(argv=None):
     config.validation_size = VOTE_EPOCH_BATCHES
     config.input_threads = 10
     config.dropout = 0
+    if args.host_pyramid:
+        config.device_pyramid = False
 
     split = args.on
     test_on_train = split == "train"

@@ -2,10 +2,11 @@
 
 Counterpart of the shared `run(config_cls, dataset_cls, stage_dir)` of
 the JAX root scripts (train_Vaihingen3D_WeakLabel.py:112-264, which
-train_Vaihingen3D_PseudoLabel.py's `run_pl` follows) on the fused path:
-the arguments both stages take, the plan, bucket and dispatch overrides,
-the quick preset, resume, then per active-learning iteration the
-training and validation datasets, a fresh trainer, `train` with
+train_Vaihingen3D_PseudoLabel.py's `run_pl` follows), on the fused path
+or, with `--host_pyramid` (those scripts without `--fused`), on the host
+pyramid: the arguments both stages take, the plan, bucket and dispatch
+overrides, the quick preset, resume, then per active-learning iteration
+the training and validation datasets, a fresh trainer, `train` with
 per-epoch validation and checkpoints, and between iterations a vote of
 the trained model on the training clouds (the test split with
 `test_on_train`, `--al_votes` votes) that extends every training file's
@@ -95,6 +96,11 @@ def parse_args(stage: Stage, argv=None) -> argparse.Namespace:
     parser.add_argument("--steps_per_dispatch", type=int, default=None,
                         help="training steps per graph replay "
                              "(config.steps_per_dispatch; default auto)")
+    parser.add_argument("--host_pyramid", action="store_true",
+                        help="build each batch's pyramid on the host "
+                             "(config.device_pyramid = False; the JAX "
+                             "root scripts' default, run there without "
+                             "--fused)")
     parser.add_argument("--device", default=None,
                         help="torch device (default cuda)")
     parser.add_argument("--seed", type=int, default=None,
@@ -120,6 +126,8 @@ def run(stage: Stage, argv=None):
         config.plan_bucket_percentile = args.plan_buckets
     if args.steps_per_dispatch is not None:
         config.steps_per_dispatch = args.steps_per_dispatch
+    if args.host_pyramid:
+        config.device_pyramid = False
     if args.preset == "quick":
         stage.quick(config)
     iteration_previous = 0

@@ -1,9 +1,12 @@
 """Training step of both stages: one batch in, one SGD update out.
 
-Counterpart of `step_core` (weasal_tpu/train/trainer.py:257-365) on the
-fused path: a resident batch (`flat_inds`, data/resident.py) is first
-assembled into level-0 arrays on the device, as :259-267 do; a level-0
-batch goes on as it is. The pyramid is built on the device, the model
+Counterpart of `step_core` (weasal_tpu/train/trainer.py:257-365): on
+the fused path a resident batch (`flat_inds`, data/resident.py) is first
+assembled into level-0 arrays on the device, as :259-267 do, a level-0
+batch goes on as it is, and the pyramid is built on the device; a
+host-pyramid batch (data/batching.assemble_batch, as its `arrays()`
+dict) goes to the model as it is, with no search-overflow count (:353:
+its drop slots stay zero). The model
 runs in training mode (BatchNorm on batch statistics, running statistics
 updated), the backward runs kernels C and D, and `sgd_step` applies the
 update. The stage follows the model's `mode`:
@@ -30,10 +33,10 @@ from typing import Dict, Mapping, Optional, Tuple, Union
 
 import torch
 
-from weasal_tpu_torch.infer import level0_on_device
+from weasal_tpu_torch.data.batch import PyramidBatch
+from weasal_tpu_torch.infer import input_batch
 from weasal_tpu_torch.models import losses
 from weasal_tpu_torch.models.blocks import deform_terms
-from weasal_tpu_torch.ops.pyramid import batch_from_device_pyramid
 from weasal_tpu_torch.train.optim import sgd_step
 from weasal_tpu_torch.utils.device import configure_precision, resolve_device
 
@@ -162,9 +165,10 @@ def step_body(model, opt_state: Dict[str, torch.Tensor], inputs: Mapping,
     """One training step on fixed-shape tensors, with no read back to the
     host: the counterpart of one iteration of the JAX trainer's step scan.
 
-    :param inputs: a level-0 batch or a resident batch (`flat_inds`, the
-        `pack_payloads` arrays and the `res_*` tensors) as tensors on the
-        model's device (level-0 numpy arrays are moved there first)
+    :param inputs: a level-0 batch, a resident batch (`flat_inds`, the
+        `pack_payloads` arrays and the `res_*` tensors) or a host-pyramid
+        batch (`PyramidBatch.arrays()`) as tensors on the model's device
+        (numpy arrays are moved there first)
     :param lr: a float or a 0-d tensor on the device
     :param out: `step_outputs` tensors (one step's rows), written in
         place: loss, accuracy and offset loss in "stats", the drop vector
@@ -177,14 +181,7 @@ def step_body(model, opt_state: Dict[str, torch.Tensor], inputs: Mapping,
     """
     device = out["stats"].device
     with torch.no_grad():
-        t = level0_on_device(inputs, config, plan, device, spec=spec)
-        batch = batch_from_device_pyramid(
-            t["points0"], t["mask0"], t["features"], t["labels"], config,
-            plan, t["center_pts"], rotations=t.get("rotations"),
-            cloud_lb=t.get("cloud_lb"), region_inds=t.get("region_inds"),
-            region_masks=t.get("region_masks"),
-            region_point_masks=t.get("region_point_masks"),
-            region_lb=t.get("region_lb"))
+        batch, _ = input_batch(inputs, config, plan, device, spec=spec)
     loss, acc, reg = step_on_batch(model, opt_state, batch, config, lr,
                                    class_w=class_w, table=table,
                                    seed=inputs.get("step_seed"),
@@ -209,9 +206,10 @@ def train_step(model, opt_state: Dict[str, torch.Tensor], arrays: Mapping,
         (pseudo-label step) whose parameters lie on `device`
     :param opt_state: its momentum buffers (`init_opt_state`), updated in
         place like the parameters and the BatchNorm running statistics
-    :param arrays: assemble_level0 output (numpy arrays or tensors), or a
-        resident batch: `pack_payloads` output as tensors on `device`
-        merged with the `ResidentClouds` tensors
+    :param arrays: assemble_level0 output (numpy arrays or tensors), a
+        resident batch (`pack_payloads` output as tensors on `device`
+        merged with the `ResidentClouds` tensors), or a host-pyramid
+        batch (assemble_batch's PyramidBatch or its `arrays()`)
     :param lr: the learning rate of this step
     :param device: default ``cuda``; raises where CUDA is absent
     :param class_w, table: prepared once by a loop (`class_weights`,
@@ -236,6 +234,8 @@ def train_step(model, opt_state: Dict[str, torch.Tensor], arrays: Mapping,
     if table is None:
         table = label_table(model, device)
     out = step_outputs(plan, device)
+    if isinstance(arrays, PyramidBatch):
+        arrays = arrays.arrays()
     inputs = dict(arrays, step_seed=seed_tensor(seed, device))
     step_body(model, opt_state, inputs, config, plan, lr, out, class_w,
               table, spec=spec, use_contrast=use_contrast)

@@ -21,12 +21,15 @@ ranked by entropy x exp(class weight of the predicted class); with
 
 The checkpoint is the port's own `torch.save` file
 (train/trainer.ModelTrainer.save_checkpoint), the JAX package's `.tar` or
-the reference's torch file (utils/checkpoint.py). On a CUDA device with the
+the reference's torch file (utils/checkpoint.py). The input follows
+`config.device_pyramid` as the trainer's does. On a CUDA device with the
 resident input each vote batch replays a captured CUDA graph of
 `infer.eval_body` (train/graphs.EvalGraph), and the vote update runs
 eagerly on the card (train/vote.DeviceVoteAccumulator with the `d2`
-mask); elsewhere the same body runs eagerly on level-0 batches and the
-votes are smoothed on the host, as the JAX package's host branch does.
+mask); with the host pyramid (`dataset.next_batch`, :206-208) each batch
+replays the graph too and the votes are smoothed on the host with the
+same `d2` mask (:253-273); elsewhere the same body runs eagerly on
+level-0 batches and the votes are smoothed on the host.
 A vote checkpoint (`vote_chkp_<split>.pkl`) at every vote boundary lets
 `resume=True` continue an interrupted pass; a stall watchdog guards the
 loop on the card. Not ported: the confusion plot (`conf_matrix.plot`,
@@ -46,7 +49,7 @@ import numpy as np
 import torch
 
 from weasal_tpu_torch.data.level0 import Level0BatchSource
-from weasal_tpu_torch.data.loader import BatchPrefetcher
+from weasal_tpu_torch.data.loader import BatchPrefetcher, HostPyramidSource
 from weasal_tpu_torch.data.resident import ResidentBatchSource, feature_spec
 from weasal_tpu_torch.infer import eval_body
 from weasal_tpu_torch.models.architectures import model_for_config
@@ -75,8 +78,9 @@ class ModelTester:
         `config.model_name` builds; another raises)
     :param device: default ``cuda``; raises where CUDA is absent
 
-    On a CUDA device with the resident input each vote batch replays a
-    captured graph; elsewhere the same body runs eagerly.
+    On a CUDA device with the resident input or the host pyramid each
+    vote batch replays a captured graph; elsewhere the same body runs
+    eagerly.
     """
 
     def __init__(self, config, dataset, chkp_path: str,
@@ -97,10 +101,12 @@ class ModelTester:
         self.model.eval()
         self.epoch = payload["epoch"]
         print("Model and training state restored.")
-        self.resident = resolve_resident(
+        self.device_pyramid = bool(getattr(config, "device_pyramid", True))
+        self.resident = self.device_pyramid and resolve_resident(
             getattr(config, "resident_clouds", "auto"), self.device)
         self.spec = feature_spec(dataset.name, config.in_features_dim)
-        self.graphed = self.device.type == "cuda" and self.resident
+        self.graphed = self.device.type == "cuda" and (
+            self.resident or not self.device_pyramid)
         self._eval_graph: Optional[EvalGraph] = None
         # Per vote pass: batches, seconds, voted points (real points of
         # the batches), for callers that report the pass's speed
@@ -133,6 +139,8 @@ class ModelTester:
                                         self.config.num_classes,
                                         smooth=TEST_SMOOTH, radius_sq=r_sq)
             return source, source.resident.arrays, acc
+        if not self.device_pyramid:
+            return HostPyramidSource(dataset, self.plan), None, None
         return Level0BatchSource(dataset, self.plan), None, None
 
     def cloud_segmentation_test(self, dataset, num_votes: int = 100,

@@ -16,23 +16,30 @@ potentials plys, `conf.txt` every `checkpoint_gap` epochs, the
 port's, the JAX package's and the reference's checkpoints
 (utils/checkpoint.py).
 
-The input is the resident one (data/resident.py) when
-`config.resident_clouds` resolves on ("auto": on a CUDA device), else
-level-0 arrays (data/level0.py); either way a producer thread samples
-ahead of the steps and packs `steps_per_dispatch` (K) batches at a time
-(data/loader.py). On a CUDA device with the resident input each pack is
-one replay of a captured CUDA graph of K steps (train/graphs.py), one
-graph per size bucket of the plan (`plan.small`) and one for validation
-batches; a short tail pack replays the bucket's one-step graph once per
-real step. Elsewhere, and with `graphs=False`, the same step bodies run
-eagerly. Nothing in the loop waits for the card per step: each step's
-loss, accuracy and offset loss (the deformable convs' regularizer, 0 for
-a rigid network) go to a device ring buffer that `_flush_log` fetches
-every 20 steps or 2 s, the skip of batches without regions reads host
-metas, and validation keeps its argmax and labels on the device and
-fetches them once. The port's kernels drop no neighbor, so the drop
-vector of each step is zero; each epoch sums it and a non-zero sum
-raises, where the JAX package would widen its band windows.
+The input is chosen as the JAX trainer chooses it (:611-633): with
+`config.device_pyramid` (the port's default) the resident one
+(data/resident.py) when `config.resident_clouds` resolves on ("auto": on
+a CUDA device), else level-0 arrays (data/level0.py); without it the
+host pyramid (data/loader.HostPyramidSource: `dataset.next_batch`, or a
+`ParallelSphereBuilder` when `config.input_threads` > 1). Either way a
+producer thread samples ahead of the steps and packs
+`steps_per_dispatch` (K) batches at a time (data/loader.py); the host
+pyramid runs one step a pack (K > 1 prints the JAX trainer's message and
+runs 1, :994-997). On a CUDA device with the resident input or the host
+pyramid each pack is one replay of a captured CUDA graph of K steps
+(train/graphs.py), one graph per size bucket of the plan (`plan.small`,
+resident input only) and one for validation batches; a short tail pack
+replays the bucket's one-step graph once per real step. Elsewhere, and
+with `graphs=False`, the same step bodies run eagerly. Nothing in the
+loop waits for the card per step: each step's loss, accuracy and offset
+loss (the deformable convs' regularizer, 0 for a rigid network) go to a
+device ring buffer that `_flush_log` fetches every 20 steps or 2 s, the
+skip of batches without regions reads host metas, and validation keeps
+its argmax and labels on the device and fetches them once (off the
+resident input it smooths its votes on the host, batch by batch,
+:1117-1131). The port's kernels drop no neighbor, so the drop vector of
+each step is zero; each epoch sums it and a non-zero sum raises, where
+the JAX package would widen its band windows.
 
 In pseudo mode the gradients are clipped by value, no batch is skipped,
 the log header counts the ground-truth ledger's points, and each step
@@ -56,7 +63,7 @@ import numpy as np
 import torch
 
 from weasal_tpu_torch.data.level0 import Level0BatchSource
-from weasal_tpu_torch.data.loader import BatchPrefetcher
+from weasal_tpu_torch.data.loader import BatchPrefetcher, HostPyramidSource
 from weasal_tpu_torch.data.resident import ResidentBatchSource, feature_spec
 from weasal_tpu_torch.infer import eval_body
 from weasal_tpu_torch.models.architectures import model_for_config
@@ -110,9 +117,9 @@ class ModelTrainer:
     :param device: default ``cuda``; raises where CUDA is absent
     :param generator: the torch.Generator of the initial weights (default
         seed 0)
-    :param graphs: on a CUDA device with the resident input, replay
-        captured CUDA graphs (default); False runs the same steps eagerly
-        (the reference the graphs are held to)
+    :param graphs: on a CUDA device with the resident input or the host
+        pyramid, replay captured CUDA graphs (default); False runs the
+        same steps eagerly (the reference the graphs are held to)
     :param stage_dir: the results subdirectory of a new log (WeakLabel |
         PseudoLabel)
     """
@@ -139,11 +146,12 @@ class ModelTrainer:
         t0 = time.perf_counter()
         self.plan = dataset.calibration()
         self.calibration_seconds = time.perf_counter() - t0
-        self.resident = resolve_resident(
+        self.device_pyramid = bool(getattr(config, "device_pyramid", True))
+        self.resident = self.device_pyramid and resolve_resident(
             getattr(config, "resident_clouds", "auto"), self.device)
         self.spec = feature_spec(dataset.name, config.in_features_dim)
         self.graphed = bool(graphs) and self.device.type == "cuda" \
-            and self.resident
+            and (self.resident or not self.device_pyramid)
         # The small-sphere bucket trains at its own plan (resident input
         # only, as in the JAX trainer); validation stays on the full plan
         self.plan_small = self.plan.derive_small() if self.resident else None
@@ -244,8 +252,11 @@ class ModelTrainer:
     # Steps
     # ------------------------------------------------------------------
 
-    def _source(self, dataset, bucketed: bool = False):
-        """(batch source, resident tensors or None) of a dataset."""
+    def _source(self, dataset, bucketed: bool = False, threads: int = 1):
+        """(batch source, resident tensors or None) of a dataset; the
+        host pyramid builds with `threads` workers."""
+        if not self.device_pyramid:
+            return HostPyramidSource(dataset, self.plan, threads), None
         if self.resident:
             source = ResidentBatchSource(dataset, self.plan, self.device,
                                          bucketed=bucketed)
@@ -254,14 +265,20 @@ class ModelTrainer:
 
     def _resolve_steps_per_dispatch(self) -> int:
         """`config.steps_per_dispatch`: an int, or "auto" =
-        AUTO_STEPS_PER_DISPATCH."""
+        AUTO_STEPS_PER_DISPATCH; 1 on the host pyramid."""
         val = getattr(self.config, "steps_per_dispatch", "auto")
         if isinstance(val, str):
             if val != "auto":
                 raise ValueError(f"steps_per_dispatch must be 'auto' or an "
                                  f"int, not {val!r}")
-            return AUTO_STEPS_PER_DISPATCH
-        return max(int(val), 1)
+            k = AUTO_STEPS_PER_DISPATCH
+        else:
+            k = max(int(val), 1)
+        if k > 1 and not self.device_pyramid:
+            print("steps_per_dispatch > 1 requires the fused device-pyramid "
+                  "path; running unpacked")
+            return 1
+        return k
 
     def _state_tensors(self):
         return (list(self.model.parameters()) + list(self.model.buffers())
@@ -386,12 +403,14 @@ class ModelTrainer:
         if self._train_source is None or \
                 self._train_source[0].dataset is not train_dataset:
             self._train_source = self._source(
-                train_dataset, bucketed=self.plan_small is not None)
+                train_dataset, bucketed=self.plan_small is not None,
+                threads=getattr(config, "input_threads", 1))
             self._step_graphs = {}
         source, extra = self._train_source
         if self.resident:
             source.drop_pending()     # a new source per call, as in JAX
-        if self.device.type == "cuda" and not self.resident:
+        if self.device.type == "cuda" and self.device_pyramid \
+                and not self.resident:
             print("level-0 input on CUDA: running eagerly (graphs replay "
                   "the resident input's steps)")
         K = self._resolve_steps_per_dispatch()
@@ -569,6 +588,10 @@ class ModelTrainer:
         finally:
             # An armed watchdog left behind would end unrelated later work
             self._watchdog.stop()
+            if isinstance(source, HostPyramidSource):
+                # No idle builder threads outlive the call (the stage
+                # makes a trainer an iteration)
+                source.close()
             if trace is not None:
                 self._close_trace(trace, trace_dir, trace_t0)
         print("Finished Training")
