@@ -179,7 +179,30 @@ Phases, in order; any failure exits non-zero:
    on host-built classification batches of synthetic shape clouds:
    B, C and D at its shapes against their plain versions, then
    KPCNN_STEPS eager SGD steps (lr 5e-3, momentum 0.9) whose accuracy
-   over the last 10 must pass KPCNN_MIN_ACC.
+   over the last 10 must pass KPCNN_MIN_ACC;
+13. compute_dtype "bfloat16" (the JAX package's bench precision: bf16
+   inputs to KPConv's two products, f32 sums, rounded where JAX's XLA
+   path rounds) and a generated kernel disposition
+   (`run_bf16_dispositions`): B and C in bf16 against their plain bf16
+   versions by the flip criterion of tests/_bf16_cases.py (y and dW equal
+   but for one-ulp flips in at most 1e-3 of the elements, counting
+   noise allowed; out and dX as close to an f64 evaluation of the same
+   rounding points as the plain versions within 2x, or within 1e-4; out
+   within f32 tolerance of y @ bf(W)) at phase 2's WL shapes, phase 9's
+   PL shapes (from the bf16 PL run) and DALES's widest conv; B and C in
+   f32 at Kp 1, 5, 16, 17, 20 and 40 and at Kp 40 with K 266 (past 48 KB of
+   shared memory; also in bf16) within phases 2 and 4's tolerances, each
+   timed beside its plain version and its bound (bf16: y @ bf(W) at the
+   bf16 rate, C's products in two TF32 passes); the WL entry point with
+   VaihingenWLConfig in bf16 on phase 6's tile (2 graphed epochs and the
+   repeat: losses and checkpoint bit-equal; phase 6's launches a step),
+   the bf16 kernel step against the plain bf16 step on one batch (loss
+   rtol 1e-3, gradients within twice the plain step's own spread over
+   two sphere orders), its ms a step beside phase 6's f32 loop and the
+   first step's loss in f32 and bf16 (printed); one graphed bf16 PL
+   epoch on phase 9's labels; the WL entry point at 20 kernel points, the
+   disposition generated into the phase's work directory (5 graphed
+   steps, 12 B and 12 C a step at Kp 20) and B and C at its shapes.
 Phases 3 and 5 end with a profile of one step, by kernel family. Checks
 of agreement (each kernel against its plain version and against itself
 on a repeat, the GEMM core's drift, the forward and the training step
@@ -192,7 +215,10 @@ cores and the rest at the f32 rate (`f32_bound_ms`: all at the f32
 rate), its launches on each main path (`launches_by_path`: inference,
 the training steps, the WL loop, WL active learning, the PL stage, the
 DALES WL and PL paths, the deformable PL path, the host-pyramid WL loop,
-PL epoch and vote, KPCNN's steps) and its sums at the PL loop's, the
+PL epoch and vote, KPCNN's steps, phase 13's bf16 WL loop and PL epoch
+and Kp-20 WL epoch), for B and C their sums at phase 13's shapes
+(`bf16_wl_ms` ... `kp20_wl_bound_ms`: `phase13_fields`) and its sums at
+the PL loop's, the
 DALES loops', the deformable PL loop's, the host-pyramid WL loop's and
 KPCNN's shapes (`pl_ms`, `pl_plain_ms`, `pl_bound_ms`, and the same with
 `dales_wl_`, `dales_pl_`, `deform_pl_`, `host_wl_` and `kpcnn_`; A runs
@@ -225,6 +251,7 @@ import argparse
 import contextlib
 import hashlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -234,6 +261,8 @@ import time
 import numpy as np
 import torch
 
+from tests._bf16_cases import (OUT_REL_L2_MAX, REF_RATIO, flips, flips_ok,
+                               is_bf16_valued, within_plain)
 from tests._inverse_cases import (CASES as INVERSE_CASES, graph_replay,
                                   index_case, ordered_row_sums,
                                   ordered_run_sums, run_case)
@@ -247,6 +276,7 @@ from tests._inverse_cases import (CASES as INVERSE_CASES, graph_replay,
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 TF32_OPS_PER_S = 495e12
+BF16_OPS_PER_S = 989e12
 # Kernel B vs its plain version: both sum in f32 but in different orders
 # (gather-then-FMA per channel and a tiled GEMM against einsum + cuBLAS),
 # so outputs agree to f32 rounding accumulated over Kp*K + Kp*Cin terms.
@@ -383,10 +413,35 @@ HOST_VOTE_BATCHES = 20
 KPCNN_STEPS = 60
 KPCNN_CLOUDS = 6
 KPCNN_MIN_ACC = 0.65
+# Phase 13: compute_dtype "bfloat16" and a generated disposition. The
+# kernel-point counts of the f32 sweep of B and C (one chunk of 16 kernel
+# points, one past it, a generated 20 and 40) at a level-0-like conv; Kp
+# 40 at the deformable layers' K of 266 (the influence tile past 48 KB of
+# shared memory); DALES's widest conv (1024 -> 512 on 2 spheres of the
+# deepest level); the bf16 PL epoch's and the Kp-20 run's arguments; the
+# bf16 kernel step's bounds against the plain bf16 step (its loss, and
+# its gradients' distance within BF16_SPREAD_RATIO times the plain step's
+# own spread over two sphere orders)
+KP_SWEEP = (1, 5, 16, 17, 20, 40)
+KP_SWEEP_SHAPE = dict(b=3, nq=4000, ns=4000, k=34, cin=128, cout=128)
+KP_WIDE_SHAPE = dict(b=3, nq=1500, ns=1500, k=266, kp=40, cin=256,
+                     cout=256)
+DALES_WIDEST = dict(b=2, nq=640, ns=640, k=36, kp=15, cin=1024, cout=512)
+BF16_LOG = "Log_phase13"
+BF16_PL_ARGS = ("--weak_label_log", PL_LOG, "--epoch_steps", "10",
+                "--validation_size", "2", "--max_epoch", "1",
+                "--seed", str(SEED), "--al_iterations", "0")
+KP20 = 20
+KP20_ARGS = ("--epoch_steps", "5", "--validation_size", "1",
+             "--max_epoch", "1", "--seed", str(SEED), "--al_iterations", "0")
+BF16_LOSS_RTOL = 1e-3
+BF16_SPREAD_RATIO = 2.0
 # Failed checks of agreement, reported at once and failing the run at its
-# end (see the module docstring); PREFIX names the shapes being checked
+# end (see the module docstring); PREFIX names the shapes being checked;
+# CARD the card's name and power limit, for the log
 FAILED: list = []
 PREFIX = ""
+CARD = ""
 
 
 def expect(ok: bool, msg: str) -> None:
@@ -427,14 +482,23 @@ def host_ms(fn, calls: int = 50) -> float:
     return elapsed
 
 
+def tensor_bound_ms(n_bytes: float, n_ops: float, bf16_ops: float = 0.0,
+                    tf32_ops: float = 0.0):
+    """(least ms, "bytes" or "operations") of work that moves n_bytes and
+    does n_ops f32 operations on the CUDA cores, bf16_ops on the tensor
+    cores at the bf16 rate and tf32_ops at the TF32 rate."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (n_ops / F32_OPS_PER_S + bf16_ops / BF16_OPS_PER_S
+             + tf32_ops / TF32_OPS_PER_S) * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
 def bound_ms(n_bytes: float, n_ops: float, n_gemm_ops: float = 0.0):
     """(least ms, "bytes" or "operations") of work that moves n_bytes and
     does n_ops f32 operations on the CUDA cores and n_gemm_ops f32 GEMM
     operations through the 3xTF32 core on the tensor cores."""
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (n_ops / F32_OPS_PER_S + 3 * n_gemm_ops / TF32_OPS_PER_S) * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
-                                 "operations")
+    return tensor_bound_ms(n_bytes, n_ops, tf32_ops=3 * n_gemm_ops)
 
 
 def gemm_product(m: float, n: float, k: float, ms: float,
@@ -1279,8 +1343,8 @@ def witness_runs() -> dict:
             True, sums(ordered_scatter(seed=i)))
     runs["kernel B, plain backward"] = (False, [
         (ops_mod, "kpconv_bwd",
-         lambda *a, need_dx, inverse: c_mod.kpconv_bwd_plain(
-             *a, need_dx=need_dx)),
+         lambda *a, need_dx, inverse, compute_dtype: c_mod.kpconv_bwd_plain(
+             *a, need_dx=need_dx, compute_dtype=compute_dtype)),
         (ops_mod, "maxpool_bwd",
          lambda x, nb, g, inverse: d_mod.maxpool_bwd_plain(x, nb, g)),
         (inv_mod, "inverse_sum", inv_mod.inverse_sum_plain)])
@@ -1598,6 +1662,8 @@ def run_training(config, plan, batches, dev, counted, expected, log):
 # launched before it (see `profiled_kernels`).
 GEMM_FAMILIES = ("B GEMM y@W (3xTF32)", "C GEMM g@W^T (3xTF32)",
                  "C GEMM y^T@g (3xTF32)")
+# B's product under compute_dtype "bfloat16" (the bf16 core)
+BF16_GEMM_FAMILY = "B GEMM y@W (bf16)"
 SPLITK_SUM = "splitk_sum_kernel"
 # The host event that ties the profiler's clock to time.perf_counter()
 PROFILE_MARK = "chip_smoke: profile start"
@@ -1608,6 +1674,8 @@ FAMILIES = (
     ("A radius_search", ("bin_supports_kernel", "search_kernel<")),
     ("B aggregate", ("aggregate_kernel",)),
     (GEMM_FAMILIES[0], ("tf32x3_gemm_kernel<true, false,",)),
+    (BF16_GEMM_FAMILY, ("bf16_gemm_kernel",)),
+    ("B bf16 cast of W", ("cast_transpose_bf16_kernel",)),
     (GEMM_FAMILIES[1], ("tf32x3_gemm_kernel<true, true,",)),
     ("C dX contributions", ("dx_contrib_kernel",)),
     ("C, D dX row sums", ("inverse_sum_kernel",)),
@@ -1667,7 +1735,7 @@ def profiled_kernels(fn, reps: int = 1, window=None):
     sums, tile = {}, ""
     for e in events:
         name = e.key
-        if "tf32x3_gemm_kernel" in name:
+        if "tf32x3_gemm_kernel" in name or "bf16_gemm_kernel" in name:
             tile = name
         elif SPLITK_SUM in name:
             name = f"{SPLITK_SUM} after {tile}"
@@ -3964,7 +4032,481 @@ def run_host_pyramid(root, work, counted, wl_per, fused_loop, card, log):
     return report, dict(host_wl=kernel_sums, kpcnn=kpcnn_sums), paths
 
 
+# ---------------------------------------------------------------- phase 13
+
+def synthetic_conv(dev, seed, b, nq, ns, k, kp, cin, cout):
+    """A conv problem of `conv_pair`: supports in a 4 m box, queries beside
+    the first nq of them, random neighbor rows (a shadow among them),
+    seeded features, weights, kernel points and output gradients."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    s = torch.rand((b, ns, 3), generator=gen, device=dev) * 4 - 2
+    return dict(
+        name=f"b{b} nq{nq} ns{ns} K{k} Kp{kp} {cin}->{cout}",
+        q=(s[:, :nq] + 0.05).contiguous(), s=s,
+        nb=torch.randint(0, ns + 1, (b, nq, k), generator=gen, device=dev,
+                         dtype=torch.int32),
+        x=torch.randn((b, ns, cin), generator=gen, device=dev),
+        kp=torch.rand((kp, 3), generator=gen, device=dev) - 0.5,
+        w=torch.randn((kp, cin, cout), generator=gen, device=dev)
+        / cin ** 0.5,
+        g=torch.randn((b, nq, cout), generator=gen, device=dev),
+        q_mask=torch.ones((b, nq), dtype=torch.bool, device=dev),
+        ext=0.8, infl="linear", need_dx=True)
+
+
+def model_convs(model, batch, seed):
+    """The conv problems of every kernel conv of `model` on `batch`
+    (seeded features and output gradients), dX skipped at the first conv
+    as on the main path."""
+    from weasal_tpu_torch.models.blocks import conv_inputs, kernel_convs
+    gen = torch.Generator(device=batch.features.device).manual_seed(seed)
+    skip_dx = first_conv(model)
+    out = []
+    for name, conv in kernel_convs(model):
+        q, s, nb, q_mask = conv_inputs(conv.strided, conv.layer_ind, batch)
+        w = conv.weights.detach()
+        out.append(dict(
+            name=name, q=q, s=s, nb=nb, q_mask=q_mask, w=w,
+            kp=conv.kernel_points,
+            x=torch.randn((s.shape[0], s.shape[1], w.shape[1]),
+                          generator=gen, device=s.device),
+            g=torch.randn((q.shape[0], q.shape[1], w.shape[2]),
+                          generator=gen, device=s.device),
+            ext=conv.params.kp_extent, infl=conv.params.influence,
+            need_dx=name != skip_dx))
+    return out
+
+
+def conv_pair(p, dtype, log, what, gemm_parts: bool = False):
+    """Kernels B and C at one conv problem under compute_dtype `dtype`
+    against their plain versions on the same inputs (C on the plain
+    forward's y, so that each kernel is held alone): f32 within phases 2
+    and 4's tolerances; bf16 by the flip criterion of tests/_bf16_cases.py
+    (y and dW, at their terms' scale: one-ulp flips in at most
+    FLIP_SHARE_MAX of the elements, dW bf16-valued; out and dX as close to
+    an f64 evaluation of the same rounding points as the plain version,
+    within REF_RATIO, or within OUT_REL_L2_MAX: C's products are
+    f32-grade, not f32-exact, and turn more roundings of sums that
+    cancel), and B's out within f32 tolerance of its own y @ bf(W). Then
+    each kernel's
+    and plain version's device ms (dX as the main path asks) and the
+    bound: bytes, the aggregation's f32 operations, and the products at
+    the 3xTF32 rate (f32), at the bf16 rate (B's y @ bf(W)) or in two
+    TF32 passes (C's bf16 products). With `gemm_parts` also the device
+    ms of B's and C's products by kernel name (`gemm_part_ms`) beside
+    their own bounds (`gemm`)."""
+    from weasal_tpu_torch.ops.cuda.inverse_lists import LazyInverse
+    from weasal_tpu_torch.ops.cuda.kpconv_bwd import (kpconv_bwd,
+                                                      kpconv_bwd_plain)
+    from weasal_tpu_torch.ops.cuda.kpconv_fwd import (kpconv_fwd_plain_with_y,
+                                                      kpconv_fwd_with_y)
+    q, s, nb, x, kp, w, g = (p[k] for k in ("q", "s", "nb", "x", "kp", "w",
+                                            "g"))
+    ext, infl, need_dx, name = p["ext"], p["infl"], p["need_dx"], p["name"]
+    n_kp, cin, cout = w.shape
+    bf = dtype == "bfloat16"
+    with torch.no_grad():
+        out, y = kpconv_fwd_with_y(q, s, nb, x, kp, w, ext, infl, dtype)
+        out_p, y_p = kpconv_fwd_plain_with_y(q, s, nb, x, kp, w, ext, infl,
+                                             dtype)
+        inv = LazyInverse(nb, s.shape[1])
+        inv.get()
+
+        def bwd(nd=True):
+            return kpconv_bwd(q, s, nb, y_p, kp, w, g, ext, infl,
+                              need_dx=nd, inverse=inv, compute_dtype=dtype)
+
+        dx, dw = bwd()
+        dx_p, dw_p = kpconv_bwd_plain(q, s, nb, y_p, kp, w, g, ext, infl,
+                                      compute_dtype=dtype)
+        torch.cuda.synchronize()
+        row = dict(conv=name, dtype=dtype,
+                   shape=[*q.shape[:2], s.shape[1], nb.shape[2], n_kp, cin,
+                          cout])
+        if bf:
+            # the sums of the terms' magnitudes (influences are >= 0)
+            y_terms = kpconv_fwd_plain_with_y(q, s, nb, x.abs(), kp, w, ext,
+                                              infl)[1]
+            terms = (y_p.float().abs().t() @ g.abs().reshape(-1, cout))
+            fy = flips(y, y_p, y_terms)
+            fw = flips(dw, dw_p, terms.reshape(dw.shape))
+            # B's product on its own y, at f32-grade
+            gemm = (y.double() @ w.double().to(torch.bfloat16).double()
+                    .reshape(n_kp * cin, cout)).reshape(out.shape)
+            _expect_close(f"{what} B bf16 {name} out = y @ bf(W)", out.double(),
+                          gemm, KPCONV_RTOL,
+                          KPCONV_ATOL_REL * float(gemm.abs().max()))
+            d64 = [t.double() for t in (q, s, x, kp, w, g)]
+            out64 = kpconv_fwd_plain_with_y(d64[0], d64[1], nb, d64[2],
+                                            d64[3], d64[4], ext, infl,
+                                            dtype)[0]
+            dx64 = kpconv_bwd_plain(d64[0], d64[1], nb, y_p, d64[3], d64[4],
+                                    d64[5], ext, infl, compute_dtype=dtype)[0]
+            e_out = within_plain(out, out_p, out64)
+            e_dx = within_plain(dx, dx_p, dx64)
+            expect(y.dtype == torch.bfloat16 and flips_ok(fy)
+                   and e_out["ok"],
+                   f"{what} B bf16 {name}: y flips {fy}, out to f64 "
+                   f"{e_out} (within {REF_RATIO} x the plain version's or "
+                   f"{OUT_REL_L2_MAX})")
+            expect(is_bf16_valued(dw) and flips_ok(fw) and e_dx["ok"],
+                   f"{what} C bf16 {name}: dW flips {fw}, dX to f64 "
+                   f"{e_dx} (within {REF_RATIO} x the plain version's or "
+                   f"{OUT_REL_L2_MAX})")
+            row.update(y_flips=fy, out_to_f64=e_out, dw_flips=fw,
+                       dx_to_f64=e_dx)
+            text = (f"y flips {fy['share']:.1e} ({fy['beyond']} beyond an "
+                    f"ulp), out to f64 {e_out['rel_l2']:.1e} (plain "
+                    f"{e_out['plain_rel_l2']:.1e}); dW flips "
+                    f"{fw['share']:.1e} ({fw['beyond']}), dX to f64 "
+                    f"{e_dx['rel_l2']:.1e} (plain {e_dx['plain_rel_l2']:.1e})")
+        else:
+            errs = []
+            for label, a, b in (("B out", out, out_p), ("B y", y, y_p),
+                                ("C dX", dx, dx_p), ("C dW", dw, dw_p)):
+                scale = float(b.abs().max())
+                _expect_close(f"{what} {label} {name}", a, b, KPCONV_RTOL,
+                              KPCONV_ATOL_REL * max(scale, 1e-30))
+                errs.append(float((a - b).abs().max()))
+            row.update(max_abs_err_b=max(errs[:2]),
+                       max_abs_err_c=max(errs[2:]))
+            text = (f"err B {row['max_abs_err_b']:.2e} C "
+                    f"{row['max_abs_err_c']:.2e}")
+        ms_b = cuda_ms(lambda: kpconv_fwd_with_y(q, s, nb, x, kp, w, ext,
+                                                 infl, dtype))
+        plain_b = cuda_ms(lambda: kpconv_fwd_plain_with_y(
+            q, s, nb, x, kp, w, ext, infl, dtype))
+        ms_c = cuda_ms(lambda: bwd(need_dx))
+        plain_c = cuda_ms(lambda: kpconv_bwd_plain(
+            q, s, nb, y_p, kp, w, g, ext, infl, need_dx=need_dx,
+            compute_dtype=dtype))
+    pairs = float((nb < s.shape[1]).sum())
+    rows_valid = float(p["q_mask"].sum())
+    agg_ops = pairs * n_kp * (14 + 2 * cin)
+    gemm = rows_valid * 2.0 * n_kp * cin * cout
+    fwd_bytes = 4.0 * (q.numel() + s.numel() + nb.numel() + x.numel()
+                       + kp.numel() + w.numel() + out.numel())
+    bwd_bytes = (2.0 if bf else 4.0) * y.numel() + 4.0 * (
+        w.numel() + g.numel() + w.numel())
+    products = 1
+    if need_dx:
+        products = 2
+        bwd_bytes += 4.0 * (q.numel() + s.numel() + nb.numel() + kp.numel()
+                            + x.numel())
+    if bf:
+        bound_b = tensor_bound_ms(fwd_bytes, agg_ops, bf16_ops=gemm)
+        bound_c = tensor_bound_ms(bwd_bytes, agg_ops if need_dx else 0.0,
+                                  tf32_ops=2.0 * products * gemm)
+    else:
+        bound_b = bound_ms(fwd_bytes, agg_ops, gemm)
+        bound_c = bound_ms(bwd_bytes, agg_ops if need_dx else 0.0,
+                           products * gemm)
+    row.update(b=dict(ms=ms_b, plain_ms=plain_b, bound_ms=bound_b[0],
+                      bound_by=bound_b[1]),
+               c=dict(ms=ms_c, plain_ms=plain_c, bound_ms=bound_c[0],
+                      bound_by=bound_c[1], need_dx=need_dx))
+    if gemm_parts:
+        # each product's bytes: its operands read once, its output
+        # written once (y and a bf16 W 2 bytes a value in bf16 mode)
+        m, kdim, e = rows_valid, n_kp * cin, 2.0 if bf else 4.0
+        rate = ((lambda ops: dict(bf16_ops=ops)) if bf
+                else (lambda ops: dict(tf32_ops=3 * ops)))
+        fams = (BF16_GEMM_FAMILY,) if bf else GEMM_FAMILIES[:1]
+        part = gemm_part_ms(lambda: kpconv_fwd_with_y(
+            q, s, nb, x, kp, w, ext, infl, dtype), fams)[fams[0]]
+        row["b"]["gemm"] = dict(ms=part, bound_ms=tensor_bound_ms(
+            e * (m * kdim + kdim * cout) + 4.0 * m * cout, 0.0,
+            **rate(gemm))[0])
+        # C's products: g @ bf(W)^T and bf(y)^T @ g in two TF32 passes
+        passes = 2 if bf else 3
+        fams = GEMM_FAMILIES[1 if need_dx else 2:]
+        parts = gemm_part_ms(lambda: bwd(need_dx), fams)
+        for fam in fams:
+            key = "gemm_g_wt" if fam == GEMM_FAMILIES[1] else "gemm_yt_g"
+            n_bytes = (4.0 * (m * cout + m * kdim) + e * kdim * cout
+                       if key == "gemm_g_wt" else
+                       e * m * kdim + 4.0 * (m * cout + kdim * cout))
+            row["c"][key] = dict(ms=parts[fam], bound_ms=tensor_bound_ms(
+                n_bytes, 0.0, tf32_ops=passes * gemm)[0])
+    log(f"  {what} {dtype} {name}: q{list(q.shape[:2])} Ns={s.shape[1]} "
+        f"K={nb.shape[2]} Kp={n_kp} {cin}->{cout}: {text}; B {ms_b:.3f} ms "
+        f"(plain {plain_b:.3f}, bound {bound_b[0]:.4f} {bound_b[1]}), C "
+        f"{ms_c:.3f} ms (plain {plain_c:.3f}, bound {bound_c[0]:.4f} "
+        f"{bound_c[1]}){'' if need_dx else ', no dX'}")
+    return row
+
+
+def conv_set(problems, dtype, log, what, gemm_parts: bool = False):
+    """`conv_pair` at each problem; returns the rows and, for B and C, the
+    sums of ms, plain ms and bound ms over them (`b`, `c`) and, with
+    `gemm_parts`, of each product's ms and bound (`gemm`, `gemm_g_wt`,
+    `gemm_yt_g`; a product the profiler lost is left out of both sums)."""
+    rows = [conv_pair(p, dtype, log, what, gemm_parts) for p in problems]
+    sums = {}
+    for key in ("b", "c"):
+        sums[key] = {f: sum(r[key][f] for r in rows)
+                     for f in ("ms", "plain_ms", "bound_ms")}
+        for g in ("gemm", "gemm_g_wt", "gemm_yt_g"):
+            kept = [r[key][g] for r in rows
+                    if g in r[key] and r[key][g]["ms"] is not None]
+            if kept:
+                sums[key][g] = {f: sum(k[f] for k in kept)
+                                for f in ("ms", "bound_ms")}
+                t = sums[key][g]
+                log(f"[{CARD}] {what} {dtype}: {key.upper()} {g} "
+                    f"{t['ms']:.3f} ms, bound {t['bound_ms']:.4f} ms "
+                    f"({100 * t['bound_ms'] / t['ms']:.1f} % of it), "
+                    f"{len(kept)} of {len(rows)} convs")
+    log(f"[{CARD}] {what} {dtype}, {len(rows)} convs: B {sums['b']['ms']:.3f} "
+        f"ms (plain {sums['b']['plain_ms']:.3f}, bound "
+        f"{sums['b']['bound_ms']:.4f}); C {sums['c']['ms']:.3f} ms (plain "
+        f"{sums['c']['plain_ms']:.3f}, bound {sums['c']['bound_ms']:.4f})")
+    return dict(rows=rows, **sums)
+
+
+def first_pyramid(trainer):
+    """The first batch of LOOP_CHECK_BATCHES drawn from the trainer's
+    resident source (in weak mode the first with regions), assembled on
+    the card into a pyramid on the plain versions."""
+    from weasal_tpu_torch.data.loader import BatchPrefetcher
+    from weasal_tpu_torch.data.resident import (ResidentBatchSource,
+                                                assemble_level0_device)
+    from weasal_tpu_torch.ops.pyramid import batch_from_device_pyramid
+    from weasal_tpu_torch.utils.device import plain_ops
+    config, plan, dev = trainer.config, trainer.plan, trainer.device
+    source = ResidentBatchSource(trainer.datasets[0], plan, dev)
+    drawn = list(BatchPrefetcher(
+        source, LOOP_CHECK_BATCHES, dev, rng=np.random.default_rng(SEED),
+        extra_arrays=source.resident.arrays))
+    batch = next(b for b, metas in drawn if trainer.mode == "pseudo"
+                 or any(m["has_regions"] for m in metas))
+    with torch.no_grad():
+        t = assemble_level0_device(batch, config, plan, augment=True,
+                                   spec=trainer.spec)
+        with plain_ops():
+            return batch_from_device_pyramid(
+                t["points0"], t["mask0"], t["features"], t["labels"],
+                config, plan, t["center_pts"], rotations=t["rotations"],
+                cloud_lb=t["cloud_lb"], region_inds=t["region_inds"],
+                region_masks=t["region_masks"],
+                region_point_masks=t["region_point_masks"],
+                region_lb=t["region_lb"])
+
+
+def swapped_spheres(pyr):
+    """The pyramid with its spheres in reverse order (every field's batch
+    axis): the same arithmetic in another f32 order of the sums over
+    spheres."""
+    from weasal_tpu_torch.data.batch import PyramidBatch
+    b = pyr.batch_size
+    return PyramidBatch.from_arrays(
+        {k: v.flip(0) if v.dim() and v.shape[0] == b else v
+         for k, v in pyr.arrays().items()})
+
+
+def bf16_step_check(trainer, pyr, log, what):
+    """The bf16 kernel step against the plain bf16 step from the trainer's
+    state on one pyramid: loss within BF16_LOSS_RTOL; the gradients'
+    relative L2 over all parameters within BF16_SPREAD_RATIO times the
+    plain step's own spread, the plain step on the same pyramid with its
+    spheres reversed (each bf16 rounding of the backward turns a
+    difference at f32 rounding into one at bf16 rounding where it crosses
+    a boundary, so two sum orders differ by far more than in f32:
+    tests/test_torch_bf16.py measures JAX against itself so)."""
+    import copy
+    from weasal_tpu_torch import init_opt_state
+    from weasal_tpu_torch.train.step import step_on_batch
+    from weasal_tpu_torch.utils.device import plain_ops
+    net = copy.deepcopy(trainer.model)
+    state0 = {k: v.clone() for k, v in net.state_dict().items()}
+    config = trainer.config
+
+    def run(batch, plain):
+        net.load_state_dict(state0)
+        opt = init_opt_state(net)
+        with plain_ops() if plain else contextlib.nullcontext():
+            loss = step_on_batch(net, opt, batch, config,
+                                 config.learning_rate)[0]
+        torch.cuda.synchronize()
+        return float(loss), {n: p.grad.double().clone()
+                             for n, p in net.named_parameters()}
+
+    def spread(a, b):
+        num = sum(float((a[k] - b[k]).norm()) ** 2 for k in b)
+        den = sum(float(b[k].norm()) ** 2 for k in b)
+        return (num / den) ** 0.5
+
+    loss_k, grads_k = run(pyr, False)
+    loss_p, grads_p = run(pyr, True)
+    loss_s, grads_s = run(swapped_spheres(pyr), True)
+    ours, theirs = spread(grads_k, grads_p), spread(grads_s, grads_p)
+    log(f"[{CARD}] {what}: bf16 kernel step loss {loss_k!r}, plain "
+        f"{loss_p!r} (spheres reversed {loss_s!r}); gradients' relative L2 "
+        f"kernel vs plain {ours:.3e}, plain vs plain with the spheres "
+        f"reversed {theirs:.3e}")
+    expect(math.isfinite(loss_k) and abs(loss_k - loss_p)
+           <= BF16_LOSS_RTOL * abs(loss_p),
+           f"{what}: bf16 kernel step loss {loss_k} against plain {loss_p}")
+    expect(ours <= BF16_SPREAD_RATIO * theirs,
+           f"{what}: bf16 kernel step gradients {ours:.3e} from the plain "
+           f"step's, past {BF16_SPREAD_RATIO} x its own spread {theirs:.3e}")
+    return dict(loss=loss_k, plain_loss=loss_p, swapped_loss=loss_s,
+                grads_rel_l2=ours, plain_spread_rel_l2=theirs)
+
+
+def stage_with(stage_obj, **attrs):
+    """The entry point's Stage with its configuration class's `attrs`
+    overridden (no flag sets them: JAX's root scripts have none)."""
+    import dataclasses
+    cls = stage_obj.config_cls
+    return dataclasses.replace(stage_obj, config_cls=type(
+        cls.__name__ + "Phase13", (cls,), dict(attrs)))
+
+
+def run_bf16_dispositions(root, work, counted, wl_per, model, ref_batch,
+                          fused_loop, card, log):
+    """Phase 13: compute_dtype "bfloat16" and a generated kernel
+    disposition through the entry points at full width. Kernels B and C in
+    bf16 against their plain bf16 versions (`conv_pair`) at phase 2's WL
+    shapes and DALES's widest conv; in f32 at Kp in KP_SWEEP at a
+    level-0-like conv and at Kp 40 with the deformable layers' K of 266
+    (with bf16 there too). The WL entry point with VaihingenWLConfig in
+    bf16 on phase 6's tile: 2 graphed epochs and their repeat in a fresh
+    trainer (losses and checkpoint bit-equal, `entry_runs`), phase 6's
+    launches a step and a validation batch; the bf16 kernel step against
+    the plain bf16 step (`bf16_step_check`); its ms a step beside phase
+    6's f32 loop; the first step's loss in bf16 and in f32 from one seeded
+    state on one pyramid (printed). One graphed epoch of the PL entry
+    point in bf16 on phase 9's labels (launches, finite losses) and B and
+    C at its shapes. The WL entry point at num_kernel_points 20, its
+    disposition generated into the phase's work directory (5 graphed
+    steps; 12 B and 12 C a step at Kp 20), and B and C at its shapes.
+    Returns the report, the kernels' sums and rows, and the launches of
+    each path."""
+    from weasal_tpu_torch import init_opt_state
+    from weasal_tpu_torch.config import VaihingenPLConfig
+    from weasal_tpu_torch.kernels import kernel_points
+    from weasal_tpu_torch.models.architectures import model_for_config
+    from weasal_tpu_torch.models.blocks import kpconv_modules
+    from weasal_tpu_torch.train import stage
+    from weasal_tpu_torch.train.step import step_on_batch
+    from weasal_tpu_torch.train_Vaihingen3D_PseudoLabel import STAGE as PL
+    from weasal_tpu_torch.train_Vaihingen3D_WeakLabel import STAGE as WL
+    dev = torch.device("cuda")
+    per_step, per_val = wl_per
+    report, kernels, paths = {}, {}, {}
+
+    # -- kernels: bf16 at the WL and DALES shapes, f32 over kernel points
+    kernels["bf16_wl"] = conv_set(model_convs(model, ref_batch, SEED),
+                                  "bfloat16", log, "phase 13 WL shapes",
+                                  gemm_parts=True)
+    kernels["bf16_dales"] = conv_set(
+        [synthetic_conv(dev, SEED, **DALES_WIDEST)], "bfloat16", log,
+        "phase 13 DALES widest")
+    sweep = [synthetic_conv(dev, SEED + kp, kp=kp, **KP_SWEEP_SHAPE)
+             for kp in KP_SWEEP]
+    kernels["kp_sweep"] = conv_set(sweep, "float32", log,
+                                   "phase 13 Kp sweep")
+    wide = [synthetic_conv(dev, SEED + 99, **KP_WIDE_SHAPE)]
+    kernels["kp40_k266"] = conv_set(wide, "float32", log,
+                                    "phase 13 Kp 40 K 266")
+    kernels["bf16_kp40_k266"] = conv_set(wide, "bfloat16", log,
+                                         "phase 13 Kp 40 K 266")
+
+    def entry(stage_obj, out, args, label, epochs, step, val):
+        for fn in counted:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        trainer = stage.run(stage_obj, [out, "--data_root", root, *args])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in counted}
+        return trainer, launches, _loop_report(
+            label, trainer, out, epochs, launches, step, val, wall_s, card,
+            log, what=label)
+
+    # -- the bf16 WL loop and its repeat
+    bf16_wl = stage_with(WL, compute_dtype="bfloat16")
+    logdir = os.path.join(work, BF16_LOG)
+    loop = entry_runs(lambda argv: stage.run(bf16_wl, argv), root, logdir,
+                      logdir + "_repeat", LOOP_ARGS, counted, per_step,
+                      per_val, card, log, what="bf16 WL loop", resume=False)
+    trainer, paths["bf16_wl"] = loop["trainer"], loop["total"]
+    convs = kpconv_modules(trainer.model)
+    expect(trainer.config.compute_dtype == "bfloat16"
+           and all(m.params.compute_dtype == "bfloat16" for _, m in convs),
+           "phase 13: the bf16 WL loop's convs are not all bf16")
+    pyr = first_pyramid(trainer)
+    report["bf16_step"] = bf16_step_check(trainer, pyr, log,
+                                          "phase 13 bf16 WL step")
+    # the first step's loss in f32 and bf16 from one seeded state
+    first = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = stage_with(WL, compute_dtype=dtype).config_cls()
+        ds = trainer.datasets[0]
+        net = model_for_config(cfg, ds.label_values, ds.ignored_labels,
+                               generator=torch.Generator().manual_seed(SEED)
+                               ).to(dev)
+        first[dtype] = float(step_on_batch(net, init_opt_state(net), pyr,
+                                           cfg, cfg.learning_rate)[0])
+    bf16_ms = [r["step_ms_steady"] for r in loop["runs"]]
+    f32_ms = [r["step_ms_steady"] for r in fused_loop["runs"]
+              if r["step_ms_steady"]]
+    log(f"[{card}] phase 13 bf16 WL loop: {[round(v, 2) for v in bf16_ms]} "
+        f"ms a step (second epochs) beside phase 6's f32 loop "
+        f"{[round(v, 2) for v in f32_ms]}; first step's loss from the "
+        f"seeded state: f32 {first['float32']!r}, bf16 "
+        f"{first['bfloat16']!r} (printed only)")
+    report["bf16_wl"] = dict(runs=loop["runs"], repeat=loop["repeat"],
+                             peak_bytes=loop["peak"], ms=bf16_ms,
+                             f32_ms=f32_ms, first_loss=first)
+
+    # -- one bf16 PL epoch on phase 9's labels
+    pl_config = VaihingenPLConfig()
+    pl_config.num_classes = 9
+    pl_step, pl_val = pl_expected(pl_config)
+    pl, paths["bf16_pl"], report["bf16_pl"] = entry(
+        stage_with(PL, compute_dtype="bfloat16"),
+        os.path.join(work, BF16_LOG + "_pl"), BF16_PL_ARGS, "bf16 PL epoch",
+        1, pl_step, pl_val)
+    expect(pl.mode == "pseudo" and all(
+        m.params.compute_dtype == "bfloat16"
+        for _, m in kpconv_modules(pl.model)),
+        "phase 13: the bf16 PL run is not a bf16 pseudo-label run")
+    kernels["bf16_pl"] = conv_set(model_convs(pl.model, first_pyramid(pl),
+                                              SEED), "bfloat16", log,
+                                  "phase 13 PL shapes")
+
+    # -- a generated disposition of 20 kernel points
+    disp_dir = os.path.join(work, "dispositions")
+    shipped = sorted(os.listdir(kernel_points._DISPOSITION_DIR))
+    saved_dir = kernel_points._DISPOSITION_DIR
+    kernel_points._DISPOSITION_DIR = disp_dir
+    try:
+        t0 = time.perf_counter()
+        kp20, paths["kp20_wl"], report["kp20_wl"] = entry(
+            stage_with(WL, num_kernel_points=KP20),
+            os.path.join(work, BF16_LOG + "_kp20"), KP20_ARGS,
+            "Kp 20 WL epoch", 1, per_step, per_val)
+        report["kp20_wl"]["wall_with_generation_s"] = (time.perf_counter()
+                                                       - t0)
+    finally:
+        kernel_points._DISPOSITION_DIR = saved_dir
+    written = sorted(os.listdir(disp_dir))
+    expect(written == [f"k_{KP20:03d}_center_3D.ply"]
+           and sorted(os.listdir(saved_dir)) == shipped
+           and all(m.kernel_points.shape[0] == KP20
+                   for _, m in kpconv_modules(kp20.model)),
+           f"phase 13: the Kp {KP20} run wrote {written} (the package's "
+           f"dispositions: {sorted(os.listdir(saved_dir))})")
+    kernels["kp20_wl"] = conv_set(model_convs(kp20.model,
+                                              first_pyramid(kp20), SEED),
+                                  "float32", log, "phase 13 Kp 20 shapes")
+    return report, kernels, paths
+
+
 def main(argv=None) -> int:
+    global CARD
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="",
                     help="also write the per-shape report to this JSON file")
@@ -4000,7 +4542,7 @@ def main(argv=None) -> int:
         log(f"{msg} [{time.perf_counter() - t_start:.0f} s]")
 
     # ---- phase 1: setup
-    card = card_line()
+    card = CARD = card_line()
     log(f"card: {card}")
     t0 = time.perf_counter()
     outputs = build.build_all(verbose=True)
@@ -4173,6 +4715,12 @@ def main(argv=None) -> int:
         phase("phase 12: the host-pyramid input path and KPCNN on the card")
         host, host_kernels, host_paths = run_host_pyramid(
             root, work, counted, (expected, per_val), loop, card, log)
+        # ---- phase 13: bf16 compute_dtype, a generated disposition
+        phase("phase 13: bf16 compute_dtype and a generated kernel "
+              "disposition on the card")
+        bf16, bf16_kernels, bf16_paths = run_bf16_dispositions(
+            root, work, counted, (expected, per_val), model, ref_batch,
+            loop, card, log)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -4182,7 +4730,7 @@ def main(argv=None) -> int:
     paths = dict(inference=eval_launches, train_step=launches,
                  wl_loop=loop_launches, wl_active_learning=al_launches,
                  pl_stage=pl_launches, dales_wl=dales_wl, dales_pl=dales_pl,
-                 deformable_pl=deform_pl, **host_paths)
+                 deformable_pl=deform_pl, **host_paths, **bf16_paths)
 
     def by_path(name):
         return {path: counts.get(name, 0) for path, counts in paths.items()}
@@ -4212,13 +4760,44 @@ def main(argv=None) -> int:
                                for k in ("ms", "plain_ms", "bound_ms")})
         return fields
 
-    # The largest error of each kernel at any main path's shapes
+    # The largest error of each kernel at any main path's shapes (and of B
+    # and C at phase 13's f32 shapes: the Kp sweep and the Kp-20 model)
     for name, phase_sum in (("radius_search", a_sum), ("kpconv_fwd", b_sum),
                             ("kpconv_bwd", c_sum), ("maxpool_bwd", d_sum)):
         phase_sum["max_abs_err"] = max(
             phase_sum["max_abs_err"], loop["kernels"][name]["max_abs_err"],
             *(k[name]["max_abs_err"] for k in stage_kernels.values()
               if name in k))
+    for name, phase_sum, key in (("kpconv_fwd", b_sum, "max_abs_err_b"),
+                                 ("kpconv_bwd", c_sum, "max_abs_err_c")):
+        phase_sum["max_abs_err"] = max(
+            phase_sum["max_abs_err"],
+            *(r[key] for k in bf16_kernels.values() for r in k["rows"]
+              if key in r))
+
+    def phase13_fields(part):
+        """B's (`b`) or C's (`c`) sums at phase 13's shapes: `bf16_wl_*`,
+        `bf16_pl_*`, `bf16_dales_*`, `bf16_kp40_k266_*` (bf16),
+        `kp_sweep_*`, `kp40_k266_*`, `kp20_wl_*` (f32), the products'
+        device ms and bounds at the WL shapes in bf16 (`bf16_wl_gemm_*`;
+        C's `bf16_wl_gemm_g_wt_*`, `bf16_wl_gemm_yt_g_*`), and the
+        largest bf16 flip share and distance to f64 at any of them."""
+        fields = {f"{prefix}_{k}": sums[part][k]
+                  for prefix, sums in bf16_kernels.items()
+                  for k in ("ms", "plain_ms", "bound_ms")}
+        fields.update({f"{prefix}_{g}_{k}": sums[part][g][k]
+                       for prefix, sums in bf16_kernels.items()
+                       for g in ("gemm", "gemm_g_wt", "gemm_yt_g")
+                       if g in sums[part] for k in ("ms", "bound_ms")})
+        rows = [r for k in bf16_kernels.values() for r in k["rows"]
+                if r["dtype"] == "bfloat16"]
+        flip_key, l2_key = (("y_flips", "out_to_f64") if part == "b"
+                            else ("dw_flips", "dx_to_f64"))
+        fields["bf16_max_flip_share"] = max(r[flip_key]["share"]
+                                            for r in rows)
+        fields["bf16_max_rel_l2_to_f64"] = max(r[l2_key]["rel_l2"]
+                                               for r in rows)
+        return fields
 
     kernels = [
         dict(name="radius_search", route="cuda",
@@ -4233,15 +4812,15 @@ def main(argv=None) -> int:
              replaces="weasal_tpu/ops/pallas/kpconv_banded.py:478",
              launches=main_path("kpconv_fwd"),
              launches_by_path=by_path("kpconv_fwd"),
-             **pl_fields("kpconv_fwd"), library_ms=None,
-             **b_sum),
+             **pl_fields("kpconv_fwd"), **phase13_fields("b"),
+             library_ms=None, **b_sum),
         dict(name="kpconv_bwd", route="cuda",
              source="weasal_tpu_torch/csrc/kpconv_bwd.cu",
              replaces="weasal_tpu/ops/pallas/kpconv_banded.py:550",
              launches=main_path("kpconv_bwd"),
              launches_by_path=by_path("kpconv_bwd"),
-             **pl_fields("kpconv_bwd"), library_ms=None,
-             **c_sum),
+             **pl_fields("kpconv_bwd"), **phase13_fields("c"),
+             library_ms=None, **c_sum),
         dict(name="maxpool_bwd", route="cuda",
              source="weasal_tpu_torch/csrc/maxpool_bwd.cu",
              replaces="weasal_tpu/ops/pallas/maxpool_banded.py:159",
@@ -4293,7 +4872,10 @@ def main(argv=None) -> int:
                            dales_pl_launches=dales_pl, deformable=deform,
                            deformable_pl_launches=deform_pl,
                            host_pyramid=host,
-                           host_launches=host_paths), f,
+                           host_launches=host_paths,
+                           bf16_dispositions=dict(report=bf16,
+                                                  kernels=bf16_kernels,
+                                                  launches=bf16_paths)), f,
                       indent=1)
     phase("chip_smoke: every phase ran")
     if FAILED:

@@ -52,6 +52,16 @@ host-built neighbor lists and at KPCNN's shapes equal their plain
 versions (and KPCNN's forward its plain one); a host step replayed from
 a graph equals its eager body bit for bit; a graphed host epoch launches
 0 A, 12 B, 12 C and 2 D a step and 0 A and 12 B a validation batch.
+compute_dtype "bfloat16": B and C in their bf16 variants at GEMM_CASES
+against their plain bf16 versions (y and dW by the flip criterion of
+tests/_bf16_cases.py; out and dX as close to an f64 evaluation of the
+same rounding points as the plain versions within 2x, or within 1e-4;
+out within f32 tolerance of its own y @ bf(W)), and a bf16 step
+replayed from a graph bit-equal to its eager run. Any kernel-point
+count: B and C in f32 at Kp 1, 5, 16, 17, 20, 40 and at Kp 40 with K 266
+(the influence tile past 48 KB of shared memory; bf16 too at 17 and 40)
+within the f32 tolerances; a tile past the card's shared memory raises
+and names the limit.
 Needs an
 NVIDIA GPU with nvcc; skips elsewhere. On the machine with the card
 (which has no JAX) run
@@ -85,6 +95,7 @@ from weasal_tpu_torch.ops.cuda.maxpool_bwd import (maxpool_bwd,
 from weasal_tpu_torch.ops.cuda.radius_search import (radius_search,
                                                      radius_search_plain)
 from weasal_tpu_torch.utils.device import plain_ops
+from tests._bf16_cases import flips, flips_ok, is_bf16_valued, within_plain
 from tests._cell_search_cases import CASES as CELL_CASES, as_tensors
 from tests._inverse_cases import (CASES as INVERSE_CASES, graph_replay,
                                   index_case, ordered_row_sums,
@@ -205,7 +216,9 @@ def test_kpconv_kernel_matches_plain(dev, influence):
     assert float(oob.sum()) == 0.0
 
 
-@pytest.mark.parametrize("ext", [0.8, 0.288, 0.576])
+# 0.24, 0.48 and 0.96: the WL model's extents, where the f32 reciprocal of
+# f32 ext differs from PyTorch's (1 / ext in double, rounded to f32)
+@pytest.mark.parametrize("ext", [0.8, 0.288, 0.576, 0.24, 0.48, 0.96])
 @pytest.mark.parametrize("influence", ["linear", "gaussian"])
 def test_kpconv_influences_equal_plain_bit_for_bit(dev, influence, ext):
     # One neighbor and x = 1: the aggregate y of either version is the
@@ -621,10 +634,10 @@ def test_kpconv_launches_write_only_their_buffers(dev, case):
     ns, k = s.shape[1], nb.shape[2]
     kp, cin, cout = w.shape
     rows, kdim = b * nq, kp * cin
-    den = fwd_lib.gaussian_denominator(0.8)
+    inv_ext, inv_den = fwd_lib.reciprocals(0.8)
     stream = torch.cuda.current_stream(dev).cuda_stream
     head = [t.data_ptr() for t in (q, s, nb)]
-    scalars = [b, nq, ns, k, kp, cin, cout, 0.8, 1, den]
+    scalars = [b, nq, ns, k, kp, cin, cout, inv_ext, 1, inv_den]
 
     lib = load_library("kpconv_fwd")
     n_ws = fwd_lib.workspace_floats(lib, "kpconv_fwd", rows, kdim, cout)
@@ -1561,3 +1574,128 @@ def test_host_pyramid_loop_launches_the_kernels(dev, synth_wl):
     assert {fn.__name__: fn.launches for fn in counted} == want
     assert trainer.epoch_drops == [0.0]
     assert all(np.isfinite(v).all() for v in trainer.validation_probs)
+
+
+# ------------------------------------- bf16 and any kernel-point count (B, C)
+
+def _bf16_conv_check(dev, case, seed, kp=15):
+    """B and C in bf16 on one conv problem against their plain bf16
+    versions: y and dW by the flip criterion (tests/_bf16_cases.py), out
+    and dX by their distance to an f64 evaluation of the same rounding
+    points (`within_plain`), out within f32 tolerance of its own y @
+    bf(W); C runs on the plain forward's y, so that each kernel is held
+    alone."""
+    q, s, nb, x, kpts, w, grad = _conv_problem(dev, seed, kp=kp, **case)
+    out, y = kpconv_fwd_with_y(q, s, nb, x, kpts, w, 0.8, "linear",
+                               compute_dtype="bfloat16")
+    out_p, y_p = kpconv_fwd_plain_with_y(q, s, nb, x, kpts, w, 0.8,
+                                         "linear", "bfloat16")
+    dx, dw = kpconv_bwd(q, s, nb, y_p, kpts, w, grad, 0.8, "linear",
+                        inverse=LazyInverse(nb, s.shape[1]),
+                        compute_dtype="bfloat16")
+    dx_p, dw_p = kpconv_bwd_plain(q, s, nb, y_p, kpts, w, grad, 0.8,
+                                  "linear", compute_dtype="bfloat16")
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16 and y_p.dtype == torch.bfloat16
+    assert is_bf16_valued(dw)
+    terms = (y_p.float().abs().t() @ grad.abs().reshape(-1, w.shape[2]))
+    y_terms = kpconv_fwd_plain_with_y(q, s, nb, x.abs(), kpts, w, 0.8,
+                                      "linear")[1]
+    fy = flips(y, y_p, y_terms)
+    fw = flips(dw, dw_p, terms.reshape(dw.shape))
+    kp_, cin, cout = w.shape
+    _close(out.double(), (y.double() @ w.to(torch.bfloat16).double()
+                          .reshape(kp_ * cin, cout)).reshape(out.shape),
+           1e-4, 1e-5)
+    assert flips_ok(fy), fy
+    assert flips_ok(fw), fw
+    out64 = kpconv_fwd_plain(*_f64(q, s), nb, *_f64(x, kpts, w), 0.8,
+                             "linear", "bfloat16")
+    dx64, _ = kpconv_bwd_plain(*_f64(q, s), nb, y_p, *_f64(kpts, w, grad),
+                               0.8, "linear", compute_dtype="bfloat16")
+    for got, plain, ref in ((out, out_p, out64), (dx, dx_p, dx64)):
+        report = within_plain(got, plain, ref)
+        assert report["ok"], report
+
+
+@pytest.mark.parametrize("case", list(GEMM_CASES))
+def test_kpconv_bf16_kernels_match_plain(dev, case):
+    """Kernels B and C under compute_dtype "bfloat16" at GEMM_CASES (the
+    main path's widest conv, DALES's first and widest, depths that are
+    not multiples of 8: value-by-value loads of the bf16 operands)."""
+    _bf16_conv_check(dev, GEMM_CASES[case], 11)
+
+
+# (Kp, K): one chunk of kernel points, one past it, 20 (a generated
+# disposition), 40 at the deformable layers' K of 266 (the influence tile
+# past 48 KB of shared memory)
+KP_CASES = [(1, 20), (5, 20), (16, 20), (17, 20), (20, 20), (40, 20),
+            (40, 266)]
+
+
+@pytest.mark.parametrize("kp,k", KP_CASES)
+def test_kpconv_kernels_at_any_kp(dev, kp, k):
+    q, s, nb, x, kpts, w, grad = _conv_problem(dev, 12, k=k, kp=kp)
+    out, y = kpconv_fwd_with_y(q, s, nb, x, kpts, w, 0.8, "linear")
+    out_p, y_p = kpconv_fwd_plain_with_y(q, s, nb, x, kpts, w, 0.8,
+                                         "linear")
+    dx, dw = kpconv_bwd(q, s, nb, y, kpts, w, grad, 0.8, "linear",
+                        inverse=LazyInverse(nb, s.shape[1]))
+    dx_p, dw_p = kpconv_bwd_plain(q, s, nb, y, kpts, w, grad, 0.8, "linear")
+    torch.cuda.synchronize()
+    _close(y, y_p, 1e-4, 1e-5)
+    _close(out, out_p, 1e-4, 1e-5)
+    _close(dx, dx_p, 1e-4, 1e-5)
+    _close(dw, dw_p, 1e-4, 1e-5)
+    if kp in (17, 40):
+        # past one chunk the bf16 workspace of C is f32
+        _bf16_conv_check(dev, dict(k=k), 13, kp=kp)
+
+
+def test_kpconv_past_the_shared_memory_limit_raises(dev):
+    q, s, nb, x, kpts, w, grad = _conv_problem(dev, 14, k=2000, kp=40,
+                                               nq=20, ns=30)
+    with pytest.raises(ValueError, match="limit of"):
+        kpconv_fwd(q, s, nb, x, kpts, w, 0.8)
+    y = torch.zeros((2 * 20, 40 * 24), device=dev)
+    with pytest.raises(ValueError, match="limit of"):
+        kpconv_bwd(q, s, nb, y, kpts, w, grad, 0.8,
+                   inverse=LazyInverse(nb, s.shape[1]))
+
+
+def test_bf16_step_replay_equals_eager(dev, synth_wl):
+    """A weak-label step with compute_dtype "bfloat16" (kernels B and C in
+    their bf16 variants, the bf16 aggregates allocated inside the graph's
+    pool) replayed from a captured graph: loss and every updated tensor
+    bit-equal to the same step run eagerly; the bf16 variants launch."""
+    import copy
+    from weasal_tpu_torch import KPFCNN_mprm, init_opt_state
+    cfg, plan, _, _, _, _, pyr = _card_setup(dev, synth_wl)
+    cfg = copy.copy(cfg)
+    cfg.compute_dtype = "bfloat16"
+    labels = tuple(int(v) for v in synth_wl[1].label_values)
+    model = KPFCNN_mprm(cfg, labels, (),
+                        generator=torch.Generator().manual_seed(3)).to(dev)
+    opt = init_opt_state(model)
+    state0 = {k: v.clone() for k, v in model.state_dict().items()}
+    opt0 = {k: v.clone() for k, v in opt.items()}
+    lr_t = torch.full((), cfg.learning_rate, device=dev)
+    runs = []
+    for graphed in (False, True):
+        model.load_state_dict(state0)
+        for k in opt:
+            opt[k].copy_(opt0[k])
+        kpconv_fwd.launches = kpconv_bwd.launches = 0
+        graph = _pyramid_step_graph(model, opt, pyr, cfg, plan, lr_t, dev,
+                                    graphed=graphed)
+        graph.run()
+        torch.cuda.synchronize()
+        assert (graph.graph is not None) == graphed
+        assert kpconv_fwd.launches >= 12 and kpconv_bwd.launches >= 12
+        runs.append((graph.out["stats"][0].clone(),
+                     {k: v.clone() for k, v in model.state_dict().items()}))
+    (s0, st0), (s1, st1) = runs
+    assert math.isfinite(float(s0[0]))
+    assert torch.equal(s0, s1)
+    for k, v in st0.items():
+        assert torch.equal(st1[k], v), k

@@ -23,6 +23,15 @@ rounded to nearest, after `untruncate` adds its last bit (half an ulp on
 average, what the truncation took). It shows that this leaves no drift
 at the f32 level, where one truncating accumulator over the depth, or one
 chain of a stage's twelve MMAs, does drift.
+
+compute_dtype "bfloat16" (kernels B and C's bf16 variants): the forward's
+y @ bf(W) runs on a bf16 core, wgmma of depth 16 with f32 accumulators,
+one chain of 4 MMAs a 64-deep stage, added untruncated into round-to-
+nearest stage sums (emulated by `bf16_core_product`: its drift on
+positive operands stays far below one truncating accumulator's); C's
+g @ bf(W)^T and bf(y)^T @ g, one operand exact in bf16 and so in TF32,
+run the TF32 core in two passes (its small half is zero: the third
+product adds only zeros), held to f64 at the kernels' tolerance.
 """
 
 import numpy as np
@@ -62,15 +71,16 @@ def untruncate(x: np.ndarray) -> np.ndarray:
     return (bits + (bits & np.uint32(1))).view(np.float32)
 
 
-def _slabs(a: np.ndarray, b: np.ndarray, steps: int) -> np.ndarray:
-    """[steps, m, n] exact products of each 8-deep step, the depth padded
-    with zeros as the core's tiles are."""
+def _slabs(a: np.ndarray, b: np.ndarray, steps: int,
+           width: int = 8) -> np.ndarray:
+    """[steps, m, n] exact products of each `width`-deep step, the depth
+    padded with zeros as the core's tiles are."""
     m, depth = a.shape
-    pad = steps * 8 - depth
+    pad = steps * width - depth
     a = np.pad(a.astype(np.float64), ((0, 0), (0, pad)))
     b = np.pad(b.astype(np.float64), ((0, pad), (0, 0)))
-    return np.einsum("msk,skn->smn", a.reshape(m, steps, 8),
-                     b.reshape(steps, 8, b.shape[1]))
+    return np.einsum("msk,skn->smn", a.reshape(m, steps, width),
+                     b.reshape(steps, width, b.shape[1]))
 
 
 def _rn_add(total: np.ndarray, x: np.ndarray) -> np.ndarray:
@@ -98,15 +108,22 @@ def mma_product(pairs, depth: int, stage_steps: int = STAGE_STEPS):
     return _rn_add(total, acc)
 
 
-def core_product(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+def core_product(a: np.ndarray, b: np.ndarray,
+                 exact: str = "") -> np.ndarray:
     """a @ b as the core sums it: per 32-deep stage the small products of
     its 4 steps and the first big product in one truncating chain from
     zero, then each other big product from zero; each chain's result,
-    untruncated, added to the running sum rounded to nearest."""
+    untruncated, added to the running sum rounded to nearest. exact "a"
+    or "b": that operand is a TF32 value (a bf16 one), its small half
+    zero, and the core skips its small products (two passes)."""
     a_big, a_small = split_tf32(a)
     b_big, b_small = split_tf32(b)
     steps = -(-a.shape[1] // 32) * 4
-    small = [_slabs(a_small, b_big, steps), _slabs(a_big, b_small, steps)]
+    small = []
+    if exact != "a":
+        small.append(_slabs(a_small, b_big, steps))
+    if exact != "b":
+        small.append(_slabs(a_big, b_small, steps))
     big = _slabs(a_big, b_big, steps)
     total = np.zeros(big.shape[1:], dtype=np.float32)
     for stage in range(0, steps, STAGE_STEPS):
@@ -123,6 +140,35 @@ def core_product(a: np.ndarray, b: np.ndarray) -> np.ndarray:
 
 def tf32x3(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return core_product(a, b)
+
+
+def bf16(x: np.ndarray) -> np.ndarray:
+    """f32 values rounded to the nearest bf16 (ties to even), as f32."""
+    bits = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    rounded = bits + np.uint32(0x7FFF) + ((bits >> 16) & np.uint32(1))
+    return (rounded & np.uint32(0xFFFF0000)).view(np.float32)
+
+
+BF16_STAGE_STEPS = 4  # wgmmas of depth 16 in one 64-deep stage
+
+
+def bf16_core_product(a: np.ndarray, b: np.ndarray,
+                      stage_steps: int = BF16_STAGE_STEPS) -> np.ndarray:
+    """a @ b of bf16 values as the bf16 core sums it: per 64-deep stage
+    one truncating chain from zero of its 4 MMAs of depth 16 (each adding
+    its 16 exact products), whose result, untruncated, goes into the
+    running sum rounded to nearest; with stage_steps = the depth's steps,
+    one truncating accumulator."""
+    steps = -(-a.shape[1] // 64) * 4
+    slabs = _slabs(a, b, steps, width=16)
+    total = np.zeros(slabs.shape[1:], dtype=np.float32)
+    acc = np.zeros_like(total)
+    for s in range(steps):
+        start = acc if s % stage_steps else np.zeros_like(total)
+        acc = round_toward_zero(start.astype(np.float64) + slabs[s])
+        if (s + 1) % stage_steps == 0 or s + 1 == steps:
+            total = _rn_add(total, untruncate(acc))
+    return total
 
 
 def stage_chained_tf32x3(a: np.ndarray, b: np.ndarray,
@@ -270,3 +316,56 @@ def test_single_big_product_chains_leave_no_drift(depth, operands):
 
     assert drift(stage_chained_tf32x3(a, b)) < -1e-7
     assert abs(drift(tf32x3(a, b))) < 1.5e-8
+
+
+# ------------------------------------------- compute_dtype "bfloat16"
+
+def test_bf16_rounding_is_torchs():
+    import torch
+    x = np.random.default_rng(9).standard_normal(4096).astype(np.float32)
+    x[:4] = [1.0 + 2.0 ** -8, 1.0 + 3 * 2.0 ** -8, -(1.0 + 2.0 ** -8), 0.0]
+    want = torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+    np.testing.assert_array_equal(bf16(x), want)
+
+
+@pytest.mark.parametrize("depth", [960, 7680])
+def test_bf16_core_stage_sums_stop_the_truncation_drift(depth):
+    # positive bf16 operands of y @ W: the chains of one stage's 4 MMAs,
+    # untruncated into round-to-nearest sums, keep the mean relative
+    # error far below one truncating accumulator's
+    rng = np.random.default_rng(depth + 3)
+    a = bf16(np.abs(rng.standard_normal((48, depth))).astype(np.float32))
+    b = bf16(np.abs(rng.standard_normal((depth, 32))).astype(np.float32))
+    ref = a.astype(np.float64) @ b.astype(np.float64)
+    staged = float(((bf16_core_product(a, b) - ref) / ref).mean())
+    one_acc = float(((bf16_core_product(a, b, stage_steps=depth) - ref)
+                     / ref).mean())
+    assert abs(staged) < 5e-8       # measured -3.1e-8 and -2.3e-8
+    assert one_acc < -1e-6          # -1.2e-6 and -1.1e-5
+    assert within_kernel_tolerance(bf16_core_product(a, b), ref)
+
+
+# C's two products in bf16 mode: dr = g @ bf(W)^T (depth Cout) and
+# dW = bf(y)^T @ g (depth the rows), the bf16 operand exact in TF32
+@pytest.mark.parametrize("product,depth", [("g@W^T", 256),
+                                           ("y^T@g", 17136)])
+def test_two_pass_split_with_a_bf16_operand_meets_the_tolerance(product,
+                                                                 depth):
+    rng = np.random.default_rng(depth + 4)
+    if product == "g@W^T":
+        a = rng.standard_normal((48, depth)).astype(np.float32)
+        b = bf16(rng.standard_normal((depth, 32)).astype(np.float32)
+                 / np.float32(np.sqrt(depth)))
+        exact = "b"
+    else:
+        a = bf16(np.abs(rng.standard_normal((depth, 48))).T.astype(
+            np.float32))
+        b = rng.standard_normal((depth, 32)).astype(np.float32)
+        exact = "a"
+    np.testing.assert_array_equal(rna_tf32(a if exact == "a" else b),
+                                  a if exact == "a" else b)
+    ref = a.astype(np.float64) @ b.astype(np.float64)
+    two = core_product(a, b, exact=exact)
+    assert within_kernel_tolerance(two, ref)
+    # the skipped products are zeros: the same sums as all three passes
+    np.testing.assert_array_equal(two, core_product(a, b))

@@ -73,15 +73,23 @@ def test_host_grid_subsample_matches_numpy_reference():
                                   grid_subsample_numpy(pts[0], dl=0.7))
 
 
-def test_load_kernels_same_pose_as_jax():
+def test_load_kernels_same_pose_as_jax(tmp_path):
     for seed in (0, 12345):
         got = load_kernels(1.5, 15, 3, "center",
                            rng=np.random.default_rng(seed))
         want = jax_kernels(1.5, 15, 3, "center",
                            rng=np.random.default_rng(seed))
         np.testing.assert_array_equal(got, want)
-    with pytest.raises(FileNotFoundError):
-        load_kernels(1.0, 17, 3, "center")
+    # a size without a shipped disposition is generated, as the JAX
+    # package generates it from the same rng, each into a directory of
+    # its own (Lloyd relaxation here, the quick generator)
+    got = load_kernels(1.0, 17, 3, "center", lloyd=True,
+                       rng=np.random.default_rng(4),
+                       dispositions_dir=str(tmp_path / "torch"))
+    want = jax_kernels(1.0, 17, 3, "center", lloyd=True,
+                       rng=np.random.default_rng(4),
+                       dispositions_dir=str(tmp_path / "jax"))
+    np.testing.assert_array_equal(got, want)
 
 
 def test_helpers_match_jax():

@@ -87,7 +87,9 @@ class Config:
     saving_path: Optional[str] = None
 
     # Port options (not written to parameters.txt)
-    # Precision of the feature products; only float32 is ported
+    # Precision of KPConv's two products' inputs: 'float32' | 'bfloat16'
+    # (weasal_tpu/config.py:133; bf16 inputs, f32 sums, where the JAX
+    # package's XLA path rounds; kernels B and C run their bf16 variants)
     compute_dtype = "float32"
     loss_type = "region_mprm_loss"   # or 'class_logits_loss'
     # Input path: True builds each batch's pyramid on the device (the

@@ -70,6 +70,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -100,6 +101,27 @@ __device__ __forceinline__ Vec<VEC> load_vec(const float* p) {
   return r;
 }
 
+// VEC bf16 values as floats (C's bf16 workspace; 8-, 4- or 2-byte loads)
+template <int VEC>
+__device__ __forceinline__ Vec<VEC> load_vec(const __nv_bfloat16* p) {
+  Vec<VEC> r;
+  if constexpr (VEC == 4) {
+    const uint2 t = *reinterpret_cast<const uint2*>(p);
+    const float2 lo = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&t.x));
+    const float2 hi = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&t.y));
+    r.v[0] = lo.x; r.v[1] = lo.y; r.v[2] = hi.x; r.v[3] = hi.y;
+  } else if constexpr (VEC == 2) {
+    const float2 t = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(p));
+    r.v[0] = t.x; r.v[1] = t.y;
+  } else {
+    r.v[0] = __bfloat162float(*p);
+  }
+  return r;
+}
+
 template <int VEC>
 __device__ __forceinline__ void store_vec(float* p, const Vec<VEC>& r) {
   if constexpr (VEC == 4) {
@@ -123,7 +145,7 @@ struct SumArgs {
   const int64_t* seg;     // runs: [B, n] non-decreasing (values >= n_out
   int n;                  //   dropped); row r = b * n_out + j
   int n_out;
-  const float* src;       // [*, c_dim]
+  const void* src;        // [*, c_dim], f32 (or bf16: C's bf16 stage 2)
   long long rows;
   int c_dim;
   float* dst;             // [rows, c_dim]
@@ -131,8 +153,9 @@ struct SumArgs {
 };
 
 // dst[row, :] = sum over e in [lo, hi) of src[ent ? ent[e] : e, :], by a
-// group of G lanes, P chunks of VEC channels a lane, U entries in flight.
-template <int VEC, int G, int P, bool RUNS>
+// group of G lanes, P chunks of VEC channels a lane, U entries in flight;
+// src of type S (bf16 values are added as f32, in the same order).
+template <int VEC, int G, int P, bool RUNS, typename S = float>
 __device__ __forceinline__ void row_sum(const SumArgs& a) {
   constexpr int U = P * VEC >= 16 ? 2 : 4;
   const int lane = threadIdx.x & 31;
@@ -168,7 +191,7 @@ __device__ __forceinline__ void row_sum(const SumArgs& a) {
     e1 = a.off[row + 1];
   }
   const int c_dim = a.c_dim;
-  const float* __restrict__ src = a.src;
+  const S* __restrict__ src = static_cast<const S*>(a.src);
   for (int c0 = 0; c0 < c_dim; c0 += G * P * VEC) {
     int c[P];
     bool on[P];
@@ -237,10 +260,10 @@ __device__ __forceinline__ void row_sum(const SumArgs& a) {
   }
 }
 
-template <int VEC, int G, int P>
+template <int VEC, int G, int P, typename S = float>
 __global__ void __launch_bounds__(kSumThreads)
     inverse_sum_kernel(const SumArgs a) {
-  row_sum<VEC, G, P, false>(a);
+  row_sum<VEC, G, P, false, S>(a);
 }
 
 template <int VEC, int G, int P>
@@ -265,7 +288,7 @@ using Int = std::integral_constant<int, N>;
 // the whole warp, with the widest vector that divides C, fills the warp
 // and is aligned.
 template <class F>
-inline void with_row_shape(const float* src, const float* dst, int c_dim,
+inline void with_row_shape(const void* src, const float* dst, int c_dim,
                            F&& f) {
   if (c_dim == 1) return f(Int<1>{}, Int<1>{}, Int<1>{});
   if (c_dim == 2) return f(Int<1>{}, Int<2>{}, Int<1>{});
@@ -294,7 +317,7 @@ inline void with_row_shape(const float* src, const float* dst, int c_dim,
   return f(Int<1>{}, Int<32>{}, Int<4>{});
 }
 
-template <SumKind KIND>
+template <SumKind KIND, typename S = float>
 inline int launch_row_sums(const SumArgs& a, cudaStream_t st) {
   if (a.rows <= 0) return 0;
   with_row_shape(a.src, a.dst, a.c_dim, [&](auto vec, auto g, auto p) {
@@ -304,7 +327,7 @@ inline int launch_row_sums(const SumArgs& a, cudaStream_t st) {
     const unsigned blocks =
         (unsigned)((a.rows + rows_per_block - 1) / rows_per_block);
     if constexpr (KIND == SumKind::kStage2)
-      inverse_sum_kernel<V, G, P><<<blocks, kSumThreads, 0, st>>>(a);
+      inverse_sum_kernel<V, G, P, S><<<blocks, kSumThreads, 0, st>>>(a);
     else if constexpr (KIND == SumKind::kLists)
       list_sum_kernel<V, G, P><<<blocks, kSumThreads, 0, st>>>(a);
     else
@@ -316,9 +339,9 @@ inline int launch_row_sums(const SumArgs& a, cudaStream_t st) {
 // dst [rows, C] = each row r's list [off[r], off[r + 1]) of src rows
 // ent[e], summed in order: C's and D's stage 2, or (kLists) the
 // standalone sums.
-template <SumKind KIND = SumKind::kStage2>
+template <SumKind KIND = SumKind::kStage2, typename S = float>
 inline int launch_inverse_sum(const int32_t* off, const int32_t* ent,
-                              const float* src, long long rows, int c_dim,
+                              const S* src, long long rows, int c_dim,
                               float* dst, cudaStream_t st) {
   SumArgs a{};
   a.off = off;
@@ -327,7 +350,7 @@ inline int launch_inverse_sum(const int32_t* off, const int32_t* ent,
   a.rows = rows;
   a.c_dim = c_dim;
   a.dst = dst;
-  return launch_row_sums<KIND>(a, st);
+  return launch_row_sums<KIND, S>(a, st);
 }
 
 // ---------------------------------------------------------------------------

@@ -6,17 +6,59 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace kpconv_common {
 
-constexpr int kMaxKp = 16;
+// Kernel points a thread holds in registers at once: the per-row kernels
+// of B and C run the kernel points in chunks of this many, so Kp has no
+// limit of its own; the influence tile in shared memory sets the limit.
+constexpr int kKpChunk = 16;
 
 // Shared memory that row_influences needs: h [n_kp * k] floats, then the
 // k neighbor indices.
 inline size_t influence_smem_bytes(int n_kp, int k) {
-  return (size_t)(n_kp * k + k) * sizeof(float);
+  return (size_t)((long long)n_kp * k + k) * sizeof(float);
+}
+
+// The most dynamic shared memory a block may take on this device (227 KB
+// on an H100), once a kernel opts in.
+inline size_t smem_optin_bytes() {
+  static const size_t n = [] {
+    int dev = 0, v = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    return (size_t)(v > 0 ? v : 48 * 1024);
+  }();
+  return n;
+}
+
+// Lets `kernel` take up to smem_optin_bytes() of dynamic shared memory
+// (the influence tile past 48 KB), once per kernel; an influence tile
+// larger than that is refused (cudaErrorInvalidValue).
+template <auto Kernel>
+inline int allow_influence_smem(size_t smem) {
+  if (smem > smem_optin_bytes()) return (int)cudaErrorInvalidValue;
+  if (smem <= 48 * 1024) return 0;
+  static const cudaError_t err = cudaFuncSetAttribute(
+      Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem_optin_bytes());
+  return (int)err;
+}
+
+// Sizes a launch of B or C takes: at least one kernel point, neighbor,
+// input and output channel, and an influence tile the card can hold.
+inline bool sizes_ok(int n_kp, int k, int cin, int cout) {
+  return n_kp >= 1 && k >= 1 && cin >= 1 && cout >= 1 &&
+         influence_smem_bytes(n_kp, k) <= smem_optin_bytes();
+}
+
+// bf(x): x rounded to the nearest bf16 (ties to even) and back to f32,
+// the cast that compute_dtype "bfloat16" puts on the products' inputs.
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 // Loads the k neighbor indices of query `row` (sphere b) into nbs, -1 for
@@ -25,18 +67,21 @@ inline size_t influence_smem_bytes(int n_kp, int k) {
 // rounded as the plain PyTorch version rounds it on the card, so that the
 // influences are its own bit for bit: direct differences s - q - kp_p with
 // each axis rounded separately, no fused multiply-add, and a division by
-// ext or den as a product with the reciprocal rounded to f32 (PyTorch's
-// CUDA division by a Python scalar). A true division put the kernel's
-// influences one ulp off theirs on many pairs, a bias of one sign in y
-// (-5e-8 against their +9e-8, relative, on an H100) that the training
-// step's BatchNorm gradients amplified.
+// ext or den as a product with its reciprocal, which the caller computes
+// in double and rounds to f32 (inv_ext, inv_den: PyTorch's CUDA division
+// by a Python scalar). A true division put the kernel's influences one ulp
+// off theirs on many pairs, a bias of one sign in y (-5e-8 against their
+// +9e-8, relative, on an H100) that the training step's BatchNorm
+// gradients amplified; the f32 reciprocal of f32 ext differs from theirs
+// at extents such as 0.24, 0.48 and 0.96 (2.5 % of the pairs an ulp or
+// more off at the WL model's 0.24), which bf16 rounding of h turns into
+// flips of 2^-8.
 //   linear: relu(1 - |d| / ext); constant: 1; gaussian: exp(-|d|^2 / den)
 __device__ __forceinline__ void row_influences(
     size_t row, int b, const float* __restrict__ q,
     const float* __restrict__ s, const int32_t* __restrict__ nb,
-    const float* __restrict__ kp, int ns, int k, int n_kp, float ext,
-    int influence, float gauss_den, float* h, int* nbs) {
-  const float inv_ext = __frcp_rn(ext), inv_den = __frcp_rn(gauss_den);
+    const float* __restrict__ kp, int ns, int k, int n_kp, float inv_ext,
+    int influence, float inv_den, float* h, int* nbs) {
   const float qx = q[row * 3 + 0];
   const float qy = q[row * 3 + 1];
   const float qz = q[row * 3 + 2];
@@ -327,8 +372,10 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& big,
 // Splits the raw tile into the big and small planes (see `swizzled`).
 // A thread takes 4 chunks of 4 depths of one row: K-major raws give them
 // as one 16-byte read, MN-major ones as 4 reads along which neighbouring
-// threads read neighbouring rows.
-template <bool KMajor, int Rows>
+// threads read neighbouring rows. kRoundBf16: each value rounded to bf16
+// instead (a TF32 value too), into the big plane only; the small half is
+// zero and no product reads it.
+template <bool KMajor, int Rows, bool kRoundBf16 = false>
 __device__ __forceinline__ void split_tile(const float* raw, float* big,
                                            float* small) {
   using L = TileLayout<KMajor, Rows>;
@@ -348,12 +395,20 @@ __device__ __forceinline__ void split_tile(const float* raw, float* big,
       for (int e = 0; e < 4; ++e) v[e] = raw[L::at(r, 4 * c + e)];
     }
     uint4 b, s;
-    split_tf32(v[0], b.x, s.x);
-    split_tf32(v[1], b.y, s.y);
-    split_tf32(v[2], b.z, s.z);
-    split_tf32(v[3], b.w, s.w);
-    *reinterpret_cast<uint4*>(big + swizzled(r, c)) = b;
-    *reinterpret_cast<uint4*>(small + swizzled(r, c)) = s;
+    if constexpr (kRoundBf16) {
+      b = make_uint4(__float_as_uint(bf16_round(v[0])),
+                     __float_as_uint(bf16_round(v[1])),
+                     __float_as_uint(bf16_round(v[2])),
+                     __float_as_uint(bf16_round(v[3])));
+      *reinterpret_cast<uint4*>(big + swizzled(r, c)) = b;
+    } else {
+      split_tf32(v[0], b.x, s.x);
+      split_tf32(v[1], b.y, s.y);
+      split_tf32(v[2], b.z, s.z);
+      split_tf32(v[3], b.w, s.w);
+      *reinterpret_cast<uint4*>(big + swizzled(r, c)) = b;
+      *reinterpret_cast<uint4*>(small + swizzled(r, c)) = s;
+    }
   }
 }
 
@@ -453,33 +508,103 @@ __device__ __forceinline__ void fence_operands(uint32_t (&a)[2][4][4]) {
 // A's fragments of one stage for this thread: [big, small][depth step kk
 // / 8][a0..a3], split from the raw tile (rows wg * 64 + warp * 16 + g and
 // + 8, depths kk + t and + 4). Neighbouring threads read distinct banks
-// in either raw layout.
-template <bool AK>
+// in either raw layout. kBf16: the raw tile holds bf16 values (M-major,
+// the f32 layout's strides in 2-byte elements), exact in TF32: big is the
+// value, small is zero and no product reads it.
+template <bool AK, bool kBf16 = false>
 __device__ __forceinline__ void split_a_fragments(const float* raw,
                                                   uint32_t (&a)[2][4][4]) {
   using L = TileLayout<AK, kTileM>;
   const int lane = threadIdx.x % 32;
   const int r = (threadIdx.x / 32) * 16 + lane / 4, t = lane % 4;
+  if constexpr (kBf16) {
+    const __nv_bfloat16* rb = reinterpret_cast<const __nv_bfloat16*>(raw);
+    auto at = [&](int rr, int kk) {
+      return __float_as_uint(__bfloat162float(rb[L::at(rr, kk)]));
+    };
 #pragma unroll
-  for (int s = 0; s < 4; ++s) {
-    const int k = s * 8 + t;
-    split_tf32(raw[L::at(r, k)], a[0][s][0], a[1][s][0]);
-    split_tf32(raw[L::at(r + 8, k)], a[0][s][1], a[1][s][1]);
-    split_tf32(raw[L::at(r, k + 4)], a[0][s][2], a[1][s][2]);
-    split_tf32(raw[L::at(r + 8, k + 4)], a[0][s][3], a[1][s][3]);
+    for (int s = 0; s < 4; ++s) {
+      const int k = s * 8 + t;
+      a[0][s][0] = at(r, k);
+      a[0][s][1] = at(r + 8, k);
+      a[0][s][2] = at(r, k + 4);
+      a[0][s][3] = at(r + 8, k + 4);
+    }
+  } else {
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const int k = s * 8 + t;
+      split_tf32(raw[L::at(r, k)], a[0][s][0], a[1][s][0]);
+      split_tf32(raw[L::at(r + 8, k)], a[0][s][1], a[1][s][1]);
+      split_tf32(raw[L::at(r, k + 4)], a[0][s][2], a[1][s][2]);
+      split_tf32(raw[L::at(r + 8, k + 4)], a[0][s][3], a[1][s][3]);
+    }
   }
 }
+
+// load_tile for a bf16 M-major A operand src[k * extent + r] (kernel C's
+// dW = y^T @ g in bf16 mode, y kept as bf16): the raw tile takes the f32
+// tile's layout in 2-byte elements (row pitch 272 bytes, 16-byte aligned).
+// kVec: 16-byte chunks of 8 values along M (extent a multiple of 8);
+// else one value a load, stored synchronously.
+template <bool kVec>
+__device__ __forceinline__ void load_tile_bf16_mn(
+    float* dst_f, const __nv_bfloat16* __restrict__ src, int extent, int K,
+    int r0, int k0) {
+  using L = TileLayout<false, kTileM>;
+  __nv_bfloat16* dst = reinterpret_cast<__nv_bfloat16*>(dst_f);
+  if constexpr (kVec) {
+    constexpr int kPer = kTileM * kTileK / 8 / kGemmThreads;
+    const int k = threadIdx.x / (kTileM / 8);
+    const int r = (threadIdx.x % (kTileM / 8)) * 8;
+    constexpr int kStep = kGemmThreads / (kTileM / 8);
+    const bool r_ok = r0 + r < extent;
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const bool ok = r_ok && k0 + k + j * kStep < K;
+      const __nv_bfloat16* p =
+          ok ? src + (size_t)(k0 + k + j * kStep) * extent + r0 + r : src;
+      const unsigned d =
+          (unsigned)__cvta_generic_to_shared(dst + L::at(r, k + j * kStep));
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                   "l"(p), "r"(ok ? 16 : 0));
+    }
+  } else {
+    constexpr int kElems = kTileM * kTileK;
+#pragma unroll 4
+    for (int j = 0; j < kElems / kGemmThreads; ++j) {
+      const int e = threadIdx.x + j * kGemmThreads;
+      const int r = e % kTileM, k = e / kTileM;
+      const bool ok = r0 + r < extent && k0 + k < K;
+      dst[L::at(r, k)] = ok ? src[(size_t)(k0 + k) * extent + r0 + r]
+                            : __float2bfloat16_rn(0.f);
+    }
+  }
+}
+
+// The operands of the core (compute_dtype "bfloat16" puts its products'
+// inputs in bf16, and a bf16 value is a TF32 value with a zero small half,
+// so its products with the other, split, operand need two passes):
+//   kF32:        both f32, each split: 3 products a depth step;
+//   kBRoundBf16: B rounded to bf16 as it is split (C's dr = g @ bf(W)^T):
+//                small_a @ big_b + big_a @ big_b;
+//   kABf16:      A bf16 in memory, M-major (C's dW = bf(y)^T @ g):
+//                big_a @ small_b + big_a @ big_b.
+enum CoreMode : int { kF32 = 0, kBRoundBf16 = 1, kABf16 = 2 };
 
 // One block: the 128 x BN output tile (blockIdx.y, blockIdx.x) summed over
 // the depth stages [z * kt_per_split, (z + 1) * kt_per_split) with z =
 // blockIdx.z. Without a split it writes C; with one it writes the partial
 // sums to C + z * M * N (a workspace slice). A is [M, K] (AK) or [K, M];
 // B is [N, K] (BK) or [K, N]. vec2: N even and C 8-byte aligned.
-template <bool AK, bool BK, bool kVec, int BN>
+// round_out: C written rounded to bf16 (not the workspace's partial sums).
+template <bool AK, bool BK, bool kVec, int BN, int kMode>
 __global__ void __launch_bounds__(kGemmThreads, kBlocksPerSm)
     tf32x3_gemm_kernel(const float* __restrict__ A,
                        const float* __restrict__ B, float* __restrict__ C,
-                       int M, int N, int K, int kt_per_split, bool vec2) {
+                       int M, int N, int K, int kt_per_split, bool vec2,
+                       bool round_out) {
+  static_assert(kMode != kABf16 || !AK, "bf16 A operands are M-major");
   using LA = TileLayout<AK, kTileM>;
   constexpr int kB = BN * kTileK;  // floats of a plane
   constexpr int kBuf = plane_buffer_floats<BN>();
@@ -508,7 +633,11 @@ __global__ void __launch_bounds__(kGemmThreads, kBlocksPerSm)
     if (i < n_kt) {
       float* r = raw + (i % kRawStages) * kStage;
       const int k0 = (kt_begin + i) * kTileK;
-      load_tile<AK, kVec, kTileM>(r, A, M, K, m0, k0);
+      if constexpr (kMode == kABf16)
+        load_tile_bf16_mn<kVec>(r, reinterpret_cast<const __nv_bfloat16*>(A),
+                                M, K, m0, k0);
+      else
+        load_tile<AK, kVec, kTileM>(r, A, M, K, m0, k0);
       load_tile<BK, kVec, BN>(r + LA::kFloats, B, N, K, n0, k0);
     }
     cp_async_commit();
@@ -516,8 +645,9 @@ __global__ void __launch_bounds__(kGemmThreads, kBlocksPerSm)
   // raw stage i -> A fragments, B planes
   auto split_stage = [&](int i) {
     const float* r = raw + (i % kRawStages) * kStage;
-    split_a_fragments<AK>(r, fa);
-    split_tile<BK, BN>(r + LA::kFloats, planes, planes + kB);
+    split_a_fragments<AK, kMode == kABf16>(r, fa);
+    split_tile<BK, BN, kMode == kBRoundBf16>(r + LA::kFloats, planes,
+                                             planes + kB);
     // make the generic-proxy stores visible to wgmma's async proxy
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   };
@@ -542,8 +672,11 @@ __global__ void __launch_bounds__(kGemmThreads, kBlocksPerSm)
       if (s == 0) {
 #pragma unroll
         for (int t = 0; t < 4; ++t) {
-          wgmma_tf32<BN>(acc, fa[1][t], sw128_desc(planes + t * 8), t > 0);
-          wgmma_tf32<BN>(acc, fa[0][t], sw128_desc(planes + kB + t * 8), 1);
+          if constexpr (kMode != kABf16)
+            wgmma_tf32<BN>(acc, fa[1][t], sw128_desc(planes + t * 8), t > 0);
+          if constexpr (kMode != kBRoundBf16)
+            wgmma_tf32<BN>(acc, fa[0][t], sw128_desc(planes + kB + t * 8),
+                           kMode == kABf16 ? t > 0 : 1);
         }
       }
       wgmma_tf32<BN>(acc, fa[0][s], sw128_desc(planes + s * 8), s == 0);
@@ -580,7 +713,11 @@ __global__ void __launch_bounds__(kGemmThreads, kBlocksPerSm)
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
       const int c = n0 + j * 8 + 2 * t;
-      const float v0 = sum[4 * j + 2 * half], v1 = sum[4 * j + 2 * half + 1];
+      float v0 = sum[4 * j + 2 * half], v1 = sum[4 * j + 2 * half + 1];
+      if (round_out) {
+        v0 = bf16_round(v0);
+        v1 = bf16_round(v1);
+      }
       if (vec2 && c + 1 < N) {
         *reinterpret_cast<float2*>(row + c) = make_float2(v0, v1);
       } else {
@@ -591,10 +728,10 @@ __global__ void __launch_bounds__(kGemmThreads, kBlocksPerSm)
   }
 }
 
-// C[i] = sum_z ws[z * mn + i], z in order.
+// C[i] = sum_z ws[z * mn + i], z in order (rounded to bf16: round_out).
 __global__ void splitk_sum_kernel(const float* __restrict__ ws,
                                   float* __restrict__ C, long long mn,
-                                  int splits, bool vec4) {
+                                  int splits, bool vec4, bool round_out) {
   const long long stride = (long long)gridDim.x * blockDim.x;
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (vec4) {
@@ -607,13 +744,17 @@ __global__ void splitk_sum_kernel(const float* __restrict__ ws,
         const float4 v = w4[(size_t)z * n4 + i];
         s.x += v.x; s.y += v.y; s.z += v.z; s.w += v.w;
       }
+      if (round_out) {
+        s.x = bf16_round(s.x); s.y = bf16_round(s.y);
+        s.z = bf16_round(s.z); s.w = bf16_round(s.w);
+      }
       c4[i] = s;
     }
   } else {
     for (; i < mn; i += stride) {
       float s = ws[i];
       for (int z = 1; z < splits; ++z) s += ws[(size_t)z * mn + i];
-      C[i] = s;
+      C[i] = round_out ? bf16_round(s) : s;
     }
   }
 }
@@ -640,11 +781,11 @@ struct GemmSchedule {
 // split of the depth with the shortest modelled time: the busiest SM runs
 // ceil(tiles * s / SMs) blocks, kBlocksPerSm at a time, each over
 // ceil(kt / s) stages; a split adds the workspace traffic and the
-// reduction launch.
-inline GemmSchedule plan_gemm(int M, int N, int K) {
+// reduction launch. tile_k: the depth of a stage (the bf16 core's is 64).
+inline GemmSchedule plan_gemm(int M, int N, int K, int tile_k = kTileK) {
   const int bn = N <= 32 ? 32 : 64;
   const long long tiles = (long long)ceil_div(M, kTileM) * ceil_div(N, bn);
-  const int kt = ceil_div(K, kTileK);
+  const int kt = ceil_div(K, tile_k);
   const long long sms = sm_count();
   // a stage's time relative to a 128-wide one: the split pass and the
   // loads of A do not shrink with the tile width
@@ -679,41 +820,58 @@ inline cudaError_t gemm_attributes(Kernel kernel, size_t smem) {
                               (int)cudaSharedmemCarveoutMaxShared);
 }
 
-template <bool AK, bool BK, bool kVec, int BN>
+template <bool AK, bool BK, bool kVec, int BN, int kMode>
 inline int launch_tf32x3(const float* A, const float* B, float* out, int M,
                          int N, int K, int kt_per_split, int splits,
-                         bool vec2, cudaStream_t st) {
+                         bool vec2, bool round_out, cudaStream_t st) {
   constexpr size_t smem = gemm_smem_bytes<AK, BK, BN>();
   static const cudaError_t attr =
-      gemm_attributes(tf32x3_gemm_kernel<AK, BK, kVec, BN>, smem);
+      gemm_attributes(tf32x3_gemm_kernel<AK, BK, kVec, BN, kMode>, smem);
   if (attr) return (int)attr;
   const dim3 grid(ceil_div(N, BN), ceil_div(M, kTileM), splits);
-  tf32x3_gemm_kernel<AK, BK, kVec, BN><<<grid, kGemmThreads, smem, st>>>(
-      A, B, out, M, N, K, kt_per_split, vec2);
+  tf32x3_gemm_kernel<AK, BK, kVec, BN, kMode>
+      <<<grid, kGemmThreads, smem, st>>>(A, B, out, M, N, K, kt_per_split,
+                                         vec2, round_out);
   return (int)cudaGetLastError();
 }
 
-template <bool AK, bool BK, bool kVec>
+template <bool AK, bool BK, bool kVec, int kMode>
 inline int launch_tf32x3(const GemmSchedule& plan, const float* A,
                          const float* B, float* out, int M, int N, int K,
-                         bool vec2, cudaStream_t st) {
+                         bool vec2, bool round_out, cudaStream_t st) {
   if (plan.bn == 32)
-    return launch_tf32x3<AK, BK, kVec, 32>(A, B, out, M, N, K,
-                                           plan.kt_per_split, plan.splits,
-                                           vec2, st);
-  return launch_tf32x3<AK, BK, kVec, 64>(A, B, out, M, N, K,
-                                         plan.kt_per_split, plan.splits, vec2,
-                                         st);
+    return launch_tf32x3<AK, BK, kVec, 32, kMode>(
+        A, B, out, M, N, K, plan.kt_per_split, plan.splits, vec2, round_out,
+        st);
+  return launch_tf32x3<AK, BK, kVec, 64, kMode>(
+      A, B, out, M, N, K, plan.kt_per_split, plan.splits, vec2, round_out,
+      st);
+}
+
+// Adds the split-K partial sums of ws [splits, M, N] into C in a fixed
+// order (rounded to bf16: round_out).
+inline int splitk_sum(const float* ws, float* C, int M, int N, int splits,
+                      bool round_out, cudaStream_t st) {
+  const long long mn = (long long)M * N;
+  const bool vec4 = mn % 4 == 0 && (((uintptr_t)ws | (uintptr_t)C) & 15) == 0;
+  long long blocks = ((vec4 ? mn / 4 : mn) + 255) / 256;
+  const long long cap = (long long)sm_count() * 8;
+  if (blocks > cap) blocks = cap;
+  splitk_sum_kernel<<<(unsigned)blocks, 256, 0, st>>>(ws, C, mn, splits,
+                                                      vec4, round_out);
+  return (int)cudaGetLastError();
 }
 
 // C [M, N] = op(A) @ op(B) with the schedule of plan_gemm(M, N, K); `ws`
 // holds ws_floats floats (null when 0), cudaErrorInvalidValue when that is
-// fewer than the schedule's ws_floats. Returns cudaGetLastError() after
-// the launches.
-template <bool AK, bool BK>
-inline int gemm_tf32x3(const float* A, const float* B, float* C, float* ws,
+// fewer than the schedule's ws_floats. kMode (CoreMode): the operands'
+// types; A is a bf16 array under kABf16. round_out: C rounded to bf16.
+// Returns cudaGetLastError() after the launches.
+template <bool AK, bool BK, int kMode = kF32>
+inline int gemm_tf32x3(const void* A_, const float* B, float* C, float* ws,
                        long long ws_floats, int M, int N, int K,
-                       cudaStream_t st) {
+                       cudaStream_t st, bool round_out = false) {
+  const float* A = static_cast<const float*>(A_);
   if (M <= 0 || N <= 0) return 0;
   if (K <= 0)
     return (int)cudaMemsetAsync(C, 0, (size_t)M * N * sizeof(float), st);
@@ -721,24 +879,289 @@ inline int gemm_tf32x3(const float* A, const float* B, float* C, float* ws,
   if (plan.ws_floats > 0 && (ws == nullptr || ws_floats < plan.ws_floats))
     return (int)cudaErrorInvalidValue;
   // 16-byte chunks need each operand's contiguous extent to be a multiple
-  // of 4 floats and 16-byte aligned bases.
+  // of 4 floats (8 bf16 values) and 16-byte aligned bases.
   const int a_extent = AK ? K : M, b_extent = BK ? K : N;
-  const bool vec = a_extent % 4 == 0 && b_extent % 4 == 0 &&
+  const bool vec = a_extent % (kMode == kABf16 ? 8 : 4) == 0 &&
+                   b_extent % 4 == 0 &&
                    (((uintptr_t)A | (uintptr_t)B) & 15) == 0;
   float* out = plan.splits > 1 ? ws : C;
   const bool vec2 = N % 2 == 0 && ((uintptr_t)out & 7) == 0;
+  // the workspace's partial sums stay f32; the reduction rounds
+  const bool round_tile = round_out && plan.splits == 1;
   const int err =
-      vec ? launch_tf32x3<AK, BK, true>(plan, A, B, out, M, N, K, vec2, st)
-          : launch_tf32x3<AK, BK, false>(plan, A, B, out, M, N, K, vec2, st);
+      vec ? launch_tf32x3<AK, BK, true, kMode>(plan, A, B, out, M, N, K, vec2,
+                                               round_tile, st)
+          : launch_tf32x3<AK, BK, false, kMode>(plan, A, B, out, M, N, K,
+                                                vec2, round_tile, st);
   if (err || plan.splits == 1) return err;
-  const long long mn = (long long)M * N;
-  const bool vec4 = mn % 4 == 0 && (((uintptr_t)ws | (uintptr_t)C) & 15) == 0;
-  long long blocks = ((vec4 ? mn / 4 : mn) + 255) / 256;
-  const long long cap = (long long)sm_count() * 8;
-  if (blocks > cap) blocks = cap;
-  splitk_sum_kernel<<<(unsigned)blocks, 256, 0, st>>>(ws, C, mn,
-                                                      plan.splits, vec4);
+  return splitk_sum(ws, C, M, N, plan.splits, round_out, st);
+}
+
+// ---------------------------------------------------------------------------
+// The bf16 core of kernel B (compute_dtype "bfloat16"): out [M, N] =
+// bf(y) @ bf(W) with y [M, K] bf16 as the aggregate wrote it and W [K, N]
+// f32, cast to bf16 and transposed to Wt [N, K] once a call
+// (`cast_transpose_bf16_kernel`, a 32 x 32 tile through shared memory), so
+// that both operands are K-major, as wgmma reads them without transposing.
+// f32 out, f32 accumulators: the products of bf16 values are exact, so
+// only the order of the sums differs from JAX's XLA dot.
+// Design: 2 warpgroups, 128 x BN outputs (BN 32 or 64, as plan_gemm), a
+// stage 64 deep (128 bytes of bf16: one 128-byte swizzle row), a ring of
+// kBfStages stages that cp.async fills in the swizzled layout itself
+// (16-byte chunks; a depth not a multiple of 8, or an unaligned base,
+// takes value-by-value loads), both operands read by wgmma
+// m64nBNk16.bf16 from shared memory, one pass. The tensor cores truncate
+// as they accumulate here too, so each stage's 4 wgmmas are one chain from
+// zero whose result, untruncated, is added to the running sums in f32
+// round-to-nearest, as the TF32 core does. Split-K as the TF32 core, in
+// stages of 64.
+constexpr int kBfTileK = 64;
+constexpr int kBfStages = 4;
+
+template <int BN>
+constexpr size_t bf16_gemm_smem_bytes() {
+  return 1024 + (size_t)kBfStages * (kTileM + BN) * kBfTileK *
+                    sizeof(__nv_bfloat16);
+}
+
+// d[64 x BN of this warpgroup] += A[64 x 16] @ B[16 x BN], both from
+// shared memory (descriptors; K-major, 128-byte swizzle), f32 accumulators.
+template <int BN>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[BN / 2], uint64_t da,
+                                           uint64_t db, int accumulate);
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<32>(float (&d)[16], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, "
+      "%16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<64>(float (&d)[32], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// Copies rows [r0, r0 + Rows) x depths [k0, k0 + 64) of a K-major bf16
+// operand src[r * K + k] into dst (1024-byte aligned) in the 128-byte
+// swizzled layout: row r at r * 128 bytes, its 16-byte chunk c (8 values)
+// at chunk c ^ (r % 8). Values past either edge are zero.
+template <bool kVec, int Rows>
+__device__ __forceinline__ void load_bf16_swizzled(
+    uint8_t* dst, const __nv_bfloat16* __restrict__ src, int extent, int K,
+    int r0, int k0) {
+  constexpr int kChunks = Rows * kBfTileK / 8;
+  static_assert(kChunks % kGemmThreads == 0, "whole chunks a thread");
+#pragma unroll
+  for (int j = 0; j < kChunks / kGemmThreads; ++j) {
+    const int q = threadIdx.x + j * kGemmThreads;
+    const int r = q >> 3, c = q & 7;
+    const int gr = r0 + r, gk = k0 + c * 8;
+    uint8_t* d = dst + r * 128 + ((c ^ (r & 7)) << 4);
+    if constexpr (kVec) {
+      const bool ok = gr < extent && gk < K;
+      const unsigned ds = (unsigned)__cvta_generic_to_shared(d);
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(ds),
+                   "l"(ok ? src + (size_t)gr * K + gk : src),
+                   "r"(ok ? 16 : 0));
+    } else {
+      __align__(16) __nv_bfloat16 v[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        v[e] = gr < extent && gk + e < K ? src[(size_t)gr * K + gk + e]
+                                         : __float2bfloat16_rn(0.f);
+      *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(v);
+    }
+  }
+}
+
+// Wt [N, K] = bf16(W [K, N]), rounded to nearest even.
+__global__ void cast_transpose_bf16_kernel(const float* __restrict__ W,
+                                           __nv_bfloat16* __restrict__ Wt,
+                                           int K, int N) {
+  __shared__ float tile[32][33];
+  const int k0 = blockIdx.y * 32, n0 = blockIdx.x * 32;
+  for (int j = threadIdx.y; j < 32; j += blockDim.y) {
+    const int k = k0 + j, n = n0 + threadIdx.x;
+    tile[j][threadIdx.x] = k < K && n < N ? W[(size_t)k * N + n] : 0.f;
+  }
+  __syncthreads();
+  for (int j = threadIdx.y; j < 32; j += blockDim.y) {
+    const int n = n0 + j, k = k0 + threadIdx.x;
+    if (n < N && k < K)
+      Wt[(size_t)n * K + k] = __float2bfloat16_rn(tile[threadIdx.x][j]);
+  }
+}
+
+template <bool kVec, int BN>
+__global__ void __launch_bounds__(kGemmThreads, kBlocksPerSm)
+    bf16_gemm_kernel(const __nv_bfloat16* __restrict__ A,
+                     const __nv_bfloat16* __restrict__ Bt,
+                     float* __restrict__ C, int M, int N, int K,
+                     int kt_per_split, bool vec2) {
+  constexpr int kA = kTileM * kBfTileK * 2, kB = BN * kBfTileK * 2;
+  constexpr int kStage = kA + kB;  // bytes, a multiple of 1024
+  extern __shared__ float smem_raw[];
+  uint8_t* ring = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
+
+  const int m0 = blockIdx.y * kTileM;
+  const int n0 = blockIdx.x * BN;
+  const int kt_total = ceil_div(K, kBfTileK);
+  const int kt_begin = blockIdx.z * kt_per_split;
+  const int n_kt = min(kt_total, kt_begin + kt_per_split) - kt_begin;
+  float* out = C + (size_t)blockIdx.z * M * N;
+
+  float acc[BN / 2], sum[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = sum[i] = 0.f;
+
+  auto load_stage = [&](int i) {
+    if (i < n_kt) {
+      uint8_t* st = ring + (i % kBfStages) * kStage;
+      const int k0 = (kt_begin + i) * kBfTileK;
+      load_bf16_swizzled<kVec, kTileM>(st, A, M, K, m0, k0);
+      load_bf16_swizzled<kVec, BN>(st + kA, Bt, N, K, n0, k0);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int i = 0; i < kBfStages - 1; ++i) load_stage(i);
+
+  const int wg = threadIdx.x / 128;
+  for (int i = 0; i < n_kt; ++i) {
+    // stage i has landed (later ones may be in flight); the fence makes
+    // this thread's copies and stores visible to wgmma's async proxy
+    cp_async_wait<kBfStages - 2>();
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    // every warpgroup has retired stage i - 1's wgmmas: refill its slot
+    load_stage(i + kBfStages - 1);
+    const uint8_t* st = ring + (i % kBfStages) * kStage;
+    const float* a = reinterpret_cast<const float*>(st + wg * 64 * 128);
+    const float* b = reinterpret_cast<const float*>(st + kA);
+    fence_operands(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < 4; ++s)  // depth steps of 16 = 32 bytes
+      wgmma_bf16<BN>(acc, sw128_desc(a + s * 8), sw128_desc(b + s * 8),
+                     s > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(acc);
+#pragma unroll
+    for (int j = 0; j < BN / 2; ++j)
+      sum[j] = __fadd_rn(sum[j], untruncate(acc[j]));
+  }
+  cp_async_wait<0>();
+
+  const int w4 = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = m0 + wg * 64 + w4 * 16 + g + half * 8;
+    if (r >= M) continue;
+    float* row = out + (size_t)r * N;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int c = n0 + j * 8 + 2 * t;
+      const float v0 = sum[4 * j + 2 * half], v1 = sum[4 * j + 2 * half + 1];
+      if (vec2 && c + 1 < N) {
+        *reinterpret_cast<float2*>(row + c) = make_float2(v0, v1);
+      } else {
+        if (c < N) row[c] = v0;
+        if (c + 1 < N) row[c + 1] = v1;
+      }
+    }
+  }
+}
+
+template <bool kVec, int BN>
+inline int launch_bf16(const __nv_bfloat16* A, const __nv_bfloat16* Bt,
+                       float* out, int M, int N, int K, int kt_per_split,
+                       int splits, bool vec2, cudaStream_t st) {
+  constexpr size_t smem = bf16_gemm_smem_bytes<BN>();
+  static const cudaError_t attr =
+      gemm_attributes(bf16_gemm_kernel<kVec, BN>, smem);
+  if (attr) return (int)attr;
+  const dim3 grid(ceil_div(N, BN), ceil_div(M, kTileM), splits);
+  bf16_gemm_kernel<kVec, BN><<<grid, kGemmThreads, smem, st>>>(
+      A, Bt, out, M, N, K, kt_per_split, vec2);
   return (int)cudaGetLastError();
+}
+
+// The split-K schedule of the bf16 core (stages 64 deep).
+inline GemmSchedule plan_gemm_bf16(int M, int N, int K) {
+  return plan_gemm(M, N, K, kBfTileK);
+}
+
+// C [M, N] = A @ bf(W) with A [M, K] bf16 and W [K, N] f32; wt: scratch of
+// N * K bf16 values for the cast W; ws as gemm_tf32x3 (plan_gemm_bf16).
+inline int gemm_bf16(const __nv_bfloat16* A, const float* W,
+                     __nv_bfloat16* wt, float* C, float* ws,
+                     long long ws_floats, int M, int N, int K,
+                     cudaStream_t st) {
+  if (M <= 0 || N <= 0) return 0;
+  if (K <= 0)
+    return (int)cudaMemsetAsync(C, 0, (size_t)M * N * sizeof(float), st);
+  const GemmSchedule plan = plan_gemm_bf16(M, N, K);
+  if (plan.ws_floats > 0 && (ws == nullptr || ws_floats < plan.ws_floats))
+    return (int)cudaErrorInvalidValue;
+  if (wt == nullptr) return (int)cudaErrorInvalidValue;
+  cast_transpose_bf16_kernel<<<dim3(ceil_div(N, 32), ceil_div(K, 32)),
+                               dim3(32, 8), 0, st>>>(W, wt, K, N);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  const bool vec = K % 8 == 0 && (((uintptr_t)A | (uintptr_t)wt) & 15) == 0;
+  float* out = plan.splits > 1 ? ws : C;
+  const bool vec2 = N % 2 == 0 && ((uintptr_t)out & 7) == 0;
+  if (plan.bn == 32)
+    err = vec ? launch_bf16<true, 32>(A, wt, out, M, N, K, plan.kt_per_split,
+                                      plan.splits, vec2, st)
+              : launch_bf16<false, 32>(A, wt, out, M, N, K,
+                                       plan.kt_per_split, plan.splits, vec2,
+                                       st);
+  else
+    err = vec ? launch_bf16<true, 64>(A, wt, out, M, N, K, plan.kt_per_split,
+                                      plan.splits, vec2, st)
+              : launch_bf16<false, 64>(A, wt, out, M, N, K,
+                                       plan.kt_per_split, plan.splits, vec2,
+                                       st);
+  if (err || plan.splits == 1) return err;
+  return splitk_sum(ws, C, M, N, plan.splits, false, st);
 }
 
 }  // namespace kpconv_common

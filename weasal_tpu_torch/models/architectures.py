@@ -25,6 +25,7 @@ from torch import nn
 from weasal_tpu_torch.models.blocks import (
     ElevationAttention, MultiPathAttention, NearestUpsampleBlock,
     UnaryBlock, block_decider, dropout)
+from weasal_tpu_torch.ops import kpconv as ops
 from weasal_tpu_torch.ops.kpconv import global_average
 
 
@@ -84,8 +85,7 @@ def _split_channels(x, widths):
 
 
 def _check_labels(config, lbl_values, ign_lbls):
-    if getattr(config, "compute_dtype", "float32") != "float32":
-        raise NotImplementedError("only compute_dtype float32 is ported")
+    ops.check_compute_dtype(getattr(config, "compute_dtype", "float32"))
     if len(lbl_values) - len(ign_lbls) != config.num_classes:
         raise ValueError("label values minus ignored labels must give "
                          "config.num_classes classes")
@@ -230,8 +230,7 @@ class KPCNN(nn.Module):
 
     def __init__(self, config, generator: Optional[torch.Generator] = None):
         super().__init__()
-        if getattr(config, "compute_dtype", "float32") != "float32":
-            raise NotImplementedError("only compute_dtype float32 is ported")
+        ops.check_compute_dtype(getattr(config, "compute_dtype", "float32"))
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         enc = _encoder_plan(config)[0]

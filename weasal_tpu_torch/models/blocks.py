@@ -169,13 +169,15 @@ class KPConv(nn.Module):
                  fixed_kernel_points: str = "center",
                  influence: str = "linear", aggregation: str = "sum",
                  pose_seed: int = 0, deformable: bool = False,
-                 modulated: bool = False):
+                 modulated: bool = False, compute_dtype: str = "float32"):
         super().__init__()
+        ops.check_compute_dtype(compute_dtype)
         self.params = ops.KPConvParams(kp_extent=kp_extent,
                                        influence=influence,
                                        aggregation=aggregation,
                                        deformable=deformable,
-                                       modulated=modulated)
+                                       modulated=modulated,
+                                       compute_dtype=compute_dtype)
         self.layer_ind = layer_ind
         self.strided = strided
         self.p_dim = p_dim
@@ -193,7 +195,7 @@ class KPConv(nn.Module):
                 radius, generator, layer_ind, strided,
                 fixed_kernel_points=fixed_kernel_points,
                 influence=influence, aggregation=aggregation,
-                pose_seed=pose_seed + 1)
+                pose_seed=pose_seed + 1, compute_dtype=compute_dtype)
             self.offset_bias = nn.Parameter(torch.zeros(offset_dim))
 
     def forward(self, q_pts, s_pts, neighb_inds, x, inverse=None):
@@ -269,7 +271,8 @@ def _make_kpconv(cfg, block_name: str, in_dim: int, out_dim: int,
                   aggregation=cfg.aggregation_mode,
                   pose_seed=seed & 0x7FFFFFFF,
                   deformable="deform" in block_name,
-                  modulated=bool(cfg.modulated))
+                  modulated=bool(cfg.modulated),
+                  compute_dtype=getattr(cfg, "compute_dtype", "float32"))
 
 
 class _ConvBlock(nn.Module):

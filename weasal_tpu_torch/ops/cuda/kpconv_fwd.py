@@ -20,11 +20,22 @@ weasal_tpu/ops/kpconv.py:171-237 (gather with a far-away / zero pad row,
 direct differences to the kernel points, influence, per-kernel-point
 aggregation, one folded GEMM). The CPU path and the tests use it;
 `chip_smoke.py` compares the kernel with it on the card.
+
+`compute_dtype` "bfloat16" (the JAX package's `KPConvParams.compute_dtype`)
+rounds the two products' inputs to bf16 where its XLA path does
+(:206-233): y = bf(sum_k bf(h_pk) * bf(x_k)), summed in f32 and kept as a
+bf16 tensor, then out = y @ bf(W) in f32. The kernel runs that through its
+bf16 variant (`kpconv_fwd_bf16_launch`: the bf16 aggregate and the bf16
+wgmma core). Geometry and influences stay f32 in either mode. Kp and K
+have no limit of their own: the launch raises only where the influence
+tile [Kp, K] passes the card's shared memory (`kpconv_smem_limit`, 227 KB
+on an H100).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -32,10 +43,31 @@ from weasal_tpu_torch.ops.cuda.build import check, load_library
 from weasal_tpu_torch.ops.subsample import SHADOW_COORD
 
 INFLUENCES = {"constant": 0, "linear": 1, "gaussian": 2}
-MAX_KP = 16
+COMPUTE_DTYPES = ("float32", "bfloat16")
+# kKpChunk of csrc/kpconv_common.cuh: kernel points a thread holds at once
+KP_CHUNK = 16
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
              + [ctypes.c_float, ctypes.c_int, ctypes.c_float]
              + [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_void_p])
+_BF16_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                  + [ctypes.c_float, ctypes.c_int, ctypes.c_float]
+                  + [ctypes.c_void_p] * 4
+                  + [ctypes.c_longlong, ctypes.c_void_p])
+
+
+def check_compute_dtype(compute_dtype: str) -> bool:
+    """True for "bfloat16", False for "float32"; raises on any other."""
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"Unknown compute_dtype: {compute_dtype!r} "
+                         f"(known: {COMPUTE_DTYPES})")
+    return compute_dtype == "bfloat16"
+
+
+def bf(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to the nearest bf16 (ties to even), in t's dtype: the
+    cast of the JAX package's `mxu()`; differentiable, its gradient
+    rounded the same way (the transpose of a cast)."""
+    return t.to(torch.bfloat16).to(t.dtype)
 
 
 def workspace_floats(lib, name: str, *sizes) -> int:
@@ -82,6 +114,13 @@ def gaussian_denominator(kp_extent: float) -> float:
     return 2 * sigma ** 2 + 1e-9
 
 
+def reciprocals(kp_extent: float):
+    """(1 / ext, 1 / den) in double, as the launches take them: PyTorch
+    on the card divides by a Python scalar as a product with its
+    reciprocal computed in double and rounded to f32 (ctypes rounds)."""
+    return 1.0 / kp_extent, 1.0 / gaussian_denominator(kp_extent)
+
+
 def influence_weights(sq_distances: torch.Tensor, kp_extent: float,
                       influence: str) -> torch.Tensor:
     """[B, Nq, K, Kp] squared distances -> [B, Nq, Kp, K] influences."""
@@ -111,34 +150,56 @@ def neighbor_influences(q_pts, s_pts, neighb_inds, kernel_points,
 
 def kpconv_fwd_plain_with_y(q_pts, s_pts, neighb_inds, x, kernel_points,
                             weights, kp_extent: float,
-                            influence: str = "linear"):
+                            influence: str = "linear",
+                            compute_dtype: str = "float32"):
     """Rigid sum-aggregation KPConv: (out [B, Nq, Cout], y [B*Nq, Kp*Cin]),
-    y the per-kernel-point aggregate that the backward's dW reads."""
+    y the per-kernel-point aggregate that the backward's dW reads (a bf16
+    tensor under compute_dtype "bfloat16")."""
+    use_bf16 = check_compute_dtype(compute_dtype)
     all_weights = neighbor_influences(q_pts, s_pts, neighb_inds,
                                       kernel_points, kp_extent, influence)
     neighb_x = gather_neighbors(x, neighb_inds, 0.0)         # [B,Nq,K,Cin]
+    if use_bf16:
+        all_weights, neighb_x = bf(all_weights), bf(neighb_x)
     weighted = torch.einsum("bqpk,bqkc->bqpc", all_weights, neighb_x)
     b, nq = weighted.shape[:2]
     kp, cin, cout = weights.shape
     y = weighted.reshape(b * nq, kp * cin)
-    out = y @ weights.reshape(kp * cin, cout)
+    w2 = weights.reshape(kp * cin, cout)
+    if use_bf16:
+        y = y.to(torch.bfloat16)
+        out = y.to(w2.dtype) @ bf(w2)
+    else:
+        out = y @ w2
     return out.reshape(b, nq, cout), y
 
 
 def kpconv_fwd_plain(q_pts, s_pts, neighb_inds, x, kernel_points, weights,
-                     kp_extent: float, influence: str = "linear"):
+                     kp_extent: float, influence: str = "linear",
+                     compute_dtype: str = "float32"):
     """Rigid sum-aggregation KPConv: [B, Nq, Cout]."""
     return kpconv_fwd_plain_with_y(q_pts, s_pts, neighb_inds, x,
                                    kernel_points, weights, kp_extent,
-                                   influence)[0]
+                                   influence, compute_dtype)[0]
+
+
+@functools.lru_cache(maxsize=None)
+def influence_smem_limit(lib) -> int:
+    """Bytes of shared memory the card gives a block (the influence tile's
+    limit), from the kernel library; read once a library."""
+    fn = lib.kpconv_smem_limit
+    fn.argtypes, fn.restype = [], ctypes.c_longlong
+    return int(fn())
 
 
 def check_kpconv_inputs(what: str, tensors, q_pts, s_pts, neighb_inds,
-                       kernel_points, weights, cin: int) -> None:
+                       kernel_points, weights, cin: int,
+                       smem_limit: int) -> None:
     """Raise unless every (name, tensor, dtype) of `tensors` lies on
     q_pts's device with that dtype, contiguous, and the shapes are
     q [B,Nq,3], s [B,Ns,3], nb [B,Nq,K], kp [Kp,3], W [Kp,Cin,Cout] with
-    1 <= Kp <= MAX_KP and K small enough for the influence tile."""
+    Kp >= 1 and the influence tile, (Kp * K + K) floats, within
+    `smem_limit` bytes (the card's shared memory a block)."""
     for name, t, dtype in tensors:
         if t.device != q_pts.device:
             raise ValueError(f"{name} is on {t.device}, q_pts on "
@@ -157,22 +218,26 @@ def check_kpconv_inputs(what: str, tensors, q_pts, s_pts, neighb_inds,
             or weights.shape[1] != cin):
         raise ValueError("expected q [B,Nq,3], s [B,Ns,3], nb [B,Nq,K], "
                          "x [B,Ns,Cin], kp [Kp,3], W [Kp,Cin,Cout]")
-    if not 1 <= kp <= MAX_KP:
-        raise ValueError(f"{what} takes 1..{MAX_KP} kernel points, "
-                         f"got {kp}")
-    if (kp * k + k) * 4 > 48 * 1024:
-        raise ValueError(f"neighbor width {k} too large for {kp} kernel "
-                         "points")
+    if kp < 1:
+        raise ValueError(f"{what} needs at least one kernel point")
+    need = (kp * k + k) * 4
+    if need > smem_limit:
+        raise ValueError(
+            f"{what}: the influence tile of {kp} kernel points x {k} "
+            f"neighbors needs {need} bytes of shared memory a block, past "
+            f"the card's limit of {smem_limit} bytes")
 
 
 def _launch(q_pts, s_pts, neighb_inds, x, kernel_points, weights,
-            kp_extent, influence):
+            kp_extent, influence, compute_dtype):
     b, nq, _ = q_pts.shape
     ns, cin = x.shape[1:]
     kp, _, cout = weights.shape
     k = neighb_inds.shape[2]
     if influence not in INFLUENCES:
         raise ValueError(f"Unknown KP influence: {influence}")
+    use_bf16 = check_compute_dtype(compute_dtype)
+    lib = load_library("kpconv_fwd")
     check_kpconv_inputs(
         "kpconv_fwd", (("q_pts", q_pts, torch.float32),
                        ("s_pts", s_pts, torch.float32),
@@ -180,62 +245,78 @@ def _launch(q_pts, s_pts, neighb_inds, x, kernel_points, weights,
                        ("x", x, torch.float32),
                        ("kernel_points", kernel_points, torch.float32),
                        ("weights", weights, torch.float32)),
-        q_pts, s_pts, neighb_inds, kernel_points, weights, cin)
+        q_pts, s_pts, neighb_inds, kernel_points, weights, cin,
+        influence_smem_limit(lib))
     if tuple(x.shape[:2]) != (b, ns):
         raise ValueError("expected x [B,Ns,Cin]")
-    out = torch.empty((b, nq, cout), dtype=torch.float32,
-                      device=q_pts.device)
-    y = torch.empty((b * nq, kp * cin), dtype=torch.float32,
-                    device=q_pts.device)
+    dev = q_pts.device
+    out = torch.empty((b, nq, cout), dtype=torch.float32, device=dev)
+    y = torch.empty((b * nq, kp * cin),
+                    dtype=torch.bfloat16 if use_bf16 else torch.float32,
+                    device=dev)
     if b * nq == 0:
         return out, y
-    lib = load_library("kpconv_fwd")
-    ws = workspace(lib, "kpconv_fwd", b * nq, kp * cin, cout,
-                   device=q_pts.device)
-    fn = lib.kpconv_fwd_launch
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    name = "kpconv_fwd_bf16" if use_bf16 else "kpconv_fwd"
+    ws = workspace(lib, name, b * nq, kp * cin, cout, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    inv_ext, inv_den = reciprocals(kp_extent)
+    head = (q_pts.data_ptr(), s_pts.data_ptr(), neighb_inds.data_ptr(),
+            x.data_ptr(), kernel_points.data_ptr(), weights.data_ptr(),
+            b, nq, ns, k, kp, cin, cout, inv_ext, INFLUENCES[influence],
+            inv_den)
     kpconv_fwd.launches += 1
-    check(fn(q_pts.data_ptr(), s_pts.data_ptr(), neighb_inds.data_ptr(),
-             x.data_ptr(), kernel_points.data_ptr(), weights.data_ptr(),
-             b, nq, ns, k, kp, cin, cout, float(kp_extent),
-             INFLUENCES[influence], gaussian_denominator(kp_extent),
-             y.data_ptr(), out.data_ptr(), *workspace_args(ws),
-             torch.cuda.current_stream(q_pts.device).cuda_stream),
-          "kpconv_fwd")
+    if use_bf16:
+        # the cast W, transposed, for the bf16 core
+        wt = torch.empty((cout, kp * cin), dtype=torch.bfloat16, device=dev)
+        fn = lib.kpconv_fwd_bf16_launch
+        fn.argtypes, fn.restype = _BF16_ARGTYPES, ctypes.c_int
+        status = fn(*head, y.data_ptr(), wt.data_ptr(), out.data_ptr(),
+                    *workspace_args(ws), stream)
+    else:
+        fn = lib.kpconv_fwd_launch
+        fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+        status = fn(*head, y.data_ptr(), out.data_ptr(), *workspace_args(ws),
+                    stream)
+    check(status, name)
     return out, y
 
 
 def kpconv_fwd_with_y(q_pts, s_pts, neighb_inds, x, kernel_points, weights,
-                      kp_extent: float, influence: str = "linear"):
-    """(out [B, Nq, Cout], y [B*Nq, Kp*Cin]) of the rigid KPConv forward.
-    A CPU tensor runs `kpconv_fwd_plain_with_y`; a CUDA tensor launches
-    the kernel or raises."""
+                      kp_extent: float, influence: str = "linear",
+                      compute_dtype: str = "float32"):
+    """(out [B, Nq, Cout], y [B*Nq, Kp*Cin]) of the rigid KPConv forward
+    (y bf16 under compute_dtype "bfloat16"). A CPU tensor runs
+    `kpconv_fwd_plain_with_y`; a CUDA tensor launches the kernel (its bf16
+    variant under "bfloat16") or raises."""
     if q_pts.device.type == "cpu":
         return kpconv_fwd_plain_with_y(q_pts, s_pts, neighb_inds, x,
                                        kernel_points, weights, kp_extent,
-                                       influence)
+                                       influence, compute_dtype)
     if not q_pts.is_cuda:
         raise ValueError(f"kpconv_fwd runs on cpu or cuda tensors, got "
                          f"{q_pts.device}")
     return _launch(q_pts, s_pts, neighb_inds, x, kernel_points, weights,
-                   kp_extent, influence)
+                   kp_extent, influence, compute_dtype)
 
 
 def kpconv_fwd(q_pts, s_pts, neighb_inds, x, kernel_points, weights,
                kp_extent: float, influence: str = "linear", band: int = 0,
-               tile: int = 128, pblk_skip: bool = False):
+               tile: int = 128, pblk_skip: bool = False,
+               compute_dtype: str = "float32"):
     """Rigid KPConv forward over a padded sphere batch.
 
     :param q_pts: [B, Nq, 3]; s_pts: [B, Ns, 3]; neighb_inds: [B, Nq, K]
         int32 (>= Ns = shadow); x: [B, Ns, Cin]; kernel_points: [Kp, 3];
         weights: [Kp, Cin, Cout]; all f32 except the indices
+    :param compute_dtype: "float32" or "bfloat16" (the products' inputs
+        rounded to bf16, as the JAX package's XLA path)
     :return: (out [B, Nq, Cout] f32, oob [B] f32, always 0)
 
     A CPU tensor runs `kpconv_fwd_plain`; a CUDA tensor launches the
     kernel or raises. band, tile and pblk_skip are ignored.
     """
     out, _ = kpconv_fwd_with_y(q_pts, s_pts, neighb_inds, x, kernel_points,
-                               weights, kp_extent, influence)
+                               weights, kp_extent, influence, compute_dtype)
     oob = torch.zeros(q_pts.shape[0], dtype=torch.float32,
                       device=q_pts.device)
     return out, oob

@@ -28,6 +28,14 @@ backwards sum dX in a fixed order over inverse neighbor lists
 (ops/cuda/inverse_lists.py), which the caller passes as a `LazyInverse`
 shared by every op on one pyramid edge (data/batch.PyramidBatch), and
 `closest_pool`'s gather has a backward of the same kind.
+
+`KPConvParams.compute_dtype` "bfloat16" rounds the two products' inputs
+to bf16 as the JAX package's XLA path does (:206-233): kernels B and C
+run their bf16 variants (a bf16 aggregate y is kept for dW), and
+`kpconv_dense` puts the same casts into its chain (`bf`), so that autograd
+rounds the cotangents where `jax.grad` does. The JAX package's Pallas
+kernel ignores compute_dtype (it runs only on a TPU, in f32 in interpret
+mode), so the XLA path is the reference.
 """
 
 from __future__ import annotations
@@ -41,8 +49,9 @@ from torch.autograd.function import once_differentiable
 from weasal_tpu_torch.ops.cuda.inverse_lists import LazyInverse, gather_rows
 from weasal_tpu_torch.ops.cuda.kpconv_bwd import kpconv_bwd, kpconv_bwd_plain
 from weasal_tpu_torch.ops.cuda.kpconv_fwd import (  # noqa: F401 (re-export)
-    gather_neighbors, influence_weights, kpconv_fwd, kpconv_fwd_plain,
-    kpconv_fwd_plain_with_y, kpconv_fwd_with_y)
+    COMPUTE_DTYPES, bf, check_compute_dtype, gather_neighbors,
+    influence_weights, kpconv_fwd, kpconv_fwd_plain, kpconv_fwd_plain_with_y,
+    kpconv_fwd_with_y)
 from weasal_tpu_torch.ops.cuda.maxpool_bwd import (maxpool_bwd,
                                                    maxpool_bwd_plain)
 from weasal_tpu_torch.ops.subsample import SHADOW_COORD
@@ -58,6 +67,7 @@ class KPConvParams(NamedTuple):
     aggregation: str = "sum"         # 'sum' | 'closest'
     deformable: bool = False
     modulated: bool = False
+    compute_dtype: str = "float32"   # 'float32' | 'bfloat16'
 
 
 AGGREGATIONS = ("sum", "closest")
@@ -73,20 +83,23 @@ def kernel_eligible(params: KPConvParams) -> bool:
 class KPConvFunction(torch.autograd.Function):
     """Rigid sum-aggregation KPConv whose forward is kernel B and whose
     backward is kernel C; gradients flow to x and the weights only. The
-    forward's aggregate y [B*Nq, Kp*Cin] is kept for dW."""
+    forward's aggregate y [B*Nq, Kp*Cin] (bf16 under compute_dtype
+    "bfloat16") is kept for dW."""
 
     @staticmethod
     def forward(ctx, q_pts, s_pts, neighb_inds, x, kernel_points, weights,
-                kp_extent: float, influence: str, inverse=None):
+                kp_extent: float, influence: str, inverse=None,
+                compute_dtype: str = "float32"):
         ctx.kernel = use_kernel(x)
         ctx.inverse = inverse
         x, weights = x.contiguous(), weights.contiguous()
         fwd = kpconv_fwd_with_y if ctx.kernel else kpconv_fwd_plain_with_y
         out, y = fwd(q_pts, s_pts, neighb_inds, x, kernel_points, weights,
-                     kp_extent, influence)
+                     kp_extent, influence, compute_dtype)
         ctx.save_for_backward(q_pts, s_pts, neighb_inds, y, kernel_points,
                               weights)
         ctx.kp_extent, ctx.influence = kp_extent, influence
+        ctx.compute_dtype = compute_dtype
         return out
 
     @staticmethod
@@ -98,10 +111,12 @@ class KPConvFunction(torch.autograd.Function):
                 g.contiguous(), ctx.kp_extent, ctx.influence)
         need_dx = ctx.needs_input_grad[3]
         if ctx.kernel:
-            dx, dw = kpconv_bwd(*args, need_dx=need_dx, inverse=ctx.inverse)
+            dx, dw = kpconv_bwd(*args, need_dx=need_dx, inverse=ctx.inverse,
+                                compute_dtype=ctx.compute_dtype)
         else:
-            dx, dw = kpconv_bwd_plain(*args, need_dx=need_dx)
-        return None, None, None, dx, None, dw, None, None, None
+            dx, dw = kpconv_bwd_plain(*args, need_dx=need_dx,
+                                      compute_dtype=ctx.compute_dtype)
+        return None, None, None, dx, None, dw, None, None, None, None
 
 
 class MaxPoolFunction(torch.autograd.Function):
@@ -143,7 +158,7 @@ def kpconv(q_pts, s_pts, neighb_inds, x, kernel_points, weights,
                             weights, params, inverse=inverse)[0]
     return KPConvFunction.apply(q_pts, s_pts, neighb_inds, x, kernel_points,
                                 weights, params.kp_extent, params.influence,
-                                inverse)
+                                inverse, params.compute_dtype)
 
 
 def kpconv_dense(q_pts, s_pts, neighb_inds, x, kernel_points, weights,
@@ -157,7 +172,9 @@ def kpconv_dense(q_pts, s_pts, neighb_inds, x, kernel_points, weights,
     squared norms, the influences, a one-hot of the nearest kernel point
     for 'closest', for a deformable conv the mask of neighbors inside some
     deformed kernel point's extent, the per-kernel-point aggregate (times
-    the modulations of a modulated conv) and one folded GEMM.
+    the modulations of a modulated conv) and one folded GEMM. Under
+    compute_dtype "bfloat16" the inputs of the aggregate and of the GEMM
+    are rounded to bf16 (`bf`) after the modulations, as in JAX (:221-233).
 
     :param offsets: [B, Nq, Kp, 3] kernel-point offsets (deformable)
     :param modulations: [B, Nq, Kp] in (0, 2) (modulated)
@@ -169,6 +186,7 @@ def kpconv_dense(q_pts, s_pts, neighb_inds, x, kernel_points, weights,
         fitting regularizer
     """
     kp = kernel_points.shape[0]
+    mxu = bf if check_compute_dtype(params.compute_dtype) else (lambda t: t)
     neighbors = gather_neighbors(s_pts, neighb_inds, SHADOW_COORD)
     neighbors = neighbors - q_pts[:, :, None, :]              # [B,Nq,K,3]
     if params.deformable:
@@ -199,15 +217,16 @@ def kpconv_dense(q_pts, s_pts, neighb_inds, x, kernel_points, weights,
         all_weights = all_weights * in_range[:, :, None, :].to(
             all_weights.dtype)
     neighb_x = gather_rows(x, neighb_inds, None, inverse)     # [B,Nq,K,Cin]
-    weighted = torch.einsum("bqpk,bqkc->bqpc", all_weights, neighb_x)
+    weighted = torch.einsum("bqpk,bqkc->bqpc", mxu(all_weights),
+                            mxu(neighb_x))
     if params.deformable and params.modulated:
         if modulations is None:
             raise ValueError("modulated KPConv requires modulations")
         weighted = weighted * modulations[..., None]
     b, nq = weighted.shape[:2]
     cin, cout = weights.shape[1:]
-    out = weighted.reshape(b * nq, kp * cin) @ weights.reshape(kp * cin,
-                                                               cout)
+    out = mxu(weighted.reshape(b * nq, kp * cin)) @ mxu(
+        weights.reshape(kp * cin, cout))
     return out.reshape(b, nq, cout), min_sq
 
 

@@ -65,8 +65,11 @@ _CHAINS = """#pragma unroll
       if (s == 0) {
 #pragma unroll
         for (int t = 0; t < 4; ++t) {
-          wgmma_tf32<BN>(acc, fa[1][t], sw128_desc(planes + t * 8), t > 0);
-          wgmma_tf32<BN>(acc, fa[0][t], sw128_desc(planes + kB + t * 8), 1);
+          if constexpr (kMode != kABf16)
+            wgmma_tf32<BN>(acc, fa[1][t], sw128_desc(planes + t * 8), t > 0);
+          if constexpr (kMode != kBRoundBf16)
+            wgmma_tf32<BN>(acc, fa[0][t], sw128_desc(planes + kB + t * 8),
+                           kMode == kABf16 ? t > 0 : 1);
         }
       }
       wgmma_tf32<BN>(acc, fa[0][s], sw128_desc(planes + s * 8), s == 0);
@@ -98,18 +101,12 @@ _ONE_CHAIN = """fence_operands(acc);
 _UNTRUNCATE = "  return __uint_as_float(u + (u & 1u));"
 _NO_UNTRUNCATE = "  (void)u;\n  return x;"
 
-# The influences by a true division (PR 1 to 6), one ulp off the plain
-# version's on many pairs
-_RCP = "__fmul_rn(sqrtf(d2), inv_ext)"
-_DIV = "__fdiv_rn(sqrtf(d2), ext)"
-
+# (The PR 6 variants of the influences by a true division went when the
+# launches came to take the reciprocals: the core no longer sees ext.)
 VARIANTS = {
     "as built": (),
-    "influence by division": ((_RCP, _DIV),),
     "4 chains, truncated": ((_UNTRUNCATE, _NO_UNTRUNCATE),),
     "one chain a stage": ((_CHAINS, _ONE_CHAIN),),
-    "one chain a stage, influence by division": ((_CHAINS, _ONE_CHAIN),
-                                                 (_RCP, _DIV)),
 }
 
 
@@ -119,7 +116,10 @@ def _plain_forward(order: str):
     from weasal_tpu_torch.ops.cuda.kpconv_fwd import (gather_neighbors,
                                                       neighbor_influences)
 
-    def forward(q, s, nb, x, kp, w, ext, influence="linear"):
+    def forward(q, s, nb, x, kp, w, ext, influence="linear",
+                compute_dtype="float32"):
+        if compute_dtype != "float32":
+            raise ValueError("the controls are f32 forwards")
         h = neighbor_influences(q, s, nb, kp, ext, influence)
         nx = gather_neighbors(x, nb, 0.0)
         if order == "reversed":
