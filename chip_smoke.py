@@ -129,9 +129,10 @@ Phases, in order; any failure exits non-zero:
    by `added_labels_per_epoch` points that iteration 1 trains on); and
    `test_models --on test` on the PL log (plys, launches, finite votes);
 10. the DALES workflow (`run_dales`) on a synthetic DALES-like root of 3
-   training and validation tiles and 2 test tiles, each 500 m a side (a
-   real DALES tile's extent, ~1.8 M points a tile after the 0.4 m
-   subsampling), without color: the graphed WL loop at full
+   training and validation tiles and 1 test tile, each 400 m a side (a
+   real DALES tile is 500 m: cut, with its second test tile, for the
+   script's time; ~1.2 M points a tile after the 0.4 m subsampling), at
+   a DALES tile's density, without color: the graphed WL loop at full
    DALESWLConfig width (128 features; `train_DALES_WeakLabel.run`, as
    phase 6 runs Vaihingen3D's: 2 epochs, the repeat, bit-equal, and a
    resume), a profiled epoch, A-D, the lists and the sums against their
@@ -202,7 +203,15 @@ Phases, in order; any failure exits non-zero:
    first step's loss in f32 and bf16 (printed); one graphed bf16 PL
    epoch on phase 9's labels; the WL entry point at 20 kernel points, the
    disposition generated into the phase's work directory (5 graphed
-   steps, 12 B and 12 C a step at Kp 20) and B and C at its shapes.
+   steps, 12 B and 12 C a step at Kp 20) and B and C at its shapes;
+14. data parallel (`run_data_parallel`): two gloo ranks sharing the card
+   (spawned processes, eager) take a WL step (VaihingenWLConfig,
+   batch_num 3 rounded to 4) and a PL step with dropout and the contrast
+   loss on phase 6's tile, and vote one batch; each rank launches A-D;
+   held to one process on the same 4 spheres (loss, the f64 step's
+   allowance, bit-equal masks, draw, ranks and vote buffers); then one
+   NCCL rank runs a graphed WL epoch bit-equal to the same epoch with no
+   group (the collectives inside the captured graphs).
 Phases 3 and 5 end with a profile of one step, by kernel family. Checks
 of agreement (each kernel against its plain version and against itself
 on a repeat, the GEMM core's drift, the forward and the training step
@@ -216,7 +225,8 @@ rate), its launches on each main path (`launches_by_path`: inference,
 the training steps, the WL loop, WL active learning, the PL stage, the
 DALES WL and PL paths, the deformable PL path, the host-pyramid WL loop,
 PL epoch and vote, KPCNN's steps, phase 13's bf16 WL loop and PL epoch
-and Kp-20 WL epoch), for B and C their sums at phase 13's shapes
+and Kp-20 WL epoch, phase 14's data-parallel WL and PL steps summed
+over the ranks and its NCCL epoch), for B and C their sums at phase 13's shapes
 (`bf16_wl_ms` ... `kp20_wl_bound_ms`: `phase13_fields`) and its sums at
 the PL loop's, the
 DALES loops', the deformable PL loop's, the host-pyramid WL loop's and
@@ -368,16 +378,20 @@ PL_ARGS = ("--weak_label_log", PL_LOG, "--epoch_steps", "10",
 PL_SLC = 1000
 # Phase 10: the DALES workflow on a synthetic DALES-like root of
 # DALES_TILES training and validation tiles (the lexically last one
-# validates) and DALES_TEST_TILES test tiles, each DALES_EXTENT m a side (a
-# real DALES tile's extent) at DALES_DENSITY points / m^2 (about 3.1 M raw
-# and 1.8 M subsampled points a tile), at full DALESWLConfig and
-# DALESPLConfig width. With 3 training tiles the phase took 295 s of the
-# script's 650 on an H100, much of it host set-up, votes and refinement
-# that grow with the tiles; 2 training tiles keep the script near half its
-# time limit
+# validates) and DALES_TEST_TILES test tiles, each DALES_EXTENT m a side at
+# DALES_DENSITY points / m^2 (a real DALES tile's density), at full
+# DALESWLConfig and DALESPLConfig width. Cut for the script's time: a real
+# DALES tile is 500 m a side (about 3.1 M raw and 1.8 M subsampled points
+# at this density) and DALES has 11 test tiles. At 500 m with 2 test tiles
+# the phase took 268-311 s of the script's 850-994 on an H100 (at 400 m
+# with 1 test tile 174-195 s of 820-911), most of it
+# host set-up, votes and refinement that grow with the tiles' area and
+# count; the sphere radius and the density stay a full tile's, so the
+# plans and the kernels' shapes change little. A 300 m tile holds fewer
+# anchors (5183) than DALESWLConfig's first labels take (7000)
 DALES_TILES = 3
-DALES_TEST_TILES = 2
-DALES_EXTENT = 500.0
+DALES_TEST_TILES = 1
+DALES_EXTENT = 400.0
 DALES_DENSITY = 10.0
 DALES_LOG = "Log_phase10"
 DALES_ARGS = ("--epoch_steps", "10", "--validation_size", "5",
@@ -1464,7 +1478,8 @@ class Branches:
 
 def compare_train_steps(model, opt_state, batch, config, log, plan=None,
                         label: str = "kernels", witness: bool = False,
-                        held: bool = True, step_kw=None):
+                        held: bool = True, step_kw=None, given=None,
+                        branches=None):
     """One step with the kernels and one on the plain versions (f32), from
     the same state and pyramid, each held to the same step on the plain
     versions in f64; with `plan`, also one replay of the kernel step
@@ -1475,8 +1490,13 @@ def compare_train_steps(model, opt_state, batch, config, log, plan=None,
     check; `step_kw` goes to every step (`step_on_batch`: a pseudo-label
     step's contrast flag, dropout mask and drawn points, the same in each
     run). The steps held to each other take the kernel step's branches
-    (`Branches`); the graph replays the kernel step with its own. The
-    model is left after the last f32 step. Returns the errors."""
+    (`Branches`); the graph replays the kernel step with its own. `given`
+    holds steps run elsewhere from the same state on the same spheres,
+    by label: (loss, gradients, state after), each held to the f64 step
+    as the kernel step is (phase 14's data-parallel ranks); with
+    `branches` (those given steps' recorded `Branches`) every step here,
+    the kernel step too, replays those. The model is left after the last
+    f32 step. Returns the errors."""
     import copy
     import dataclasses
     from weasal_tpu_torch.train.step import step_on_batch
@@ -1502,7 +1522,8 @@ def compare_train_steps(model, opt_state, batch, config, log, plan=None,
         labels.append(("graph", model, batch, None))
     extra = witness_runs() if witness else {}
     labels += [(run, model, batch, None) for run in extra]
-    branches = Branches()
+    replay_given = branches is not None
+    branches = branches if replay_given else Branches()
     for run, net, data, dtype in labels:
         net.load_state_dict({k: v.to(dtype or v.dtype)
                              if v.is_floating_point() else v
@@ -1514,7 +1535,8 @@ def compare_train_steps(model, opt_state, batch, config, log, plan=None,
             if run in extra:
                 stack.enter_context(swapped(extra[run][1]))
             if run == "kernels":
-                stack.enter_context(branches.recording())
+                stack.enter_context(branches.replaying() if replay_given
+                                    else branches.recording())
             elif run != "graph":
                 stack.enter_context(branches.replaying(run))
             if run == "graph":
@@ -1528,6 +1550,12 @@ def compare_train_steps(model, opt_state, batch, config, log, plan=None,
                  for k, v in net.state_dict().items() if v.is_floating_point()}
         runs[run] = (float(loss), grads, moved)
     del model64
+    for run, (g_loss, g_grads, g_state) in (given or {}).items():
+        runs[run] = (float(g_loss),
+                     {n: g.to(state0[n].device).double()
+                      for n, g in g_grads.items()},
+                     {k: v.to(state0[k].device).double() - state0[k].double()
+                      for k, v in g_state.items() if v.is_floating_point()})
     loss_k, loss_p = runs["kernels"][0], runs["plain"][0]
     check(abs(loss_k - loss_p) <= LOSS_RTOL * abs(loss_p),
            f"train step loss {loss_k} vs plain {loss_p}")
@@ -1544,7 +1572,8 @@ def compare_train_steps(model, opt_state, batch, config, log, plan=None,
         err_p = float((runs["plain"][part][name] - ref).norm())
         return F64_RATIO * err_p + F64_FLOOR * float(ref.norm())
 
-    for who in [w for w in ("kernels", "graph") if w in runs]:
+    for who in [w for w in ("kernels", "graph", *(given or {}))
+                if w in runs]:
         worst = dict(rel=0.0, plain_rel=0.0, ratio=0.0, ratio_of="",
                      share=0.0, share_of="", share_key=None)
         for part, what in ((1, "gradient"), (2, "state change")):
@@ -1581,7 +1610,7 @@ def compare_train_steps(model, opt_state, batch, config, log, plan=None,
         if who == "kernels":
             result.update(kernel_rel=worst.pop("rel"), **worst)
         else:
-            result["graph"] = dict(loss=runs[who][0], **worst)
+            result[who] = dict(loss=runs[who][0], **worst)
     key = result.get("share_key")
     if extra and key is not None:
         part, name = key
@@ -4505,6 +4534,454 @@ def run_bf16_dispositions(root, work, counted, wl_per, model, ref_batch,
     return report, kernels, paths
 
 
+# Phase 14: data parallel. Two gloo ranks share the card (NCCL refuses two
+# ranks on one card), eager: VaihingenWLConfig's batch_num 3 rounds up to
+# 4, 2 spheres a rank, and VaihingenPLConfig's 4 splits in 2; each rank
+# votes one batch and takes one step on phase 6's tile (phase 9's labels
+# in pseudo mode). Then one NCCL rank runs DP_NCCL_EPOCHS graphed WL
+# epochs of DP_NCCL_STEPS batches (DP_NCCL_VAL validation batches each)
+# beside the same epochs with no group, and one epoch of each again under
+# torch.profiler
+DP_WORLD = 2
+DP_STEP_SEED = 7
+DP_LOSS_RTOL = 1e-5
+DP_VOTE_ATOL = 1e-4
+DP_NCCL_EPOCHS = 2
+DP_NCCL_STEPS = 24
+DP_NCCL_MIN_STEPS = 20
+DP_NCCL_VAL = 10
+DP_PROFILE_SKIP = 2
+
+
+@contextlib.contextmanager
+def recorded_draws():
+    """([dropout masks], [contrast draws]) of the steps run in the block,
+    in call order."""
+    from weasal_tpu_torch.models import architectures, blocks, losses
+    masks, draws = [], []
+    draw, dropout = losses.contrast_draw, architectures.dropout
+
+    def recording_draw(*a, **k):
+        idx = draw(*a, **k)
+        draws.append(idx.detach().clone())
+        return idx
+
+    def recording_dropout(x, rate, seed=None, keep=None):
+        if keep is None:
+            keep = blocks.dropout_keep(x.shape, rate, seed)
+        masks.append(keep.clone())
+        return dropout(x, rate, keep=keep)
+
+    losses.contrast_draw = recording_draw
+    architectures.dropout = recording_dropout
+    try:
+        yield masks, draws
+    finally:
+        losses.contrast_draw, architectures.dropout = draw, dropout
+
+
+def dp_setup(mode, root, dev, batch_num=None):
+    """(trainer, source, extra) of phase 14 in `mode` ('weak' or 'pseudo')
+    on phase 6's tile, the potentials seeded, nothing saved: eager alone,
+    and under a gloo group eager by its own choice."""
+    from weasal_tpu_torch.config import VaihingenPLConfig, VaihingenWLConfig
+    from weasal_tpu_torch.data.datasets import (Vaihingen3DPLDataset,
+                                                Vaihingen3DWLDataset)
+    from weasal_tpu_torch.parallel import ddp
+    from weasal_tpu_torch.train.trainer import ModelTrainer
+    if mode == "weak":
+        config, cls = VaihingenWLConfig(), Vaihingen3DWLDataset
+    else:
+        config, cls = VaihingenPLConfig(), Vaihingen3DPLDataset
+        config.num_classes = 9
+        config.weak_label_log = PL_LOG
+    config.saving = False
+    if batch_num:
+        config.batch_num = batch_num
+    ctx = ddp.current()
+    if ctx is not None:
+        config.data_parallel_devices = ctx.world
+    with ddp.rank0_first():
+        ds = cls(config, split="training", data_root=root,
+                 rng=np.random.default_rng(SEED))
+    trainer = ModelTrainer(config, ds, device=dev,
+                           graphs=False if ctx is None else None)
+    source, extra = trainer._source(ds)
+    return trainer, source, extra
+
+
+def dp_inputs(arrays, extra, dev):
+    """A batch's tensors on `dev` (as the prefetcher converts them) with
+    the resident tensors and the step seed DP_STEP_SEED."""
+    out = {}
+    for k, v in arrays.items():
+        v = np.asarray(v)
+        if v.dtype == np.uint32:
+            v = v.astype(np.int64)
+        out[k] = torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+    out.update(extra)
+    out["step_seed"] = torch.tensor(DP_STEP_SEED, dtype=torch.int64,
+                                    device=dev)
+    return out
+
+
+def dp_vote(trainer, source, extra, rng):
+    """One vote batch of the trainer's initial model smoothed into fresh
+    buffers (`update_gathered`: every rank's spheres under a group):
+    (probabilities of the global batch, buffers, flat_inds), on the
+    CPU."""
+    from weasal_tpu_torch.infer import eval_body
+    from weasal_tpu_torch.parallel import ddp
+    from weasal_tpu_torch.train.tester import TEST_RADIUS_RATIO, TEST_SMOOTH
+    from weasal_tpu_torch.train.vote import DeviceVoteAccumulator
+    config, dev = trainer.config, trainer.device
+    arrays, _ = source.next_batch(rng, augment=True)
+    inputs = dp_inputs(arrays, extra, dev)
+    acc = DeviceVoteAccumulator(
+        source.resident, config.num_classes, smooth=TEST_SMOOTH,
+        radius_sq=(TEST_RADIUS_RATIO * config.in_radius) ** 2)
+    with torch.no_grad():
+        ev = eval_body(trainer.model, inputs, config, trainer.plan, dev,
+                       spec=trainer.spec)
+        acc.update_gathered(ev["probs"], inputs, d2=ev["d2"])
+    return (ddp.gather_spheres(ev["probs"]).cpu(), acc._flat.cpu(),
+            ddp.gather_spheres(inputs["flat_inds"]).cpu())
+
+
+def dp_batch(trainer, source, rng):
+    """The next batch of `source` with regions (any in pseudo mode)."""
+    while True:
+        arrays, metas = source.next_batch(rng)
+        if trainer.mode == "pseudo" or any(m["has_regions"] for m in metas):
+            return arrays
+
+
+def dp_rank(root, out_dir):
+    """One rank of phase 14(a) under `ddp.spawn`: in weak mode a vote
+    batch, then in each mode one eager step on this rank's spheres, its
+    launches counted from 0; writes rank<r>.pt into `out_dir`."""
+    from weasal_tpu_torch.parallel import ddp
+    from weasal_tpu_torch.train.graphs import COUNTED
+    from weasal_tpu_torch.train.step import step_body, step_outputs
+    from weasal_tpu_torch.utils.device import configure_precision
+    ctx = ddp.current()
+    dev = ctx.device
+    configure_precision()
+    result = {}
+    for mode in ("weak", "pseudo"):
+        trainer, source, extra = dp_setup(mode, root, dev)
+        config, plan = trainer.config, trainer.plan
+        rng = np.random.default_rng(SEED)
+        out = dict(batch_num=config.batch_num)
+        if mode == "weak":
+            out["vote_probs"], out["votes"], out["vote_inds"] = dp_vote(
+                trainer, source, extra, rng)
+        inputs = dp_inputs(dp_batch(trainer, source, rng), extra, dev)
+        stats = step_outputs(plan, dev)
+        branches = Branches()
+        for fn in COUNTED:
+            fn.launches = 0
+        with recorded_draws() as (masks, draws), branches.recording():
+            step_body(trainer.model, trainer.opt_state, inputs, config,
+                      plan, trainer.lr_t, stats, trainer.class_w,
+                      trainer.table, spec=trainer.spec,
+                      use_contrast=mode == "pseudo")
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        out.update(
+            launches={fn.__name__: fn.launches for fn in COUNTED},
+            loss=stats["stats"][0].cpu(),
+            flat_inds=inputs["flat_inds"].cpu(),
+            grads={n: p.grad.cpu()
+                   for n, p in trainer.model.named_parameters()},
+            state={k: v.cpu() for k, v in trainer.model.state_dict().items()},
+            masks=[m.cpu() for m in masks], draws=[d.cpu() for d in draws],
+            branches={k: [t.cpu() for t in v]
+                      for k, v in branches.recorded.items()})
+        result[mode] = out
+        del trainer, source, extra
+    torch.save(result, os.path.join(out_dir, f"rank{ctx.rank}.pt"))
+
+
+def plain_pyramid(inputs, trainer):
+    """The pyramid of a resident batch on the plain versions."""
+    from weasal_tpu_torch.data.resident import assemble_level0_device
+    from weasal_tpu_torch.ops.pyramid import batch_from_device_pyramid
+    from weasal_tpu_torch.utils.device import plain_ops
+    config, plan = trainer.config, trainer.plan
+    with torch.no_grad():
+        t = assemble_level0_device(inputs, config, plan, augment=True,
+                                   spec=trainer.spec)
+        with plain_ops():
+            return batch_from_device_pyramid(
+                t["points0"], t["mask0"], t["features"], t["labels"],
+                config, plan, t["center_pts"], rotations=t["rotations"],
+                cloud_lb=t["cloud_lb"], region_inds=t["region_inds"],
+                region_masks=t["region_masks"],
+                region_point_masks=t["region_point_masks"],
+                region_lb=t["region_lb"])
+
+
+def run_data_parallel(root, work, counted, card, log, dev=None):
+    """Phase 14: data parallel on the card.
+
+    (a) DP_WORLD gloo ranks sharing cuda:0 (`ddp.spawn`, eager), each
+    running `dp_rank`: the WL step (batch_num 3 -> 4) and the PL step with
+    dropout and the contrast loss on their spheres, kernels A-D launched
+    on every rank. Against one process on the same 4 spheres (the same
+    seeded sampler): the loss within DP_LOSS_RTOL of the single-process
+    kernel step; the gradients and state changes held to the f64 plain
+    step of the global batch with phases 5 and 9's allowance
+    (`compare_train_steps`, `given`), every step held there replaying
+    the ranks' recorded branches (`Branches`); the dropout masks and the contrast
+    draw bit-equal to the single-process step's; the parameters and
+    running statistics bit-equal across the ranks; one vote batch's
+    probabilities within DP_VOTE_ATOL of one process's, with the vote
+    buffers bit-equal on the ranks.
+    (b) one NCCL rank (a group of 1 in this process) through the graphed
+    WL trainer for DP_NCCL_EPOCHS epochs of DP_NCCL_STEPS batches (at
+    least DP_NCCL_MIN_STEPS steps with regions in the last), beside the
+    same epochs with no group: the losses, the parameters and the running
+    statistics bit-equal, every step replayed (the collectives inside the
+    captured graphs), ms a step of both by epoch; then one epoch of both
+    again under torch.profiler, for the device busy ms a step past its
+    first DP_PROFILE_SKIP dispatches and the kernels that only the group
+    launches.
+    Returns the report and the launches of the ranks' steps (summed over
+    the ranks) and of the NCCL epoch. `dev` is the card (cuda:0 by
+    default; the CPU rehearses (a) with the plain versions)."""
+    from weasal_tpu_torch.config import VaihingenWLConfig
+    from weasal_tpu_torch.data.datasets import Vaihingen3DWLDataset
+    from weasal_tpu_torch.parallel import ddp
+    from weasal_tpu_torch.train.step import step_on_batch
+    from weasal_tpu_torch.train.trainer import ModelTrainer
+    dev = torch.device("cuda", 0) if dev is None else torch.device(dev)
+    report, paths = {}, {}
+    out_dir = os.path.join(work, "data_parallel")
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    ddp.spawn(dp_rank, DP_WORLD, str(dev), args=(root, out_dir),
+              timeout=600.0)
+    report["ranks_s"] = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                        weights_only=False) for r in range(DP_WORLD)]
+    log(f"[{card}] phase 14 (a): {DP_WORLD} gloo ranks on {dev} ran in "
+        f"{report['ranks_s']:.1f} s (start, set-up, a vote batch, a WL and "
+        "a PL step each)")
+    for mode, path in (("weak", "dp_wl"), ("pseudo", "dp_pl")):
+        rk = [r[mode] for r in ranks]
+        what = f"phase 14 {path}"
+        paths[path] = {k: sum(r["launches"][k] for r in rk)
+                       for k in rk[0]["launches"]}
+        for i, r in enumerate(rk):
+            for name in ("radius_search", "kpconv_fwd", "kpconv_bwd",
+                         "maxpool_bwd"):
+                expect(r["launches"][name] > 0,
+                       f"{what}: rank {i} launched no {name}")
+        expect(all(_same_state(rk[0]["state"], r["state"]) for r in rk),
+               f"{what}: the ranks' parameters and statistics differ")
+        trainer, source, extra = dp_setup(mode, root, dev,
+                                          batch_num=rk[0]["batch_num"])
+        config = trainer.config
+        expect(rk[0]["batch_num"] == 4,
+               f"{what}: batch_num {rk[0]['batch_num']}, not 4")
+        rng = np.random.default_rng(SEED)
+        entry = dict(batch_num=rk[0]["batch_num"], launches=paths[path],
+                     rank_launches=[r["launches"] for r in rk])
+        if mode == "weak":
+            probs, votes, inds = dp_vote(trainer, source, extra, rng)
+            real = inds < source.resident.shadow
+            p_diff = float((rk[0]["vote_probs"] - probs)[real].abs().max())
+            v_diff = float((rk[0]["votes"] - votes).abs().max())
+            same_votes = all(torch.equal(rk[0]["votes"], r["votes"])
+                             for r in rk)
+            expect(bool(torch.equal(rk[0]["vote_inds"], inds)),
+                   f"{what}: the ranks voted other spheres")
+            expect(p_diff <= DP_VOTE_ATOL and v_diff <= DP_VOTE_ATOL,
+                   f"{what}: vote probabilities {p_diff:.2e}, buffers "
+                   f"{v_diff:.2e} from one process's (atol {DP_VOTE_ATOL})")
+            expect(same_votes, f"{what}: the ranks' vote buffers differ")
+            entry.update(vote_probs_max_diff=p_diff,
+                         vote_buffers_max_diff=v_diff,
+                         vote_buffers_equal=same_votes)
+        inputs = dp_inputs(dp_batch(trainer, source, rng), extra, dev)
+        spheres = torch.cat([r["flat_inds"] for r in rk])
+        expect(bool(torch.equal(spheres, inputs["flat_inds"].cpu())),
+               f"{what}: the ranks' spheres are not the global batch's")
+        pyr = plain_pyramid(inputs, trainer)
+        step_kw = None
+        if mode == "pseudo":
+            state0, opt0 = clone_state(trainer.model, trainer.opt_state)
+            with recorded_draws() as (masks, draws):
+                step_on_batch(trainer.model, trainer.opt_state, pyr, config,
+                              config.learning_rate, seed=DP_STEP_SEED,
+                              use_contrast=True)
+            trainer.model.load_state_dict(state0)
+            for k, v in opt0.items():
+                trainer.opt_state[k].copy_(v)
+            keep = torch.cat([r["masks"][0] for r in rk])
+            same_mask = bool(torch.equal(keep, masks[0].cpu()))
+            same_draw = all(torch.equal(r["draws"][0], draws[0].cpu())
+                            for r in rk)
+            expect(same_mask, f"{what}: the ranks' dropout masks are not "
+                   "the single-process mask")
+            expect(same_draw, f"{what}: a rank's contrast draw differs "
+                   "from the single-process draw")
+            entry.update(masks_equal=same_mask, draws_equal=same_draw)
+            step_kw = dict(use_contrast=True, dropout_keep=masks[0],
+                           slc_idx=draws[0])
+        # the ranks' branches, in sphere order: every step held here (one
+        # process's kernel step too) takes the data-parallel step's
+        # leaky-ReLU signs and pool winners, so that a tie turned by the
+        # ranks' other f32 order of the sums does not read as an error
+        branches = Branches()
+        for kind in branches.recorded:
+            branches.recorded[kind] = [
+                torch.cat(parts).to(dev)
+                for parts in zip(*(r["branches"][kind] for r in rk))]
+        cmp = compare_train_steps(
+            trainer.model, trainer.opt_state, pyr, config, log,
+            label=f"{what}, one process", step_kw=step_kw,
+            given={"data parallel": (rk[0]["loss"], rk[0]["grads"],
+                                     rk[0]["state"])}, branches=branches)
+        loss_dp = float(rk[0]["loss"])
+        rel = abs(loss_dp - cmp["loss"]) / abs(cmp["loss"])
+        expect(rel <= DP_LOSS_RTOL, f"{what}: loss {loss_dp} against one "
+               f"process's {cmp['loss']} (rel {rel:.2e})")
+        entry.update(loss=loss_dp, loss_one_process=cmp["loss"],
+                     loss_rel=rel, f64=cmp)
+        log(f"[{card}] {what}: loss {loss_dp:.7f} ({rel:.2e} from one "
+            f"process's), share of the f64 allowance "
+            f"{cmp['data parallel']['share']:.3f} (one process: "
+            f"{cmp['share']:.3f}); launches over the ranks {paths[path]}")
+        report[path] = entry
+        del trainer, source, extra, pyr
+
+    # (b) one NCCL rank, graphed, beside no group
+    def epochs(tag, profiled=False):
+        config = VaihingenWLConfig()
+        # a profiled run: one epoch and one validation batch (the
+        # profiler's events cost host seconds), read past its capture
+        config.max_epoch = 1 if profiled else DP_NCCL_EPOCHS
+        config.epoch_steps = DP_NCCL_STEPS
+        config.validation_size = 1 if profiled else DP_NCCL_VAL
+        config.saving_path = os.path.join(work, f"dp_{tag}")
+        ds = Vaihingen3DWLDataset(config, split="training", data_root=root,
+                                  rng=np.random.default_rng(SEED))
+        trainer = ModelTrainer(config, ds, device=dev)
+        losses = []
+        flush_log = ModelTrainer._flush_log
+
+        def keep_losses(self, pending, log_file, al_iteration):
+            losses.extend(float(p[2]) for p in pending)
+            return flush_log(self, pending, log_file, al_iteration)
+
+        def skipped(e):
+            return min(DP_PROFILE_SKIP, max(len(e["dispatch_stamps"]) - 1,
+                                            0))
+
+        def replays():
+            e = trainer.epoch_times[-1]
+            stamps = e["dispatch_stamps"] or [e["start"]]
+            return stamps[skipped(e)], e["start"] + e["seconds"]
+
+        ModelTrainer._flush_log = keep_losses
+        for fn in counted:
+            fn.launches = 0
+        profile = None
+        try:
+            if profiled:
+                profile = profiled_kernels(lambda: trainer.train(ds),
+                                           window=replays)
+            else:
+                trainer.train(ds)
+        finally:
+            ModelTrainer._flush_log = flush_log
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        e = trainer.epoch_times
+        return dict(losses=losses, steps=sum(x["steps"] for x in e),
+                    last_steps=e[-1]["steps"],
+                    window_steps=e[-1]["steps"] * (1 - skipped(e[-1]) / max(
+                        len(e[-1]["dispatch_stamps"]), 1)),
+                    ms=[1e3 * x["seconds"] / max(x["steps"], 1) for x in e],
+                    profile=profile,
+                    counts=trainer.graph_counts(),
+                    launches={fn.__name__: fn.launches for fn in counted},
+                    state={k: v.cpu()
+                           for k, v in trainer.model.state_dict().items()})
+
+    def nccl(profiled=False):
+        with ddp.group(0, 1, "nccl", dev, os.path.join(
+                work, f"nccl_store{int(profiled)}")):
+            return epochs("nccl", profiled)
+
+    grouped = nccl()
+    alone = epochs("alone")
+    counts = grouped["counts"]
+    expect(grouped["last_steps"] >= DP_NCCL_MIN_STEPS,
+           f"phase 14 (b): {grouped['last_steps']} steps with regions in "
+           "the last epoch")
+    expect(counts["train_replayed_steps"] == grouped["steps"],
+           f"phase 14 (b): {counts['train_replayed_steps']} of "
+           f"{grouped['steps']} NCCL steps replayed")
+    same_losses = grouped["losses"] == alone["losses"]
+    same_state = _same_state(grouped["state"], alone["state"])
+    expect(same_losses and len(alone["losses"]) == grouped["steps"],
+           "phase 14 (b): the NCCL epochs' losses differ from the epochs "
+           "with no group")
+    expect(same_state, "phase 14 (b): the NCCL epochs' parameters or "
+           "statistics differ from the epochs with no group")
+    paths["dp_nccl_wl"] = grouped["launches"]
+    # both again, profiled past their first DP_PROFILE_SKIP dispatches
+    # (replays only): device busy ms a step, and the kernels that only the
+    # group launches
+    prof = {}
+    for tag, run in (("nccl", lambda: nccl(True)),
+                     ("alone", lambda: epochs("alone_profiled", True))):
+        r = run()
+        rows, wall, busy = r["profile"]
+        prof[tag] = dict(busy_ms_step=busy / max(r["window_steps"], 1),
+                         steps=r["window_steps"],
+                         launches=sum(n for _, n, _ in rows),
+                         kernel_ms=sum(t for _, _, t in rows),
+                         rows={k: (n, t) for k, n, t in rows})
+    extra = sorted(((k, n - prof["alone"]["rows"].get(k, (0, 0.0))[0],
+                     t - prof["alone"]["rows"].get(k, (0, 0.0))[1])
+                    for k, (n, t) in prof["nccl"]["rows"].items()),
+                   key=lambda r: -r[2])
+    extra = [r for r in extra if r[1] > 0][:10]
+    report["nccl"] = dict(
+        steps=grouped["steps"], ms=grouped["ms"], ms_no_group=alone["ms"],
+        busy_ms_step=prof["nccl"]["busy_ms_step"],
+        busy_ms_step_no_group=prof["alone"]["busy_ms_step"],
+        run_launches=prof["nccl"]["launches"],
+        run_launches_no_group=prof["alone"]["launches"],
+        run_kernel_ms=prof["nccl"]["kernel_ms"],
+        run_kernel_ms_no_group=prof["alone"]["kernel_ms"],
+        extra_kernels=extra, losses_equal=same_losses,
+        state_equal=same_state, counts=counts,
+        launches=grouped["launches"])
+    log(f"[{card}] phase 14 (b): one NCCL rank, graphed WL trainer, "
+        f"{DP_NCCL_EPOCHS} epochs of {DP_NCCL_STEPS} batches: "
+        f"{[round(v, 2) for v in grouped['ms']]} ms a step by epoch; with "
+        f"no group {[round(v, 2) for v in alone['ms']]} ms; losses "
+        f"bit-equal {same_losses}, state bit-equal {same_state}; "
+        f"{counts['train_replays']} replays")
+    log(f"[{card}] phase 14 (b) profiled epoch past its first "
+        f"{DP_PROFILE_SKIP} dispatches: device busy "
+        f"{prof['nccl']['busy_ms_step']:.3f} ms a step with the group, "
+        f"{prof['alone']['busy_ms_step']:.3f} without; over each whole "
+        f"profiled run (warm-up, capture and a validation batch included) "
+        f"{prof['nccl']['launches']} launches, "
+        f"{prof['nccl']['kernel_ms']:.3f} kernel ms with the group, "
+        f"{prof['alone']['launches']}, {prof['alone']['kernel_ms']:.3f} "
+        "without; launches the group adds (name, count, device ms over "
+        "the run): "
+        + "; ".join(f"{k[:60]} {n} {t:.3f}" for k, n, t in extra))
+    return report, paths
+
+
 def main(argv=None) -> int:
     global CARD
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -4721,6 +5198,9 @@ def main(argv=None) -> int:
         bf16, bf16_kernels, bf16_paths = run_bf16_dispositions(
             root, work, counted, (expected, per_val), model, ref_batch,
             loop, card, log)
+        # ---- phase 14: data parallel
+        phase("phase 14: data-parallel training and voting on the card")
+        dp, dp_paths = run_data_parallel(root, work, counted, card, log)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -4730,7 +5210,8 @@ def main(argv=None) -> int:
     paths = dict(inference=eval_launches, train_step=launches,
                  wl_loop=loop_launches, wl_active_learning=al_launches,
                  pl_stage=pl_launches, dales_wl=dales_wl, dales_pl=dales_pl,
-                 deformable_pl=deform_pl, **host_paths, **bf16_paths)
+                 deformable_pl=deform_pl, **host_paths, **bf16_paths,
+                 **dp_paths)
 
     def by_path(name):
         return {path: counts.get(name, 0) for path, counts in paths.items()}
@@ -4875,7 +5356,9 @@ def main(argv=None) -> int:
                            host_launches=host_paths,
                            bf16_dispositions=dict(report=bf16,
                                                   kernels=bf16_kernels,
-                                                  launches=bf16_paths)), f,
+                                                  launches=bf16_paths),
+                           data_parallel=dict(report=dp,
+                                              launches=dp_paths)), f,
                       indent=1)
     phase("chip_smoke: every phase ran")
     if FAILED:

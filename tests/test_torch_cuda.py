@@ -61,7 +61,12 @@ replayed from a graph bit-equal to its eager run. Any kernel-point
 count: B and C in f32 at Kp 1, 5, 16, 17, 20, 40 and at Kp 40 with K 266
 (the influence tile past 48 KB of shared memory; bf16 too at 17 and 40)
 within the f32 tolerances; a tile past the card's shared memory raises
-and names the limit.
+and names the limit. Data parallel (parallel/ddp.py): two gloo ranks
+sharing the card take a WL and a PL step equal to one process's (the
+ranks bit-equal, the masks and the draw bit-equal to one process's), and
+one NCCL rank's replayed step, its collectives inside the graph, is
+bit-equal to the same step with no group; under a gloo group a trainer
+on the card steps eagerly and refuses a request for graphs.
 Needs an
 NVIDIA GPU with nvcc; skips elsewhere. On the machine with the card
 (which has no JAX) run
@@ -69,6 +74,7 @@ NVIDIA GPU with nvcc; skips elsewhere. On the machine with the card
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
 
+import contextlib
 import ctypes
 import math
 import os
@@ -1699,3 +1705,92 @@ def test_bf16_step_replay_equals_eager(dev, synth_wl):
     assert torch.equal(s0, s1)
     for k, v in st0.items():
         assert torch.equal(st1[k], v), k
+
+
+def test_two_gloo_ranks_on_one_card_equal_one_process(dev, tmp_path):
+    """Data parallel on one card (parallel/ddp.py): two gloo ranks sharing
+    cuda:0 take the weak-label and the pseudo-label step of
+    tests/_torch_ddp_worker.py on their halves of the demo batch, with
+    kernels B, C and D; their loss is one process's kernel step's (rtol
+    1e-5), their gradients within the CPU test's rtol 2e-4 and atol 2e-5,
+    the ranks bit-equal to each other, the dropout masks and the contrast
+    draw bit-equal to one process's."""
+    from weasal_tpu_torch.parallel import ddp
+    from tests import _torch_ddp_worker as worker
+    for mode in ("weak", "pseudo"):
+        out = tmp_path / mode
+        out.mkdir()
+        ddp.spawn(worker.step_rank, 2, "cuda:0", args=(str(out), mode),
+                  timeout=180.0)
+        ranks = [torch.load(out / f"rank{r}.pt", weights_only=False)
+                 for r in range(2)]
+        single = worker.run_step(mode, worker.global_batch(mode),
+                                 device=dev)
+        for key in ("grads", "state"):
+            for name, value in ranks[0][key].items():
+                assert torch.equal(value, ranks[1][key][name]), (key, name)
+        np.testing.assert_allclose(float(ranks[0]["loss"]),
+                                   float(single["loss"]), rtol=1e-5)
+        for name, ref in single["grads"].items():
+            np.testing.assert_allclose(ranks[0]["grads"][name].numpy(),
+                                       ref.numpy(), rtol=2e-4, atol=2e-5,
+                                       err_msg=name)
+        if mode == "pseudo":
+            keep = torch.cat([r["keep"] for r in ranks])
+            assert torch.equal(keep, single["keep"])
+            assert all(torch.equal(r["draw"], single["draw"]) for r in ranks)
+
+
+def test_nccl_one_rank_graphed_step_equals_no_group(dev, synth_wl,
+                                                    tmp_path):
+    """One NCCL rank (a group of one in this process): a training step
+    replayed from a captured graph, with the collectives of BatchNorm's
+    statistics, the loss's sums and the gradient average inside it,
+    equals the same replayed step with no group bit for bit (loss and
+    every updated tensor), over three replays in a row."""
+    from weasal_tpu_torch.parallel import ddp
+    cfg, plan, _, model, opt, _, pyr = _card_setup(dev, synth_wl)
+    state0 = {k: v.clone() for k, v in model.state_dict().items()}
+    opt0 = {k: v.clone() for k, v in opt.items()}
+    lr_t = torch.full((), cfg.learning_rate, device=dev)
+    runs = []
+    for grouped in (True, False):
+        model.load_state_dict(state0)
+        for k in opt:
+            opt[k].copy_(opt0[k])
+        with contextlib.ExitStack() as stack:
+            if grouped:
+                stack.enter_context(ddp.group(
+                    0, 1, "nccl", dev, str(tmp_path / "store")))
+            graph = _pyramid_step_graph(model, opt, pyr, cfg, plan, lr_t,
+                                        dev, graphed=True)
+            for _ in range(3):
+                graph.run()
+            torch.cuda.synchronize()
+            assert graph.graph is not None and graph.replays == 3
+        runs.append((graph.out["stats"][0].clone(),
+                     {k: v.clone() for k, v in model.state_dict().items()}))
+    (s0, st0), (s1, st1) = runs
+    assert math.isfinite(float(s0[0])) and torch.equal(s0, s1)
+    for k, v in st0.items():
+        assert torch.equal(st1[k], v), k
+
+
+def test_gloo_group_on_a_card_steps_eagerly_and_refuses_graphs(
+        dev, synth_wl, tmp_path):
+    """Gloo collectives cannot be captured: under a gloo group a trainer
+    on the card runs its steps eagerly when graphs are left to it, and
+    raises when graphs or a steps_per_dispatch are asked for."""
+    import copy
+    from weasal_tpu_torch.parallel import ddp
+    from weasal_tpu_torch.train.trainer import ModelTrainer
+    cfg, train, _, _ = synth_wl
+    with ddp.group(0, 1, "gloo", dev, str(tmp_path / "store")):
+        assert not ModelTrainer(copy.copy(cfg), train, device=dev).graphed
+        with pytest.raises(ValueError, match="gloo"):
+            ModelTrainer(copy.copy(cfg), train, device=dev, graphs=True)
+        explicit = copy.copy(cfg)
+        explicit.steps_per_dispatch = 1
+        with pytest.raises(ValueError, match="gloo"):
+            ModelTrainer(explicit, train, device=dev)
+    assert ModelTrainer(copy.copy(cfg), train, device=dev).graphed

@@ -39,7 +39,12 @@ def test_import_loads_no_jax_or_weasal_tpu():
             "weasal_tpu_torch.ops.native, weasal_tpu_torch.data.batching, "
             "weasal_tpu_torch.data.batch, weasal_tpu_torch.data.loader, "
             "weasal_tpu_torch.data.synthetic, "
-            "weasal_tpu_torch.models.architectures\n"
+            "weasal_tpu_torch.models.architectures, "
+            "weasal_tpu_torch.parallel.ddp, weasal_tpu_torch.data.debug, "
+            "weasal_tpu_torch.utils.conf_matrix, "
+            "weasal_tpu_torch.utils.convergence, "
+            "weasal_tpu_torch.utils.html_viewer, "
+            "weasal_tpu_torch.utils.profiling\n"
             "from weasal_tpu_torch import KPCNN\n"
             "from weasal_tpu_torch.data.batching import assemble_batch\n"
             "from weasal_tpu_torch.data.loader import ParallelSphereBuilder\n"
@@ -57,6 +62,8 @@ def test_import_loads_no_jax_or_weasal_tpu():
 def test_sources_import_no_jax_or_weasal_tpu():
     files = sorted((ROOT / "weasal_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    # the data-parallel tests' rank functions start without JAX
+    files.append(ROOT / "tests" / "_torch_ddp_worker.py")
     assert len(files) > 15
     for f in files:
         assert not FORBIDDEN.search(f.read_text()), f

@@ -110,6 +110,12 @@ class Config:
     plan_bucket_percentile = 0.0
     # Training steps per dispatch (train/trainer.py): an int, or "auto"
     steps_per_dispatch = "auto"
+    # Data-parallel ranks (parallel/ddp.py, the entry points' --devices):
+    # 0 and 1 mean one device, -1 every visible card, N > 1 N ranks, as
+    # the JAX trainer reads weasal_tpu/config.py:135 (trainer.py:133-136;
+    # the comment there, "0 = all", does not match that code). Written to
+    # parameters.txt when not 0, so test_models votes as the run trained
+    data_parallel_devices = 0
     # Seconds without progress before the stall watchdog ends the process
     # (utils/watchdog.py; armed on CUDA only; <= 0 disables)
     stall_watchdog_s = 900
@@ -319,6 +325,9 @@ class Config:
             if float(getattr(self, "plan_bucket_percentile", 0.0)) > 0.0:
                 w("plan_bucket_percentile = "
                   f"{float(self.plan_bucket_percentile):.6f}\n")
+            if int(getattr(self, "data_parallel_devices", 0) or 0):
+                w("data_parallel_devices = "
+                  f"{int(self.data_parallel_devices):d}\n")
 
 
 class VaihingenWLConfig(Config):

@@ -3,7 +3,8 @@ host-pyramid input path.
 
 Counterpart of weasal_tpu/data/batching.py: `ShapePlan` (:36),
 `payload_meta` (:95), `fill_region_row` (:110), `grid_rotations` (:138),
-`layer_radii` (:160), `build_sphere_pyramid` (:183),
+`layer_radii` (:160), `build_sphere_pyramid` (:183, its grid orientations
+in `pyramid_grid_rotations`),
 `calibrate_shape_plan` (:236), `assemble_classification_batch` (:318),
 `_pad_points` (:369), `_pad_neighbors` (:378) and `assemble_batch`
 (:399), running on the port's own host subsample and radius search (the
@@ -162,6 +163,24 @@ def search_edges(config, plan: ShapePlan
     return edges
 
 
+def pyramid_grid_rotations(rng: np.random.Generator, config
+                           ) -> List[np.ndarray]:
+    """The random grid orientation of each level past the first, three
+    uniforms a level from `rng`: every draw `build_sphere_pyramid` makes.
+    A data-parallel rank that skips another rank's sphere calls this alone
+    to keep the shared `rng` in step."""
+    rotations = []
+    for _ in range(config.num_layers - 1):
+        theta = rng.random() * 2 * np.pi
+        phi = (rng.random() - 0.5) * np.pi
+        u = np.array([[np.cos(theta) * np.cos(phi),
+                       np.sin(theta) * np.cos(phi),
+                       np.sin(phi)]])
+        alpha = np.array([rng.random() * 2 * np.pi])
+        rotations.append(create_3d_rotations(u, alpha)[0].astype(np.float32))
+    return rotations
+
+
 def build_sphere_pyramid(points: np.ndarray, config,
                          rng: Optional[np.random.Generator] = None,
                          max_neighbors: Optional[Sequence[int]] = None,
@@ -174,19 +193,15 @@ def build_sphere_pyramid(points: np.ndarray, config,
     rng = rng or np.random.default_rng()
     conv_r, pool_r, up_r = layer_radii(config)
     L = config.num_layers
+    rotations = (pyramid_grid_rotations(rng, config) if random_grid_orient
+                 else None)
 
     level_points = [np.asarray(points, dtype=np.float32)]
     for l in range(L - 1):
         dl = config.first_subsampling_dl * (2 ** (l + 1))
         pts = level_points[l]
-        if random_grid_orient:
-            theta = rng.random() * 2 * np.pi
-            phi = (rng.random() - 0.5) * np.pi
-            u = np.array([[np.cos(theta) * np.cos(phi),
-                           np.sin(theta) * np.cos(phi),
-                           np.sin(phi)]])
-            alpha = np.array([rng.random() * 2 * np.pi])
-            R = create_3d_rotations(u, alpha)[0].astype(np.float32)
+        if rotations is not None:
+            R = rotations[l]
             sub = grid_subsample(pts @ R.T, dl=dl) @ R
         else:
             sub = grid_subsample(pts, dl=dl)
@@ -409,12 +424,32 @@ def assemble_batch(spheres: Sequence[Dict], plan: ShapePlan,
 
 def sphere_batch(payloads: Sequence[Dict], pyramids: Sequence[Dict],
                  plan: ShapePlan, num_classes: int,
-                 rng: np.random.Generator):
-    """(assemble_batch of the payloads' pyramids, their metas): the end
-    of `next_batch` of the datasets and of `ParallelSphereBuilder`."""
+                 rng: np.random.Generator,
+                 own: Optional[Tuple[int, int]] = None):
+    """(assemble_batch of the payloads' pyramids, the metas of every
+    payload): the end of `next_batch` of the datasets and of
+    `ParallelSphereBuilder`. With `own` = (lo, hi), `pyramids` holds those
+    of spheres [lo, hi) only and the batch is rows [lo, hi) of the whole
+    one, with the same draws from `rng`: `assemble_batch` draws only in
+    `fill_region_row`, sphere by sphere, so the other spheres' region
+    draws run on scratch rows in their place."""
+    n0 = plan.num_points[0]
+    lo, hi = own or (0, len(payloads))
+    R, P = max(plan.max_regions, 1), max(plan.max_region_points, 1)
+
+    def skip_regions(p):
+        fill_region_row(np.full((R, P), n0, np.int32),
+                        np.zeros((R, P), bool), np.zeros(R, bool),
+                        np.zeros((R, num_classes), np.float32),
+                        p.get("regions"), min(p["points"].shape[0], n0), rng)
+
+    for p in payloads[:lo]:
+        skip_regions(p)
     spheres = [dict(pyramid=pyr, features=p["features"],
                     labels=p["labels"], center=p["center"],
                     cloud_lb=p["cloud_lb"], regions=p["regions"])
-               for p, pyr in zip(payloads, pyramids)]
-    metas = [payload_meta(p, plan.num_points[0]) for p in payloads]
-    return assemble_batch(spheres, plan, num_classes, rng=rng), metas
+               for p, pyr in zip(payloads[lo:hi], pyramids)]
+    batch = assemble_batch(spheres, plan, num_classes, rng=rng)
+    for p in payloads[hi:]:
+        skip_regions(p)
+    return batch, [payload_meta(p, n0) for p in payloads]

@@ -46,7 +46,8 @@ from scipy.spatial import cKDTree
 
 from weasal_tpu_torch.data import anchors as anchor_ops
 from weasal_tpu_torch.data.batching import (
-    ShapePlan, build_sphere_pyramid, calibrate_shape_plan, sphere_batch)
+    ShapePlan, build_sphere_pyramid, calibrate_shape_plan,
+    pyramid_grid_rotations, sphere_batch)
 from weasal_tpu_torch.kernels.kernel_points import create_3d_rotations
 from weasal_tpu_torch.ops.neighbors import query_radius
 from weasal_tpu_torch.ops.subsample import grid_subsample
@@ -561,26 +562,33 @@ class CloudSegmentationDataset:
 
     def next_batch(self, rng, plan: ShapePlan,
                    num_spheres: Optional[int] = None,
-                   augment: Optional[bool] = None):
+                   augment: Optional[bool] = None,
+                   own: Optional[Tuple[int, int]] = None):
         """(PyramidBatch of numpy arrays, metas) of B spheres, each
         sampled, then its pyramid built on the host (`plan`'s widths),
         then all padded by `assemble_batch`, drawing from `rng` in that
         order; `augment` defaults to the training split's. The metas
-        (`payload_meta`) drive the vote scatter and the region skip."""
+        (`payload_meta`) drive the vote scatter and the region skip. With
+        `own` = (lo, hi) only spheres [lo, hi) get a pyramid and a row,
+        from the draws of all B (`sphere_batch`); the metas are all B's."""
         b = num_spheres or self.config.batch_num
+        lo, hi = own or (0, b)
         if augment is None:
             augment = self.split == "training"
         payloads, pyramids = [], []
-        for _ in range(b):
+        for i in range(b):
             payload = self.sample_sphere(rng, augment=augment,
                                          max_points=plan.num_points[0])
             payloads.append(payload)
-            pyramids.append(build_sphere_pyramid(
-                payload["points"], self.config, rng=rng,
-                max_neighbors=plan.conv_neighbors,
-                max_pool_neighbors=plan.pool_neighbors))
+            if lo <= i < hi:
+                pyramids.append(build_sphere_pyramid(
+                    payload["points"], self.config, rng=rng,
+                    max_neighbors=plan.conv_neighbors,
+                    max_pool_neighbors=plan.pool_neighbors))
+            else:
+                pyramid_grid_rotations(rng, self.config)
         return sphere_batch(payloads, pyramids, plan,
-                            self.config.num_classes, rng)
+                            self.config.num_classes, rng, own=own)
 
     # ------------------------------------------------------------------
     # Shape-plan calibration

@@ -38,7 +38,9 @@ from typing import Callable, Dict, Iterator, Mapping, Optional
 import numpy as np
 import torch
 
-from weasal_tpu_torch.data.batching import build_sphere_pyramid, sphere_batch
+from weasal_tpu_torch.data.batching import (build_sphere_pyramid,
+                                            sphere_batch)
+from weasal_tpu_torch.parallel import ddp
 
 # Ready items the producer may hold ahead of the consumer
 PREFETCH = 2
@@ -180,7 +182,11 @@ class ParallelSphereBuilder:
         self.max_workers = max_workers
         self.pool = None
 
-    def next_batch(self, rng, plan, num_spheres=None, augment=None):
+    def next_batch(self, rng, plan, num_spheres=None, augment=None,
+                   own=None):
+        """(PyramidBatch, metas) of B spheres; with `own` = (lo, hi) the
+        batch of spheres [lo, hi) only, from the draws of all B (see
+        `sphere_batch`), and the metas of all B."""
         ds = self.dataset
         b = num_spheres or ds.config.batch_num
         if augment is None:
@@ -189,6 +195,7 @@ class ParallelSphereBuilder:
                                      max_points=plan.num_points[0])
                     for _ in range(b)]
         seeds = rng.integers(0, 2 ** 31, size=b)
+        lo, hi = own or (0, b)
 
         def build(args):
             payload, seed = args
@@ -200,9 +207,10 @@ class ParallelSphereBuilder:
 
         if self.pool is None:
             self.pool = ThreadPoolExecutor(max_workers=self.max_workers)
-        pyramids = list(self.pool.map(build, zip(payloads, seeds)))
+        pyramids = list(self.pool.map(build, zip(payloads[lo:hi],
+                                                 seeds[lo:hi])))
         return sphere_batch(payloads, pyramids, plan, ds.config.num_classes,
-                            rng)
+                            rng, own=own)
 
     def close(self):
         """Stop the workers; a later batch starts new ones."""
@@ -216,7 +224,9 @@ class HostPyramidSource:
     (`PyramidBatch.arrays()` of a host batch, metas), its pyramids built
     by `dataset.next_batch`, or with `threads` > 1 by a
     `ParallelSphereBuilder` of at most 8 workers (the JAX trainer's
-    choice, trainer.py:629-633)."""
+    choice, trainer.py:629-633). Under a data-parallel group every rank
+    samples the global batch (the same draws) but builds only its own
+    spheres' pyramids, and gets its rows with the global metas."""
 
     def __init__(self, dataset, plan, threads: int = 1):
         self.dataset = dataset
@@ -230,8 +240,9 @@ class HostPyramidSource:
 
     def next_batch(self, rng, augment=None):
         t0 = time.perf_counter()
+        own = ddp.shard_bounds(self.dataset.config.batch_num)
         batch, metas = self.builder.next_batch(rng, self.plan,
-                                               augment=augment)
+                                               augment=augment, own=own)
         self.seconds += time.perf_counter() - t0
         self.batches += 1
         return batch.arrays(), metas

@@ -25,6 +25,7 @@ from torch import nn
 
 from weasal_tpu_torch.kernels.kernel_points import load_kernels
 from weasal_tpu_torch.ops import kpconv as ops
+from weasal_tpu_torch.parallel import ddp
 from weasal_tpu_torch.utils import prng
 
 LEAKY_SLOPE = 0.1
@@ -45,9 +46,13 @@ def dropout_keep(shape, rate: float, seed: torch.Tensor) -> torch.Tensor:
     :param seed: a 0-d or 1-element integer tensor (values < 2^32); it
         stays on the device, so a captured graph draws a new mask on each
         replay of a new seed
+
+    Under a data-parallel group `shape` is this rank's spheres, and the
+    mask is its slice of the global batch's (parallel/ddp.sphere_offset).
     """
     n = math.prod(int(d) for d in shape)
-    u = prng.uniform(seed.reshape(1), n, DROPOUT_STREAM)
+    u = prng.uniform(seed.reshape(1), n, DROPOUT_STREAM,
+                     offset=ddp.sphere_offset(n))
     return (u < 1.0 - rate).reshape(shape)
 
 
@@ -117,9 +122,14 @@ class MaskedBatchNorm(nn.Module):
             m = (torch.ones(x.shape[:-1], dtype=x.dtype, device=x.device)
                  if mask is None else mask.to(x.dtype))[..., None]
             dims = tuple(range(x.dim() - 1))
-            count = m.sum().clamp(min=1.0)
-            mean = (x * m).sum(dim=dims) / count
-            var = (((x - mean) ** 2) * m).sum(dim=dims) / count
+            # global sums: the statistics of the global batch under a
+            # data-parallel group (two passes, as the JAX block; the count
+            # rides in the first pass's collective)
+            total, count = ddp.global_sums((x * m).sum(dim=dims), m.sum())
+            count = count.clamp(min=1.0)
+            mean = total / count
+            var = ddp.global_sum((((x - mean) ** 2) * m).sum(dim=dims)) \
+                / count
             with torch.no_grad():
                 mom = self.momentum
                 self.mean.copy_((1 - mom) * self.mean + mom * mean)

@@ -25,7 +25,12 @@ import torch
 import torch.nn.functional as F
 
 from weasal_tpu_torch.ops.cuda.inverse_lists import LazyInverse, gather_rows
+from weasal_tpu_torch.parallel import ddp
 from weasal_tpu_torch.utils import prng
+
+# Under a data-parallel group (parallel/ddp.py) every sum over the sphere
+# axis goes through `ddp.global_sum` or `ddp.global_sums`, so each rank
+# computes the loss of the global batch; alone both are the identity.
 
 
 # The threefry stream (utils/prng) of the contrast loss's draw; dropout
@@ -49,7 +54,8 @@ def softmax_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     nll = -torch.gather(logp, -1, safe_t[..., None])[..., 0]
     w = class_w[safe_t] if class_w is not None else torch.ones_like(nll)
     w = w * valid.to(nll.dtype)
-    return (nll * w).sum() / w.sum().clamp(min=1e-9)
+    num, den = ddp.global_sums((nll * w).sum(), w.sum())
+    return num / den.clamp(min=1e-9)
 
 
 def contrast_draw(certain: torch.Tensor, valid_mask: torch.Tensor,
@@ -85,6 +91,14 @@ def contrast_loss(logits: torch.Tensor, labels: torch.Tensor,
         reference points are drawn from its CONTRAST_STREAM uniforms
     :param slc_idx: [S] reference points given instead of the draw
     :return: 0-d; 0 when no point is certain
+
+    Under a data-parallel group the N rows are this rank's part of the
+    global flattened batch (rows [rank * N, (rank + 1) * N)): each rank's
+    certain, valid and pseudo-label rows are all-gathered, so the draw
+    (and `slc_idx`) indexes the global rows and equals the single-process
+    draw on every rank; the drawn rows' features come from their owners
+    through a zeroed [S, C] buffer summed over the ranks, and the class
+    sums and counts are summed over the ranks.
     """
     n = logits.shape[0]
     eps = 1e-8
@@ -94,28 +108,44 @@ def contrast_loss(logits: torch.Tensor, labels: torch.Tensor,
     certain = ((pseudo_conf > threshold) | label_id) & valid_mask
     pseudo_lbs = torch.where(label_id, labels.long(),
                              torch.argmax(prob, dim=1))
-    any_valid = certain.sum() > 0
+    grouped = ddp.current() is not None
+    if grouped:
+        rows = ddp.gather_spheres(torch.stack(
+            [certain.long(), valid_mask.long(), pseudo_lbs], dim=1))
+        certain_g, valid_g, lbs_g = (rows[:, 0].bool(), rows[:, 1].bool(),
+                                     rows[:, 2])
+    else:
+        certain_g, valid_g, lbs_g = certain, valid_mask, pseudo_lbs
+    any_valid = ddp.global_sum(certain.sum()) > 0
     if slc_idx is None:
         if seed is None:
             raise ValueError("contrast_loss needs a seed tensor or slc_idx")
         u = prng.uniform(seed.reshape(1), slc_con, CONTRAST_STREAM)[0]
-        slc_idx = contrast_draw(certain, valid_mask, u)
+        slc_idx = contrast_draw(certain_g, valid_g, u)
     slc_idx = slc_idx.to(device=logits.device, dtype=torch.int64)
 
-    mask_slice = torch.arange(n, device=logits.device)[:, None] \
+    off = ddp.sphere_offset(n)
+    mask_slice = torch.arange(off, off + n, device=logits.device)[:, None] \
         != slc_idx[None, :]
-    certain_slc = certain[slc_idx]
+    certain_slc = certain_g[slc_idx]
     mask_certain = certain_slc[None, :] == certain[:, None]
-    pos_bool = pseudo_lbs[slc_idx][None, :] == pseudo_lbs[:, None]
+    pos_bool = lbs_g[slc_idx][None, :] == pseudo_lbs[:, None]
     mc = (mask_slice & mask_certain).to(logits.dtype)
     pos_mask = (pos_bool & mask_slice & mask_certain).to(logits.dtype)
 
     feats = logits / torch.linalg.vector_norm(
         logits, dim=1, keepdim=True).clamp(min=1e-12)
     # the drawn rows' gradient sums over their inverse list (fixed order)
-    inds = slc_idx.to(torch.int32).reshape(1, -1, 1)
+    local = slc_idx
+    if grouped:
+        owned = (slc_idx >= off) & (slc_idx < off + n)
+        local = torch.where(owned, slc_idx - off, torch.zeros_like(slc_idx))
+    inds = local.to(torch.int32).reshape(1, -1, 1)
     feats_slc = gather_rows(feats[None], inds,
                             inverse=LazyInverse(inds, n))[0, :, 0]
+    if grouped:
+        feats_slc = ddp.global_sum(torch.where(
+            owned[:, None], feats_slc, torch.zeros_like(feats_slc)))
     sim = (feats @ feats_slc.t()) / temperature
     sim = sim - sim.amax(dim=1, keepdim=True).detach()
     exp_sim = torch.exp(sim) * mc
@@ -130,8 +160,9 @@ def contrast_loss(logits: torch.Tensor, labels: torch.Tensor,
     w = ((pts_loss > 0) & valid_mask).to(logits.dtype)
     onehot = (pseudo_lbs[:, None] == torch.arange(
         num_classes + 2, device=logits.device)[None, :]).to(logits.dtype)
-    sums = (onehot * (pts_loss * w)[:, None]).sum(dim=0)
-    cnts = (onehot * w[:, None]).sum(dim=0)
+    sums, cnts = ddp.global_sums(
+        (onehot * (pts_loss * w)[:, None]).sum(dim=0),
+        (onehot * w[:, None]).sum(dim=0))
     class_means = sums / cnts.clamp(min=1e-9)
     pos = (class_means > 0).to(logits.dtype)
     loss = (class_means * pos).sum() / pos.sum().clamp(min=1e-9)
@@ -148,12 +179,13 @@ def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor,
     if class_w is not None:
         loss = loss * class_w
     if mask is None:
-        return loss.mean()
+        return ddp.global_mean(loss)
     m = mask.to(loss.dtype)
     while m.dim() < loss.dim():
         m = m[..., None]
-    return (loss * m).sum() / (m * torch.ones_like(loss)).sum().clamp(
-        min=1e-9)
+    num, den = ddp.global_sums((loss * m).sum(),
+                               (m * torch.ones_like(loss)).sum())
+    return num / den.clamp(min=1e-9)
 
 
 def class_logits_loss(cla_logits: Sequence[torch.Tensor],
@@ -214,17 +246,18 @@ def p2p_fitting_regularizer(terms: Sequence, repulse_extent: float,
     fitting = 0.0
     repulsive = 0.0
     for min_sq, kp, m in terms:
-        denom = m.sum().clamp(min=1.0)
+        denom = ddp.global_sum(m.sum()).clamp(min=1.0)
         k = min_sq.shape[-1]
-        fitting = fitting + (min_sq.abs() * m[..., None]).sum() / (denom * k)
+        fitting = fitting + ddp.global_sum(
+            (min_sq.abs() * m[..., None]).sum()) / (denom * k)
         diff = kp[..., :, None, :] - kp[..., None, :, :].detach()
         dist = torch.sqrt((diff * diff).sum(dim=-1) + 1e-12)
         off_diag = 1.0 - torch.eye(k, dtype=kp.dtype, device=kp.device)
         rep = torch.clamp(dist - repulse_extent, max=0.0) ** 2 * off_diag
         # sum_i mean(rep_i) / K: the mean over (real point, i) of each
         # kernel point's repulsion sum
-        repulsive = repulsive + (rep.sum(dim=-1) * m[..., None]).sum() / (
-            denom * k)
+        repulsive = repulsive + ddp.global_sum(
+            (rep.sum(dim=-1) * m[..., None]).sum()) / (denom * k)
     return deform_fitting_power * (2 * fitting + repulsive)
 
 
@@ -233,7 +266,8 @@ def accuracy(logits: torch.Tensor, targets: torch.Tensor,
     """Fraction of the masked-in (real) points whose argmax equals the
     target; ignored points (target -1) count as wrong."""
     correct = (logits.argmax(dim=-1) == targets) & mask
-    return correct.sum() / mask.sum().clamp(min=1)
+    hits, count = ddp.global_sums(correct.sum(), mask.sum())
+    return hits / count.clamp(min=1)
 
 
 def valid_label_mapper(lbl_values: Sequence[int],

@@ -18,9 +18,15 @@ are not read.
         results/WeakLabel/Log_x] [--on train|validation|test]
         [--data_root data/<dataset>] [--num_votes N] [--chkp file]
         [--resume Log_dir] [--host_pyramid] [--device cuda|cpu]
+        [--devices N]
 
 `--host_pyramid` votes on host-built pyramids (config.device_pyramid =
 False), as the JAX script does without `--fused` (:64, 84-85).
+
+A log trained data parallel (`data_parallel_devices` in its
+parameters.txt) votes across as many ranks (parallel/ddp.py: NCCL on
+`cuda:0..N-1`, gloo with `--device cpu`); `--devices N` sets another
+count (1 votes alone).
 
 Runs on CUDA unless `--device cpu` is given; where CUDA is absent it
 raises.
@@ -38,6 +44,7 @@ from weasal_tpu_torch.config import Config
 from weasal_tpu_torch.data.datasets import (DALESPLDataset, DALESWLDataset,
                                             Vaihingen3DPLDataset,
                                             Vaihingen3DWLDataset)
+from weasal_tpu_torch.parallel import ddp
 from weasal_tpu_torch.train.tester import ModelTester
 from weasal_tpu_torch.utils.device import resolve_device
 
@@ -92,20 +99,36 @@ def parse_args(argv=None):
                              "(config.device_pyramid = False)")
     parser.add_argument("--device", default=None,
                         help="torch device (default cuda)")
+    parser.add_argument("--devices", type=int, default=None,
+                        help="data-parallel ranks (default: the log's "
+                             "data_parallel_devices)")
     return parser.parse_args(argv)
 
 
 def main(argv=None):
     """Parse `argv` and vote; returns the tester (its `test_probs` hold
-    the votes, its `dataset` the split voted on)."""
+    the votes, its `dataset` the split voted on), or None after a
+    data-parallel vote (the ranks' processes held the testers)."""
     args = parse_args(argv)
-    device = resolve_device(args.device)
     chosen_log = model_choice(args.resume or args.log)
+    config = Config()
+    config.load(chosen_log)
+    if args.devices is not None:
+        config.data_parallel_devices = args.devices
+    if ddp.current() is None:
+        world = ddp.resolve_world(config.data_parallel_devices,
+                                  args.device or "cuda")
+        if world > 1:
+            ddp.spawn(_vote_rank, world, args.device or "cuda",
+                      args=(argv,))
+            return None
+        # a log trained data parallel, voted alone
+        config.data_parallel_devices = 0
+    ctx = ddp.current()
+    device = resolve_device(args.device if ctx is None else ctx.device)
     print("\nTesting on " + chosen_log)
     chosen_chkp = args.chkp or os.path.join(chosen_log, "checkpoints",
                                             "current_chkp.tar")
-    config = Config()
-    config.load(chosen_log)
     config.validation_size = VOTE_EPOCH_BATCHES
     config.input_threads = 10
     config.dropout = 0
@@ -118,9 +141,15 @@ def main(argv=None):
         split = "test"
     num_votes = (args.num_votes if args.num_votes is not None
                  else DEFAULT_VOTES[config.dataset])
-    dataset = DATASETS[config.dataset](config, split=split,
-                                       test_on_train=test_on_train,
-                                       data_root=args.data_root)
+    # under a group every rank starts from the same potentials
+    rng = (None if ctx is None else np.random.default_rng(
+        ddp.broadcast_object(int(np.random.SeedSequence().entropy
+                                 % 2 ** 63))))
+    with ddp.rank0_first():     # rank 0 writes the caches
+        dataset = DATASETS[config.dataset](config, split=split,
+                                           test_on_train=test_on_train,
+                                           data_root=args.data_root,
+                                           rng=rng)
     tester = ModelTester(config, dataset, chosen_chkp, device=device)
     tester.dataset = dataset
     stage_dir = ("WeakLabel" if config.dataset.endswith("WL")
@@ -130,6 +159,11 @@ def main(argv=None):
                                    stage_dir=stage_dir,
                                    resume=args.resume is not None)
     return tester
+
+
+def _vote_rank(argv) -> None:
+    """One rank of `main` under `ddp.spawn`."""
+    main(argv)
 
 
 if __name__ == "__main__":

@@ -14,6 +14,15 @@ ledger (train/tester.ModelTester). A `Stage` names what differs between
 the stages: the configuration and dataset classes, the results
 subdirectory, its own arguments, its quick preset, its own set-up after
 the shared overrides, and what it prints after each training.
+
+`--devices N` (the JAX scripts' `--devices`,
+train_Vaihingen3D_WeakLabel.py:133-135, 175-176; -1 = every visible
+card) trains and votes data parallel (parallel/ddp.py): the runner
+spawns N ranks, each running this whole stage in a group, NCCL on
+`cuda:0..N-1`, or gloo with `--device cpu`; more cards than exist
+raises. Rank 0 builds each dataset's caches first and writes every file;
+the potentials take a seed that every rank shares (`--seed`, or rank 0's
+draw).
 """
 
 from __future__ import annotations
@@ -25,6 +34,7 @@ from typing import Callable, Optional
 
 import numpy as np
 
+from weasal_tpu_torch.parallel import ddp
 from weasal_tpu_torch.train.tester import ModelTester
 from weasal_tpu_torch.train.trainer import ModelTrainer
 from weasal_tpu_torch.utils.device import resolve_device
@@ -103,6 +113,11 @@ def parse_args(stage: Stage, argv=None) -> argparse.Namespace:
                              "--fused)")
     parser.add_argument("--device", default=None,
                         help="torch device (default cuda)")
+    parser.add_argument("--devices", type=int, default=None,
+                        help="data-parallel ranks (config."
+                             "data_parallel_devices): one process per "
+                             "card with NCCL, or gloo with --device cpu; "
+                             "-1 = every visible card")
     parser.add_argument("--seed", type=int, default=None,
                         help="seed of the datasets' initial potentials "
                              "(default unseeded), which fixes the "
@@ -117,8 +132,6 @@ def run(stage: Stage, argv=None):
     iteration's training and validation datasets, its `testers` the
     acquisition passes' testers)."""
     args = parse_args(stage, argv)
-    device = resolve_device(args.device)
-
     config = stage.config_cls()
     if args.plan_percentile is not None:
         config.plan_point_percentile = args.plan_percentile
@@ -152,6 +165,19 @@ def run(stage: Stage, argv=None):
         config.added_labels_per_epoch = args.added_labels
     if args.al_iterations is not None:
         config.active_learning_iterations = args.al_iterations
+    if args.devices is not None:
+        config.data_parallel_devices = args.devices
+    ctx = ddp.current()
+    if ctx is None:
+        # --devices, or a resumed log's data_parallel_devices: the ranks
+        # each run this function again, in their group
+        world = ddp.resolve_world(config.data_parallel_devices,
+                                  args.device or "cuda")
+        if world > 1:
+            ddp.spawn(_run_rank, world, args.device or "cuda",
+                      args=(stage, argv))
+            return None
+    device = resolve_device(args.device if ctx is None else ctx.device)
     stage.configure(config, args)
     schedule = None
     if args.epoch_schedule:
@@ -159,9 +185,14 @@ def run(stage: Stage, argv=None):
     al_votes = args.al_votes if args.al_votes is not None \
         else (2 if args.preset == "quick" else 10)
 
+    seed = args.seed
+    if seed is None and ctx is not None:
+        # every rank samples the same spheres
+        seed = ddp.broadcast_object(int(np.random.SeedSequence().entropy
+                                        % 2 ** 63))
+
     def potentials_rng():
-        return (None if args.seed is None
-                else np.random.default_rng(args.seed))
+        return None if seed is None else np.random.default_rng(seed)
 
     testers = []
     trainer = None
@@ -170,13 +201,14 @@ def run(stage: Stage, argv=None):
         print(f"\n=== Active-learning iteration {iteration} ===\n")
         if schedule:
             config.max_epoch = schedule[min(iteration, len(schedule) - 1)]
-        train_ds = stage.dataset_cls(config, split="training",
-                                     al_iteration=iteration,
-                                     data_root=args.data_root,
-                                     rng=potentials_rng())
-        val_ds = stage.dataset_cls(config, split="validation",
-                                   data_root=args.data_root,
-                                   rng=potentials_rng())
+        with ddp.rank0_first():     # rank 0 writes the caches
+            train_ds = stage.dataset_cls(config, split="training",
+                                         al_iteration=iteration,
+                                         data_root=args.data_root,
+                                         rng=potentials_rng())
+            val_ds = stage.dataset_cls(config, split="validation",
+                                       data_root=args.data_root,
+                                       rng=potentials_rng())
         trainer = ModelTrainer(config, train_ds, chkp_path=chosen_chkp,
                                device=device, stage_dir=stage.stage_dir)
         trainer.datasets = (train_ds, val_ds)
@@ -189,10 +221,11 @@ def run(stage: Stage, argv=None):
                 iteration != config.active_learning_iterations:
             chosen_chkp = os.path.join(config.saving_path, "checkpoints",
                                        "current_chkp.tar")
-            test_ds = stage.dataset_cls(config, split="test",
-                                        test_on_train=True,
-                                        data_root=args.data_root,
-                                        rng=potentials_rng())
+            with ddp.rank0_first():
+                test_ds = stage.dataset_cls(config, split="test",
+                                            test_on_train=True,
+                                            data_root=args.data_root,
+                                            rng=potentials_rng())
             tester = ModelTester(config, test_ds, chosen_chkp,
                                  device=device)
             tester.dataset = test_ds
@@ -204,3 +237,8 @@ def run(stage: Stage, argv=None):
         # every iteration trains from fresh weights
         chosen_chkp = None
     return trainer
+
+
+def _run_rank(stage: Stage, argv) -> None:
+    """One rank of `run` under `ddp.spawn`."""
+    run(stage, argv)

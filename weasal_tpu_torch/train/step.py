@@ -18,6 +18,11 @@ update. The stage follows the model's `mode`:
   `contrast_start` on), the gradients clipped by value. Dropout and the
   contrast draw take the step's seed tensor (`step_seed` in a pack),
   which never leaves the device.
+Under a data-parallel group (parallel/ddp.py) the batch is this rank's
+spheres of the global batch: the model's BatchNorm statistics, the
+losses, the accuracy, the dropout mask and the contrast draw are the
+global batch's, and the gradients are averaged over the ranks before the
+update, so every rank applies the single-process update.
 A network with deformable convs adds `p2p_fitting_regularizer` of their
 regularizer inputs to the loss it differentiates (:304-309, 343); the
 step reports it apart, as the log's `offset_loss`.
@@ -37,6 +42,7 @@ from weasal_tpu_torch.data.batch import PyramidBatch
 from weasal_tpu_torch.infer import input_batch
 from weasal_tpu_torch.models import losses
 from weasal_tpu_torch.models.blocks import deform_terms
+from weasal_tpu_torch.parallel import ddp
 from weasal_tpu_torch.train.optim import sgd_step
 from weasal_tpu_torch.utils.device import configure_precision, resolve_device
 
@@ -137,6 +143,9 @@ def step_on_batch(model, opt_state: Dict[str, torch.Tensor], batch, config,
                           losses.label_targets(batch.labels, table),
                           batch.masks[0])
     (loss if reg is None else loss + reg).backward()
+    # under a data-parallel group: the average over the ranks (the
+    # gradient rule of parallel/ddp.py); nothing alone
+    ddp.all_reduce_grads(model)
     # the weak-label stage clips by global norm, the pseudo-label stage by
     # value (the JAX trainer's choice, trainer.py:182)
     sgd_step(model, opt_state, config, lr,

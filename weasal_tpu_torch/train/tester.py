@@ -33,8 +33,16 @@ level-0 batches and the votes are smoothed on the host.
 A vote checkpoint (`vote_chkp_<split>.pkl`) at every vote boundary lets
 `resume=True` continue an interrupted pass; a stall watchdog guards the
 loop on the card. Not ported: the confusion plot (`conf_matrix.plot`,
-:432; matplotlib), whose counts are written as text instead;
-data-parallel voting.
+:432; matplotlib), whose counts are written as text instead.
+
+Data-parallel voting (:46-80, 185-215), in a process of a group that
+parallel/ddp.spawn started: `batch_num` is rounded up to a multiple of
+the world size, every rank draws the same spheres and evaluates its own,
+and the probabilities (with `flat_inds` and `d2`) are gathered in
+sphere order, so every rank applies the same sequential vote update and
+holds the same buffers. Rank 0 alone writes the outputs, the vote
+checkpoints and the extended ledgers; the other ranks wait for it at
+the end of the pass.
 """
 
 from __future__ import annotations
@@ -53,6 +61,7 @@ from weasal_tpu_torch.data.loader import BatchPrefetcher, HostPyramidSource
 from weasal_tpu_torch.data.resident import ResidentBatchSource, feature_spec
 from weasal_tpu_torch.infer import eval_body
 from weasal_tpu_torch.models.architectures import model_for_config
+from weasal_tpu_torch.parallel import ddp
 from weasal_tpu_torch.train.graphs import EvalGraph
 from weasal_tpu_torch.train.trainer import resolve_resident
 from weasal_tpu_torch.train.vote import DeviceVoteAccumulator
@@ -88,6 +97,11 @@ class ModelTester:
         self.device = resolve_device(device)
         configure_precision()
         self.config = config
+        self.world = ddp.round_batch_num(config)
+        self.writer = ddp.is_writer()
+        if self.world > 1:
+            print(f"Data-parallel voting over {self.world} devices "
+                  f"({config.batch_num} spheres/batch)")
         self.model = model_for_config(
             config, dataset.label_values, dataset.ignored_labels,
             generator=torch.Generator().manual_seed(0)).to(self.device)
@@ -95,9 +109,12 @@ class ModelTester:
         if self.model.mode != self.mode:
             raise ValueError(f"mode {self.mode!r} does not vote with a "
                              f"{type(self.model).__name__}")
-        self.plan = dataset.calibration()
+        with ddp.rank0_first():     # rank 0 writes the plan cache
+            self.plan = dataset.calibration()
         payload = load_checkpoint_file(chkp_path)
         self.model.load_state_dict(payload["model_state_dict"])
+        ddp.broadcast_tensors(list(self.model.parameters())
+                              + list(self.model.buffers()))
         self.model.eval()
         self.epoch = payload["epoch"]
         print("Model and training state restored.")
@@ -133,15 +150,19 @@ class ModelTester:
         r_sq = None
         if 0 < TEST_RADIUS_RATIO < 1:
             r_sq = (TEST_RADIUS_RATIO * self.config.in_radius) ** 2
+        grouped = ddp.current() is not None
         if self.resident:
             source = ResidentBatchSource(dataset, self.plan, self.device)
             acc = DeviceVoteAccumulator(source.resident,
                                         self.config.num_classes,
                                         smooth=TEST_SMOOTH, radius_sq=r_sq)
-            return source, source.resident.arrays, acc
+            return ((ddp.ShardedSource(source) if grouped else source),
+                    source.resident.arrays, acc)
         if not self.device_pyramid:
+            # builds only this rank's spheres under a group
             return HostPyramidSource(dataset, self.plan), None, None
-        return Level0BatchSource(dataset, self.plan), None, None
+        source = Level0BatchSource(dataset, self.plan)
+        return (ddp.ShardedSource(source) if grouped else source), None, None
 
     def cloud_segmentation_test(self, dataset, num_votes: int = 100,
                                 active_learning: bool = False,
@@ -162,7 +183,7 @@ class ModelTester:
                            for l in dataset.input_labels]
 
         test_path = None
-        if not active_learning and config.saving:
+        if not active_learning and config.saving and self.writer:
             test_path = join(f"test/{stage_dir}",
                              config.saving_path.split("/")[-1])
             for sub in ("", "predictions", "probs", "potentials"):
@@ -190,7 +211,8 @@ class ModelTester:
         if not active_learning and getattr(config, "saving", False) \
                 and config.saving_path:
             tag = "train" if test_on_train else dataset.split
-            os.makedirs(config.saving_path, exist_ok=True)
+            if self.writer:
+                os.makedirs(config.saving_path, exist_ok=True)
             chkp_file = join(config.saving_path, f"vote_chkp_{tag}.pkl")
             if resume and os.path.exists(chkp_file):
                 with open(chkp_file, "rb") as f:
@@ -206,9 +228,14 @@ class ModelTester:
                 last_min = vc["last_min"]
                 print(f"Vote resumed at epoch {test_epoch}, min potential "
                       f"{dataset.min_potential():.1f}")
-            elif os.path.exists(chkp_file):
+            elif os.path.exists(chkp_file) and self.writer:
                 # stale state of an earlier run of this log
                 os.remove(chkp_file)
+            # the other ranks read the vote checkpoint before rank 0
+            # writes one, and only rank 0 writes
+            ddp.barrier()
+            if not self.writer:
+                chkp_file = None
 
         t_pass = time.perf_counter()
         n_batches = n_points = 0
@@ -225,11 +252,14 @@ class ModelTester:
                     n_batches += 1
                     n_points += sum(m["n_real"] for m in metas[0])
                     if vote_acc is not None:
-                        vote_acc.update(out["probs"], runner.slots[0],
-                                        d2=out["d2"])
+                        vote_acc.update_gathered(out["probs"],
+                                                 runner.slots[0],
+                                                 d2=out["d2"])
                     else:
-                        probs_all = np.array(out["probs"].cpu())
-                        d2_all = np.array(out["d2"].cpu())
+                        # every rank's spheres, in sphere order
+                        probs_all = np.array(
+                            ddp.gather_spheres(out["probs"]).cpu())
+                        d2_all = np.array(ddp.gather_spheres(out["d2"]).cpu())
                         for b, meta in enumerate(metas[0]):
                             n = meta["n_real"]
                             probs = probs_all[b, :n]
@@ -301,17 +331,19 @@ class ModelTester:
             all_probs[fn] = self.test_probs[i]
             all_pseudo_lbs[fn] = np.argmax(self.test_probs[i], axis=1)
         if not active_learning:
-            if test_path is not None:
+            if test_path is not None:           # rank 0's alone
                 with open(join(test_path, "_pseudo.pickle"), "wb") as f:
                     pickle.dump(all_pseudo_lbs, f)
                 with open(join(test_path, "_probs.pickle"), "wb") as f:
                     pickle.dump(all_probs, f)
                 self._save_clouds(dataset, proj_probs, test_path,
                                   test_on_train)
-        elif self.mode == "weak":
+        elif self.writer and self.mode == "weak":
             self._extend_anchor_ledger(dataset, all_probs, all_pseudo_lbs)
-        else:
+        elif self.writer:
             self._extend_gt_ledger(dataset, all_probs)
+        # the other ranks read what rank 0 wrote only after this
+        ddp.barrier()
 
     # ------------------------------------------------------------------
 

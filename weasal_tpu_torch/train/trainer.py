@@ -49,6 +49,22 @@ trainer's `PRNGKey(al_iteration)`, :586), shipped in the pack as
 `step_seed`; from the epoch `contrast_start` on the steps add the
 contrast loss, a graph of its own per bucket (JAX compiles
 `use_contrast` as a static argument).
+
+Data parallel (:131-141, 193-206, 635-660, 1079-1085), in a process of a
+group that parallel/ddp.spawn started (the entry points' `--devices`):
+`batch_num` is rounded up to a multiple of the world size W before the
+example draw, every rank runs the same seeded sampler over the global
+batch (the potentials, the plan bucket, the skips, the saturation audit
+and the ledgers stay equal on every rank) and ships only its own
+spheres to its card (`ddp.ShardedSource`; on the host pyramid it builds
+only their pyramids); the resident clouds are replicated; the step's
+sums and its gradients are the global batch's (train/step.py); the
+validation gathers each rank's outputs in sphere order, so every rank
+holds the same votes. Rank 0 alone writes files (parameters.txt, the
+logs, checkpoints, potentials, confusions); the kill file is read by rank
+0 at the end of each epoch and its decision broadcast. Under NCCL the
+collectives sit inside the captured step graphs; gloo collectives cannot
+be captured, so a gloo group on a card runs the steps eagerly.
 """
 
 from __future__ import annotations
@@ -67,6 +83,7 @@ from weasal_tpu_torch.data.loader import BatchPrefetcher, HostPyramidSource
 from weasal_tpu_torch.data.resident import ResidentBatchSource, feature_spec
 from weasal_tpu_torch.infer import eval_body
 from weasal_tpu_torch.models.architectures import model_for_config
+from weasal_tpu_torch.parallel import ddp
 from weasal_tpu_torch.train.graphs import EvalGraph, StepGraph
 from weasal_tpu_torch.train.optim import init_opt_state
 from weasal_tpu_torch.train.step import (class_weights, label_table,
@@ -118,8 +135,11 @@ class ModelTrainer:
     :param generator: the torch.Generator of the initial weights (default
         seed 0)
     :param graphs: on a CUDA device with the resident input or the host
-        pyramid, replay captured CUDA graphs (default); False runs the
-        same steps eagerly (the reference the graphs are held to)
+        pyramid, replay captured CUDA graphs (None, the default, or True);
+        False runs the same steps eagerly (the reference the graphs are
+        held to). Under a gloo group on a card (whose collectives cannot
+        be captured) None runs eagerly, and True or an int
+        `steps_per_dispatch` raises
     :param stage_dir: the results subdirectory of a new log (WeakLabel |
         PseudoLabel)
     """
@@ -127,10 +147,15 @@ class ModelTrainer:
     def __init__(self, config, dataset, chkp_path: Optional[str] = None,
                  finetune: bool = False, device=None,
                  generator: Optional[torch.Generator] = None,
-                 graphs: bool = True, stage_dir: str = "WeakLabel"):
+                 graphs: Optional[bool] = None,
+                 stage_dir: str = "WeakLabel"):
         self.device = resolve_device(device)
         configure_precision()
         self.config = config
+        # Data parallel: the world size, batch_num a multiple of it, before
+        # the plan and the example draw (trainer.py:131-141)
+        self.world = ddp.round_batch_num(config)
+        self.writer = ddp.is_writer()
         self.epoch = 0
         self.step = 0
         if generator is None:
@@ -144,14 +169,26 @@ class ModelTrainer:
         self.table = label_table(self.model, self.device)
         self.class_w = class_weights(config, self.device)
         t0 = time.perf_counter()
-        self.plan = dataset.calibration()
+        with ddp.rank0_first():     # rank 0 writes the plan cache
+            self.plan = dataset.calibration()
         self.calibration_seconds = time.perf_counter() - t0
         self.device_pyramid = bool(getattr(config, "device_pyramid", True))
         self.resident = self.device_pyramid and resolve_resident(
             getattr(config, "resident_clouds", "auto"), self.device)
         self.spec = feature_spec(dataset.name, config.in_features_dim)
-        self.graphed = bool(graphs) and self.device.type == "cuda" \
+        self.graphed = graphs is not False and self.device.type == "cuda" \
             and (self.resident or not self.device_pyramid)
+        ctx = ddp.current()
+        if self.graphed and ctx is not None and ctx.backend == "gloo":
+            if graphs or not isinstance(getattr(
+                    config, "steps_per_dispatch", "auto"), str):
+                raise ValueError(
+                    "gloo collectives cannot be captured in a CUDA graph: "
+                    "run graphed steps under NCCL, or leave graphs and "
+                    "steps_per_dispatch to 'auto' for eager steps")
+            print("Data parallel over gloo: the steps run eagerly (gloo "
+                  "collectives cannot be captured in a CUDA graph)")
+            self.graphed = False
         # The small-sphere bucket trains at its own plan (resident input
         # only, as in the JAX trainer); validation stays on the full plan
         self.plan_small = self.plan.derive_small() if self.resident else None
@@ -176,14 +213,22 @@ class ModelTrainer:
 
         if chkp_path is not None:
             self.load_checkpoint(chkp_path, finetune=finetune)
+        # every rank starts from rank 0's state (mesh.replicate)
+        ddp.broadcast_tensors(self._state_tensors())
+        if self.world > 1:
+            print(f"Data-parallel over {self.world} devices "
+                  f"({config.batch_num} spheres/step, "
+                  f"{config.batch_num // self.world} per device)")
 
         if config.saving:
-            if config.saving_path is None:
+            if config.saving_path is None and self.writer:
                 config.saving_path = time.strftime(
                     f"results/{stage_dir}/Log_%Y-%m-%d_%H-%M-%S",
                     time.gmtime())
-            os.makedirs(config.saving_path, exist_ok=True)
-            config.save()
+            config.saving_path = ddp.broadcast_object(config.saving_path)
+            if self.writer:
+                os.makedirs(config.saving_path, exist_ok=True)
+                config.save()
         # Per epoch: host-clock seconds (ending in the last flush's
         # synchronization), real steps and their real level-0 points,
         # steps by bucket, the host clock at each dispatch, the neighbor
@@ -256,12 +301,17 @@ class ModelTrainer:
         """(batch source, resident tensors or None) of a dataset; the
         host pyramid builds with `threads` workers."""
         if not self.device_pyramid:
+            # builds only this rank's spheres under a group
             return HostPyramidSource(dataset, self.plan, threads), None
         if self.resident:
             source = ResidentBatchSource(dataset, self.plan, self.device,
                                          bucketed=bucketed)
-            return source, source.resident.arrays
-        return Level0BatchSource(dataset, self.plan), None
+            extra = source.resident.arrays
+        else:
+            source, extra = Level0BatchSource(dataset, self.plan), None
+        if ddp.current() is not None:
+            source = ddp.ShardedSource(source)
+        return source, extra
 
     def _resolve_steps_per_dispatch(self) -> int:
         """`config.steps_per_dispatch`: an int, or "auto" =
@@ -377,8 +427,10 @@ class ModelTrainer:
         rng = np.random.default_rng(42 + al_iteration)
         self._seeds = np.random.default_rng([SEED_STREAM, al_iteration])
         self._use_contrast = False
+        # rank 0 alone writes (the files of a run are one set)
+        saving = config.saving and self.writer
 
-        if config.saving:
+        if saving:
             log_file = join(config.saving_path,
                             f"training_iteration{al_iteration}.txt")
             with open(log_file, "w") as f:
@@ -425,7 +477,7 @@ class ModelTrainer:
             loop_stats = {"wait_batch": 0.0, "dispatch": 0.0, "flush": 0.0}
         trace_dir = os.environ.get("WEASAL_TRACE_DIR")
         trace = None
-        trace_done = not trace_dir
+        trace_done = not trace_dir or not self.writer
         self._watchdog = StallWatchdog.from_config(
             config, f"train[{self.mode}]", self.device)
 
@@ -464,7 +516,10 @@ class ModelTrainer:
                         break
                     if loop_stats is not None:
                         loop_stats["wait_batch"] += time.perf_counter() - tw
-                    if config.saving and pid_file and not exists(pid_file):
+                    # under a group the kill file is read at the epoch's
+                    # end, where every rank learns rank 0's decision
+                    if saving and self.world == 1 and pid_file \
+                            and not exists(pid_file):
                         prefetcher.close()
                         break
                     n_real = len(metas)
@@ -539,7 +594,11 @@ class ModelTrainer:
                           + " ".join(f"{t}={c}" for t, c in
                                      sorted(buckets.items())))
 
-                if config.saving and pid_file and not exists(pid_file):
+                killed = bool(saving and pid_file and not exists(pid_file))
+                if self.world > 1:
+                    # Rank 0 sees the pid file; every rank stops with it
+                    killed = ddp.broadcast_object(killed)
+                if killed:
                     break
 
                 if self.epoch in config.lr_decays:
@@ -557,7 +616,7 @@ class ModelTrainer:
                         f"{self.epoch - 1}: the exact kernels must drop none")
                 self._audit(train_dataset, epoch_drops)
 
-                if config.saving:
+                if saving:
                     self.save_checkpoint(chkp_dir)
                     if (self.epoch + 1) % config.checkpoint_gap == 0:
                         self.save_checkpoint(
@@ -574,8 +633,7 @@ class ModelTrainer:
                         exists(pid_file):
                     os.remove(pid_file)
 
-            if config.saving and not exists(join(chkp_dir,
-                                                 "current_chkp.tar")):
+            if saving and not exists(join(chkp_dir, "current_chkp.tar")):
                 # Resumed at or after max_epoch: no epoch ran in this run
                 # dir, but later stages restore from it
                 self.save_checkpoint(chkp_dir)
@@ -585,6 +643,8 @@ class ModelTrainer:
 
             if getattr(self, "_val_acc", None) is not None:
                 self.validation_probs = self._val_acc.materialize()
+            # the other ranks read rank 0's checkpoint after this call
+            ddp.barrier()
         finally:
             # An armed watchdog left behind would end unrelated later work
             self._watchdog.stop()
@@ -630,7 +690,7 @@ class ModelTrainer:
                 rng=np.random.default_rng(1000 + self.epoch))
             for warning in report["warnings"]:
                 print(f"[plan-saturation] {warning}")
-            if self.config.saving:
+            if self.config.saving and self.writer:
                 line = format_saturation_line(self.epoch, report)
                 line = (line.rstrip("\n")
                         + f" kernel_drops {int(epoch_drops)}\n")
@@ -750,17 +810,19 @@ class ModelTrainer:
             probs, labels = runner.out["probs"], runner.out["labels"]
             if val_acc is not None:
                 # Smoothing on the device; argmax and labels stay there
-                # and come back in one copy at the end
-                val_acc.update(probs, runner.slots[0])
-                buffered.append(torch.stack([probs.argmax(dim=-1),
-                                             labels.long()]))
+                # and come back in one copy at the end (every rank's
+                # spheres, gathered in sphere order under a group)
+                val_acc.update_gathered(probs, runner.slots[0])
+                buffered.append(torch.stack([
+                    ddp.gather_spheres(probs.argmax(dim=-1)),
+                    ddp.gather_spheres(labels.long())]))
                 metas_all.append(metas[0])
                 continue
             # copies: on the CPU .cpu() returns the runner's own tensors,
             # which the next batch overwrites
-            probs_all = np.array(probs.cpu())
+            probs_all = np.array(ddp.gather_spheres(probs).cpu())
             preds_all = np.argmax(probs_all, axis=-1)
-            labels_all = np.array(labels.cpu())
+            labels_all = np.array(ddp.gather_spheres(labels).cpu())
             metas_all.append(metas[0])
             for b, meta in enumerate(metas[0]):
                 n = meta["n_real"]
@@ -799,7 +861,7 @@ class ModelTrainer:
         mIoU = 100 * float(np.mean(IoUs))
         print(f"{config.dataset} mean IoU = {mIoU:.1f}%")
 
-        if config.saving:
+        if config.saving and self.writer:
             line = " ".join(f"{IoU:.3f}" for IoU in IoUs) + " \n"
             val_file = join(config.saving_path, "val_IoUs.txt")
             with open(val_file, "a" if exists(val_file) else "w") as f:

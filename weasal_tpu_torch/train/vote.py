@@ -21,6 +21,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from weasal_tpu_torch.parallel import ddp
+
 
 class DeviceVoteAccumulator:
     """Full-cloud vote buffers on the resident clouds' device.
@@ -68,6 +70,24 @@ class DeviceVoteAccumulator:
             cur = self._flat[tgt]
             new = self.smooth * cur + (1.0 - self.smooth) * probs[b]
             self._flat[tgt] = torch.where(valid[:, None], new, cur)
+
+    def update_gathered(self, probs: torch.Tensor, batch,
+                        d2: Optional[torch.Tensor] = None) -> None:
+        """`update` with the spheres of every rank: under a data-parallel
+        group (parallel/ddp.py) each rank's probabilities, `flat_inds`,
+        centers and `d2` are gathered in sphere order first, and every
+        rank applies the same sequential update, so the buffers stay
+        replicated, as the JAX package's are (weasal_tpu/train/vote.py:
+        93-100); alone it is `update`."""
+        if ddp.current() is None:
+            self.update(probs, batch, d2=d2)
+            return
+        batch = dict(batch)
+        for key in ("flat_inds", "center_pts"):
+            if key in batch:
+                batch[key] = ddp.gather_spheres(batch[key])
+        self.update(ddp.gather_spheres(probs), batch,
+                    d2=None if d2 is None else ddp.gather_spheres(d2))
 
     def materialize(self) -> List[np.ndarray]:
         """One device-to-host copy -> per-cloud [n_i, C] arrays."""

@@ -1,6 +1,8 @@
-"""Segmentation metrics the training loop's validation reads.
+"""Segmentation metrics: confusion matrices and the scores derived from
+them.
 
-Counterpart of weasal_tpu/utils/metrics.py: `fast_confusion` (:13) and
+Counterpart of weasal_tpu/utils/metrics.py: `fast_confusion` (:13),
+`metrics_from_confusions` (:61), `smooth_metrics` (:82) and
 `IoU_from_confusions` (:105), the same arithmetic in numpy.
 """
 
@@ -55,6 +57,47 @@ def fast_confusion(true: np.ndarray,
             f"labels outside label_values: true={bad_t}, pred={bad_p}")
     vec = np.bincount(idx, minlength=num_classes ** 2)
     return vec.reshape(num_classes, num_classes)
+
+
+def metrics_from_confusions(confusions: np.ndarray,
+                            ignore_unclassified: bool = False):
+    """(PRE, REC, F1, IoU, ACC) of [..., C, C] confusion stacks (rows =
+    ground truth); with `ignore_unclassified` class 0's row and column are
+    zeroed first."""
+    confusions = np.asarray(confusions, dtype=np.float64)
+    if ignore_unclassified:
+        confusions = confusions.copy()
+        confusions[..., 0, :] = 0
+        confusions[..., :, 0] = 0
+    TP = np.diagonal(confusions, axis1=-2, axis2=-1)
+    TP_plus_FP = np.sum(confusions, axis=-2)       # prediction counts
+    TP_plus_FN = np.sum(confusions, axis=-1)       # truth counts
+    PRE = TP / (TP_plus_FP + 1e-6)
+    REC = TP / (TP_plus_FN + 1e-6)
+    ACC = np.sum(TP, axis=-1) / (np.sum(confusions, axis=(-2, -1)) + 1e-6)
+    F1 = 2 * TP / (TP_plus_FP + TP_plus_FN + 1e-6)
+    IoU = F1 / (2 - F1)
+    return PRE, REC, F1, IoU, ACC
+
+
+def smooth_metrics(confusions: np.ndarray, smooth_n: int = 0,
+                   ignore_unclassified: bool = False):
+    """`metrics_from_confusions` of the confusions summed over +-smooth_n
+    epochs (the axis before the last two), returned as (REC, PRE, F1, IoU,
+    ACC): the reference's smooth_metrics swaps precision and recall, and
+    the JAX package keeps that order (weasal_tpu/utils/metrics.py:85-89)."""
+    confusions = np.asarray(confusions)
+    smoothed = confusions.copy()
+    if confusions.ndim > 2 and smooth_n > 0:
+        n_epochs = confusions.shape[-3]
+        for epoch in range(n_epochs):
+            i0 = max(epoch - smooth_n, 0)
+            i1 = min(epoch + smooth_n + 1, n_epochs)
+            smoothed[..., epoch, :, :] = np.sum(
+                confusions[..., i0:i1, :, :], axis=-3)
+    pre, rec, f1, iou, acc = metrics_from_confusions(
+        smoothed, ignore_unclassified)
+    return rec, pre, f1, iou, acc
 
 
 def IoU_from_confusions(confusions: np.ndarray) -> np.ndarray:

@@ -79,15 +79,19 @@ def erfinv(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() == 1.0, x * float("inf"), p * x)
 
 
-def random_bits(seeds: torch.Tensor, n: int, stream: int = 0
-                ) -> torch.Tensor:
+def random_bits(seeds: torch.Tensor, n: int, stream: int = 0,
+                offset: int = 0) -> torch.Tensor:
     """[S, n] int64 holding the uint32 bits `jax.random.bits` draws for a
     key made from each 32-bit seed of `seeds` [S] (any integer dtype,
     values in [0, 2^32)) over n elements, on the seeds' device. The key
     is (stream, seed): stream 0 is `jax.random.PRNGKey(seed)`'s; other
-    streams give independent bits from the same seed."""
+    streams give independent bits from the same seed. With `offset` the
+    draw is elements [offset, offset + n) of a longer one: element i's
+    counter is i whatever the length (`jax_threefry_partitionable`), so a
+    rank draws its slice of a global mask alone."""
     seeds = seeds.to(torch.int64).reshape(-1, 1) & _MASK
-    counter = torch.arange(n, dtype=torch.int64, device=seeds.device)
+    counter = torch.arange(offset, offset + n, dtype=torch.int64,
+                           device=seeds.device)
     hi = (counter >> 32)[None, :]
     lo = (counter & _MASK)[None, :]
     y0, y1 = threefry2x32(torch.full_like(seeds, stream & _MASK), seeds,
@@ -95,11 +99,12 @@ def random_bits(seeds: torch.Tensor, n: int, stream: int = 0
     return y0 ^ y1
 
 
-def uniform(seeds: torch.Tensor, n: int, stream: int = 0) -> torch.Tensor:
-    """[S, n] f32 uniforms on [0, 1) from `random_bits`, as
-    `jax.random.uniform` makes them: the top 23 bits as the mantissa of a
-    float in [1, 2), minus 1."""
-    bits = random_bits(seeds, n, stream)
+def uniform(seeds: torch.Tensor, n: int, stream: int = 0,
+            offset: int = 0) -> torch.Tensor:
+    """[S, n] f32 uniforms on [0, 1) from `random_bits` (elements
+    [offset, offset + n)), as `jax.random.uniform` makes them: the top 23
+    bits as the mantissa of a float in [1, 2), minus 1."""
+    bits = random_bits(seeds, n, stream, offset)
     mant = ((bits >> 9) | 0x3F800000).to(torch.int32)
     return mant.view(torch.float32) - 1.0
 
