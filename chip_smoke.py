@@ -211,7 +211,21 @@ Phases, in order; any failure exits non-zero:
    held to one process on the same 4 spheres (loss, the f64 step's
    allowance, bit-equal masks, draw, ranks and vote buffers); then one
    NCCL rank runs a graphed WL epoch bit-equal to the same epoch with no
-   group (the collectives inside the captured graphs).
+   group (the collectives inside the captured graphs);
+15. the last modules of the JAX package (`run_phase15`): (a) the
+   deformable-kernel inspector (`utils/visualizer.ModelVisualizer`) on
+   phase 11's model and one of its validation batches, the pyramid built
+   on the card and the eval forward (13 A, 10 B, 4 row sums), against
+   the same on the plain versions (deformed kernel points within the
+   KPConv tolerance, the same files written; the forward timed both
+   ways); (b) the 'max_pool' block (`MaxPoolBlock`, the JAX block's edge
+   pools[layer_ind + 1]) forward and backward on the first batch of
+   phase 6's tile, kernel D against its plain version on that edge and
+   timed; (c) `utils/profiling.device_trace` around a graphed WL epoch
+   of 10 steps on phase 6's tile: `module_times_us(..., "train_step_k")`
+   one duration a replay, their sum within the epoch's wall, and
+   `stage_breakdown` times the steps and the readers' busy time equal to
+   what torch.profiler's own events of the window give (1 %).
 Phases 3 and 5 end with a profile of one step, by kernel family. Checks
 of agreement (each kernel against its plain version and against itself
 on a repeat, the GEMM core's drift, the forward and the training step
@@ -226,13 +240,14 @@ the training steps, the WL loop, WL active learning, the PL stage, the
 DALES WL and PL paths, the deformable PL path, the host-pyramid WL loop,
 PL epoch and vote, KPCNN's steps, phase 13's bf16 WL loop and PL epoch
 and Kp-20 WL epoch, phase 14's data-parallel WL and PL steps summed
-over the ranks and its NCCL epoch), for B and C their sums at phase 13's shapes
-(`bf16_wl_ms` ... `kp20_wl_bound_ms`: `phase13_fields`) and its sums at
-the PL loop's, the
-DALES loops', the deformable PL loop's, the host-pyramid WL loop's and
-KPCNN's shapes (`pl_ms`, `pl_plain_ms`, `pl_bound_ms`, and the same with
+over the ranks and its NCCL epoch, phase 15's visualizer (`visualize`)
+and max_pool block (`max_pool_block`)), for B and C their sums at phase
+13's shapes (`bf16_wl_ms` ... `kp20_wl_bound_ms`: `phase13_fields`) and
+its sums at the PL loop's, the DALES loops', the deformable PL loop's,
+the host-pyramid WL loop's and KPCNN's shapes (`pl_ms`, `pl_plain_ms`, `pl_bound_ms`, and the same with
 `dales_wl_`, `dales_pl_`, `deform_pl_`, `host_wl_` and `kpcnn_`; A runs
-on neither of the last two). Imports nothing of JAX or weasal_tpu.
+on neither of the last two; D also at the max_pool block's edge,
+`max_pool_block_`). Imports nothing of JAX or weasal_tpu.
 
 Kernels B and C run their three products (y @ W; g @ W^T and y^T @ g)
 through one GEMM core, weasal_tpu_torch/csrc/kpconv_common.cuh: wgmma
@@ -276,6 +291,10 @@ from tests._bf16_cases import (OUT_REL_L2_MAX, REF_RATIO, flips, flips_ok,
 from tests._inverse_cases import (CASES as INVERSE_CASES, graph_replay,
                                   index_case, ordered_row_sums,
                                   ordered_run_sums, run_case)
+from weasal_tpu_torch.utils.profiling import (
+    BF16_GEMM_FAMILY, GEMM_FAMILIES, SPLITK_SUM, busy_us, categorize_op,
+    device_trace, host_ranges, kernel_families, module_times_us,
+    named_intervals, rows_of, stage_breakdown, union_us)
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, f32
 # operations/s outside the tensor cores and dense TF32 operations/s on the
@@ -1366,46 +1385,101 @@ def witness_runs() -> dict:
 
 
 class Branches:
-    """The branches that one step's forward takes: each leaky ReLU's sign
-    and each max pool's winners (ties share the gradient, as kernel D
-    shares it). Recorded in the kernel step's forward and replayed, call
-    by call, in the forwards of the steps it is held to, so that an
-    activation or a pooled pair that lies within f32 rounding of a tie
-    takes the same branch in every run: the f64 step is then the exact
-    step of the kernel step's branches, and the comparison holds the
-    kernels' arithmetic, not the turn of a tie (one turned kink or
-    winner moves its row's gradient by its own size, and BatchNorm
-    spreads that over the channel). A replay must make the recorded
-    number of calls. The plain step's replay keeps its inputs; the f64
-    step's counts the branches that its own values would take the other
-    way, each at its distance to the tie (|x| of a kink, the gap from a
-    pool's maximum to the kernel step's winner), and `beyond` those
-    farther than TIE_RATIO times the plain f32 step's largest deviation
-    from the f64 step at that call (the gap: twice that): a kernel fault
-    that moves an activation across zero or changes a winner by more
-    than f32 rounding then counts there instead of being absorbed."""
+    """The branches that one step's forward takes: each leaky ReLU's sign,
+    each max pool's winners (ties share the gradient, as kernel D shares
+    it), the contrast loss's comparisons (its certain points, positive
+    point losses and positive classes, `losses.above` and
+    `losses.positive_classes`) and pseudo-labels (`losses.top_class`),
+    and in each deformable conv the linear influences' kinks, the
+    neighbors in range (`ops.in_range`) and each kernel point's nearest
+    neighbor (`ops.nearest`, the fitting regularizer's minimum). Recorded
+    in the kernel step's forward and replayed, call by call, in the
+    forwards of the steps it is held to, so that a value that lies within
+    f32 rounding of a tie takes the same branch in every run: the f64
+    step is then the exact step of the kernel step's branches, and the
+    comparison holds the kernels' arithmetic, not the turn of a tie (one
+    turned kink or winner moves its row's gradient by its own size, and
+    BatchNorm spreads that over the channel; one turned comparison of the
+    contrast loss moves a class mean's count). The channel attention's
+    `amax` is no branch: softmax(amax - energy) does not depend on the
+    shift, so its winner takes a gradient that sums to zero; nor are the
+    WL region loss's kinks (BCE of masked means). A replay must make the
+    recorded number of calls. The plain step's replay keeps its inputs;
+    the f64 step's counts the branches that its own values would take the
+    other way, each at its distance to the tie (|x - threshold| of a
+    kink or a comparison, the gap from a maximum or minimum to the kernel
+    step's winner), and `beyond` those farther than TIE_RATIO times the
+    plain f32 step's largest deviation from the f64 step at that call
+    (a gap: twice that): a kernel fault that moves a value across a tie
+    or changes a winner by more than f32 rounding then counts there
+    instead of being absorbed."""
+
+    # the kinds of branch, recorded in call order each; "class" is the
+    # same on every rank of a data-parallel group, the others are rows
+    KINDS = ("kink", "pool", "row", "class", "argmax", "influence",
+             "in_range", "nearest")
 
     def __init__(self):
-        from weasal_tpu_torch.models import blocks
+        from weasal_tpu_torch.models import blocks, losses
         from weasal_tpu_torch.ops import kpconv as ops_mod
-        self.blocks, self.ops = blocks, ops_mod
-        self.max_pool = ops_mod.max_pool
-        self.recorded = {"kink": [], "pool": []}
-        self.calls = {"kink": 0, "pool": 0}
+        self.blocks, self.losses, self.ops = blocks, losses, ops_mod
+        self.plain = {name: getattr(mod, name) for mod, name in self._hooks()}
+        self.recorded = {k: [] for k in self.KINDS}
+        self.calls = dict.fromkeys(self.KINDS, 0)
         self.run, self.plain_inputs = None, {}
-        self.turned = dict(kink=0, pool=0, beyond=0, worst=0.0)
+        self.turned = dict(dict.fromkeys(self.KINDS, 0), beyond=0,
+                           worst=0.0)
+
+    def _hooks(self):
+        return ((self.blocks, "leaky_relu"), (self.ops, "max_pool"),
+                (self.losses, "above"), (self.losses, "positive_classes"),
+                (self.losses, "top_class"),
+                (self.ops, "influence_weights"), (self.ops, "in_range"),
+                (self.ops, "nearest"))
+
+    def _swap(self, fns):
+        return swapped([(mod, name, fns[name]) for mod, name in self._hooks()])
+
+    @staticmethod
+    def _share(values, chosen):
+        """Each slot's share of the gradient where it equals `chosen`."""
+        won = (values == chosen).to(values.dtype)
+        return won / won.sum(dim=2, keepdim=True)
+
+    def _record(self, kind, value):
+        self.recorded[kind].append(value)
 
     def _record_kink(self, x):
-        self.recorded["kink"].append(x > 0)
-        return torch.nn.functional.leaky_relu(
-            x, negative_slope=self.blocks.LEAKY_SLOPE)
+        self._record("kink", x > 0)
+        return self.plain["leaky_relu"](x)
 
     def _record_pool(self, x, inds, inverse=None):
         from weasal_tpu_torch.ops.cuda.kpconv_fwd import gather_neighbors
-        out = self.max_pool(x, inds, inverse)
+        out = self.plain["max_pool"](x, inds, inverse)
         with torch.no_grad():
-            won = (gather_neighbors(x, inds, 0.0) == out[:, :, None]).float()
-            self.recorded["pool"].append(won / won.sum(dim=2, keepdim=True))
+            self._record("pool", self._share(gather_neighbors(x, inds, 0.0),
+                                             out[:, :, None]))
+        return out
+
+    def _record_output(self, name, kind):
+        """The function `name`, recording its output as a `kind` branch."""
+        def record(*args):
+            out = self.plain[name](*args)
+            self._record(kind, out)
+            return out
+        return record
+
+    def _record_influence(self, sq, extent, influence):
+        if influence == "linear":
+            with torch.no_grad():
+                self._record("influence",
+                             1.0 - torch.sqrt(sq) / extent > 0)
+        return self.plain["influence_weights"](sq, extent, influence)
+
+    def _record_nearest(self, sq):
+        out = self.plain["nearest"](sq)
+        with torch.no_grad():
+            self._record("nearest", self._share(sq, out[:, :, None]))
         return out
 
     def _next(self, kind, x):
@@ -1436,44 +1510,117 @@ class Branches:
                                        far / margin if margin > 0
                                        else float("inf"))
 
-    def _replay_kink(self, x):
-        mask, dev = self._next("kink", x)
+    def _replay_mask(self, kind, x, threshold=0.0):
+        """A recorded x > threshold, counted at |x - threshold|."""
+        mask, dev = self._next(kind, x)
         if dev is not None:
             with torch.no_grad():
-                self._count("kink", mask != (x > 0), x.abs(),
-                            TIE_RATIO * dev)
+                self._count(kind, mask != (x > threshold),
+                            (x - threshold).abs(), TIE_RATIO * dev)
+        return mask
+
+    def _replay_winners(self, kind, x, values, maximum: bool):
+        """(the recorded winners' shares among `values` (from x), counted
+        at the gap from the f64 maximum or minimum over axis 2 to the
+        winners')."""
+        share, dev = self._next(kind, x)
+        share = share.to(values.dtype)
+        if dev is not None:
+            with torch.no_grad():
+                far = torch.inf if maximum else -torch.inf
+                won = torch.where(share > 0, values, far)
+                gap = (values.amax(dim=2) - won.amin(dim=2) if maximum
+                       else won.amax(dim=2) - values.amin(dim=2))
+                self._count(kind, gap > 0, gap, 2 * TIE_RATIO * dev)
+        return share
+
+    def _replay_kink(self, x):
+        mask = self._replay_mask("kink", x)
         return torch.where(mask, x, x * self.blocks.LEAKY_SLOPE)
 
     def _replay_pool(self, x, inds, inverse=None):
         from weasal_tpu_torch.ops.cuda.kpconv_fwd import gather_neighbors
-        share, dev = self._next("pool", x)
-        share = share.to(x.dtype)
         pooled = gather_neighbors(x, inds, 0.0)
+        return (pooled * self._replay_winners("pool", x, pooled, True)).sum(
+            dim=2)
+
+    def _replay_top(self, prob):
+        labels, dev = self._next("argmax", prob)
         if dev is not None:
             with torch.no_grad():
-                chosen = torch.where(share > 0, pooled,
-                                     torch.inf).amin(dim=2)
-                gap = pooled.amax(dim=2) - chosen
-                self._count("pool", gap > 0, gap, 2 * TIE_RATIO * dev)
-        return (pooled * share).sum(dim=2)
+                gap = prob.amax(dim=1) - prob.gather(
+                    1, labels[:, None])[:, 0]
+                self._count("argmax", gap > 0, gap, 2 * TIE_RATIO * dev)
+        return labels
+
+    def _replay_influence(self, sq, extent, influence):
+        if influence != "linear":
+            return self.plain["influence_weights"](sq, extent, influence)
+        t = 1.0 - torch.sqrt(sq) / extent
+        mask = self._replay_mask("influence", t)
+        return torch.where(mask, t, torch.zeros_like(t)).transpose(-1, -2)
+
+    def _replay_in_range(self, sq, extent):
+        mask, dev = self._next("in_range", sq)
+        if dev is not None:
+            with torch.no_grad():
+                closest = sq.amin(dim=-1)
+                self._count("in_range", mask != (closest < extent ** 2),
+                            (closest - extent ** 2).abs(), TIE_RATIO * dev)
+        return mask
+
+    def _replay_nearest(self, sq):
+        return (sq * self._replay_winners("nearest", sq, sq, False)).sum(
+            dim=2)
 
     def recording(self):
-        return swapped([(self.blocks, "leaky_relu", self._record_kink),
-                        (self.ops, "max_pool", self._record_pool)])
+        out = self._record_output
+        return self._swap(dict(
+            leaky_relu=self._record_kink, max_pool=self._record_pool,
+            above=out("above", "row"),
+            positive_classes=out("positive_classes", "class"),
+            top_class=out("top_class", "argmax"),
+            influence_weights=self._record_influence,
+            in_range=out("in_range", "in_range"),
+            nearest=self._record_nearest))
 
     @contextlib.contextmanager
     def replaying(self, run=None):
         """Replays the recorded branches; `run` 'plain' keeps the inputs
         of each call, 'f64' (after 'plain') counts the turned branches."""
-        self.run, self.calls = run, {"kink": 0, "pool": 0}
-        with swapped([(self.blocks, "leaky_relu", self._replay_kink),
-                      (self.ops, "max_pool", self._replay_pool)]):
+        self.run, self.calls = run, dict.fromkeys(self.KINDS, 0)
+        with self._swap(dict(
+                leaky_relu=self._replay_kink, max_pool=self._replay_pool,
+                above=lambda x, t: self._replay_mask("row", x, t),
+                positive_classes=lambda m: self._replay_mask("class", m),
+                top_class=self._replay_top,
+                influence_weights=self._replay_influence,
+                in_range=self._replay_in_range,
+                nearest=self._replay_nearest)):
             yield
         made = {k: len(v) for k, v in self.recorded.items()}
         if self.calls != made:
             raise AssertionError(f"a replay made {self.calls} calls, the "
                                  f"recorded step {made}")
         self.run = None
+
+    def turned_text(self) -> str:
+        """The f64 step's turned branches by kind (of the recorded calls),
+        for the log."""
+        return ", ".join(f"{self.turned[k]} {k} ({len(self.recorded[k])} "
+                         f"calls)" for k in self.KINDS)
+
+    @classmethod
+    def of_ranks(cls, parts, device):
+        """The branches of one step over the spheres of data-parallel
+        ranks (`parts`: each rank's `recorded`, in rank order): rows in
+        sphere order, the classes rank 0's (every rank's are equal)."""
+        merged = cls()
+        for kind in cls.KINDS:
+            merged.recorded[kind] = [
+                (rows[0] if kind == "class" else torch.cat(rows)).to(device)
+                for rows in zip(*(p[kind] for p in parts))]
+        return merged
 
 
 def compare_train_steps(model, opt_state, batch, config, log, plan=None,
@@ -1565,7 +1712,8 @@ def compare_train_steps(model, opt_state, batch, config, log, plan=None,
           f"branches by more than {TIE_RATIO} x the plain step's deviation "
           f"(worst {turned['worst']:.3g} x)")
     result = dict(loss=loss_k, loss_plain=loss_p, loss_f64=runs["f64"][0],
-                  turned=turned)
+                  turned=turned, branch_calls={
+                      k: len(v) for k, v in branches.recorded.items()})
 
     def allowance(part, name):
         ref = runs["f64"][part][name]
@@ -1603,8 +1751,8 @@ def compare_train_steps(model, opt_state, batch, config, log, plan=None,
             f"({who}), {worst['plain_rel']:.2e} plain; worst ratio "
             f"{worst['ratio']:.2f}, {worst['ratio_of']}; largest share of "
             f"the allowed error {worst['share']:.3f}, {worst['share_of']}; "
-            f"the f64 step's own values turn {turned['kink']} kinks and "
-            f"{turned['pool']} pool winners of the kernel step's, "
+            f"the f64 step's own values turn {branches.turned_text()} "
+            f"branches of the kernel step's, "
             f"{turned['beyond']} beyond their margin (the farthest at "
             f"{turned['worst']:.3f} of it)")
         if who == "kernels":
@@ -1686,104 +1834,43 @@ def run_training(config, plan, batches, dev, counted, expected, log):
     return model, opt_state, start, launches, step_ms, losses
 
 
-# The GEMM core's three products, named by the operand layouts <A K-major,
-# B K-major> of the tile kernel; a split-K sum belongs to the tile kernel
-# launched before it (see `profiled_kernels`).
-GEMM_FAMILIES = ("B GEMM y@W (3xTF32)", "C GEMM g@W^T (3xTF32)",
-                 "C GEMM y^T@g (3xTF32)")
-# B's product under compute_dtype "bfloat16" (the bf16 core)
-BF16_GEMM_FAMILY = "B GEMM y@W (bf16)"
-SPLITK_SUM = "splitk_sum_kernel"
 # The host event that ties the profiler's clock to time.perf_counter()
 PROFILE_MARK = "chip_smoke: profile start"
-# Kernel families of a step's device time: (label, substrings of the
-# kernel name); the first match wins, anything else is "other". The
-# GEMM core comes before the generic "gemm" match.
-FAMILIES = (
-    ("A radius_search", ("bin_supports_kernel", "search_kernel<")),
-    ("B aggregate", ("aggregate_kernel",)),
-    (GEMM_FAMILIES[0], ("tf32x3_gemm_kernel<true, false,",)),
-    (BF16_GEMM_FAMILY, ("bf16_gemm_kernel",)),
-    ("B bf16 cast of W", ("cast_transpose_bf16_kernel",)),
-    (GEMM_FAMILIES[1], ("tf32x3_gemm_kernel<true, true,",)),
-    ("C dX contributions", ("dx_contrib_kernel",)),
-    ("C, D dX row sums", ("inverse_sum_kernel",)),
-    ("row sums (gathers, voxels)", ("list_sum_kernel", "run_sum_kernel")),
-    ("inverse lists", ("inverse_build_kernel",)),
-    (GEMM_FAMILIES[2], ("tf32x3_gemm_kernel<false, false,",)),
-    ("D maxpool_bwd", ("maxpool_bwd_kernel",)),
-    ("cuBLAS/CUTLASS GEMMs", ("gemm", "cutlass", "cublas")),
-    ("reductions", ("reduce_kernel",)),
-    ("softmax", ("SoftMax",)),
-    ("gathers, scatters, index", ("gather", "scatter", "index")),
-    ("sorts", ("sort", "Sort", "radix")),
-    ("copies, fills", ("Memcpy", "Memset", "copy", "fill")),
-    ("elementwise", ("elementwise",)),
-)
 
 
-def family(name: str) -> str:
-    """The FAMILIES label of a kernel name."""
-    return next((lab for lab, keys in FAMILIES
-                 if any(k in name for k in keys)), "other")
-
-
-def kernel_families(rows):
-    """[(family, launches, device ms)] of profile rows, largest first."""
-    sums = {}
-    for name, count, ms in rows:
-        label = family(name)
-        n, t = sums.get(label, (0, 0.0))
-        sums[label] = (n + count, t + ms)
-    return sorted(((k, n, t) for k, (n, t) in sums.items()),
-                  key=lambda r: -r[2])
-
-
-def profiled_kernels(fn, reps: int = 1, window=None):
+def profiled_kernels(fn, reps: int = 1, window=None, trace_dir=None):
     """([(kernel name, launches, device ms)] largest first, wall ms, busy
-    ms) of `reps` calls of fn() under torch.profiler. Busy is the length
-    of the union of the kernels' intervals on the card (where kernels
-    overlap, less than the sum of their times); with `window`, a function
-    that returns a (start, end) of time.perf_counter() seconds after the
-    calls, only of their parts inside it. A split-K sum launch is named
-    after the GEMM core's tile kernel that ran before it."""
-    from torch.profiler import ProfilerActivity, profile, record_function
+    ms) of `reps` calls of fn() inside `device_trace` (its Chrome trace
+    written into `trace_dir` when given). The rows and the busy time come from torch.profiler's own
+    events of the window, through the readers' naming (a split-K sum
+    launch is named after the GEMM core's tile kernel that ran before it)
+    and union (`named_intervals`, `rows_of`, `union_us`): busy is the
+    length of the union of the kernels' intervals on the card (where
+    kernels overlap, less than the sum of their times); with `window`, a
+    function that returns a (start, end) of time.perf_counter() seconds
+    after the calls, only of their parts inside it."""
+    from torch.profiler import record_function
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with device_trace(trace_dir) as prof:
         with record_function(PROFILE_MARK):
             t0 = time.perf_counter()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    events = sorted((e for e in prof.events()
-                     if str(e.device_type).endswith("CUDA")
-                     and e.self_device_time_total > 0),
-                    key=lambda e: e.time_range.start)
-    sums, tile = {}, ""
-    for e in events:
-        name = e.key
-        if "tf32x3_gemm_kernel" in name or "bf16_gemm_kernel" in name:
-            tile = name
-        elif SPLITK_SUM in name:
-            name = f"{SPLITK_SUM} after {tile}"
-        n, t = sums.get(name, (0, 0.0))
-        sums[name] = (n + 1, t + e.self_device_time_total / 1e3)
-    rows = sorted(((k, n, t) for k, (n, t) in sums.items()),
-                  key=lambda r: -r[2])
+    events = prof.events()
+    named = named_intervals(
+        (e.key, e.time_range.start, e.time_range.end) for e in events
+        if str(e.device_type).endswith("CUDA")
+        and e.self_device_time_total > 0
+        and not getattr(e, "is_user_annotation", False))
     # the profiler's clock (us) at t0: host and kernel events share it
-    lo, hi = float("-inf"), float("inf")
+    span = None
     if window is not None:
-        mark = next(e.time_range.start for e in prof.events()
+        mark = next(e.time_range.start for e in events
                     if e.name == PROFILE_MARK)
-        lo, hi = (mark + (t - t0) * 1e6 for t in window())
-    busy, end = 0.0, lo
-    for e in events:
-        start = max(e.time_range.start, end)
-        end = max(min(e.time_range.end, hi), end)
-        busy += max(end - start, 0.0)
-    return rows, wall, busy / 1e3
+        span = tuple(mark + (t - t0) * 1e6 for t in window())
+    return rows_of(named), wall, union_us(named, span) / 1e3
 
 
 def gemm_part_ms(fn, families, reps: int = 5, tries: int = 6) -> dict:
@@ -1802,7 +1889,7 @@ def gemm_part_ms(fn, families, reps: int = 5, tries: int = 6) -> dict:
         rows, *_ = profiled_kernels(fn, reps)
         kept = {}
         for name, count, ms in rows:
-            key = (family(name), name.startswith(SPLITK_SUM))
+            key = (categorize_op(name), name.startswith(SPLITK_SUM))
             n, t = kept.get(key, (0, 0.0))
             kept[key] = (n + count, t + ms)
         if all((f, False) in kept for f in families):
@@ -3542,7 +3629,9 @@ def run_deformable(root, work, counted, card, log):
     the kernels and the f64 step at the loop's shapes
     (`check_stage_shapes`) and the deformable convs' times and memory
     (`time_deformable_convs`).
-    Returns the report and the launches of its main-path runs."""
+    Returns the report, the launches of its main-path runs and, for phase
+    15, the trained model with its config, plan, per-eval-batch launches
+    and the level-0 tensors of the validation batch."""
     import copy
     import dataclasses
     from weasal_tpu_torch.data.loader import BatchPrefetcher
@@ -3700,10 +3789,12 @@ def run_deformable(root, work, counted, card, log):
                                   momentum_zero=zero),
                       test_models=vote, deformable_convs=deform,
                       profile=profile)
+        handoff = dict(model=trainer.model, config=cfg2, plan=trainer.plan,
+                       level0=t, per_val=per_val)
     finally:
         ModelTrainer._flush_log = flush_log
         os.chdir(cwd)
-    return report, total
+    return report, total, handoff
 
 
 def host_expected(per_step, per_val, n_layers):
@@ -4834,11 +4925,7 @@ def run_data_parallel(root, work, counted, card, log, dev=None):
         # process's kernel step too) takes the data-parallel step's
         # leaky-ReLU signs and pool winners, so that a tie turned by the
         # ranks' other f32 order of the sums does not read as an error
-        branches = Branches()
-        for kind in branches.recorded:
-            branches.recorded[kind] = [
-                torch.cat(parts).to(dev)
-                for parts in zip(*(r["branches"][kind] for r in rk))]
+        branches = Branches.of_ranks([r["branches"] for r in rk], dev)
         cmp = compare_train_steps(
             trainer.model, trainer.opt_state, pyr, config, log,
             label=f"{what}, one process", step_kw=step_kw,
@@ -4980,6 +5067,276 @@ def run_data_parallel(root, work, counted, card, log, dev=None):
         "the run): "
         + "; ".join(f"{k[:60]} {n} {t:.3f}" for k, n, t in extra))
     return report, paths
+
+
+# Phase 15: the visualizer's query points, the profiled WL epoch's steps
+VIS_QUERIES = (0, 1, 2)
+P15_STEPS = 10
+# The profile readers against torch.profiler's own events of one window:
+# each family's device ms and the busy ms within this share of each other
+READER_RTOL = 0.01
+P15_MARK = "chip_smoke: phase 15 mark"
+
+
+def check_visualizer(handoff, work, counted, card, log):
+    """Phase 15 (a): `ModelVisualizer.show_deformable_kernels` on phase
+    11's deformable PL model and one of its validation batches: the
+    pyramid built on the card (kernel A) and the eval forward (kernel B,
+    the offset convs among them) with the launches counted from 0, then
+    the same on the plain versions (`plain_ops()`). The deformed kernel
+    points of every deformable conv agree within the KPConv tolerance of
+    phases 2 and 11, both runs write the same files, and the eval
+    forward is timed with the kernels and plain (CUDA events, median of
+    10). Returns (report, launches)."""
+    from weasal_tpu_torch.ops.pyramid import batch_from_device_pyramid
+    from weasal_tpu_torch.utils.device import plain_ops
+    from weasal_tpu_torch.utils.visualizer import ModelVisualizer
+    model, config, plan, t = (handoff[k] for k in ("model", "config",
+                                                   "plan", "level0"))
+    model.eval()
+
+    def pyramid():
+        return batch_from_device_pyramid(
+            t["points0"], t["mask0"], t["features"], t["labels"], config,
+            plan, t["center_pts"], rotations=t["rotations"])
+
+    runs = {}
+    for label in ("kernels", "plain"):
+        vis = ModelVisualizer(model)
+        out = os.path.join(work, f"phase15_vis_{label}")
+        with contextlib.ExitStack() as stack:
+            if label == "plain":
+                stack.enter_context(plain_ops())
+            for fn in counted:
+                fn.launches = 0
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                pyr = pyramid()
+                frames = vis.show_deformable_kernels(
+                    pyr, out, sphere=0, query_indices=VIS_QUERIES)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {fn.__name__: fn.launches for fn in counted}
+            with torch.no_grad():
+                fwd_ms = cuda_ms(lambda: model(pyr))
+        runs[label] = dict(frames=[os.path.relpath(f, out) for f in frames],
+                           files=sorted(os.listdir(out)), wall_s=wall,
+                           launches=launches, forward_ms=fwd_ms,
+                           deformed=vis.deformed)
+    k, p = runs["kernels"], runs["plain"]
+    n_convs = len(k["deformed"])
+    want = {n: handoff["per_val"].get(n, 0) for n in k["launches"]}
+    expect(k["launches"] == want, f"phase 15 (a): the visualizer's launches "
+           f"{k['launches']}, expected an eval batch's {want}")
+    expect(n_convs > 0 and len(k["frames"]) == n_convs
+           * (len(VIS_QUERIES) + 1) and k["frames"] == p["frames"]
+           and k["files"] == p["files"]
+           and {"input.ply", "input.html"} <= set(k["files"]),
+           f"phase 15 (a): {n_convs} deformable convs, frames "
+           f"{k['frames']} (plain {p['frames']}), files {k['files']}")
+    worst = 0.0
+    for name, ref in p["deformed"].items():
+        got = k["deformed"][name]
+        scale = float(ref.abs().max())
+        _expect_close(f"phase 15 (a) deformed kernel points {name}", got,
+                      ref, KPCONV_RTOL, KPCONV_ATOL_REL * scale)
+        worst = max(worst, float((got - ref).abs().max()))
+    log(f"[{card}] phase 15 (a) visualizer: {n_convs} deformable convs, "
+        f"{len(k['frames'])} frames and {len(k['files'])} files a run; "
+        f"deformed kernel points, kernels vs plain: max abs err "
+        f"{worst:.3e}; eval forward {k['forward_ms']:.3f} ms with the "
+        f"kernels, {p['forward_ms']:.3f} ms plain; pyramid + visualizer "
+        f"{k['wall_s']:.2f} s ({p['wall_s']:.2f} s plain); launches "
+        f"{k['launches']}")
+    report = {label: {key: v for key, v in r.items() if key != "deformed"}
+              for label, r in runs.items()}
+    report["max_abs_err"] = worst
+    return report, k["launches"]
+
+
+def check_max_pool_block(trainer, counted, card, log, seed):
+    """Phase 15 (b): `MaxPoolBlock` (the 'max_pool' block, JAX's edge
+    `pools[layer_ind + 1]`) at layer 0 on the first batch of phase 6's
+    tile (`first_pyramid`): level 0's features at the WL model's first
+    width pooled over pools[1], forward and backward with the kernels
+    (launches counted from 0: one D, one list build) and on the plain
+    versions; the forwards equal. The edge's shadow index, N_{l+1}, is
+    a real row of level l's features, so every padded slot of the edge
+    adds into that row: one inverse list of tens of thousands of slots a
+    sphere, whose f32 sum moves with its order (3e-3 at a scale of 150
+    between the kernel's order and `index_add_`'s, H100 80GB HBM3,
+    700 W). So dX's other rows are held within D's tolerance (phase 4's)
+    to the plain version, and that row, kernel and plain, to an f64
+    evaluation of the plain version: the kernel's error within F64_RATIO
+    times the plain version's, plus D's tolerance. Kernel D on the edge
+    is timed beside its plain version and its bound.
+    Returns (report, launches, the kernel's sums)."""
+    from weasal_tpu_torch.models.blocks import MaxPoolBlock
+    from weasal_tpu_torch.ops.cuda.inverse_lists import LazyInverse
+    from weasal_tpu_torch.ops.cuda.maxpool_bwd import (maxpool_bwd,
+                                                       maxpool_bwd_plain)
+    from weasal_tpu_torch.utils.device import plain_ops
+    pyr = first_pyramid(trainer)
+    dev = pyr.features.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    block = MaxPoolBlock(0)
+    nb = pyr.pools[1]
+    b, ns = pyr.points[0].shape[:2]
+    c = trainer.config.first_features_dim
+    # integer values force ties; channel 0 is never positive
+    x = torch.randint(-3, 3, (b, ns, c), generator=gen, device=dev).float()
+    x[:, :, 0].clamp_(max=0.0)
+    g = torch.randn((b, nb.shape[1], c), generator=gen, device=dev)
+    out = {}
+    for label in ("kernels", "plain"):
+        xr = x.clone().requires_grad_()
+        with contextlib.ExitStack() as stack:
+            if label == "plain":
+                stack.enter_context(plain_ops())
+            for fn in counted:
+                fn.launches = 0
+            y = block(xr, pyr)
+            y.backward(g)
+            torch.cuda.synchronize()
+        out[label] = (y.detach(), xr.grad,
+                      {fn.__name__: fn.launches for fn in counted})
+    (yk, dk, launches), (yp, dp, _) = out["kernels"], out["plain"]
+    expect(tuple(yk.shape) == (b, nb.shape[1], c) and torch.equal(yk, yp),
+           f"phase 15 (b): MaxPoolBlock forward {tuple(yk.shape)}, kernels "
+           "and plain equal")
+    shadow = pyr.points[1].shape[1]
+    rest = torch.ones(ns, dtype=torch.bool, device=dev)
+    rest[shadow] = False
+    scale = float(dp[:, rest].abs().max())
+    atol = MAXPOOL_ATOL_REL * max(scale, 1e-30)
+    _expect_close("phase 15 (b) MaxPoolBlock dX but the edge's shadow row",
+                  dk[:, rest], dp[:, rest], MAXPOOL_RTOL, atol)
+    err = float((dk[:, rest] - dp[:, rest]).abs().max())
+    exact = maxpool_bwd_plain(x.double(), nb, g.double())[:, shadow]
+    f64_k = float((dk[:, shadow].double() - exact).abs().max())
+    f64_p = float((dp[:, shadow].double() - exact).abs().max())
+    expect(f64_k <= F64_RATIO * f64_p + atol, f"phase 15 (b): MaxPoolBlock "
+           f"dX's shadow row {f64_k:.3e} from f64, the plain version's "
+           f"{f64_p:.3e}")
+    lists = LazyInverse(nb, ns).get()
+    longest = int((lists.offsets[1:] - lists.offsets[:-1]).max())
+    want = {n: int(n in ("maxpool_bwd", "build_inverse_lists"))
+            for n in launches}
+    expect(launches == want, f"phase 15 (b): launches {launches}, "
+           f"expected {want}")
+    inv = LazyInverse(nb, ns)
+    inv.get()
+    ms = cuda_ms(lambda: maxpool_bwd(x, nb, g, inverse=inv))
+    plain = cuda_ms(lambda: maxpool_bwd_plain(x, nb, g))
+    n_bytes = 4.0 * (x.numel() + nb.numel() + g.numel() + dk.numel())
+    b_ms, b_by = bound_ms(n_bytes, 0.0)
+    sums = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                max_abs_err=err, calls=1)
+    log(f"[{card}] phase 15 (b) MaxPoolBlock at layer 0 over pools[1] "
+        f"(nb {list(nb.shape)}, Ns {ns}, C {c}, longest inverse list "
+        f"{longest}): forward equal; dX err {err:.2e} but the shadow row "
+        f"{shadow} (scale {scale:.2e}); that row from f64 {f64_k:.2e} "
+        f"(kernel), {f64_p:.2e} (plain); kernel D {ms:.3f} ms, plain "
+        f"{plain:.3f} ms, bound {b_ms:.4f} ms ({b_by}); launches "
+        f"{launches}")
+    return dict(shape=[b, nb.shape[1], ns, nb.shape[2], c],
+                longest_list=longest, shadow_row_f64_err=f64_k,
+                shadow_row_f64_err_plain=f64_p, **sums), launches, sums
+
+
+def check_profile_readers(trainer, work, counted, card, log):
+    """Phase 15 (c): one graphed WL epoch of P15_STEPS steps on phase 6's
+    tile inside `device_trace` (through `profiled_kernels`, its Chrome
+    trace kept): `module_times_us(trace, "train_step_k")` gives one
+    duration a replay and their sum lies within the epoch's wall; the
+    readers' `stage_breakdown` times the steps, by family, and their busy
+    time inside the epoch's clock agree within READER_RTOL with the rows
+    and busy time that torch.profiler's own events of the same window
+    give (`profiled_kernels`). Returns the report."""
+    from torch.profiler import record_function
+    ds = trainer.datasets[0]
+    trace = os.path.join(work, "phase15_trace")
+    replays0 = trainer.graph_counts()["train_replays"]
+    trainer.config.max_epoch = trainer.epoch + 1
+    marks = []
+
+    def epoch():
+        # a mark of the trace's clock at a time.perf_counter() reading
+        with record_function(P15_MARK):
+            marks.append(time.perf_counter())
+        trainer.train(ds)
+
+    for fn in counted:
+        fn.launches = 0
+    rows, wall, busy = profiled_kernels(
+        epoch, trace_dir=trace,
+        window=lambda: epoch_window(trainer.epoch_times[-1]))
+    launches = {fn.__name__: fn.launches for fn in counted}
+    replays = trainer.graph_counts()["train_replays"] - replays0
+    record = trainer.epoch_times[-1]
+    steps, epoch_ms = record["steps"], 1e3 * record["seconds"]
+    times = module_times_us(trace, "train_step_k")
+    cores = module_times_us(trace, "step_core")
+    expect(len(times) == replays and replays >= steps > 0,
+           f"phase 15 (c): {len(times)} train_step_k durations for "
+           f"{replays} replays ({steps} steps)")
+    expect(sum(times) / 1e3 <= epoch_ms, f"phase 15 (c): the replays' "
+           f"device spans sum to {sum(times) / 1e3:.3f} ms, more than the "
+           f"epoch's wall {epoch_ms:.3f} ms")
+    per_step = stage_breakdown(trace, steps)
+    events = {f: ms for f, _, ms in kernel_families(rows)}
+    agree = {}
+    for fam in sorted(set(per_step) | set(events)):
+        got, want = per_step.get(fam, 0.0) * steps / 1e3, events.get(fam, 0.0)
+        agree[fam] = (got, want)
+        expect(abs(got - want) <= READER_RTOL * want, f"phase 15 (c): "
+               f"{fam}: stage_breakdown x {steps} steps {got:.4f} ms, the "
+               f"profile's own events {want:.4f} ms")
+    mark = host_ranges(trace, P15_MARK)[0][1]
+    busy_json = busy_us(trace, tuple(mark + (t - marks[0]) * 1e6
+                                     for t in epoch_window(record))) / 1e3
+    expect(abs(busy_json - busy) <= READER_RTOL * busy,
+           f"phase 15 (c): busy {busy_json:.3f} ms by the readers, "
+           f"{busy:.3f} ms by the profile's own events")
+    log(f"[{card}] phase 15 (c) device_trace of a graphed WL epoch: {steps} "
+        f"steps, {replays} replays, epoch {epoch_ms:.1f} ms; train_step_k "
+        f"device spans median {statistics.median(times or [0]):.1f} us, sum "
+        f"{sum(times) / 1e3:.3f} ms; step_core (the capture's warm-up) "
+        f"{[round(v, 1) for v in cores]} us; busy inside the epoch "
+        f"{busy_json:.3f} ms by the readers, {busy:.3f} by the events; "
+        f"stage_breakdown x steps against the profile's own events (ms): "
+        + "; ".join(f"{f} {a:.3f}/{b:.3f}" for f, (a, b) in sorted(
+            agree.items(), key=lambda kv: -kv[1][1])))
+    return dict(steps=steps, replays=replays, epoch_ms=epoch_ms,
+                profile_wall_ms=wall, train_step_k_us=times,
+                step_core_us=cores, families=agree, busy_ms=busy,
+                busy_ms_readers=busy_json, launches=launches)
+
+
+def run_phase15(root, work, counted, handoff, card, log):
+    """Phase 15: the visualizer on phase 11's model (`check_visualizer`),
+    `MaxPoolBlock` on phase 6's tile (`check_max_pool_block`) and the
+    profile readers on a graphed WL epoch there (`check_profile_readers`),
+    one WL trainer (VaihingenWLConfig, graphed, nothing saved) serving
+    (b) and (c). Returns (report, launches by path, D's sums)."""
+    from weasal_tpu_torch.config import VaihingenWLConfig
+    from weasal_tpu_torch.data.datasets import Vaihingen3DWLDataset
+    from weasal_tpu_torch.train.trainer import ModelTrainer
+    vis, vis_launches = check_visualizer(handoff, work, counted, card, log)
+    del handoff
+    config = VaihingenWLConfig()
+    config.epoch_steps = P15_STEPS
+    config.saving = False
+    ds = Vaihingen3DWLDataset(config, split="training", data_root=root,
+                              rng=np.random.default_rng(SEED))
+    trainer = ModelTrainer(config, ds, device=torch.device("cuda"))
+    trainer.datasets = (ds, None)
+    pool, pool_launches, d_sums = check_max_pool_block(trainer, counted,
+                                                       card, log, SEED)
+    readers = check_profile_readers(trainer, work, counted, card, log)
+    return (dict(visualizer=vis, max_pool_block=pool, readers=readers),
+            dict(visualize=vis_launches, max_pool_block=pool_launches),
+            d_sums)
 
 
 def main(argv=None) -> int:
@@ -5187,7 +5544,8 @@ def main(argv=None) -> int:
                                               (expected, per_val), card, log)
         # ---- phase 11: deformable convs, checkpoints across formats
         phase("phase 11: the deformable pseudo-label stage on the card")
-        deform, deform_pl = run_deformable(root, work, counted, card, log)
+        deform, deform_pl, deform_handoff = run_deformable(
+            root, work, counted, card, log)
         # ---- phase 12: the host-pyramid input path and KPCNN
         phase("phase 12: the host-pyramid input path and KPCNN on the card")
         host, host_kernels, host_paths = run_host_pyramid(
@@ -5201,6 +5559,11 @@ def main(argv=None) -> int:
         # ---- phase 14: data parallel
         phase("phase 14: data-parallel training and voting on the card")
         dp, dp_paths = run_data_parallel(root, work, counted, card, log)
+        # ---- phase 15: the visualizer, the max_pool block, the readers
+        phase("phase 15: the deformable-kernel visualizer, the max_pool "
+              "block and the profile readers on the card")
+        p15, p15_paths, p15_d = run_phase15(root, work, counted,
+                                            deform_handoff, card, log)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -5211,7 +5574,7 @@ def main(argv=None) -> int:
                  wl_loop=loop_launches, wl_active_learning=al_launches,
                  pl_stage=pl_launches, dales_wl=dales_wl, dales_pl=dales_pl,
                  deformable_pl=deform_pl, **host_paths, **bf16_paths,
-                 **dp_paths)
+                 **dp_paths, **p15_paths)
 
     def by_path(name):
         return {path: counts.get(name, 0) for path, counts in paths.items()}
@@ -5221,7 +5584,9 @@ def main(argv=None) -> int:
 
     stage_kernels = dict(pl=pl["kernels"], dales_wl=dales["wl"]["kernels"],
                          dales_pl=dales["pl"]["kernels"],
-                         deform_pl=deform["kernels"], **host_kernels)
+                         deform_pl=deform["kernels"], **host_kernels,
+                         max_pool_block=dict(maxpool_bwd=p15_d,
+                                             inverse_lists={}))
 
     def sums_of(kernels, name):
         return kernels.get(name) or kernels["inverse_lists"].get(name)
@@ -5358,7 +5723,8 @@ def main(argv=None) -> int:
                                                   kernels=bf16_kernels,
                                                   launches=bf16_paths),
                            data_parallel=dict(report=dp,
-                                              launches=dp_paths)), f,
+                                              launches=dp_paths),
+                           phase15=dict(report=p15, launches=p15_paths)), f,
                       indent=1)
     phase("chip_smoke: every phase ran")
     if FAILED:

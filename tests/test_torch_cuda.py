@@ -66,7 +66,10 @@ sharing the card take a WL and a PL step equal to one process's (the
 ranks bit-equal, the masks and the draw bit-equal to one process's), and
 one NCCL rank's replayed step, its collectives inside the graph, is
 bit-equal to the same step with no group; under a gloo group a trainer
-on the card steps eagerly and refuses a request for graphs.
+on the card steps eagerly and refuses a request for graphs. The
+deformable-kernel visualizer on the card equals its plain run (deformed
+kernel points within B's tolerance, the same files), and the 'max_pool'
+block's backward runs D on its edge, equal to the plain version.
 Needs an
 NVIDIA GPU with nvcc; skips elsewhere. On the machine with the card
 (which has no JAX) run
@@ -1794,3 +1797,92 @@ def test_gloo_group_on_a_card_steps_eagerly_and_refuses_graphs(
         with pytest.raises(ValueError, match="gloo"):
             ModelTrainer(explicit, train, device=dev)
     assert ModelTrainer(copy.copy(cfg), train, device=dev).graphed
+
+
+def test_visualizer_on_the_card_equals_plain(dev, synth_pl, tmp_path):
+    """`ModelVisualizer.show_deformable_kernels` on the deformable
+    pseudo-label model (layers 3-4 deformable) and one batch, its pyramid
+    built on the card, against the same on the plain versions: the
+    deformed kernel points of each deformable conv within B's tolerance
+    (rtol 1e-4, atol 1e-5 x scale), the same frames and files; the
+    pyramid and forward launch A and B (chip_smoke.py phase 15 (a))."""
+    from weasal_tpu_torch.ops.pyramid import batch_from_device_pyramid
+    from weasal_tpu_torch.utils.visualizer import ModelVisualizer
+    dcfg, plan, model, _, t = _deform_pl(dev, synth_pl)
+    model.eval()
+    runs = {}
+    for label in ("kernels", "plain"):
+        vis = ModelVisualizer(model)
+        out = tmp_path / label
+        with contextlib.ExitStack() as stack:
+            if label == "plain":
+                stack.enter_context(plain_ops())
+            a0, b0 = radius_search.launches, kpconv_fwd.launches
+            with torch.no_grad():
+                pyr = batch_from_device_pyramid(
+                    t["points0"], t["mask0"], t["features"], t["labels"],
+                    dcfg, plan, t["center_pts"], rotations=t["rotations"])
+                frames = vis.show_deformable_kernels(pyr, str(out))
+            torch.cuda.synchronize()
+            launched = (radius_search.launches - a0,
+                        kpconv_fwd.launches - b0)
+        runs[label] = (vis.deformed, [os.path.relpath(f, out)
+                                      for f in frames],
+                       sorted(os.listdir(out)), launched)
+    (dk, fk, files_k, (a, b)), (dp, fp, files_p, plain) = (runs["kernels"],
+                                                          runs["plain"])
+    assert a == 3 * dcfg.num_layers - 2 and b > 0 and plain == (0, 0)
+    assert fk == fp and files_k == files_p and len(dk) == 3
+    assert len(fk) == 3 * 4 and "input.ply" in files_k
+    for name, ref in dp.items():
+        got = dk[name]
+        assert torch.allclose(got, ref, rtol=1e-4,
+                              atol=1e-5 * float(ref.abs().max())), name
+
+
+def test_max_pool_block_runs_kernel_d_on_its_edge(dev, synth_pl,
+                                                  monkeypatch):
+    """`MaxPoolBlock` at layer 0 (JAX's edge pools[1], into level 0's
+    features) forward and backward on the card against the plain
+    versions: forwards equal, one D launch over the edge's inverse
+    lists, and dX within D's tolerance (rtol 1e-6, atol 1e-6 x scale) of
+    the plain version with its sums in the kernel's order
+    (`ordered_row_sums`): the edge's shadow index is a real row of level
+    0, whose list takes every padded slot, so `index_add_`'s order moves
+    that row's f32 sum (chip_smoke.py phase 15 (b))."""
+    from weasal_tpu_torch.models.blocks import MaxPoolBlock
+    from weasal_tpu_torch.ops.cuda import maxpool_bwd as d_mod
+    dcfg, plan, _, _, t = _deform_pl(dev, synth_pl)
+    pyr = _plain_pyramid(t, dcfg, plan)
+    g = torch.Generator(device=dev).manual_seed(0)
+    b, ns = pyr.points[0].shape[:2]
+    x = torch.randint(-3, 3, (b, ns, 16), generator=g, device=dev).float()
+    x[:, :, 0].clamp_(max=0.0)
+    grad = torch.randn((b, pyr.pools[1].shape[1], 16), generator=g,
+                       device=dev)
+    out = {}
+    for label in ("kernels", "plain"):
+        xr = x.clone().requires_grad_()
+        d0 = maxpool_bwd.launches
+        with contextlib.ExitStack() as stack:
+            if label == "plain":
+                stack.enter_context(plain_ops())
+            y = MaxPoolBlock(0)(xr, pyr)
+            y.backward(grad)
+        torch.cuda.synchronize()
+        out[label] = (y.detach(), xr.grad, maxpool_bwd.launches - d0)
+    (yk, dk, nk), (yp, _, np_) = out["kernels"], out["plain"]
+    assert yk.shape == (b, pyr.pools[1].shape[1], 16)
+    assert torch.equal(yk, yp) and (nk, np_) == (1, 0)
+
+    def in_list_order(values, inds, ns):
+        lists = build_inverse_lists_plain(inds, ns, values.shape[2])
+        return ordered_row_sums(values.reshape(-1, values.shape[3]),
+                                lists.offsets, lists.entries,
+                                inds.shape[0] * ns).reshape(
+            inds.shape[0], ns, values.shape[3])
+
+    monkeypatch.setattr(d_mod, "scatter_rows", in_list_order)
+    want = maxpool_bwd_plain(x, pyr.pools[1], grad)
+    assert torch.allclose(dk, want, rtol=1e-6,
+                          atol=1e-6 * float(want.abs().max()))

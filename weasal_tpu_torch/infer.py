@@ -22,6 +22,7 @@ from __future__ import annotations
 from typing import Dict, Mapping, Optional, Tuple
 
 import torch
+from torch.profiler import record_function
 
 from weasal_tpu_torch.data.batch import PyramidBatch, is_host_pyramid
 from weasal_tpu_torch.ops.pyramid import batch_from_device_pyramid
@@ -119,25 +120,27 @@ def eval_body(model, inputs: Mapping, config, plan, device, spec=None,
     assembled with augmentation (the validation and vote spheres are
     augmented, as in training) and its outputs are gathered back to
     `input_inds` order; a level-0 or host-pyramid batch's outputs stay
-    in its rows' order, which its metas' `input_inds` follow."""
+    in its rows' order, which its metas' `input_inds` follow. The body is
+    one `eval_step` range of the profiler."""
     model.eval()
-    batch, unsort = input_batch(inputs, config, plan, device, spec=spec)
-    probs = _probs(model, batch)
-    labels = batch.labels
-    pts = batch.points[0]
-    d2 = pts[..., 0] * pts[..., 0] + pts[..., 1] * pts[..., 1] \
-        + pts[..., 2] * pts[..., 2]
-    if unsort is not None:
-        probs = torch.gather(
-            probs, 1, unsort[..., None].expand(-1, -1, probs.shape[-1]))
-        labels = torch.gather(labels, 1, unsort)
-        d2 = torch.gather(d2, 1, unsort)
-    if out is None:
-        return {"probs": probs, "labels": labels, "d2": d2}
-    out["probs"].copy_(probs)
-    out["labels"].copy_(labels)
-    out["d2"].copy_(d2)
-    return out
+    with record_function("eval_step"):
+        batch, unsort = input_batch(inputs, config, plan, device, spec=spec)
+        probs = _probs(model, batch)
+        labels = batch.labels
+        pts = batch.points[0]
+        d2 = pts[..., 0] * pts[..., 0] + pts[..., 1] * pts[..., 1] \
+            + pts[..., 2] * pts[..., 2]
+        if unsort is not None:
+            probs = torch.gather(
+                probs, 1, unsort[..., None].expand(-1, -1, probs.shape[-1]))
+            labels = torch.gather(labels, 1, unsort)
+            d2 = torch.gather(d2, 1, unsort)
+        if out is None:
+            return {"probs": probs, "labels": labels, "d2": d2}
+        out["probs"].copy_(probs)
+        out["labels"].copy_(labels)
+        out["d2"].copy_(d2)
+        return out
 
 
 def eval_batch(model, arrays: Mapping, config, plan, device=None, spec=None

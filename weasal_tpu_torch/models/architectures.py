@@ -108,6 +108,7 @@ class KPFCNN(nn.Module):
         _check_labels(config, lbl_values, ign_lbls)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
+        self.config = config
         self.lbl_values = tuple(lbl_values)
         self.ign_lbls = tuple(ign_lbls)
         num_classes = len(lbl_values) - len(ign_lbls)
@@ -168,6 +169,7 @@ class KPFCNN_mprm(nn.Module):
         _check_labels(config, lbl_values, ign_lbls)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
+        self.config = config
         self.lbl_values = tuple(lbl_values)
         self.ign_lbls = tuple(ign_lbls)
         enc, _skips, skip_dims, _in, out_dim, layer, r = _encoder_plan(config)

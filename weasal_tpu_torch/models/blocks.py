@@ -25,6 +25,7 @@ from torch import nn
 
 from weasal_tpu_torch.kernels.kernel_points import load_kernels
 from weasal_tpu_torch.ops import kpconv as ops
+from weasal_tpu_torch.ops.cuda.inverse_lists import LazyInverse
 from weasal_tpu_torch.parallel import ddp
 from weasal_tpu_torch.utils import prng
 
@@ -208,15 +209,12 @@ class KPConv(nn.Module):
                 pose_seed=pose_seed + 1, compute_dtype=compute_dtype)
             self.offset_bias = nn.Parameter(torch.zeros(offset_dim))
 
-    def forward(self, q_pts, s_pts, neighb_inds, x, inverse=None):
-        if not self.params.deformable:
-            return ops.kpconv(q_pts, s_pts, neighb_inds, x,
-                              self.kernel_points, self.weights, self.params,
-                              inverse=inverse)
+    def split_offsets(self, offset_feats):
+        """(offsets [B, Nq, Kp, p_dim] times kp_extent, modulations
+        [B, Nq, Kp] or None) of a deformable conv's `offset_conv` output
+        (`offset_bias` is added here)."""
         n_kp = self.kernel_points.shape[0]
-        extent = self.params.kp_extent
-        feats = self.offset_conv(q_pts, s_pts, neighb_inds, x,
-                                 inverse) + self.offset_bias
+        feats = offset_feats + self.offset_bias
         b, nq = feats.shape[:2]
         modulations = None
         if self.params.modulated:
@@ -224,7 +222,24 @@ class KPConv(nn.Module):
             modulations = 2 * torch.sigmoid(feats[..., self.p_dim * n_kp:])
         else:
             offsets = feats
-        offsets = offsets.reshape(b, nq, n_kp, self.p_dim) * extent
+        offsets = offsets.reshape(b, nq, n_kp, self.p_dim) \
+            * self.params.kp_extent
+        return offsets, modulations
+
+    def deformed_kernel_points(self, offsets):
+        """[B, Nq, Kp, 3] deformed kernel points / kp_extent, in each
+        query's frame, of `split_offsets`' offsets."""
+        return (self.kernel_points[None, None] + offsets) \
+            / self.params.kp_extent
+
+    def forward(self, q_pts, s_pts, neighb_inds, x, inverse=None):
+        if not self.params.deformable:
+            return ops.kpconv(q_pts, s_pts, neighb_inds, x,
+                              self.kernel_points, self.weights, self.params,
+                              inverse=inverse)
+        extent = self.params.kp_extent
+        offsets, modulations = self.split_offsets(
+            self.offset_conv(q_pts, s_pts, neighb_inds, x, inverse))
         out, min_sq = ops.kpconv_dense(
             q_pts, s_pts, neighb_inds, x, self.kernel_points, self.weights,
             self.params, offsets=offsets, modulations=modulations,
@@ -232,8 +247,7 @@ class KPConv(nn.Module):
         if self.training:
             q_valid = (neighb_inds < s_pts.shape[1]).any(dim=-1)
             self.regularizer_inputs = (
-                min_sq / extent ** 2,
-                (self.kernel_points[None, None] + offsets) / extent,
+                min_sq / extent ** 2, self.deformed_kernel_points(offsets),
                 q_valid.to(out.dtype))
         return out
 
@@ -392,6 +406,24 @@ class NearestUpsampleBlock(nn.Module):
                                 batch.inverse("upsamples", l))
 
 
+class MaxPoolBlock(nn.Module):
+    """Neighborhood max over `pools[layer_ind + 1]`, the JAX block's edge
+    (weasal_tpu/models/blocks.py:429-436): the rows of level l + 2 from
+    indices into level l + 1, applied to the features it is given, with
+    a 0.0 shadow slot (`ops.max_pool`). Its backward is kernel D on the
+    card, over that edge's inverse lists for the features' own rows
+    (a shadow index of the edge is a real row of wider features, as in
+    the JAX package's gather)."""
+
+    def __init__(self, layer_ind: int):
+        super().__init__()
+        self.layer_ind = layer_ind
+
+    def forward(self, x, batch):
+        inds = batch.pools[self.layer_ind + 1]
+        return ops.max_pool(x, inds, LazyInverse(inds, x.shape[1]))
+
+
 class GlobalAverageBlock(nn.Module):
     """Per-sphere masked mean at the last level."""
 
@@ -521,13 +553,16 @@ _RESNETB = tuple(f"resnetb{kind}{stride}"
 def block_decider(block_name: str, radius: float, in_dim: int, out_dim: int,
                   layer_ind: int, config, path: Tuple[str, ...],
                   generator: torch.Generator) -> nn.Module:
-    """Map an architecture-DSL block name to its module. The max-pool
-    blocks ('max_pool', 'max_pool_wide') stay unported: the JAX
-    package's `MaxPoolBlock` pools over `pools[layer_ind + 1]`, the edge
-    from level l + 1 into l + 2, one level past the edge a strided block
-    of the same layer reads (weasal_tpu/models/blocks.py:429-436), and
-    sizes its band from the other edge (ADVICE r5); no shipped
-    architecture uses it, so there is no behaviour to hold a port to."""
+    """Map an architecture-DSL block name to its module, as the JAX
+    package's decider (weasal_tpu/models/blocks.py:606-631). 'max_pool'
+    and 'max_pool_wide' build `MaxPoolBlock` on the JAX block's edge,
+    `pools[layer_ind + 1]`: from level l + 1 into l + 2, one level past
+    the edge that a strided block of the same layer reads. Its output
+    holds level l + 2's rows where the next block expects level l + 1's,
+    so a model that holds the block fails in both packages (JAX's
+    KPFCNN_mprm on [simple, resnetb, max_pool, resnetb, ...] with "add
+    got incompatible shapes" at the next shortcut); no shipped
+    architecture uses it."""
     kw = dict(block_name=block_name, in_dim=in_dim, out_dim=out_dim,
               radius=radius, layer_ind=layer_ind, config=config, path=path,
               generator=generator)
@@ -543,10 +578,7 @@ def block_decider(block_name: str, radius: float, in_dim: int, out_dim: int,
     if block_name == "nearest_upsample":
         return NearestUpsampleBlock(layer_ind)
     if block_name in ("max_pool", "max_pool_wide"):
-        raise ValueError(
-            f"{block_name}: not ported (the JAX MaxPoolBlock pools over "
-            "pools[layer_ind + 1], one edge past its layer's, "
-            "weasal_tpu/models/blocks.py:429-436)")
+        return MaxPoolBlock(layer_ind)
     raise ValueError(f"Unknown or unported block name: {block_name}")
 
 

@@ -74,6 +74,26 @@ def contrast_draw(certain: torch.Tensor, valid_mask: torch.Tensor,
     return torch.searchsorted(cum, k).clamp(max=w.shape[0] - 1)
 
 
+# The contrast loss's discrete choices, each one function so that a check
+# can record them in one step and replay them in another (chip_smoke.py's
+# `Branches` holds a step to an f64 step that takes the same branches)
+def above(x: torch.Tensor, threshold: float) -> torch.Tensor:
+    """x > threshold, row by row: the certain points (confidence above the
+    threshold) and the positive point losses."""
+    return x > threshold
+
+
+def top_class(prob: torch.Tensor) -> torch.Tensor:
+    """[N] the most probable class of each row of [N, C] probabilities."""
+    return torch.argmax(prob, dim=1)
+
+
+def positive_classes(class_means: torch.Tensor) -> torch.Tensor:
+    """The classes whose mean point loss is positive (the same on every
+    rank of a data-parallel group)."""
+    return class_means > 0
+
+
 def contrast_loss(logits: torch.Tensor, labels: torch.Tensor,
                   valid_mask: torch.Tensor, num_classes: int,
                   threshold: float, seed: Optional[torch.Tensor] = None,
@@ -105,9 +125,8 @@ def contrast_loss(logits: torch.Tensor, labels: torch.Tensor,
     prob = torch.softmax(logits, dim=1)
     pseudo_conf = prob.amax(dim=1)
     label_id = (labels < num_classes) & valid_mask
-    certain = ((pseudo_conf > threshold) | label_id) & valid_mask
-    pseudo_lbs = torch.where(label_id, labels.long(),
-                             torch.argmax(prob, dim=1))
+    certain = (above(pseudo_conf, threshold) | label_id) & valid_mask
+    pseudo_lbs = torch.where(label_id, labels.long(), top_class(prob))
     grouped = ddp.current() is not None
     if grouped:
         rows = ddp.gather_spheres(torch.stack(
@@ -157,14 +176,14 @@ def contrast_loss(logits: torch.Tensor, labels: torch.Tensor,
 
     # Positive per-point losses averaged per pseudo class, then over the
     # classes with a positive mean; the class sums as masked reductions
-    w = ((pts_loss > 0) & valid_mask).to(logits.dtype)
+    w = (above(pts_loss, 0.0) & valid_mask).to(logits.dtype)
     onehot = (pseudo_lbs[:, None] == torch.arange(
         num_classes + 2, device=logits.device)[None, :]).to(logits.dtype)
     sums, cnts = ddp.global_sums(
         (onehot * (pts_loss * w)[:, None]).sum(dim=0),
         (onehot * w[:, None]).sum(dim=0))
     class_means = sums / cnts.clamp(min=1e-9)
-    pos = (class_means > 0).to(logits.dtype)
+    pos = positive_classes(class_means).to(logits.dtype)
     loss = (class_means * pos).sum() / pos.sum().clamp(min=1e-9)
     return torch.where(any_valid, loss, torch.zeros_like(loss))
 

@@ -161,6 +161,21 @@ def kpconv(q_pts, s_pts, neighb_inds, x, kernel_points, weights,
                                 inverse, params.compute_dtype)
 
 
+# The deformable chain's discrete choices besides the influences' kink,
+# each one function so that a check can record and replay them
+# (chip_smoke.py's `Branches`)
+def nearest(sq_distances: torch.Tensor) -> torch.Tensor:
+    """[B, Nq, K, Kp] -> [B, Nq, Kp]: each kernel point's squared distance
+    to its nearest neighbor (ties share the gradient)."""
+    return sq_distances.amin(dim=2)
+
+
+def in_range(sq_distances: torch.Tensor, kp_extent: float) -> torch.Tensor:
+    """[B, Nq, K, Kp] -> [B, Nq, K]: the neighbors inside some kernel
+    point's extent."""
+    return (sq_distances < kp_extent ** 2).any(dim=-1)
+
+
 def kpconv_dense(q_pts, s_pts, neighb_inds, x, kernel_points, weights,
                  params: KPConvParams,
                  offsets: Optional[torch.Tensor] = None,
@@ -198,7 +213,7 @@ def kpconv_dense(q_pts, s_pts, neighb_inds, x, kernel_points, weights,
         diffs = neighbors[:, :, :, None, :] - kernel_points[None, None, None]
     sq = diffs * diffs
     sq_distances = sq[..., 0] + sq[..., 1] + sq[..., 2]       # [B,Nq,K,Kp]
-    min_sq = sq_distances.amin(dim=2) if params.deformable else None
+    min_sq = nearest(sq_distances) if params.deformable else None
     all_weights = influence_weights(sq_distances, params.kp_extent,
                                     params.influence)        # [B,Nq,Kp,K]
     if params.aggregation == "closest":
@@ -213,8 +228,8 @@ def kpconv_dense(q_pts, s_pts, neighb_inds, x, kernel_points, weights,
                          f"(known: {AGGREGATIONS})")
     if params.deformable:
         # neighbors outside every deformed kernel point's extent drop out
-        in_range = (sq_distances < params.kp_extent ** 2).any(dim=-1)
-        all_weights = all_weights * in_range[:, :, None, :].to(
+        inside = in_range(sq_distances, params.kp_extent)
+        all_weights = all_weights * inside[:, :, None, :].to(
             all_weights.dtype)
     neighb_x = gather_rows(x, neighb_inds, None, inverse)     # [B,Nq,K,Cin]
     weighted = torch.einsum("bqpk,bqkc->bqpc", mxu(all_weights),

@@ -29,8 +29,9 @@ build as it is, but with kernel B's forward replaced by plain PyTorch
 that differs from B's plain version only in rounding: the plain version
 itself, its neighbor sum in the reverse order, and its neighbor sum in
 f64 rounded once. The f64 and plain steps take the kernel step's
-leaky-ReLU signs and max-pool winners (chip_smoke.Branches), so a turned
-branch no longer reads as a share above 1.
+branches (chip_smoke.Branches: leaky-ReLU signs, max-pool winners and
+the losses' and deformable convs' discrete choices), so a turned branch
+no longer reads as a share above 1.
 
 C's and D's scatters add with f32 atomics, so a share moves from run to
 run; the turns show by how much. Needs one NVIDIA GPU with nvcc.

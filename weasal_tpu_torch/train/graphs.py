@@ -33,6 +33,7 @@ from __future__ import annotations
 from typing import Callable, Dict, List, Mapping, Optional, Sequence
 
 import torch
+from torch.profiler import record_function
 
 from weasal_tpu_torch.data.loader import copy_batch
 from weasal_tpu_torch.ops.cuda.inverse_lists import (build_inverse_lists,
@@ -60,6 +61,9 @@ def _set_counts(counts: Mapping[str, int]) -> None:
 class _Graphed:
     """Static inputs [K, ...] on `device`, K slot views merged with the
     resident tensors, and the capture / replay machinery."""
+
+    # The profiler range of one run (utils/profiling.module_times_us)
+    program = ""
 
     def __init__(self, name: str, example: Mapping[str, torch.Tensor],
                  steps: int, device, extra: Optional[Mapping] = None,
@@ -103,14 +107,16 @@ class _Graphed:
 
     def run(self) -> None:
         """Run the loaded steps: eagerly, or as one replay (capturing the
-        graph first, on its first call)."""
+        graph first, on its first call) inside a `record_function` range
+        named `program` (utils/profiling.module_times_us reads it)."""
         self.runs += 1
         if not self.graphed:
             self._run_all()
             return
         if self.graph is None:
             self._capture()
-        self.graph.replay()
+        with record_function(self.program):
+            self.graph.replay()
         self.replays += 1
         counts = launch_counts()
         _set_counts({k: counts[k] + self.per_replay.get(k, 0)
@@ -144,7 +150,8 @@ class _Graphed:
 
 
 class StepGraph(_Graphed):
-    """K training steps on static inputs.
+    """K training steps on static inputs; each run (eager or a replay) is
+    one `train_step_k` range of the profiler.
 
     :param name: printed in errors ("large", "small", with K)
     :param body: `body(inputs, out)` runs one step on a slot's inputs
@@ -156,6 +163,8 @@ class StepGraph(_Graphed):
     :param state: the tensors a step changes (parameters, momentum,
         BatchNorm statistics), restored after the warm-up
     """
+
+    program = "train_step_k"
 
     def __init__(self, name: str, body: Callable, example: Mapping,
                  steps: int, device, outputs: Dict[str, torch.Tensor],
@@ -170,8 +179,9 @@ class StepGraph(_Graphed):
         self._snapshot: List[torch.Tensor] = []
 
     def _run_all(self) -> None:
-        for slot, out in zip(self.slots, self.out_slots):
-            self.body(slot, out)
+        with record_function(self.program):
+            for slot, out in zip(self.slots, self.out_slots):
+                self.body(slot, out)
 
     def _before_warm_up(self) -> None:
         with torch.no_grad():
@@ -190,11 +200,14 @@ class StepGraph(_Graphed):
 class EvalGraph(_Graphed):
     """One validation batch on static inputs; `out` holds its "probs"
     and "labels" after `run` (allocated at the warm-up, from its output
-    shapes).
+    shapes). A replay is one `eval_step` range of the profiler (an eager
+    run, the body's own range).
 
     :param body: `body(inputs, out)` -> out (`infer.eval_body`; with
         `out` None it returns new tensors)
     """
+
+    program = "eval_step"
 
     def __init__(self, name: str, body: Callable, example: Mapping,
                  device, extra: Optional[Mapping] = None,

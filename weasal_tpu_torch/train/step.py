@@ -37,6 +37,7 @@ from __future__ import annotations
 from typing import Dict, Mapping, Optional, Tuple, Union
 
 import torch
+from torch.profiler import record_function
 
 from weasal_tpu_torch.data.batch import PyramidBatch
 from weasal_tpu_torch.infer import input_batch
@@ -187,20 +188,24 @@ def step_body(model, opt_state: Dict[str, torch.Tensor], inputs: Mapping,
     :param use_contrast: a 'pseudo' step adds the contrast loss; its
         draws and the dropout mask take the seed `inputs["step_seed"]`
         (0-d; 0 when absent)
+
+    The step is one `step_core` range of the profiler
+    (utils/profiling.module_times_us).
     """
     device = out["stats"].device
-    with torch.no_grad():
-        batch, _ = input_batch(inputs, config, plan, device, spec=spec)
-    loss, acc, reg = step_on_batch(model, opt_state, batch, config, lr,
-                                   class_w=class_w, table=table,
-                                   seed=inputs.get("step_seed"),
-                                   use_contrast=use_contrast,
-                                   with_offset_loss=True)
-    with torch.no_grad():
-        out["stats"][0].copy_(loss)
-        out["stats"][1].copy_(acc)
-        out["stats"][2].copy_(reg)
-        out["drops"].zero_()
+    with record_function("step_core"):
+        with torch.no_grad():
+            batch, _ = input_batch(inputs, config, plan, device, spec=spec)
+        loss, acc, reg = step_on_batch(model, opt_state, batch, config, lr,
+                                       class_w=class_w, table=table,
+                                       seed=inputs.get("step_seed"),
+                                       use_contrast=use_contrast,
+                                       with_offset_loss=True)
+        with torch.no_grad():
+            out["stats"][0].copy_(loss)
+            out["stats"][1].copy_(acc)
+            out["stats"][2].copy_(reg)
+            out["drops"].zero_()
 
 
 def train_step(model, opt_state: Dict[str, torch.Tensor], arrays: Mapping,

@@ -69,6 +69,7 @@ be captured, so a gloo group on a card runs the steps eagerly.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import pickle
 import time
@@ -93,6 +94,7 @@ from weasal_tpu_torch.utils.checkpoint import load_checkpoint_file
 from weasal_tpu_torch.utils.device import configure_precision, resolve_device
 from weasal_tpu_torch.utils.metrics import IoU_from_confusions, fast_confusion
 from weasal_tpu_torch.utils.ply import write_ply
+from weasal_tpu_torch.utils.profiling import device_trace
 from weasal_tpu_torch.utils.watchdog import StallWatchdog
 
 # Steps per dispatch that "auto" picks: chip_smoke.py phase 7 found one
@@ -553,11 +555,11 @@ class ModelTrainer:
                         if not trace_done and trace is None \
                                 and self.epoch == 0 \
                                 and self.step >= TRACE_START:
-                            trace = self._open_trace()
+                            trace = self._open_trace(trace_dir)
                             trace_t0 = (self.step, time.perf_counter())
                         elif trace is not None and \
                                 self.step >= trace_t0[0] + TRACE_STEPS:
-                            self._close_trace(trace, trace_dir, trace_t0)
+                            self._close_trace(trace, trace_t0)
                             trace, trace_done = None, True
 
                 tf = time.perf_counter()
@@ -570,7 +572,7 @@ class ModelTrainer:
                 if trace is not None:
                     # The epoch ended inside the window: close it here,
                     # so that it stays a window of epoch 0
-                    self._close_trace(trace, trace_dir, trace_t0)
+                    self._close_trace(trace, trace_t0)
                     trace, trace_done = None, True
                 self.epoch_times.append(dict(epoch=self.epoch,
                                              start=epoch_t0,
@@ -653,29 +655,25 @@ class ModelTrainer:
                 # makes a trainer an iteration)
                 source.close()
             if trace is not None:
-                self._close_trace(trace, trace_dir, trace_t0)
+                self._close_trace(trace, trace_t0)
         print("Finished Training")
 
-    def _open_trace(self):
-        from torch.profiler import ProfilerActivity, profile
-        activities = [ProfilerActivity.CPU]
-        if self.device.type == "cuda":
-            activities.append(ProfilerActivity.CUDA)
-        trace = profile(activities=activities)
-        trace.__enter__()
-        return trace
+    def _open_trace(self, trace_dir):
+        """Open the profiler window (utils/profiling.device_trace) that
+        `_close_trace` closes; it writes trace_epoch<epoch>.json into
+        `trace_dir`. Returns (the window, the trace's path)."""
+        tag = f"epoch{self.epoch}"
+        window = contextlib.ExitStack()
+        window.enter_context(device_trace(trace_dir, tag=tag))
+        return window, join(trace_dir, f"trace_{tag}.json")
 
-    def _close_trace(self, trace, trace_dir, trace_t0):
-        """Stop the profiler window and write its Chrome trace into
-        `trace_dir`."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        trace.__exit__(None, None, None)
+    def _close_trace(self, trace, trace_t0):
+        """Close the window of `_open_trace` (the card synchronized, the
+        trace written)."""
+        window, path = trace
+        window.close()
         dt = time.perf_counter() - trace_t0[1]
         n = max(self.step - trace_t0[0], 1)
-        os.makedirs(trace_dir, exist_ok=True)
-        path = join(trace_dir, f"trace_epoch{self.epoch}.json")
-        trace.export_chrome_trace(path)
         print(f"[trace] {n} steps in {dt:.2f}s wall "
               f"({1e3 * dt / n:.1f} ms/step) -> {path}")
 
