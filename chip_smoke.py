@@ -264,9 +264,11 @@ read) and shared.
 
 Kernel A is two launches: a binning of each sphere's supports into
 columns of a 2-D grid (one block per sphere, counts, scan and scatter in
-shared memory), then one thread per query testing only the columns its
-reach overlaps, with a margin that keeps every in-radius support, and
-keeping the K best by (d2, index). Kernel D runs one warp per pooled
+shared memory), then a search testing only the columns a query's reach
+overlaps, with a margin that keeps every in-radius support, and keeping
+the K best by (d2, index): one thread a query in registers for K <= 16,
+one warp a query above (hits compacted into a shared-memory buffer, cut
+to K by a bitonic sort when full). Kernel D runs one warp per pooled
 row, its lanes across channels, and gathers each value once.
 """
 
@@ -1931,7 +1933,7 @@ def log_gemm_sums(rows, keys, log, wide_cin: int = 256) -> dict:
 # launches that a profile observes. `inverse_sum` counts the row sums
 # over lists and the voxel run sums; C and D run their own stage 2
 # (`inverse_sum_kernel`) inside their launches.
-OBSERVED_KERNEL = {"radius_search": ("search_kernel<",),
+OBSERVED_KERNEL = {"radius_search": ("search_kernel",),
                    "kpconv_fwd": ("aggregate_kernel",),
                    "kpconv_bwd": ("tf32x3_gemm_kernel<false, false,",),
                    "maxpool_bwd": ("maxpool_bwd_kernel",),

@@ -160,3 +160,54 @@ CASES = {
     "k1": (random_sphere, 0.8, 1),
     "k256": (random_sphere, 2.5, 256),
 }
+
+
+def dense_cluster(rng, radius):
+    """1500 supports in a 3 m cube, 200 queries among them: at r 2.5 a
+    query has over a thousand hits, more than K and than the warp path's
+    buffer, which is cut to K again and again."""
+    s = rng.uniform(-1.5, 1.5, (2, 1500, 3)).astype(np.float32)
+    q = (s[:, :200] + rng.normal(0, 0.05, (2, 200, 3))).astype(np.float32)
+    return (q, s, *_masks(rng, 2, 200, 1500))
+
+
+def fine_lattice(rng, radius):
+    """A lattice of spacing r / 6 (25 x 25 x 3 points): hundreds of hits a
+    query, in groups of exact distance ties, so that a cut to K falls
+    inside a group of ties."""
+    g = np.stack(np.meshgrid(np.arange(-12, 13), np.arange(-12, 13),
+                             np.arange(0, 3), indexing="ij"), -1)
+    s = (g.reshape(-1, 3) * np.float32(radius / 6)).astype(np.float32)
+    q = np.concatenate([s[::7], s[3::11] + np.float32(radius / 12)])
+    s, q = s[None].repeat(2, 0), q[None].repeat(2, 0)
+    return (q, s, *_masks(rng, 2, q.shape[1], s.shape[1]))
+
+
+def deformable_level3(rng, radius=11.52):
+    """The deformable layers' widest search at its shapes: 4 spheres of
+    3192 level-3 slots (a disc of radius 24 m, z within 3 m; about a
+    third of the slots valid, the plan padding to the largest sphere)
+    searched within 11.52 m at K 266: a query has about 200 hits, the
+    densest more than K."""
+    b, n = 4, 3192
+    r = 24 * np.sqrt(rng.random((b, n)))
+    a = rng.uniform(0, 2 * np.pi, (b, n))
+    z = rng.uniform(0, 3, (b, n))
+    s = np.stack([r * np.cos(a), r * np.sin(a), z], -1).astype(np.float32)
+    mask = rng.random((b, n)) > 0.65
+    return s, s, mask, mask
+
+
+# Kernel A's warp path (K > 16): name -> (function, radius, K, buffer
+# capacity of the CPU emulation, 0 for the kernel's, whether the buffer
+# must be cut)
+WARP_CASES = {
+    "dense-k200-cap232": (dense_cluster, 2.5, 200, 232, True),
+    "dense-k300": (dense_cluster, 2.5, 300, 0, True),
+    "fine-lattice-k200-cap232": (fine_lattice, 1.5, 200, 232, True),
+    "dense-k768": (dense_cluster, 2.5, 768, 0, True),
+    "dense-k768-cap800": (dense_cluster, 2.5, 768, 800, True),
+    "one-column-k17": (one_column, 0.3, 17, 0, True),
+    "masked-k300": (empty_spheres, 0.9, 300, 0, False),
+    "few-hits-k300": (random_sphere, 0.8, 300, 0, False),
+}

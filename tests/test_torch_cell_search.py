@@ -12,7 +12,17 @@ empty and all-masked spheres, K = 1 and K = 256. Each case also checks
 that the candidates contain every in-radius pair (the exactness
 argument of the source note) and that the candidate counts read from the
 column starts match the candidate mask. One case is held against the JAX
-package's banded Pallas search in interpret mode. No card needed.
+package's banded Pallas search in interpret mode.
+
+The kernel's warp path (K above 16: one warp a query, hits compacted into
+a buffer that is cut to the K smallest when full, the K-th key then the
+limit) is emulated by `radius_search_warp_reference`, which walks the
+candidates in the kernel's order with a buffer capacity given as a
+parameter; it is held to the all-pairs search on sets whose hits overflow
+small buffers many times (dense clusters, a fine lattice whose cuts fall
+inside groups of exact ties), at K = 17, 200-300 and 768, on an all-masked
+sphere and with fewer hits than K, and once against the banded Pallas
+search. No card needed.
 """
 
 import numpy as np
@@ -23,10 +33,11 @@ import torch
 from weasal_tpu.ops.pallas.radius_pallas import radius_search_banded
 from weasal_tpu_torch.ops.cuda.radius_search import (
     _r2, _sq_dist, candidate_mask, radius_search_binned_reference,
-    radius_search_plain, support_grid)
-from tests._cell_search_cases import (CASES, as_tensors, column_boundaries,
-                                      lattice, one_column, random_sphere,
-                                      ulp_shell, wide_extent)
+    radius_search_plain, radius_search_warp_reference, support_grid,
+    warp_capacity)
+from tests._cell_search_cases import (CASES, WARP_CASES, as_tensors,
+                                      column_boundaries, lattice, one_column,
+                                      random_sphere, ulp_shell, wide_extent)
 from tests._warm_torch import cpu_torch
 
 
@@ -95,4 +106,51 @@ def test_binned_rule_equals_banded_pallas():
         max_count=20, band=512, interpret=True)
     assert float(jnp.sum(ovf)) == 0.0
     got, _ = radius_search_binned_reference(*as_tensors(q, s, qm, sm), 0.8, 20)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(idx))
+
+
+@pytest.mark.parametrize("case", list(WARP_CASES))
+def test_warp_selection_equals_all_pairs(case):
+    """The warp path's compaction, cut and limit rule give the all-pairs
+    rows, whether the buffer is cut (many times at a capacity of K + 32)
+    or never fills."""
+    make, radius, k, capacity, cut = WARP_CASES[case]
+    q, s, qm, sm = as_tensors(*make(np.random.default_rng(7), radius))
+    want = radius_search_plain(q, s, qm, sm, radius, k)
+    got, cuts = radius_search_warp_reference(q, s, qm, sm, radius, k,
+                                             capacity)
+    assert torch.equal(got, want)
+    assert bool(cuts.any()) == cut
+    assert not bool(cuts[~qm].any())
+
+
+def test_warp_capacity_and_its_floor():
+    """The kernel's buffer: the power of two >= K + 32 (a chunk of 32 hits
+    fits after a cut to K), 64 to 1024 keys over K 17-768; a smaller
+    emulated capacity is refused."""
+    assert [warp_capacity(k) for k in (17, 32, 33, 96, 97, 266, 480, 768)] \
+        == [64, 64, 128, 128, 256, 512, 512, 1024]
+    q, s, qm, sm = as_tensors(*random_sphere(np.random.default_rng(7), 0.8))
+    with pytest.raises(ValueError):
+        radius_search_warp_reference(q, s, qm, sm, 0.8, 200, 231)
+
+
+def test_warp_selection_equals_banded_pallas():
+    """The fine lattice at K 200 through the JAX package's banded search in
+    interpret mode (a band over the whole sphere: no overflow) and through
+    the warp path's emulation with a buffer cut several times a query,
+    its cuts inside groups of exact ties."""
+    make, radius, k, capacity, _ = WARP_CASES["fine-lattice-k200-cap232"]
+    q, s, qm, sm = make(np.random.default_rng(7), radius)
+    order = np.argsort(s[:, :, 0], axis=1, kind="stable")
+    s = np.take_along_axis(s, order[..., None], 1)
+    sm = np.take_along_axis(sm, order, 1)
+    idx, ovf = radius_search_banded(
+        jnp.asarray(q), jnp.asarray(s), jnp.asarray(qm), jnp.asarray(sm),
+        jnp.asarray(q[:, :, 0]), jnp.asarray(s[:, :, 0]), radius=radius,
+        max_count=k, band=2048, interpret=True)
+    assert float(jnp.sum(ovf)) == 0.0
+    got, cuts = radius_search_warp_reference(*as_tensors(q, s, qm, sm),
+                                             radius, k, capacity)
+    assert int(cuts.max()) >= 2
     np.testing.assert_array_equal(got.numpy(), np.asarray(idx))

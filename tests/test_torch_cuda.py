@@ -42,7 +42,9 @@ step and 13 A, 10 B, 4 row sums a validation batch; a replayed step
 equals the eager one (1e-6) and redraws with its seed; the dropout mask
 and the contrast draw on the card equal the CPU's; the contrast loss's
 gradient repeats bit for bit. Kernel A at K of 300 and 768 (the
-deformable layers' wide searches) equals the plain version; the plain
+deformable layers' wide searches), at their level-3 shapes (4 x 3192, K
+266) and on the warp path's cases whose hits overflow its buffer equals
+the plain version and repeats; the plain
 voxel sums on the card equal the `run_sums` kernel bit for bit, and
 three plain builds of one batch's pyramid are bit-equal (and equal the
 kernels' build); a deformable pseudo-label step (layers 3-4 deformable)
@@ -101,11 +103,12 @@ from weasal_tpu_torch.ops.cuda.kpconv_fwd import (kpconv_fwd,
                                                   kpconv_fwd_with_y)
 from weasal_tpu_torch.ops.cuda.maxpool_bwd import (maxpool_bwd,
                                                    maxpool_bwd_plain)
-from weasal_tpu_torch.ops.cuda.radius_search import (radius_search,
-                                                     radius_search_plain)
+from weasal_tpu_torch.ops.cuda.radius_search import (
+    radius_search, radius_search_plain, radius_search_warp_reference)
 from weasal_tpu_torch.utils.device import plain_ops
 from tests._bf16_cases import flips, flips_ok, is_bf16_valued, within_plain
-from tests._cell_search_cases import CASES as CELL_CASES, as_tensors
+from tests._cell_search_cases import (CASES as CELL_CASES, WARP_CASES,
+                                      as_tensors, deformable_level3)
 from tests._inverse_cases import (CASES as INVERSE_CASES, graph_replay,
                                   index_case, ordered_row_sums,
                                   ordered_run_sums, run_case)
@@ -142,9 +145,9 @@ def test_radius_search_kernel_equals_plain(dev, grid, k):
 @pytest.mark.parametrize("k", [300, 768])
 def test_radius_search_kernel_at_wide_k(dev, k):
     """K of several hundred, as the deformable layers' wider searches
-    give (up to MAX_K): hundreds of hits a query, lists cut to K more
-    than once at K = 300, a block of one warp; equal to the plain
-    version and the same on a second call."""
+    give (up to MAX_K): hundreds of hits a query on the warp path, its
+    buffer cut to K at K = 300; equal to the plain version and the same
+    on a second call."""
     g = torch.Generator(device=dev).manual_seed(k)
     b, nq, ns = 2, 200, 1500
     s = torch.rand((b, ns, 3), generator=g, device=dev) * 6 - 3
@@ -159,6 +162,43 @@ def test_radius_search_kernel_at_wide_k(dev, k):
     assert float(ovf.sum()) == 0.0
     hits = (got < ns).sum(dim=-1)[qm]
     assert int(hits.max()) >= 300        # full rows at K = 300
+
+
+def test_radius_search_kernel_at_deformable_level3(dev):
+    """The deformable layers' widest search at its shapes (4 x 3192
+    points, r 11.52 m, K 266: about 200 hits a query, the densest more
+    than K) on the warp path: equal to the plain version, the same on a
+    second call, full rows where the hits exceed K."""
+    q, s, qm, sm = (t.to(dev) for t in as_tensors(
+        *deformable_level3(np.random.default_rng(3))))
+    got, ovf = radius_search(q, s, qm, sm, 11.52, 266)
+    again, _ = radius_search(q, s, qm, sm, 11.52, 266)
+    want = radius_search_plain(q, s, qm, sm, 11.52, 266)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(again, got)
+    assert float(ovf.sum()) == 0.0
+    assert int((got < s.shape[1]).sum(dim=-1)[qm].max()) == 266
+
+
+@pytest.mark.parametrize("case", list(WARP_CASES))
+def test_radius_search_warp_path_cuts_its_buffer(dev, case):
+    """The warp path's CPU cases on the card. Where the emulation runs the
+    kernel's own capacity and is cut, some query has more hits than the
+    kernel's buffer (dense clusters at K 300 and 768, one column at K 17),
+    so the kernel cuts it to K too; equal to the plain version and the
+    same on a second call."""
+    make, radius, k, capacity, cut = WARP_CASES[case]
+    cpu = as_tensors(*make(np.random.default_rng(7), radius))
+    if capacity == 0:
+        _, cuts = radius_search_warp_reference(*cpu, radius, k)
+        assert bool(cuts.any()) == cut
+    q, s, qm, sm = (t.to(dev) for t in cpu)
+    got, ovf = radius_search(q, s, qm, sm, radius, k)
+    again, _ = radius_search(q, s, qm, sm, radius, k)
+    want = radius_search_plain(q, s, qm, sm, radius, k)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(again, got)
+    assert float(ovf.sum()) == 0.0
 
 
 @pytest.mark.parametrize("case", list(CELL_CASES))

@@ -148,6 +148,8 @@ def test_self_times_families_and_busy_share(trace_dir):
     ("void bin_supports_kernel(float const*, int)", "A radius_search"),
     ("void search_kernel<16>(float const*, float const*)",
      "A radius_search"),
+    ("void (anonymous namespace)::warp_search_kernel(float const*, int)",
+     "A radius_search"),
     ("void aggregate_kernel(float const*, float const*)", "B aggregate"),
     ("void tf32x3_gemm_kernel<true, false, (CoreMode)0>(float const*)",
      "B GEMM y@W (3xTF32)"),

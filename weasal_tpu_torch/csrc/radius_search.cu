@@ -24,31 +24,48 @@
 //    starts [B, kGridSide^2 + 1] and the grid parameters [B] (x0, y0,
 //    1/h, reach) go to scratch. Every size is static: the host never
 //    synchronises.
-// 2. search_kernel, one thread per query over all B * Nq queries (the
-//    queries arrive in voxel order, so a warp visits the same columns):
-//    for each of the rows col(yq - reach) .. col(yq + reach) it scans the
-//    contiguous range of columns col(xq - reach) .. col(xq + reach), tests
-//    d2 exactly as the plain version does (per axis, on the original
-//    coordinates, the copy holding bit copies, with round-to-nearest
-//    intrinsics so that no fused multiply-add moves a point across the
-//    boundary), with kBatch candidate loads in flight, and ranks the hits
+// 2. The search, over all B * Nq queries (they arrive in voxel order, so
+//    neighbouring queries visit the same columns): for each of the rows
+//    col(yq - reach) .. col(yq + reach) it scans the contiguous range of
+//    columns col(xq - reach) .. col(xq + reach), tests d2 exactly as the
+//    plain version does (per axis, on the original coordinates, the copy
+//    holding bit copies, with round-to-nearest intrinsics so that no fused
+//    multiply-add moves a point across the boundary), and ranks the hits
 //    under the total order (d2, original index) as 64-bit keys
-//    (d2 bits << 32 | index; monotone because d2 >= 0). Up to K = 16 the
-//    K best stay sorted in registers, 4 or 16 slots of them, with a
-//    compare-exchange pass over constant indices per hit. Above it a hit
-//    is appended to the query's own list in shared memory (column
-//    threadIdx.x of a [K + kSpare][threads] array); a full list is cut to
-//    its K smallest, and keys above the K-th are then refused; at the end
-//    each listed key's rank in the list is its slot in the output row.
-//    The split was measured on the main path's edges (H100,
-//    weasal_tpu_torch/tools/kernel_variants.py): a warp pays a whole
-//    register pass on every candidate step where any lane hits, which
-//    made K = 29-34 (125-242 candidates per query) 1.1-1.7x slower than
-//    the lists; the lists' quadratic cut and rank made K = 1 (20-27 hits
-//    per query) 3.3-7.5x slower than registers; at K = 1, 4 register
-//    slots take 0.54-0.6x the time of 16. Candidates arrive in no fixed
-//    order, and the scatter's order within a column varies from run to
-//    run, but the order is total, so the output is deterministic.
+//    (d2 bits << 32 | index; monotone because d2 >= 0). Two kernels:
+//    - K <= 16, search_kernel<4 | 16>: one thread a query, kBatch
+//      candidate loads in flight, the K best sorted in 4 or 16 registers
+//      with a compare-exchange pass over constant indices per hit.
+//    - K > 16, warp_search_kernel: one warp a query. The lanes test 32
+//      consecutive candidates of a row's range at a time (kWarpBatch
+//      chunks of loads in flight, coalesced: a column's supports are
+//      contiguous in the copy); __ballot_sync / __popc compact the hits
+//      into the warp's buffer of cap keys in shared memory (cap the power
+//      of two >= K + 32, at most 1024 keys, 8 KB, so a block holds
+//      kSearchThreads / 32 warps at any K). A chunk that would overflow
+//      the buffer first cuts it to its K smallest (a bitonic sort by the
+//      warp), the K-th key becomes the limit, and keys above it are
+//      refused from then on. At the end a bitonic sort of the remaining
+//      keys (padded with kNoKey to a power of two) gives the row, which
+//      the lanes write coalesced, missing slots = Ns. The work is linear
+//      in the candidates and n log^2 n in the hits, spread over 32 lanes.
+//    What bounds it: each query is a dependent chain of candidate loads
+//    (L2 latency), ballots and a sort's shared-memory steps; the card
+//    hides that latency only with many warps in flight, which is why no
+//    design here keeps a query's list in one thread (the former
+//    per-thread lists ranked in quadratic time and, at K 266, left 2 warps
+//    an SM: 9.4 ms a call where the plain all-pairs search takes 3.2).
+//    The split at K = 16 was measured (H100 80GB HBM3 at 700 W, device
+//    time a call, weasal_tpu_torch/tools/kernel_variants.py; PERF.md): at
+//    K = 1-15 the warp path takes 0.7-2.1x the registers' time a call,
+//    1.34-1.36x summed over those edges (32 lanes for a few hits); at the
+//    main path's K = 22-34 it takes 0.020-0.078 ms where registers up to
+//    K 48 take 1.7-6.5x as long and the former per-thread lists 1.1-4.5x;
+//    at the deformable layers' K of 215-302 it takes 0.029-0.082 ms where
+//    the lists took 1.8-22.6 ms.
+//    Candidates arrive in no fixed order, and the scatter's order within
+//    a column varies from run to run, but the order is total and the cut
+//    keeps exactly the K smallest keys, so the output is deterministic.
 //
 // Exactness. col(v) = clamp(floor((v - x0) * (1/h)), 0, kGridSide - 1),
 // each operation in f32 round-to-nearest, is monotone in v, and queries
@@ -96,17 +113,16 @@ constexpr float kMinReach = 0x1p-60f;
 constexpr int kBinThreads = 1024;
 constexpr int kBinWarps = kBinThreads / 32;
 constexpr int kCellsPerWarp = kCells / kBinWarps;
-constexpr int kSearchThreads = 128;
+constexpr int kSearchThreads = 128;  // both search kernels' block
+constexpr int kSearchWarps = kSearchThreads / 32;
 constexpr int kBatch = 4;          // candidate loads a thread keeps in flight
+constexpr int kWarpBatch = 2;      // chunks of 32 loads a warp keeps in flight
 constexpr int kRegisterK = 16;     // largest K kept in registers
-constexpr int kSpare = 32;         // list room beyond K before a cut to K
-// A search block's lists: its thread count halves until they fit in
-// kListBytes, down to one warp, whose lists at kMaxK take kMaxListBytes
-// (the deformable layers' wide searches: K of several hundred)
-constexpr int kListBytes = 96 * 1024;
 constexpr int kMaxK = 768;
-constexpr int kMaxListBytes = 32 * (kMaxK + kSpare) * 8;   // 200 KB
-static_assert(kMaxListBytes <= 227 * 1024, "over the H100's block limit");
+constexpr int kMaxCap = 1024;      // a warp's buffer at kMaxK: 8 KB
+static_assert(kMaxCap >= kMaxK + 32, "a cut must leave room for a chunk");
+static_assert(kSearchWarps * kMaxCap * 8 <= 48 * 1024,
+              "the buffers fit the default shared-memory limit");
 constexpr int kMaxDevices = 64;    // devices whose attributes are cached
 constexpr unsigned kFull = 0xffffffffu;
 constexpr unsigned long long kNoKey = ~0ull;
@@ -135,6 +151,22 @@ __device__ float4 grid_params(float lo_x, float lo_y, float hi_x,
 
 __device__ __forceinline__ int cell_of(float x, float y, float4 g) {
   return column(y, g.y, g.z) * kGridSide + column(x, g.x, g.z);
+}
+
+// The key (d2 bits << 32 | index) of support p when its f32 d2 to the
+// query is within r2, else kNoKey: per axis, each operation rounded.
+__device__ __forceinline__ unsigned long long hit_key(float4 p, float qx,
+                                                      float qy, float qz,
+                                                      float r2) {
+  const float dx = __fsub_rn(qx, p.x);
+  const float dy = __fsub_rn(qy, p.y);
+  const float dz = __fsub_rn(qz, p.z);
+  float d2 = __fmul_rn(dx, dx);
+  d2 = __fadd_rn(d2, __fmul_rn(dy, dy));
+  d2 = __fadd_rn(d2, __fmul_rn(dz, dz));
+  if (!(d2 <= r2)) return kNoKey;
+  return ((unsigned long long)__float_as_uint(d2) << 32) |
+         (unsigned)__float_as_int(p.w);
 }
 
 __global__ void __launch_bounds__(kBinThreads)
@@ -254,30 +286,9 @@ __global__ void __launch_bounds__(kBinThreads)
   if (threadIdx.x == 0) params[b] = grid;
 }
 
-// The K smallest of a thread's n listed keys: the key of rank K - 1 (keys
-// are distinct), after which the list keeps only the keys up to it, in
-// place. list[i * stride] is the thread's i-th key.
-__device__ unsigned long long keep_k_smallest(unsigned long long* list,
-                                              int stride, int n, int k) {
-  unsigned long long kth = kNoKey;
-  for (int i = 0; i < n; ++i) {
-    const unsigned long long key = list[i * stride];
-    int rank = 0;
-    for (int j = 0; j < n; ++j) rank += list[j * stride] < key;
-    if (rank == k - 1) kth = key;
-  }
-  int w = 0;
-  for (int i = 0; i < n; ++i) {
-    const unsigned long long key = list[i * stride];
-    if (key <= kth) list[w++ * stride] = key;
-  }
-  return kth;
-}
-
-// MAXK > 0: the K best in registers, sorted, with a compare-exchange pass
-// over constant indices per hit (K <= MAXK <= kRegisterK). MAXK = 0: each
-// query's hits in its own column of a shared-memory list
-// [cap = K + kSpare][threads], ranked at the end.
+// The K best of one query in registers, sorted, with a compare-exchange
+// pass over constant indices per hit (K <= MAXK <= kRegisterK); one thread
+// a query.
 template <int MAXK>
 __global__ void __launch_bounds__(kSearchThreads)
     search_kernel(const float* __restrict__ q,
@@ -285,11 +296,9 @@ __global__ void __launch_bounds__(kSearchThreads)
                   const float4* __restrict__ sorted,
                   const float4* __restrict__ params,
                   const int* __restrict__ starts, long long n_queries,
-                  int nq, int ns, int k, int cap, float r2,
+                  int nq, int ns, int k, float r2,
                   int32_t* __restrict__ out) {
-  extern __shared__ unsigned long long lists[];
-  const int stride = blockDim.x;
-  const long long row = (long long)blockIdx.x * stride + threadIdx.x;
+  const long long row = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (row >= n_queries) return;
   int32_t* o = out + row * k;
   if (!q_mask[row]) {
@@ -306,12 +315,9 @@ __global__ void __launch_bounds__(kSearchThreads)
   const int* st = starts + (size_t)b * (kCells + 1);
   const float4* sp = sorted + (size_t)b * ns;
 
-  unsigned long long best[MAXK > 0 ? MAXK : 1];
+  unsigned long long best[MAXK];
 #pragma unroll
-  for (int i = 0; i < (MAXK > 0 ? MAXK : 1); ++i) best[i] = kNoKey;
-  unsigned long long* list = lists + threadIdx.x;    // this query's column
-  int count = 0;
-  unsigned long long limit = kNoKey;  // keys above it are not among the K
+  for (int i = 0; i < MAXK; ++i) best[i] = kNoKey;
 
   for (int cy = cy0; cy <= cy1; ++cy) {
     const int lo = st[cy * kGridSide + cx0];
@@ -325,54 +331,120 @@ __global__ void __launch_bounds__(kSearchThreads)
 #pragma unroll
       for (int u = 0; u < kBatch; ++u) {
         if (j0 + u >= hi) break;
-        const float4 p = batch[u];
-        const float dx = __fsub_rn(qx, p.x);
-        const float dy = __fsub_rn(qy, p.y);
-        const float dz = __fsub_rn(qz, p.z);
-        float d2 = __fmul_rn(dx, dx);
-        d2 = __fadd_rn(d2, __fmul_rn(dy, dy));
-        d2 = __fadd_rn(d2, __fmul_rn(dz, dz));
-        if (!(d2 <= r2)) continue;
-        unsigned long long key =
-            ((unsigned long long)__float_as_uint(d2) << 32) |
-            (unsigned)__float_as_int(p.w);
-        if constexpr (MAXK > 0) {
-          if (key < best[MAXK - 1]) {
+        unsigned long long key = hit_key(batch[u], qx, qy, qz, r2);
+        if (key < best[MAXK - 1]) {
 #pragma unroll
-            for (int i = 0; i < MAXK; ++i) {
-              const unsigned long long lo_key = min(best[i], key);
-              key = max(best[i], key);
-              best[i] = lo_key;
-            }
+          for (int i = 0; i < MAXK; ++i) {
+            const unsigned long long lo_key = min(best[i], key);
+            key = max(best[i], key);
+            best[i] = lo_key;
           }
-        } else {
-          if (key > limit) continue;
-          if (count == cap) {
-            limit = keep_k_smallest(list, stride, count, k);
-            count = k;
-            if (key > limit) continue;
-          }
-          list[count++ * stride] = key;
         }
       }
     }
   }
-
-  if constexpr (MAXK > 0) {
 #pragma unroll
-    for (int i = 0; i < MAXK; ++i)
-      if (i < k)
-        o[i] = best[i] == kNoKey ? ns : (int32_t)(unsigned)(best[i] & kFull);
-  } else {
-    // Each listed key's rank among the list is its slot in the row
-    for (int i = 0; i < count; ++i) {
-      const unsigned long long key = list[i * stride];
-      int rank = 0;
-      for (int j = 0; j < count; ++j) rank += list[j * stride] < key;
-      if (rank < k) o[rank] = (int32_t)(unsigned)(key & kFull);
+  for (int i = 0; i < MAXK; ++i)
+    if (i < k)
+      o[i] = best[i] == kNoKey ? ns : (int32_t)(unsigned)(best[i] & kFull);
+}
+
+// Sorts keys[0, n) ascending, n a power of two: a bitonic network run by
+// the 32 lanes of a warp, n / 2 compare-exchanges a step, each lane's
+// writes visible to the others at the next step.
+__device__ void warp_sort(unsigned long long* keys, int n, int lane) {
+  __syncwarp();
+  for (int size = 2; size <= n; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int t = lane; t < (n >> 1); t += 32) {
+        const int i = 2 * t - (t & (stride - 1));   // pair (i, i + stride)
+        const unsigned long long a = keys[i], b = keys[i + stride];
+        if ((a > b) == ((i & size) == 0)) {
+          keys[i] = b;
+          keys[i + stride] = a;
+        }
+      }
+      __syncwarp();
     }
-    for (int i = count; i < k; ++i) o[i] = ns;
   }
+}
+
+// The K best of one query by a warp (K > kRegisterK): hits compacted into
+// the warp's buffer of cap keys (a power of two >= K + 32), cut to the K
+// smallest when a chunk would overflow it, sorted at the end.
+__global__ void __launch_bounds__(kSearchThreads)
+    warp_search_kernel(const float* __restrict__ q,
+                       const uint8_t* __restrict__ q_mask,
+                       const float4* __restrict__ sorted,
+                       const float4* __restrict__ params,
+                       const int* __restrict__ starts, long long n_queries,
+                       int nq, int ns, int k, int cap, float r2,
+                       int32_t* __restrict__ out) {
+  extern __shared__ unsigned long long buffers[];    // [kSearchWarps][cap]
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long row = (long long)blockIdx.x * kSearchWarps + warp;
+  if (row >= n_queries) return;                      // the whole warp
+  int32_t* o = out + row * k;
+  if (!q_mask[row]) {
+    for (int i = lane; i < k; i += 32) o[i] = ns;
+    return;
+  }
+  const int b = (int)(row / nq);
+  const float qx = q[row * 3 + 0], qy = q[row * 3 + 1], qz = q[row * 3 + 2];
+  const float4 g = params[b];
+  const int cx0 = column(__fsub_rn(qx, g.w), g.x, g.z);
+  const int cx1 = column(__fadd_rn(qx, g.w), g.x, g.z);
+  const int cy0 = column(__fsub_rn(qy, g.w), g.y, g.z);
+  const int cy1 = column(__fadd_rn(qy, g.w), g.y, g.z);
+  const int* st = starts + (size_t)b * (kCells + 1);
+  const float4* sp = sorted + (size_t)b * ns;
+  unsigned long long* keys = buffers + (size_t)warp * cap;
+  const unsigned below = (1u << lane) - 1u;          // the lanes before
+  int count = 0;                     // keys in the buffer, warp-uniform
+  unsigned long long limit = kNoKey;  // keys above it are not among the K
+
+  for (int cy = cy0; cy <= cy1; ++cy) {
+    const int lo = st[cy * kGridSide + cx0];
+    const int hi = st[cy * kGridSide + cx1 + 1];
+    for (int j0 = lo; j0 < hi; j0 += 32 * kWarpBatch) {
+      float4 batch[kWarpBatch];
+#pragma unroll
+      for (int u = 0; u < kWarpBatch; ++u) {
+        const int j = j0 + 32 * u + lane;
+        if (j < hi) batch[u] = sp[j];
+      }
+#pragma unroll
+      for (int u = 0; u < kWarpBatch; ++u) {
+        const int j = j0 + 32 * u + lane;
+        const unsigned long long key =
+            j < hi ? hit_key(batch[u], qx, qy, qz, r2) : kNoKey;
+        unsigned hits = __ballot_sync(kFull, key < limit);
+        if (!hits) continue;
+        if (count + __popc(hits) > cap) {
+          // a full buffer: its K smallest stay, the K-th is the limit
+          for (int i = count + lane; i < cap; i += 32) keys[i] = kNoKey;
+          warp_sort(keys, cap, lane);
+          limit = keys[k - 1];
+          count = k;
+          hits = __ballot_sync(kFull, key < limit);
+        }
+        if (key < limit) keys[count + __popc(hits & below)] = key;
+        count += __popc(hits);
+      }
+    }
+  }
+
+  if (count > 1) {
+    int n = 2;
+    while (n < count) n <<= 1;
+    for (int i = count + lane; i < n; i += 32) keys[i] = kNoKey;
+    warp_sort(keys, n, lane);
+  } else {
+    __syncwarp();
+  }
+  for (int i = lane; i < k; i += 32)
+    o[i] = i < count ? (int32_t)(unsigned)(keys[i] & kFull) : ns;
 }
 
 // Raises `kernel`'s dynamic shared-memory limit to `bytes` once per device
@@ -397,21 +469,26 @@ int launch_search(const float* q, const uint8_t* qm, const float4* sorted,
                   const float4* params, const int* starts, long long n,
                   int nq, int ns, int k, float r2, int32_t* out,
                   cudaStream_t st) {
-  const int cap = k + kSpare;
-  int threads = kSearchThreads;
-  while (MAXK == 0 && threads > 32 &&
-         (size_t)threads * cap * 8 > kListBytes)
-    threads >>= 1;
-  const int list_bytes = MAXK > 0 ? 0 : threads * cap * 8;
   if constexpr (MAXK == 0) {
-    // the lists of any K take at most kMaxListBytes
-    static std::atomic<bool> done[kMaxDevices];
-    const int err =
-        allow_shared_once(search_kernel<MAXK>, kMaxListBytes, done);
-    if (err) return err;
+    return (int)cudaErrorInvalidValue;   // no slots (kRegisterK = 0)
+  } else {
+    const unsigned blocks = (unsigned)((n + kSearchThreads - 1) /
+                                       kSearchThreads);
+    search_kernel<MAXK><<<blocks, kSearchThreads, 0, st>>>(
+        q, qm, sorted, params, starts, n, nq, ns, k, r2, out);
+    return (int)cudaGetLastError();
   }
-  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
-  search_kernel<MAXK><<<blocks, threads, list_bytes, st>>>(
+}
+
+int launch_warp_search(const float* q, const uint8_t* qm,
+                       const float4* sorted, const float4* params,
+                       const int* starts, long long n, int nq, int ns, int k,
+                       float r2, int32_t* out, cudaStream_t st) {
+  int cap = 64;
+  while (cap < k + 32) cap <<= 1;
+  const unsigned blocks = (unsigned)((n + kSearchWarps - 1) / kSearchWarps);
+  warp_search_kernel<<<blocks, kSearchThreads,
+                       kSearchWarps * cap * sizeof(unsigned long long), st>>>(
       q, qm, sorted, params, starts, n, nq, ns, k, cap, r2, out);
   return (int)cudaGetLastError();
 }
@@ -467,6 +544,6 @@ extern "C" int radius_search_launch(const float* q, const float* s,
   if (k <= kRegisterK)
     return launch_search<kRegisterK>(q, q_mask, sorted, params, starts, n,
                                      nq, ns, k, r2, out, st);
-  return launch_search<0>(q, q_mask, sorted, params, starts, n, nq, ns, k,
-                          r2, out, st);
+  return launch_warp_search(q, q_mask, sorted, params, starts, n, nq, ns, k,
+                            r2, out, st);
 }

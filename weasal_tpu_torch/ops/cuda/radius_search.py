@@ -21,7 +21,9 @@ d2 over all pairs, masking, a stable sort and truncation to K, matching
 `_search_kernel`. The CPU path and the tests use it; `chip_smoke.py`
 compares the kernel with it on the card. `radius_search_binned_reference`
 emulates the kernel's binning and column rule in PyTorch, with its f32
-formulas, so that the rule can be tested on the CPU.
+formulas, and `radius_search_warp_reference` its selection for K > 16
+(one warp a query: a buffer of hits cut to the K smallest when full, the
+K-th key then the limit), so that both can be tested on the CPU.
 """
 
 from __future__ import annotations
@@ -228,6 +230,113 @@ def radius_search_binned_reference(queries, supports, q_mask, s_mask,
              - torch.gather(starts, 1, (row + cx0).reshape(b, -1)))
         candidates += torch.where(cy <= cy1, n.reshape(b, nq), 0)
     return out, torch.where(q_mask, candidates, 0)
+
+
+def warp_capacity(max_count: int) -> int:
+    """Keys in a query's buffer on the kernel's warp path (K > 16): the
+    power of two >= K + 32, at least 64."""
+    cap = 64
+    while cap < max_count + 32:
+        cap *= 2
+    return cap
+
+
+def _chunks_in_kernel_order(queries, supports, s_mask, grid):
+    """The candidates of each query as the warp path visits them: rows cy0
+    .. cy1, each row's contiguous range of the column-ordered copy in
+    chunks of 32. A list of [B, Nq, 32] original indices, -1 past a
+    range's end; a query whose row has fewer chunks than another's gets
+    empty chunks there, which the kernel would skip (they hold no hit)."""
+    b, ns, _ = supports.shape
+    x0, y0, inv_h, _ = (g[:, None] for g in grid)
+    cells = (column(supports[..., 1], y0, inv_h) * GRID_SIDE
+             + column(supports[..., 0], x0, inv_h))
+    # the copy holds the valid supports by cell; within a cell the kernel's
+    # order varies from run to run, and any order gives the same rows
+    order = torch.sort(torch.where(s_mask, cells, GRID_SIDE * GRID_SIDE),
+                       dim=1, stable=True).indices
+    starts = column_starts(supports, s_mask, grid)
+    cx0, cx1, cy0, cy1 = _query_columns(queries, grid)
+    lanes = torch.arange(32, device=queries.device)
+    chunks = []
+    for dy in range(int((cy1 - cy0).max()) + 1 if cy0.numel() else 0):
+        cy = cy0 + dy
+        row = cy.clamp(max=GRID_SIDE - 1) * GRID_SIDE
+        lo = torch.gather(starts, 1, (row + cx0).reshape(b, -1)
+                          ).reshape(cy.shape)
+        hi = torch.gather(starts, 1, (row + cx1 + 1).reshape(b, -1)
+                          ).reshape(cy.shape)
+        hi = torch.where(cy <= cy1, hi, lo)
+        for c in range(int(((hi - lo + 31) // 32).max())):
+            pos = lo[..., None] + 32 * c + lanes
+            inside = pos < hi[..., None]
+            idx = torch.gather(order, 1, pos.clamp(max=max(ns - 1, 0))
+                               .reshape(b, -1)).reshape(pos.shape)
+            chunks.append(torch.where(inside, idx, -1))
+    return chunks
+
+
+def radius_search_warp_reference(queries, supports, q_mask, s_mask, radius,
+                                 max_count: int, capacity: int = 0):
+    """The kernel's warp path (K > 16) in plain PyTorch, all queries at
+    once: (rows [B, Nq, K] int32, cuts [B, Nq] int64).
+
+    Each valid query walks its candidates in the kernel's order (the rows
+    of its columns, each row's range in chunks of 32), keys its hits as
+    d2 bits << 32 | index, and appends a chunk's hits below the limit to a
+    buffer of `capacity` keys (0: the kernel's, `warp_capacity(K)`; at
+    least K + 32). A chunk that would overflow the buffer first cuts it to
+    its K smallest, whose largest becomes the limit; `cuts` counts them.
+    At the end the buffer, sorted, gives the row, missing slots = Ns."""
+    b, nq, _ = queries.shape
+    ns = supports.shape[1]
+    k = max_count
+    cap = capacity or warp_capacity(k)
+    if cap < k + 32:
+        raise ValueError(f"capacity {cap} < K + 32 = {k + 32}")
+    dev = queries.device
+    r2 = _r2(radius)
+    no_key = torch.iinfo(torch.int64).max
+    grid = support_grid(supports, s_mask, radius)
+    # column cap is where the chunk's misses go
+    keys = torch.full((b, nq, cap + 1), no_key, dtype=torch.int64,
+                      device=dev)
+    count = torch.zeros((b, nq), dtype=torch.int64, device=dev)
+    limit = torch.full((b, nq), no_key, dtype=torch.int64, device=dev)
+    cuts = torch.zeros((b, nq), dtype=torch.int64, device=dev)
+    for idx in _chunks_in_kernel_order(queries, supports, s_mask, grid):
+        p = torch.gather(supports, 1, idx.clamp(min=0).reshape(b, -1, 1)
+                         .expand(-1, -1, 3)).reshape(b, nq, 32, 3)
+        d2 = None
+        for d in range(3):
+            diff = queries[:, :, None, d] - p[..., d]
+            d2 = diff * diff if d2 is None else d2 + diff * diff
+        key = ((d2.view(torch.int32).to(torch.int64) << 32)
+               | idx.clamp(min=0))
+        key = torch.where((idx >= 0) & (d2 <= r2) & q_mask[..., None], key,
+                          no_key)
+
+        def below(lim):
+            hit = key < lim[..., None]
+            return hit, hit.sum(-1)
+
+        hit, n = below(limit)
+        full = count + n > cap
+        if bool(full.any()):
+            kept = torch.sort(keys[..., :cap], dim=-1).values
+            kept[..., k:] = no_key
+            keys[..., :cap] = torch.where(full[..., None], kept,
+                                          keys[..., :cap])
+            limit = torch.where(full, kept[..., k - 1], limit)
+            count = torch.where(full, k, count)
+            cuts += full.long()
+            hit, n = below(limit)
+        slot = count[..., None] + torch.cumsum(hit, -1) - hit.long()
+        keys.scatter_(-1, torch.where(hit, slot, cap), key)
+        count += n
+    best = torch.sort(keys[..., :cap], dim=-1).values[..., :k]
+    rows = torch.where(best == no_key, ns, best & 0xFFFFFFFF)
+    return rows.to(torch.int32), cuts
 
 
 def declare(lib):

@@ -267,7 +267,7 @@ GEMM_FAMILIES = ("B GEMM y@W (3xTF32)", "C GEMM g@W^T (3xTF32)",
 # B's product under compute_dtype "bfloat16" (the bf16 core)
 BF16_GEMM_FAMILY = "B GEMM y@W (bf16)"
 FAMILIES = (
-    ("A radius_search", ("bin_supports_kernel", "search_kernel<")),
+    ("A radius_search", ("bin_supports_kernel", "search_kernel")),
     ("B aggregate", ("aggregate_kernel",)),
     (GEMM_FAMILIES[0], ("tf32x3_gemm_kernel<true, false,",)),
     (BF16_GEMM_FAMILY, ("bf16_gemm_kernel",)),
