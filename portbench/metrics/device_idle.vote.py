@@ -1,0 +1,7 @@
+"""% of the traced stretch's wall in which no operation ran on the card."""
+
+from portbench.yardstick.layers import device_idle
+
+
+def read(record):
+    return device_idle(record, "vote")
