@@ -194,6 +194,10 @@ def test_parallel_sphere_builder_equals_jax(scene):
     arrays, metas = source.next_batch(np.random.default_rng(0))
     assert is_host_pyramid(arrays) and len(metas) == pds[0].config.batch_num
     assert source.batches == 1 and source.seconds > 0
+    # another source's builds are its own
+    other = HostPyramidSource(pds[0], plan)
+    other.next_batch(np.random.default_rng(2))
+    assert source.batches == 1 and other.batches == 1
     source.close()
     assert source.builder.pool is None
     # a batch after close starts new workers

@@ -5,8 +5,8 @@
 `utils/html_viewer` (`colors_to_rgb`, `export_html`) and the
 `utils/convergence` loaders take the same seeded inputs in both packages
 and give equal arrays and equal bytes; the loaders read a log that the
-port's trainer wrote; `utils/profiling.StepTimer` and the four
-`data/debug` functions run on a synthetic DALES dataset. No test reads
+port's trainer wrote; the four `data/debug` functions run on a synthetic
+DALES dataset, timed by the span table of `utils/profiling`. No test reads
 the reference implementation's files.
 """
 
@@ -24,7 +24,7 @@ from weasal_tpu_torch.data.synthetic import (make_dales_like_root,
                                              make_vaihingen_like_root)
 from weasal_tpu_torch.utils import conf_matrix, convergence, html_viewer
 from weasal_tpu_torch.utils import metrics
-from weasal_tpu_torch.utils.profiling import StepTimer
+from weasal_tpu_torch.utils.profiling import mark, span, span_totals
 from tests._warm_torch import cpu_torch
 
 NAMES = {0: "Powerline", 1: "LowVegetation", 2: "ImperviousSurfaces",
@@ -148,16 +148,17 @@ def test_step_timer_and_debug_functions_on_a_synthetic_dataset(tmp_path):
                         rng=np.random.default_rng(0))
     plan = ds.calibration()
 
-    timer = StepTimer(["data", "step"], display_interval=0.0)
+    start = mark()
     for _ in range(3):
-        with timer.phase("data"):
+        with span("debug.data"):
             stats = debug.debug_timing(ds, plan, num_batches=2)
-        with timer.phase("step"):
+        with span("debug.step"):
             debug.debug_upsampling(ds, plan, num_batches=1)
     assert stats["batches"] == 2 and stats["spheres_per_s"] > 0
-    assert timer.should_display() and timer._count == 3
-    assert set(timer.ema) == {"data", "step"} and timer.total_ms() > 0
-    assert timer.summary().startswith("data=")
+    timed = span_totals(since=start)
+    assert {k: v["count"] for k, v in timed.items()
+            if k.startswith("debug.")} == {"debug.data": 3, "debug.step": 3}
+    assert all(timed[k]["seconds"] > 0 for k in ("debug.data", "debug.step"))
 
     paths = debug.debug_show_clouds(ds, plan, out_dir=str(tmp_path / "dbg"))
     assert len(paths) == plan.num_layers + 1

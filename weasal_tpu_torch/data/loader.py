@@ -24,7 +24,12 @@ the flat dicts the prefetcher and the step graphs carry.
   its step (`copy_batch`);
 - without `pack` it yields single batches already on the device, with
   the resident tensors (on the device already) merged in;
-- an error in the producer is raised in the consumer.
+- an error in the producer is raised in the consumer;
+- the producer's spans (utils/profiling): `batch.sample` (the source's
+  `next_batch`), `batch.pin` (a pack's stacking and its tensors pinned),
+  `batch.put_wait` (blocked on a full queue), and the counts
+  `batch.produced` (batches queued) and `batch.skipped` (refused by
+  `keep_fn`).
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ import torch
 from weasal_tpu_torch.data.batching import (build_sphere_pyramid,
                                             sphere_batch)
 from weasal_tpu_torch.parallel import ddp
+from weasal_tpu_torch.utils.profiling import counter, span
 
 # Ready items the producer may hold ahead of the consumer
 PREFETCH = 2
@@ -101,9 +107,16 @@ class BatchPrefetcher:
         return {k: (None if v is None else self._host_tensor(v))
                 for k, v in batch.items()}
 
+    def _put(self, item, batches: int) -> None:
+        with span("batch.put_wait"):
+            self._queue.put(item)
+        counter("batch.produced", batches)
+
     def _emit_pack(self, buf, buf_metas):
-        stacked = {k: np.stack([b[k] for b in buf]) for k in buf[0]}
-        self._queue.put((self._host_tensors(stacked), buf_metas))
+        with span("batch.pin"):
+            stacked = {k: np.stack([b[k] for b in buf]) for k in buf[0]}
+            item = (self._host_tensors(stacked), buf_metas)
+        self._put(item, len(buf))
 
     def _produce(self):
         try:
@@ -111,12 +124,16 @@ class BatchPrefetcher:
             for _ in range(self.num_batches):
                 if self._closed:
                     break
-                batch, metas = self.source.next_batch(self.rng,
-                                                      augment=self.augment)
+                with span("batch.sample"):
+                    batch, metas = self.source.next_batch(
+                        self.rng, augment=self.augment)
                 if self.keep_fn is not None and not self.keep_fn(metas):
+                    counter("batch.skipped")
                     continue
                 if self.pack is None:
-                    self._queue.put((self._host_tensors(batch), metas))
+                    with span("batch.pin"):
+                        item = (self._host_tensors(batch), metas)
+                    self._put(item, 1)
                     continue
                 tag = metas[0].get("bucket", "large") if metas else "large"
                 buf, buf_metas = bufs.setdefault(tag, ([], []))
@@ -235,6 +252,8 @@ class HostPyramidSource:
         self.builder = (ParallelSphereBuilder(dataset, min(threads, 8))
                         if threads > 1 else dataset)
         # Host seconds spent building batches, for callers that report it
+        # (this source's own; the producer's batch.sample spans hold every
+        # source's)
         self.seconds = 0.0
         self.batches = 0
 

@@ -41,6 +41,17 @@ resident input it smooths its votes on the host, batch by batch,
 each step is zero; each epoch sums it and a non-zero sum raises, where
 the JAX package would widen its band windows.
 
+The loop times itself with the span table of utils/profiling:
+`loop.wait_batch` (each wait for the producer's next item),
+`loop.dispatch` (a pack's steps dispatched; `loop.load`, its input copies,
+inside), `loop.flush` (inside `_flush_log`), `epoch_start` (a new
+producer through its first batch) and `epoch_end` (after the epoch's
+final flush: `epoch_end.drops`, `.audit`, `.checkpoint`,
+`.validation`). Each `epoch_times` entry holds that epoch's table under
+`spans`, its end included, and its `loop.*` seconds as `wait_batch`,
+`dispatch` and `flush`; `loop.other` is the epoch's time in none of
+them. `train` marks "train" in the table as it starts.
+
 In pseudo mode the gradients are clipped by value, no batch is skipped,
 the log header counts the ground-truth ledger's points, and each step
 takes a seed for its dropout mask and contrast draw from a host stream
@@ -94,7 +105,9 @@ from weasal_tpu_torch.utils.checkpoint import load_checkpoint_file
 from weasal_tpu_torch.utils.device import configure_precision, resolve_device
 from weasal_tpu_torch.utils.metrics import IoU_from_confusions, fast_confusion
 from weasal_tpu_torch.utils.ply import write_ply
-from weasal_tpu_torch.utils.profiling import device_trace
+from weasal_tpu_torch.utils.profiling import (add, close_range,
+                                              device_trace, mark,
+                                              open_range, span, span_totals)
 from weasal_tpu_torch.utils.watchdog import StallWatchdog
 
 # Steps per dispatch that "auto" picks: chip_smoke.py phase 7 found one
@@ -109,6 +122,10 @@ FLUSH_STEPS = 20
 TRACE_START, TRACE_STEPS = 20, 60
 # Entropy of the pseudo-label steps' seed stream, beside the AL iteration
 SEED_STREAM = 0x5EED
+# The keys of an epoch_times entry that are the totals of its loop.* spans
+LOOP_KEYS = ("wait_batch", "dispatch", "flush")
+# The epoch end's parts, each an epoch_end.* span
+EPOCH_END_PARTS = ("drops", "audit", "checkpoint", "validation")
 
 
 def resolve_resident(value, device: torch.device) -> bool:
@@ -119,6 +136,29 @@ def resolve_resident(value, device: torch.device) -> bool:
         return value
     raise ValueError(f"resident_clouds must be 'auto' or a bool, not "
                      f"{value!r}")
+
+
+def loop_stats_line(record: Dict) -> str:
+    """The `[loop-stats]` line of an epoch_times entry: the epoch's wall
+    a step, its loop.* spans, the epoch's start and end with the end's
+    parts, and the batch producer's spans."""
+    spans = record["spans"]
+
+    def sec(name):
+        return spans.get(name, {}).get("seconds", 0.0)
+    epoch_s, n = record["seconds"], max(record["steps"], 1)
+    loop = " ".join(f"{k}={record[k]:.2f}s" for k in LOOP_KEYS)
+    end = " ".join(f"{p}={sec('epoch_end.' + p):.3f}s"
+                   for p in EPOCH_END_PARTS)
+    producer = " ".join(f"{p}={sec('batch.' + p):.2f}s"
+                        for p in ("sample", "pin", "put_wait"))
+    skipped = spans.get("batch.skipped", {}).get("count", 0)
+    return (f"[loop-stats] epoch {record['epoch']}: {epoch_s:.2f}s / {n} "
+            f"steps = {1e3 * epoch_s / n:.1f} ms/step | {loop} "
+            f"other={sec('loop.other'):.2f}s | "
+            f"epoch_start={sec('epoch_start'):.3f}s "
+            f"epoch_end={sec('epoch_end'):.3f}s ({end}) | batches: "
+            f"{producer} skipped={skipped}")
 
 
 def _has_regions(metas) -> bool:
@@ -375,13 +415,15 @@ class ModelTrainer:
                                      dtype=np.int64)))
         if n_real == K:
             graph = self._step_graph(tag, K, pack, extra)
-            graph.load(pack)
+            with span("loop.load"):
+                graph.load(pack)
             graph.run()
             return self._to_ring(graph.out, K)
         graph = self._step_graph(tag, 1, pack, extra)
         rows = []
         for i in range(n_real):
-            graph.load(pack, index=i)
+            with span("loop.load"):
+                graph.load(pack, index=i)
             graph.run()
             rows += self._to_ring(graph.out, 1)
         return rows
@@ -472,11 +514,10 @@ class ModelTrainer:
         self._drops_sum = torch.zeros(5 * self.plan.num_layers - 3,
                                       device=self.device)
 
-        # Opt-in breakdown of each epoch's host time (WEASAL_LOOP_STATS=1):
-        # waiting for batches, issuing steps, flushing the log
-        loop_stats = None
-        if os.environ.get("WEASAL_LOOP_STATS"):
-            loop_stats = {"wait_batch": 0.0, "dispatch": 0.0, "flush": 0.0}
+        # Each epoch's spans (utils/profiling) go into its epoch_times
+        # entry; WEASAL_LOOP_STATS=1 prints them an epoch
+        loop_stats = bool(os.environ.get("WEASAL_LOOP_STATS"))
+        mark("train")
         trace_dir = os.environ.get("WEASAL_TRACE_DIR")
         trace = None
         trace_done = not trace_dir or not self.writer
@@ -505,19 +546,33 @@ class ModelTrainer:
                 self._use_contrast = (
                     self.mode == "pseudo" and self.epoch >= getattr(
                         config, "contrast_start", 1 << 30))
+                epoch_mark = mark()
+                # The epoch's start: a new producer through its first batch
+                starting = span("epoch_start").__enter__()
                 prefetcher = BatchPrefetcher(source, config.epoch_steps,
                                              self.device, rng=rng, pack=K,
                                              keep_fn=keep_fn)
                 epoch_t0 = time.perf_counter()
                 batch_iter = iter(prefetcher)
                 while True:
+                    # The wait's clock points sit right around next():
+                    # where the loop gets the GIL back from the producer's
+                    # Python moves with the calls around them, and a
+                    # span's own calls before its clock left most of the
+                    # wait outside it (PERF.md, section 6)
+                    waiting = open_range("loop.wait_batch")
                     tw = time.perf_counter()
                     try:
                         pack, metas = next(batch_iter)
                     except StopIteration:
                         break
-                    if loop_stats is not None:
-                        loop_stats["wait_batch"] += time.perf_counter() - tw
+                    finally:
+                        waited = time.perf_counter() - tw
+                        close_range(waiting)
+                    add("loop.wait_batch", waited)
+                    if starting is not None:
+                        starting.__exit__(None, None, None)
+                        starting = None
                     # under a group the kill file is read at the epoch's
                     # end, where every rank learns rank 0's decision
                     if saving and self.world == 1 and pid_file \
@@ -527,11 +582,9 @@ class ModelTrainer:
                     n_real = len(metas)
                     tag = metas[0][0].get("bucket", "large")
                     buckets[tag] = buckets.get(tag, 0) + n_real
-                    td = time.perf_counter()
-                    stamps.append(td)
-                    rows = self._dispatch(tag, K, pack, n_real, extra)
-                    if loop_stats is not None:
-                        loop_stats["dispatch"] += time.perf_counter() - td
+                    stamps.append(time.perf_counter())
+                    with span("loop.dispatch"):
+                        rows = self._dispatch(tag, K, pack, n_real, extra)
                     wall = time.time() - t0
                     for i, row in enumerate(rows):
                         pending.append((self.epoch, self.step + i, row[0],
@@ -543,10 +596,7 @@ class ModelTrainer:
                     if len(pending) >= FLUSH_STEPS or \
                             time.time() - last_display > 2.0:
                         last_display = time.time()
-                        tf = time.perf_counter()
                         self._flush_log(pending, log_file, al_iteration)
-                        if loop_stats is not None:
-                            loop_stats["flush"] += time.perf_counter() - tf
                         pending = []
                         self._ring_pos = 0
                         self._watchdog.beat()
@@ -562,78 +612,40 @@ class ModelTrainer:
                             self._close_trace(trace, trace_t0)
                             trace, trace_done = None, True
 
-                tf = time.perf_counter()
+                if starting is not None:        # the epoch had no batch
+                    starting.__exit__(None, None, None)
                 self._flush_log(pending, log_file, al_iteration)
                 pending = []
                 self._ring_pos = 0
-                if loop_stats is not None:
-                    loop_stats["flush"] += time.perf_counter() - tf
                 epoch_s = time.perf_counter() - epoch_t0
                 if trace is not None:
                     # The epoch ended inside the window: close it here,
                     # so that it stays a window of epoch 0
                     self._close_trace(trace, trace_t0)
                     trace, trace_done = None, True
-                self.epoch_times.append(dict(epoch=self.epoch,
-                                             start=epoch_t0,
-                                             seconds=epoch_s,
-                                             steps=epoch_real_steps,
-                                             points=epoch_points,
-                                             buckets=buckets,
-                                             dispatch_stamps=stamps,
-                                             **(loop_stats or {})))
-                if loop_stats is not None:
-                    parts = " ".join(f"{k}={v:.2f}s"
-                                     for k, v in loop_stats.items())
-                    n = max(epoch_real_steps, 1)
-                    print(f"[loop-stats] epoch {self.epoch}: {epoch_s:.2f}s "
-                          f"/ {n} steps = {1e3 * epoch_s / n:.1f} ms/step | "
-                          f"{parts} other="
-                          f"{epoch_s - sum(loop_stats.values()):.2f}s")
-                    loop_stats = dict.fromkeys(loop_stats, 0.0)
-                if self.plan_small is not None and buckets:
-                    print(f"[buckets] epoch {self.epoch} dispatches: "
-                          + " ".join(f"{t}={c}" for t, c in
-                                     sorted(buckets.items())))
-
-                killed = bool(saving and pid_file and not exists(pid_file))
-                if self.world > 1:
-                    # Rank 0 sees the pid file; every rank stops with it
-                    killed = ddp.broadcast_object(killed)
+                # The epoch's time in none of the loop.* spans (the loop's
+                # waits for the GIL behind the producer's Python among it)
+                loop_spans = span_totals(since=epoch_mark)
+                add("loop.other", epoch_s - sum(
+                    loop_spans.get(f"loop.{key}", {}).get("seconds", 0.0)
+                    for key in LOOP_KEYS))
+                record = dict(epoch=self.epoch, start=epoch_t0,
+                              seconds=epoch_s, steps=epoch_real_steps,
+                              points=epoch_points, buckets=buckets,
+                              dispatch_stamps=stamps)
+                self.epoch_times.append(record)
+                with span("epoch_end"):
+                    killed = self._end_epoch(buckets, saving, pid_file,
+                                             chkp_dir, al_iteration,
+                                             train_dataset, val_dataset)
+                spans = span_totals(since=epoch_mark)
+                record.update(spans=spans, **{
+                    key: spans.get(f"loop.{key}", {}).get("seconds", 0.0)
+                    for key in LOOP_KEYS})
+                if loop_stats:
+                    print(loop_stats_line(record))
                 if killed:
                     break
-
-                if self.epoch in config.lr_decays:
-                    self.lr *= config.lr_decays[self.epoch]
-                    self.lr_t.fill_(self.lr)
-                self.epoch += 1
-
-                # The port's kernels drop nothing: a non-zero sum is a fault
-                epoch_drops = float(self._drops_sum.sum())
-                self._drops_sum.zero_()
-                self.epoch_drops.append(epoch_drops)
-                if epoch_drops != 0.0:
-                    raise RuntimeError(
-                        f"{epoch_drops:g} neighbors dropped in epoch "
-                        f"{self.epoch - 1}: the exact kernels must drop none")
-                self._audit(train_dataset, epoch_drops)
-
-                if saving:
-                    self.save_checkpoint(chkp_dir)
-                    if (self.epoch + 1) % config.checkpoint_gap == 0:
-                        self.save_checkpoint(
-                            chkp_dir,
-                            f"chkp_{self.epoch + 1:04d}_{al_iteration}.tar")
-                self._watchdog.beat()
-
-                if val_dataset is not None:
-                    self.cloud_segmentation_validation(val_dataset)
-                    self._watchdog.beat()
-
-                # The kill file goes once training completes
-                if self.epoch >= config.max_epoch and pid_file and \
-                        exists(pid_file):
-                    os.remove(pid_file)
 
             if saving and not exists(join(chkp_dir, "current_chkp.tar")):
                 # Resumed at or after max_epoch: no epoch ran in this run
@@ -657,6 +669,60 @@ class ModelTrainer:
             if trace is not None:
                 self._close_trace(trace, trace_t0)
         print("Finished Training")
+
+    def _end_epoch(self, buckets, saving, pid_file, chkp_dir, al_iteration,
+                   train_dataset, val_dataset) -> bool:
+        """The end of an epoch: the kill file, the LR decay, then the
+        drops read, the plan audit, the checkpoint and the validation,
+        each an epoch_end.* span. Returns True where the kill file stops
+        training (nothing after it runs)."""
+        config = self.config
+        if self.plan_small is not None and buckets:
+            print(f"[buckets] epoch {self.epoch} dispatches: "
+                  + " ".join(f"{t}={c}" for t, c in sorted(buckets.items())))
+        killed = bool(saving and pid_file and not exists(pid_file))
+        if self.world > 1:
+            # Rank 0 sees the pid file; every rank stops with it
+            killed = ddp.broadcast_object(killed)
+        if killed:
+            return True
+
+        if self.epoch in config.lr_decays:
+            self.lr *= config.lr_decays[self.epoch]
+            self.lr_t.fill_(self.lr)
+        self.epoch += 1
+
+        # The port's kernels drop nothing: a non-zero sum is a fault
+        with span("epoch_end.drops"):
+            epoch_drops = float(self._drops_sum.sum())
+        self._drops_sum.zero_()
+        self.epoch_drops.append(epoch_drops)
+        if epoch_drops != 0.0:
+            raise RuntimeError(
+                f"{epoch_drops:g} neighbors dropped in epoch "
+                f"{self.epoch - 1}: the exact kernels must drop none")
+        with span("epoch_end.audit"):
+            self._audit(train_dataset, epoch_drops)
+
+        if saving:
+            with span("epoch_end.checkpoint"):
+                self.save_checkpoint(chkp_dir)
+                if (self.epoch + 1) % config.checkpoint_gap == 0:
+                    self.save_checkpoint(
+                        chkp_dir,
+                        f"chkp_{self.epoch + 1:04d}_{al_iteration}.tar")
+        self._watchdog.beat()
+
+        if val_dataset is not None:
+            with span("epoch_end.validation"):
+                self.cloud_segmentation_validation(val_dataset)
+            self._watchdog.beat()
+
+        # The kill file goes once training completes
+        if self.epoch >= config.max_epoch and pid_file and \
+                exists(pid_file):
+            os.remove(pid_file)
+        return False
 
     def _open_trace(self, trace_dir):
         """Open the profiler window (utils/profiling.device_trace) that
@@ -719,24 +785,25 @@ class ModelTrainer:
 
     def _flush_log(self, pending, log_file, al_iteration):
         """Fetch the buffered device scalars in one copy and log them."""
-        if not pending:
-            return
-        values = torch.stack([torch.stack([p[k] for p in pending])
-                              for k in (2, 3, 5)], dim=1)
-        values = values.cpu().numpy().astype(np.float64)
-        rows = [(epoch, step, float(ls), float(rg), float(ac), wall)
-                for (epoch, step, _, _, wall, _), (ls, ac, rg) in zip(
-                    pending, values)]
-        if self.config.saving and log_file:
-            with open(log_file, "a") as f:
-                for epoch, step, ls, rg, ac, wall in rows:
-                    f.write(f"{epoch:d} {step:d} {ls:.3f} "
-                            f"{rg:.3f} {ac:.3f} "
-                            f"{wall:.3f}\n")
-        epoch, step, ls, rg, ac, _ = rows[-1]
-        print(f"e{epoch:03d}-i{step:04d} => L={ls:.3f} "
-              f"acc={100 * ac:3.0f}% "
-              f"| al_iteration={al_iteration}")
+        with span("loop.flush"):
+            if not pending:
+                return
+            values = torch.stack([torch.stack([p[k] for p in pending])
+                                  for k in (2, 3, 5)], dim=1)
+            values = values.cpu().numpy().astype(np.float64)
+            rows = [(epoch, step, float(ls), float(rg), float(ac), wall)
+                    for (epoch, step, _, _, wall, _), (ls, ac, rg) in zip(
+                        pending, values)]
+            if self.config.saving and log_file:
+                with open(log_file, "a") as f:
+                    for epoch, step, ls, rg, ac, wall in rows:
+                        f.write(f"{epoch:d} {step:d} {ls:.3f} "
+                                f"{rg:.3f} {ac:.3f} "
+                                f"{wall:.3f}\n")
+            epoch, step, ls, rg, ac, _ = rows[-1]
+            print(f"e{epoch:03d}-i{step:04d} => L={ls:.3f} "
+                  f"acc={100 * ac:3.0f}% "
+                  f"| al_iteration={al_iteration}")
 
     # ------------------------------------------------------------------
     # Validation

@@ -1,9 +1,15 @@
-"""Phase timing on the host clock, and device traces and their readers.
+"""Spans on the host clock, and device traces and their readers.
+
+- the span table (the port's own; the JAX package's `StepTimer`,
+  :18-62, has no counterpart here): `span(name)` times a block into a
+  per-thread table of seconds, self seconds and counts, and names it on
+  the profiler's clock while a profiler is open; `add(name, seconds)`
+  enters a block that the caller timed itself; `counter(name, n)`
+  counts; `span_totals(since)` sums the threads' tables since a `mark`.
+  The training loop and its batch producer open the spans (PERF.md,
+  section 3, has their table).
 
 Counterpart of weasal_tpu/utils/profiling.py:
-- `StepTimer` (:18-62): exponential moving averages of named phases,
-  shown at most once a display interval. On a card the host clock
-  measures the enqueue unless a phase ends in a synchronization.
 - `device_trace` (:64-85): a torch.profiler window (the CPU, and CUDA on
   a card) that writes a Chrome trace, `trace_<tag>.json`, into a
   directory. The trainer's `WEASAL_TRACE_DIR` window goes through it.
@@ -26,55 +32,157 @@ import glob
 import itertools
 import json
 import os
+import threading
 import time
 from typing import Dict, Iterable, List, Optional, Tuple
 
+import torch
+import torch.autograd.profiler as _autograd_profiler
 
-class StepTimer:
-    """Exponential-moving-average phase timer.
 
-        timer = StepTimer(["data", "step", "log"])
-        with timer.phase("data"): ...
-        if timer.should_display(): print(timer.summary())
+# ---------------------------------------------------------------------------
+# The span table
+# ---------------------------------------------------------------------------
+# Each thread adds to a table of its own, {name: (seconds, self seconds,
+# count)}, replacing a name's tuple in one dict store, so a reader on
+# another thread sees a whole tuple. A thread's table is registered at
+# its first span; `_snapshot` folds the tables of ended threads into
+# `_RETIRED`.
+_LOCK = threading.Lock()
+_THREADS: List[Tuple[threading.Thread, Dict[str, Tuple]]] = []
+_RETIRED: Dict[str, Tuple[float, float, int]] = {}
+_MARKS: Dict[str, Dict[str, Tuple[float, float, int]]] = {}
+_LOCAL = threading.local()
+_ZERO = (0.0, 0.0, 0)
 
-    A phase's average starts at its first duration and smooths from the
-    third pass of the last phase on."""
 
-    def __init__(self, phases: List[str], smoothing: float = 0.9,
-                 display_interval: float = 1.0):
-        self.phases = phases
-        self.smoothing = smoothing
-        self.display_interval = display_interval
-        self.ema: Dict[str, float] = {}
-        self._last_display = time.time()
-        self._count = 0
+class _ThreadSpans:
+    __slots__ = ("table", "children")
 
-    @contextlib.contextmanager
-    def phase(self, name: str):
-        t0 = time.perf_counter()
-        yield
-        dt = time.perf_counter() - t0
-        if name in self.ema and self._count >= 2:
-            self.ema[name] = (self.smoothing * self.ema[name]
-                              + (1 - self.smoothing) * dt)
-        else:
-            self.ema[name] = dt
-        if name == self.phases[-1]:
-            self._count += 1
+    def __init__(self):
+        self.table: Dict[str, Tuple[float, float, int]] = {}
+        # the seconds of the closed children of each open span; [0] is
+        # the thread's top level
+        self.children = [0.0]
+        with _LOCK:
+            _THREADS.append((threading.current_thread(), self.table))
 
-    def should_display(self) -> bool:
-        """True at most once a `display_interval` seconds."""
-        if time.time() - self._last_display > self.display_interval:
-            self._last_display = time.time()
-            return True
+
+def _thread_spans() -> _ThreadSpans:
+    try:
+        return _LOCAL.spans
+    except AttributeError:
+        _LOCAL.spans = _ThreadSpans()
+        return _LOCAL.spans
+
+
+class span:
+    """`with span(name):` adds the block's seconds (time.perf_counter), its
+    self seconds (less those of the spans nested in it on this thread)
+    and a count to this thread's table under `name`. While a
+    torch.profiler window is open it is also a `record_function(name)`
+    range, so the profiler's trace names the block. Never synchronizes
+    the card: on a card it times the host's work, an enqueue included,
+    and a wait only where the block itself waits. (The profiler's flag is
+    the process's; a range on a thread that the profiler does not trace
+    records nothing.)"""
+
+    __slots__ = ("name", "_spans", "_range", "_t0")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self) -> "span":
+        self._spans = spans = _thread_spans()
+        spans.children.append(0.0)
+        self._range = open_range(self.name)
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        dt = time.perf_counter() - self._t0
+        close_range(self._range)
+        spans = self._spans
+        inner = spans.children.pop()
+        spans.children[-1] += dt
+        s, own, n = spans.table.get(self.name, _ZERO)
+        spans.table[self.name] = (s + dt, own + dt - inner, n + 1)
         return False
 
-    def summary(self) -> str:
-        return " ".join(f"{p}={1000 * self.ema.get(p, 0):.1f}ms"
-                        for p in self.phases)
 
-    def total_ms(self) -> float:
-        return 1000 * sum(self.ema.values())
+def add(name: str, seconds: float, n: int = 1) -> None:
+    """Add a block that the caller timed on its own clock points: its
+    `seconds` and `n` to the count of `name` in this thread's table, as a
+    closed span nested in this thread's open one. Opens no profiler range
+    (`open_range` gives one)."""
+    spans = _thread_spans()
+    spans.children[-1] += seconds
+    s, own, c = spans.table.get(name, _ZERO)
+    spans.table[name] = (s + seconds, own + seconds, c + n)
+
+
+def counter(name: str, n: int = 1) -> None:
+    """Add `n` to the count of `name` in this thread's table (its seconds
+    stay 0)."""
+    add(name, 0.0, n)
+
+
+def open_range(name: str):
+    """A `record_function(name)` range, entered, while a torch.profiler
+    window is open; else None. `close_range` closes it."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return None
+    rng = _autograd_profiler.record_function(name)
+    rng.__enter__()
+    return rng
+
+
+def close_range(rng) -> None:
+    """Close an `open_range` range (nothing for None)."""
+    if rng is not None:
+        rng.__exit__(None, None, None)
+
+
+def _add(into: Dict, table: Dict, sign: int = 1) -> None:
+    for name, (s, own, n) in table.items():
+        s0, own0, n0 = into.get(name, _ZERO)
+        into[name] = (s0 + sign * s, own0 + sign * own, n0 + sign * n)
+
+
+def _snapshot() -> Dict[str, Tuple[float, float, int]]:
+    """The totals of every thread's table, those of ended threads
+    included."""
+    with _LOCK:
+        ended = [e for e in _THREADS if not e[0].is_alive()]
+        for entry in ended:
+            _add(_RETIRED, entry[1])
+            _THREADS.remove(entry)
+        out = dict(_RETIRED)
+        for _, table in _THREADS:
+            _add(out, dict(table))
+    return out
+
+
+def mark(name: Optional[str] = None) -> Dict[str, Tuple[float, float, int]]:
+    """The span table's totals now, for `span_totals(since=...)`; with
+    `name`, also kept under it (a later mark of that name replaces it)."""
+    snap = _snapshot()
+    if name is not None:
+        _MARKS[name] = snap
+    return snap
+
+
+def span_totals(since=None) -> Dict[str, Dict[str, float]]:
+    """{name: {"seconds", "self_seconds", "count"}} summed over every
+    thread since `since`: a `mark`, or the name of one (KeyError where no
+    mark has it); None = since the process began. Names that did not
+    move are left out. `ModelTrainer.train` marks "train" as it starts,
+    so `span_totals("train")` is the last training call's table."""
+    now = _snapshot()
+    if since is not None:
+        _add(now, _MARKS[since] if isinstance(since, str) else since, -1)
+    return {k: dict(seconds=s, self_seconds=own, count=n)
+            for k, (s, own, n) in now.items() if n or s}
 
 
 # The names of `device_trace` files that a call gives (pid, call number)
@@ -94,7 +202,6 @@ def device_trace(log_dir: Optional[str] = "weasal_trace",
     if not enabled:
         yield None
         return
-    import torch
     from torch.profiler import ProfilerActivity, profile
     cuda = torch.cuda.is_available()
     activities = [ProfilerActivity.CPU]
