@@ -172,6 +172,114 @@ def test_plan_saturation_audit_equals_jax(both, tight):
         np.testing.assert_array_equal(a, c)
 
 
+# A five-level architecture, as the pseudo-label KPFCNN's
+PL_SHAPED_ARCHITECTURE = (
+    ["simple", "resnetb"] + ["resnetb_strided", "resnetb"] * 4
+    + ["nearest_upsample", "unary"] * 4)
+
+
+@pytest.fixture(scope="module")
+def pl_shaped(both):
+    """A port training dataset of the same scene under a five-level
+    (pseudo-label shaped) architecture."""
+    _, _, (_, proot) = both
+    cfg = port_config_class(architecture=PL_SHAPED_ARCHITECTURE)()
+    assert cfg.num_layers == 5
+    return port_datasets_for(cfg, proot, splits=("training",))[0]
+
+
+def _uncapped_audit(monkeypatch, dataset, plan, seed):
+    """The oracle: the audit over uncapped pyramids with their upsample
+    searches (the JAX package's computation, and the port's before it
+    searched at the plan's widths); also the longest real row seen on
+    each conv and pool edge, {(kind, level): count}."""
+    from weasal_tpu_torch.data import telemetry
+    from weasal_tpu_torch.data.batching import build_sphere_pyramid
+    longest = {}
+
+    def uncapped(points, cfg, rng=None, **_caps):
+        pyr = build_sphere_pyramid(points, cfg, rng=rng)
+        for kind in ("neighbors", "pools"):
+            for l, rows in enumerate(pyr[kind]):
+                real = np.sum(rows < pyr["points"][l].shape[0], axis=1)
+                longest[kind, l] = max(longest.get((kind, l), 0),
+                                       int(real.max(initial=0)))
+        return pyr
+    with monkeypatch.context() as mp:
+        mp.setattr(telemetry, "build_sphere_pyramid", uncapped)
+        report = telemetry.audit_plan_saturation(
+            dataset, plan, rng=np.random.default_rng(seed))
+    return report, longest
+
+
+@pytest.mark.parametrize("shape", ["wl", "pl"])
+def test_plan_capped_audit_equals_uncapped(both, pl_shaped, monkeypatch,
+                                           shape):
+    """The audit searches each edge at the plan's width and reads the same
+    report and plan_saturation.txt line as over uncapped pyramids, on
+    several seeds and plans: the calibrated one, one whose widths equal
+    the longest row seen on each edge, that less one (the `>=` on real
+    rows), and one with an uncapped (0) pool edge. The cKDTree fallback
+    runs only for a cap of 0 where the native library is built; the
+    counters count every search, 4 spheres x (2L - 1) an audit."""
+    from weasal_tpu_torch.data import telemetry
+    from weasal_tpu_torch.ops import native, neighbors
+    from weasal_tpu_torch.utils import profiling
+    ds = both[1][0] if shape == "wl" else pl_shaped
+    base = ds.calibration(num_samples=12)
+    L = base.num_layers
+    assert L == (3 if shape == "wl" else 5)
+    fallbacks = []
+    scipy_search = neighbors.radius_search_scipy
+
+    def counted(*args, **kwargs):
+        fallbacks.append(1)
+        return scipy_search(*args, **kwargs)
+    monkeypatch.setattr(neighbors, "radius_search_scipy", counted)
+    before = [p.copy() for p in ds.potentials]
+    for seed in (3, 9, 27):
+        _, longest = _uncapped_audit(monkeypatch, ds, base, seed)
+
+        def widths(d):
+            return dataclasses.replace(
+                base,
+                conv_neighbors=[longest["neighbors", l] + d
+                                for l in range(L)],
+                pool_neighbors=[longest["pools", l] + d
+                                for l in range(L - 1)])
+        plans = [base, widths(0), widths(-1), dataclasses.replace(
+            base, pool_neighbors=[0] + list(base.pool_neighbors[1:]))]
+        reports = []
+        for i, plan in enumerate(plans):
+            want, _ = _uncapped_audit(monkeypatch, ds, plan, seed)
+            fallbacks.clear()
+            mark = profiling.mark()
+            got = telemetry.audit_plan_saturation(
+                ds, plan, rng=np.random.default_rng(seed))
+            counts = profiling.span_totals(since=mark)
+            assert got == want, (seed, i)
+            assert telemetry.format_saturation_line(7, got) == \
+                telemetry.format_saturation_line(7, want)
+            caps = list(plan.conv_neighbors) + list(plan.pool_neighbors)
+            n_native, n_fallback = (
+                counts.get(f"audit.search_{p}", {}).get("count", 0)
+                for p in ("native", "fallback"))
+            assert n_native + n_fallback == 4 * (2 * L - 1)
+            assert n_fallback == len(fallbacks)
+            if native.available():
+                assert n_fallback == 4 * caps.count(0)
+            else:
+                assert n_native == 0
+            reports.append(got)
+        # the widths of the longest rows saturate some rows on every edge,
+        # the widths one less at least as many
+        for kind in ("conv_saturation", "pool_saturation"):
+            assert all(0 < a <= b for a, b in
+                       zip(reports[1][kind], reports[2][kind])), kind
+    for a, b in zip(ds.potentials, before):
+        np.testing.assert_array_equal(a, b)
+
+
 def _assert_payload_equal(got, want):
     for key in ("cloud_ind", "input_inds", "center", "scale", "rot",
                 "labels", "cloud_lb", "color_keep"):

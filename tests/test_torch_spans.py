@@ -22,6 +22,7 @@ import threading
 import pytest
 import torch
 
+from weasal_tpu_torch.ops import native
 from weasal_tpu_torch.utils import profiling
 from weasal_tpu_torch.utils.profiling import (add, counter, mark, span,
                                               span_totals)
@@ -191,6 +192,11 @@ def test_epoch_entries_carry_their_spans(wl_run):
         assert end["seconds"] >= parts
         assert end["self_seconds"] == pytest.approx(end["seconds"] - parts)
         assert spans["epoch_start"]["count"] == 1
+        # the audit's searches, 4 spheres x (2L - 1) edges, by path
+        searches = [spans.get(f"audit.search_{p}", {}).get("count", 0)
+                    for p in ("native", "fallback")]
+        assert sum(searches) == 4 * (2 * trainer.plan.num_layers - 1)
+        assert searches[0] == (sum(searches) if native.available() else 0)
         # the keys the loop's readers read are the loop.* totals
         for key in ("wait_batch", "dispatch", "flush"):
             assert e[key] == spans[f"loop.{key}"]["seconds"], key
@@ -222,7 +228,8 @@ def test_epoch_entries_carry_their_spans(wl_run):
     lines = [l for l in printed if l.startswith("[loop-stats]")]
     assert len(lines) == 2 and all(
         "epoch_end=" in l and "checkpoint=" in l and "validation=" in l
-        and "sample=" in l and "other=" in l for l in lines)
+        and "audit searches native=" in l and "sample=" in l
+        and "other=" in l for l in lines)
 
 
 def test_trace_window_holds_the_loop_ranges(wl_run):

@@ -4,9 +4,18 @@ Counterpart of weasal_tpu/data/telemetry.py:25-129 on the port's own host
 pyramid (data/batching.build_sphere_pyramid). The static plan truncates
 what exceeds its budgets: level point counts beyond N_l, neighbor rows
 beyond K_l, sub-regions beyond R, region members beyond P. Once per epoch
-the trainer samples a few fresh spheres, builds their uncapped pyramids
-and compares the sizes with the plan; the dataset's potentials are
-restored afterwards, so the audit never moves the sampling schedule.
+the trainer samples a few fresh spheres, builds their pyramids with each
+search capped at the plan's own width (no upsample searches) and compares
+the sizes with the plan; the dataset's potentials are restored
+afterwards, so the audit never moves the sampling schedule.
+
+A row searched at width K holds K real entries exactly when the support
+has K or more neighbors, so `real >= K` reads the same as on an uncapped
+row (the JAX package's searches are uncapped). A capped search runs the
+native library where it is built (`ops/neighbors.radius_search`); the
+counters `audit.search_native` and `audit.search_fallback` (utils/
+profiling) count the audit's searches by path, a cap of 0 (uncapped)
+taking the cKDTree fallback.
 """
 
 from __future__ import annotations
@@ -16,15 +25,25 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from weasal_tpu_torch.data.batching import build_sphere_pyramid
+from weasal_tpu_torch.ops import native
+from weasal_tpu_torch.utils.profiling import counter
+
+
+def _count_searches(caps) -> None:
+    """Count the searches at `caps` by the path `radius_search` takes."""
+    fast = native.available()
+    for cap in caps:
+        counter("audit.search_native" if cap and fast
+                else "audit.search_fallback")
 
 
 def audit_plan_saturation(dataset, plan, num_spheres: int = 4,
                           rng: Optional[np.random.Generator] = None,
                           untouched_ratio: float = 0.9) -> Dict:
-    """Per-level observations of `num_spheres` uncapped sphere pyramids
-    against `plan`, and a `warnings` list: a level whose points exceed
-    N_l, more than (1 - untouched_ratio) + 5 % of conv or pool rows at
-    their cap, spheres with more regions than R."""
+    """Per-level observations of `num_spheres` sphere pyramids, searched
+    at the plan's widths, against `plan`, and a `warnings` list: a level
+    whose points exceed N_l, more than (1 - untouched_ratio) + 5 % of conv
+    or pool rows at their cap, spheres with more regions than R."""
     rng = rng or np.random.default_rng(0)
     cfg = dataset.config
     L = plan.num_layers
@@ -40,10 +59,14 @@ def audit_plan_saturation(dataset, plan, num_spheres: int = 4,
     pool_sat: List[List[float]] = [[] for _ in range(L - 1)]
     regions_over, region_pts_over = 0, 0
     pts_truncated = [0] * L
+    conv_caps, pool_caps = list(plan.conv_neighbors), list(plan.pool_neighbors)
     try:
         for _ in range(num_spheres):
             payload = dataset.sample_sphere(rng, augment=False)
-            pyr = build_sphere_pyramid(payload["points"], cfg, rng=rng)
+            pyr = build_sphere_pyramid(
+                payload["points"], cfg, rng=rng, max_neighbors=conv_caps,
+                max_pool_neighbors=pool_caps, with_upsamples=False)
+            _count_searches(conv_caps[:L] + pool_caps[:L - 1])
             for l in range(L):
                 n_l = pyr["points"][l].shape[0]
                 level_counts[l].append(n_l)

@@ -47,10 +47,12 @@ The loop times itself with the span table of utils/profiling:
 inside), `loop.flush` (inside `_flush_log`), `epoch_start` (a new
 producer through its first batch) and `epoch_end` (after the epoch's
 final flush: `epoch_end.drops`, `.audit`, `.checkpoint`,
-`.validation`). Each `epoch_times` entry holds that epoch's table under
-`spans`, its end included, and its `loop.*` seconds as `wait_batch`,
-`dispatch` and `flush`; `loop.other` is the epoch's time in none of
-them. `train` marks "train" in the table as it starts.
+`.validation`; the audit counts its searches by path,
+`audit.search_native` and `audit.search_fallback`). Each `epoch_times`
+entry holds that epoch's table under `spans`, its end included, and its
+`loop.*` seconds as `wait_batch`, `dispatch` and `flush`; `loop.other`
+is the epoch's time in none of them. `train` marks "train" in the table
+as it starts.
 
 In pseudo mode the gradients are clipped by value, no batch is skipped,
 the log header counts the ground-truth ledger's points, and each step
@@ -141,24 +143,30 @@ def resolve_resident(value, device: torch.device) -> bool:
 def loop_stats_line(record: Dict) -> str:
     """The `[loop-stats]` line of an epoch_times entry: the epoch's wall
     a step, its loop.* spans, the epoch's start and end with the end's
-    parts, and the batch producer's spans."""
+    parts and the audit's searches by path, and the batch producer's
+    spans."""
     spans = record["spans"]
 
     def sec(name):
         return spans.get(name, {}).get("seconds", 0.0)
+
+    def count(name):
+        return spans.get(name, {}).get("count", 0)
     epoch_s, n = record["seconds"], max(record["steps"], 1)
     loop = " ".join(f"{k}={record[k]:.2f}s" for k in LOOP_KEYS)
     end = " ".join(f"{p}={sec('epoch_end.' + p):.3f}s"
                    for p in EPOCH_END_PARTS)
+    searches = " ".join(f"{p}={count('audit.search_' + p)}"
+                        for p in ("native", "fallback"))
     producer = " ".join(f"{p}={sec('batch.' + p):.2f}s"
                         for p in ("sample", "pin", "put_wait"))
-    skipped = spans.get("batch.skipped", {}).get("count", 0)
     return (f"[loop-stats] epoch {record['epoch']}: {epoch_s:.2f}s / {n} "
             f"steps = {1e3 * epoch_s / n:.1f} ms/step | {loop} "
             f"other={sec('loop.other'):.2f}s | "
             f"epoch_start={sec('epoch_start'):.3f}s "
-            f"epoch_end={sec('epoch_end'):.3f}s ({end}) | batches: "
-            f"{producer} skipped={skipped}")
+            f"epoch_end={sec('epoch_end'):.3f}s ({end}; audit searches "
+            f"{searches}) | batches: {producer} "
+            f"skipped={count('batch.skipped')}")
 
 
 def _has_regions(metas) -> bool:
@@ -744,8 +752,10 @@ class ModelTrainer:
               f"({1e3 * dt / n:.1f} ms/step) -> {path}")
 
     def _audit(self, train_dataset, epoch_drops: float) -> None:
-        """The plan-saturation audit: warnings printed, one line appended
-        to plan_saturation.txt; a failure never stops training."""
+        """The plan-saturation audit (data/telemetry.py: a few fresh
+        spheres, their pyramids searched at the plan's widths): warnings
+        printed, one line appended to plan_saturation.txt; a failure never
+        stops training."""
         try:
             from weasal_tpu_torch.data.telemetry import (
                 audit_plan_saturation, format_saturation_line)
