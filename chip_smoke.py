@@ -417,16 +417,14 @@ DALES_DENSITY = 10.0
 DALES_LOG = "Log_phase10"
 DALES_ARGS = ("--epoch_steps", "10", "--validation_size", "5",
               "--seed", str(SEED), "--al_iterations", "0")
-# Phase 11: the pseudo-label stage with deformable convs on phase 9's tile
-# and labels; the blocks made deformable (by index in VaihingenPLConfig's
-# architecture: the layer-3 resnetb, the strided block from layer 3 and
-# the layer-4 resnetb) and one graphed epoch of 10 steps a replay at a
-# time with 2 validation batches
+# Phase 11: the pseudo-label stage with deformable convs
+# (VaihingenPLDeformConfig, the entry point's --deformable) on phase 9's
+# tile and labels, one graphed epoch of 10 steps a replay at a time with
+# 2 validation batches
 DEFORM_LOG = "Log_phase11"
-DEFORM_BLOCKS = {7: "resnetb_deformable", 8: "resnetb_deformable_strided",
-                 9: "resnetb_deformable"}
-DEFORM_ARGS = ("--weak_label_log", PL_LOG, "--epoch_steps", "10",
-               "--validation_size", "2", "--max_epoch", "1",
+DEFORM_ARGS = ("--deformable", "--weak_label_log", PL_LOG,
+               "--epoch_steps", "10", "--validation_size", "2",
+               "--max_epoch", "1",
                "--steps_per_dispatch", "1", "--seed", str(SEED),
                "--al_iterations", "0")
 # Phase 12: the host-pyramid input path on phase 6's tile (WL: 2 epochs
@@ -3539,22 +3537,6 @@ def run_dales(work, counted, wl_per, card, log):
     return report, wl_total, pl_total
 
 
-def deformable_pl_config():
-    """VaihingenPLConfig with DEFORM_BLOCKS made deformable: its layer-3
-    resnetb and its layer-4 blocks (KPConv-PyTorch's train_S3DIS.py
-    pattern, whence the PL config's deform_radius, repulse_extent and
-    deform_lr_factor); widths, levels and spheres are the PL config's."""
-    from weasal_tpu_torch.config import VaihingenPLConfig
-    arch = list(VaihingenPLConfig.architecture)
-    for i, name in DEFORM_BLOCKS.items():
-        if name.replace("_deformable", "") != arch[i]:
-            raise AssertionError(f"block {i} is {arch[i]}, not {name}'s "
-                                 "rigid twin")
-        arch[i] = name
-    return type("DeformablePLConfig", (VaihingenPLConfig,),
-                {"architecture": arch})
-
-
 def time_deformable_convs(model, pyr, card, log):
     """Each deformable conv of `model` at its shapes on `pyr`: forward
     and forward + backward (dX, dW, the offset conv's and the offsets'
@@ -3615,9 +3597,8 @@ def time_deformable_convs(model, pyr, card, log):
 
 def run_deformable(root, work, counted, card, log):
     """Phase 11: the pseudo-label stage with deformable convs at full
-    VaihingenPLConfig width (`deformable_pl_config`) on phase 9's tile and
-    refined labels, through the PL entry point's stage runner with that
-    configuration: one graphed epoch of 10 steps (K = 1) with 2 validation
+    width (`VaihingenPLDeformConfig`) on phase 9's tile and refined
+    labels, through the PL entry point with `--deformable`: one graphed epoch of 10 steps (K = 1) with 2 validation
     batches, the same again in a fresh trainer (losses, offset losses and
     checkpoint bit-equal); the checks of `_loop_report` with the launches
     of `pl_expected` (the offset convs on B and C, one row sum more a
@@ -3635,7 +3616,7 @@ def run_deformable(root, work, counted, card, log):
     15, the trained model with its config, plan, per-eval-batch launches
     and the level-0 tensors of the validation batch."""
     import copy
-    import dataclasses
+    from weasal_tpu_torch.config import VaihingenPLDeformConfig
     from weasal_tpu_torch.data.loader import BatchPrefetcher
     from weasal_tpu_torch.data.resident import (ResidentBatchSource,
                                                 assemble_level0_device)
@@ -3647,9 +3628,7 @@ def run_deformable(root, work, counted, card, log):
     from weasal_tpu_torch.train.trainer import ModelTrainer
     from weasal_tpu_torch.train_Vaihingen3D_PseudoLabel import STAGE
 
-    cls = deformable_pl_config()
-    deform_stage = dataclasses.replace(STAGE, config_cls=cls)
-    config = cls()
+    config = VaihingenPLDeformConfig()
     config.num_classes = 9
     per_step, per_val = pl_expected(config)
     log(f"phase 11: architecture {config.architecture}, deform layers "
@@ -3684,7 +3663,7 @@ def run_deformable(root, work, counted, card, log):
             for fn in counted:
                 fn.launches = 0
             t0 = time.perf_counter()
-            trainer = stage.run(deform_stage,
+            trainer = stage.run(STAGE,
                                 [out, "--data_root", root, *DEFORM_ARGS])
             torch.cuda.synchronize()
             wall_s = time.perf_counter() - t0

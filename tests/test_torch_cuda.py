@@ -48,7 +48,11 @@ the plain version and repeats; the plain
 voxel sums on the card equal the `run_sums` kernel bit for bit, and
 three plain builds of one batch's pyramid are bit-equal (and equal the
 kernels' build); a deformable pseudo-label step (layers 3-4 deformable)
-repeats bit for bit, eager twice and replayed from a graph. The
+repeats bit for bit, eager twice and replayed from a graph; its replay
+shows each deformable conv's four marks in the profiler's trace, the
+forward and backward brackets holding the chain's plain kernels, and
+adds the chains' work counters, while the rigid network's replay has no
+mark and no counter. The
 host-pyramid path (config.device_pyramid False): B, C and D on
 host-built neighbor lists and at KPCNN's shapes equal their plain
 versions (and KPCNN's forward its plain one); a host step replayed from
@@ -1442,6 +1446,109 @@ def test_deformable_step_repeats_bit_for_bit(dev, synth_pl):
     moved = [k for k in state if "offset" in k and "kernel_points" not in k
              and not torch.equal(state[k], state0[k])]
     assert len(moved) == 6
+
+
+def _replayed_step(dev, cfg, plan, model, opt, t):
+    """A pseudo-label step of `model` captured into a StepGraph (its
+    pyramid built inside the step, as the loop's) and replayed once under
+    torch.profiler: (the graph, the replay's device kernels as (name,
+    start, end) by start, the span table's deform.* counts the replay
+    added)."""
+    from torch.profiler import ProfilerActivity, profile
+    from weasal_tpu_torch.train.graphs import StepGraph
+    from weasal_tpu_torch.train.step import (class_weights, label_table,
+                                             step_on_batch, step_outputs)
+    from weasal_tpu_torch.utils import profiling
+    class_w, table = class_weights(cfg, dev), label_table(model, dev)
+    seed = torch.full((), 7, dtype=torch.int64, device=dev)
+
+    def body(inputs, out):
+        from weasal_tpu_torch.ops.pyramid import batch_from_device_pyramid
+        pyr = batch_from_device_pyramid(
+            t["points0"], t["mask0"], t["features"], t["labels"], cfg, plan,
+            t["center_pts"], rotations=t["rotations"])
+        loss, acc, reg = step_on_batch(
+            model, opt, pyr, cfg, cfg.learning_rate, class_w=class_w,
+            table=table, seed=seed, use_contrast=True,
+            with_offset_loss=True)
+        out["stats"][0].copy_(loss)
+
+    example = {"placeholder": torch.zeros((1, 1))}
+    graph = StepGraph("marked step", body, example, 1, dev,
+                      step_outputs(plan, dev, steps=1),
+                      lambda: (list(model.parameters())
+                               + list(model.buffers())
+                               + list(opt.values())), graphed=True)
+    graph.load(example)
+    graph.run()
+    torch.cuda.synchronize()
+    before = profiling.counts("deform.")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        graph.run()
+        torch.cuda.synchronize()
+    added = {k: n - before.get(k, 0)
+             for k, n in profiling.counts("deform.").items()
+             if n != before.get(k, 0)}
+    kernels = sorted(
+        ((e.key, e.time_range.start, e.time_range.end)
+         for e in prof.events()
+         if str(e.device_type).endswith("CUDA")
+         and e.self_device_time_total > 0), key=lambda r: r[1])
+    return graph, kernels, added
+
+
+def test_deform_marks_bracket_the_chain_under_replay(dev, synth_pl):
+    """A replayed deformable step shows each mark once a deformable conv
+    (3 of each) in the profiler's device trace, begin and end alternating
+    in each direction; each forward and backward bracket holds the
+    chain's plain kernels and none of kernels B and C (the offset convs
+    run outside); the marks are not among `launch_counts`, and the
+    replay adds the chain's counters that its capture recorded."""
+    from weasal_tpu_torch.ops.cuda.marks import MARKS
+    from weasal_tpu_torch.train.graphs import launch_counts
+    cfg, plan, model, opt, t = _deform_pl(dev, synth_pl)
+    graph, kernels, added = _replayed_step(dev, cfg, plan, model, opt, t)
+    names = [n for n, _, _ in kernels]
+    for m in MARKS:
+        assert sum(m in n for n in names) == 3, m
+    assert set(graph.per_replay) == set(launch_counts())
+    assert graph.work_per_replay["deform.fwd.calls"] == 3
+    assert graph.work_per_replay["deform.bwd.calls"] == 3
+    assert added == graph.work_per_replay
+    for d in ("fwd", "bwd"):
+        seq = [n for n in names if f"deform_{d}_" in n]
+        assert seq == [f"deform_{d}_begin", f"deform_{d}_end"] * 3, seq
+        inside, depth = [], 0
+        for n in names:
+            if f"deform_{d}_begin" in n:
+                depth, inside = 1, inside + [[]]
+            elif f"deform_{d}_end" in n:
+                depth = 0
+            elif depth:
+                inside[-1].append(n)
+        assert len(inside) == 3 and all(inside), d
+        for held in inside:
+            assert not any(k in n for n in held for k in (
+                "aggregate_kernel", "tf32x3_gemm_kernel", "deform_")), held
+
+
+def test_rigid_step_graph_has_no_marks(dev, synth_pl):
+    """The rigid pseudo-label network's replayed step launches no mark
+    and adds no work counter; its per-replay launches are the kernels'
+    own."""
+    from weasal_tpu_torch import KPFCNN, init_opt_state
+    from weasal_tpu_torch.train.graphs import launch_counts
+    dcfg, plan, _, _, t = _deform_pl(dev, synth_pl)
+    cfg, _, _ = synth_pl
+    model = KPFCNN(cfg, tuple(range(9)) + (10,), (10,),
+                   generator=torch.Generator().manual_seed(3)).to(dev)
+    graph, kernels, added = _replayed_step(dev, cfg, plan, model,
+                                           init_opt_state(model), t)
+    assert not any("deform_" in n for n, _, _ in kernels)
+    assert graph.work_per_replay == {} and added == {}
+    assert set(graph.per_replay) == set(launch_counts())
+    assert graph.per_replay["kpconv_fwd"] == 10
 
 
 # ------------------------------------------------- the host-pyramid path

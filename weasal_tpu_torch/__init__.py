@@ -23,6 +23,7 @@ README.md, section "PyTorch/CUDA port".
 
 from weasal_tpu_torch.config import (Config, DALESPLConfig, DALESWLConfig,
                                      ShapeClsConfig, VaihingenPLConfig,
+                                     VaihingenPLDeformConfig,
                                      VaihingenWLConfig)
 from weasal_tpu_torch.infer import eval_step
 from weasal_tpu_torch.interop import from_jax_opt_state, from_jax_variables
@@ -33,6 +34,7 @@ from weasal_tpu_torch.train.tester import ModelTester
 from weasal_tpu_torch.train.trainer import ModelTrainer
 
 __all__ = ["Config", "VaihingenWLConfig", "VaihingenPLConfig",
+           "VaihingenPLDeformConfig",
            "DALESWLConfig", "DALESPLConfig", "ShapeClsConfig", "KPCNN",
            "KPFCNN", "KPFCNN_mprm", "eval_step",
            "train_step", "init_opt_state", "ModelTrainer", "ModelTester",

@@ -463,6 +463,39 @@ class VaihingenPLConfig(Config):
     saving_path = None
 
 
+def deformable_last_layers(architecture: List[str]) -> List[str]:
+    """`architecture` with the deformable blocks of KPConv-PyTorch's
+    train_S3DIS.py: the encoder's second-last layer after its strided
+    entry, the strided block into the last layer and the last layer's
+    blocks ('resnetb' -> 'resnetb_deformable', 'resnetb_strided' ->
+    'resnetb_deformable_strided')."""
+    arch = list(architecture)
+    end = next((i for i, b in enumerate(arch)
+                if "upsample" in b or "global" in b), len(arch))
+    strided = [i for i in range(end) if "strided" in arch[i]]
+    if len(strided) < 2:
+        raise ValueError(f"{arch} has fewer than three layers")
+    for i in range(strided[-2] + 1, end):
+        if "deformable" not in arch[i]:
+            base, tail = ((arch[i][:-len("_strided")], "_strided")
+                          if arch[i].endswith("_strided") else (arch[i], ""))
+            arch[i] = base + "_deformable" + tail
+    return arch
+
+
+class VaihingenPLDeformConfig(VaihingenPLConfig):
+    """The Vaihingen3D pseudo-label session with the deformable KP-FCNN
+    (KPConv's deform variant, Thomas et al., ICCV 2019): WeaSAL's
+    train_Vaihingen3D_PseudoLabel.py:32-106, whose deform_radius,
+    deform_fitting_*, deform_lr_factor and repulse_extent come from
+    KPConv-PyTorch's train_S3DIS.py, with that file's deformable layers
+    mapped onto the one-resnetb-a-layer architecture: blocks 7, 8 and 9
+    (layer 3's resnetb, the strided block into layer 4, layer 4's
+    resnetb), so layers 3 and 4 deform. Every other value is the PL
+    configuration's."""
+    architecture = deformable_last_layers(VaihingenPLConfig.architecture)
+
+
 class DALESWLConfig(VaihingenWLConfig):
     """DALES weak-label model and training session
     (train_DALES_WeakLabel.py:19-43): 128 features, no color."""

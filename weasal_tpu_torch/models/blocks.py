@@ -240,7 +240,7 @@ class KPConv(nn.Module):
         extent = self.params.kp_extent
         offsets, modulations = self.split_offsets(
             self.offset_conv(q_pts, s_pts, neighb_inds, x, inverse))
-        out, min_sq = ops.kpconv_dense(
+        out, min_sq = ops.deformable_kpconv(
             q_pts, s_pts, neighb_inds, x, self.kernel_points, self.weights,
             self.params, offsets=offsets, modulations=modulations,
             inverse=inverse)

@@ -29,6 +29,12 @@ backwards sum dX in a fixed order over inverse neighbor lists
 shared by every op on one pyramid edge (data/batch.PyramidBatch), and
 `closest_pool`'s gather has a backward of the same kind.
 
+`deformable_kpconv`, a deformable conv's chain, is `kpconv_dense`
+between two identity Functions that mark its span on the device's
+clock, forward and backward (ops/cuda/marks.py), and add its work to
+the span table's `deform.fwd.*` and `deform.bwd.*` counters
+(`chain_work`; utils/profiling).
+
 `KPConvParams.compute_dtype` "bfloat16" rounds the two products' inputs
 to bf16 as the JAX package's XLA path does (:206-233): kernels B and C
 run their bf16 variants (a bf16 aggregate y is kept for dW), and
@@ -41,7 +47,7 @@ mode), so the XLA path is the reference.
 from __future__ import annotations
 
 import os
-from typing import NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -52,10 +58,12 @@ from weasal_tpu_torch.ops.cuda.kpconv_fwd import (  # noqa: F401 (re-export)
     COMPUTE_DTYPES, bf, check_compute_dtype, gather_neighbors,
     influence_weights, kpconv_fwd, kpconv_fwd_plain, kpconv_fwd_plain_with_y,
     kpconv_fwd_with_y)
+from weasal_tpu_torch.ops.cuda.marks import mark
 from weasal_tpu_torch.ops.cuda.maxpool_bwd import (maxpool_bwd,
                                                    maxpool_bwd_plain)
 from weasal_tpu_torch.ops.subsample import SHADOW_COORD
 from weasal_tpu_torch.utils.device import use_kernel
+from weasal_tpu_torch.utils.profiling import counter
 
 MAXPOOL_ROUTES = ("dense",)
 
@@ -243,6 +251,85 @@ def kpconv_dense(q_pts, s_pts, neighb_inds, x, kernel_points, weights,
     out = mxu(weighted.reshape(b * nq, kp * cin)) @ mxu(
         weights.reshape(kp * cin, cout))
     return out.reshape(b, nq, cout), min_sq
+
+
+def chain_work(q_pts, s_pts, neighb_inds, x, weights,
+               modulated: bool) -> Tuple[Dict[str, int], Dict[str, int]]:
+    """The work of one deformable chain (`kpconv_dense` with offsets) at
+    the padded rows it computes, as counts of the span table: (forward,
+    backward), each {"deform.<fwd|bwd>.<part>": n} with `calls` 1,
+    `pairs` rows K Kp (neighbor-kernel point pairs: differences,
+    influences, the mask, the minima), `aggregate` rows K Kp Cin (the
+    aggregate's multiply-adds), `gemm` rows Kp Cin Cout (the GEMM's),
+    `in_elems` and `out_elems` (elements of the inputs read and the
+    outputs written: forward, the points, neighbor indices, features,
+    kernel points, offsets, modulations and weights in, the output and
+    the minima out; backward, those and the two outputs' gradients in,
+    the gradients of the features, offsets, modulations and weights
+    out). rows = B Nq."""
+    b, nq, k = neighb_inds.shape
+    ns, cin = x.shape[1], x.shape[2]
+    kp, cout = weights.shape[0], weights.shape[2]
+    rows = b * nq
+    shifts = rows * kp * (3 + int(modulated))
+    inputs = (rows * 3 + b * ns * 3 + rows * k + b * ns * cin + kp * 3
+              + shifts + kp * cin * cout)
+    outputs = rows * cout + rows * kp
+    grads = b * ns * cin + shifts + kp * cin * cout
+    common = dict(calls=1, pairs=rows * k * kp, aggregate=rows * k * kp * cin,
+                  gemm=rows * kp * cin * cout)
+    return ({f"deform.fwd.{n}": v for n, v in dict(
+                common, in_elems=inputs, out_elems=outputs).items()},
+            {f"deform.bwd.{n}": v for n, v in dict(
+                common, in_elems=inputs + outputs, out_elems=grads).items()})
+
+
+class _SpanEdge(torch.autograd.Function):
+    """Identity on its tensors: the forward launches the mark `fwd` and
+    adds `fwd_work` to the span table, the backward (once every output's
+    gradient is in) launches `bwd` and adds `bwd_work`."""
+
+    @staticmethod
+    def forward(ctx, fwd, bwd, fwd_work, bwd_work, *tensors):
+        ctx.set_materialize_grads(False)
+        ctx.bwd, ctx.bwd_work = bwd, bwd_work
+        ctx.device = tensors[0].device
+        mark(fwd, ctx.device)
+        for name, n in fwd_work.items():
+            counter(name, n)
+        return tuple(t.view_as(t) for t in tensors)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        mark(ctx.bwd, ctx.device)
+        for name, n in ctx.bwd_work.items():
+            counter(name, n)
+        return (None, None, None, None, *grads)
+
+
+def deformable_kpconv(q_pts, s_pts, neighb_inds, x, kernel_points, weights,
+                      params: KPConvParams, offsets: torch.Tensor,
+                      modulations: Optional[torch.Tensor] = None,
+                      inverse: Optional[LazyInverse] = None):
+    """`kpconv_dense` of a deformable conv inside its span: the marks
+    `deform_fwd_begin` before the chain and `deform_fwd_end` after it
+    (on the chain's inputs x, offsets, modulations and weights, and on
+    its outputs), whose backwards launch `deform_bwd_end` and
+    `deform_bwd_begin`; the chain's forward work (`chain_work`) counted
+    at the first, its backward work at `deform_bwd_begin`. The same
+    values as `kpconv_dense`."""
+    fwd_work, bwd_work = chain_work(q_pts, s_pts, neighb_inds, x, weights,
+                                    modulations is not None)
+    inputs = [x, offsets, weights] + ([modulations] if modulations
+                                      is not None else [])
+    x, offsets, weights, *mods = _SpanEdge.apply(
+        "deform_fwd_begin", "deform_bwd_end", fwd_work, {}, *inputs)
+    out, min_sq = kpconv_dense(q_pts, s_pts, neighb_inds, x, kernel_points,
+                               weights, params, offsets=offsets,
+                               modulations=mods[0] if mods else None,
+                               inverse=inverse)
+    return _SpanEdge.apply("deform_fwd_end", "deform_bwd_begin", {},
+                           bwd_work, out, min_sq)
 
 
 def max_pool(x: torch.Tensor, inds: torch.Tensor,

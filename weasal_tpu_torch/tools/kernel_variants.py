@@ -162,13 +162,14 @@ def main_path_batch(dev):
 
 
 def deformable_batch(dev, n_calib: int = 8):
-    """(config, plan, batch) of chip_smoke.py's deformable pseudo-label
-    configuration on spheres of its loop tile (`synthetic_scene` at
-    LOOP_EXTENT and LOOP_DENSITY, seed SEED, grid-subsampled at the first
-    dl): a plan calibrated on `n_calib` spheres of in_radius around
+    """(config, plan, batch) of the deformable pseudo-label configuration
+    (`VaihingenPLDeformConfig`) on spheres of chip_smoke.py's loop tile
+    (`synthetic_scene` at LOOP_EXTENT and LOOP_DENSITY, seed SEED,
+    grid-subsampled at the first dl): a plan calibrated on `n_calib` spheres of in_radius around
     seeded points, and a pyramid of batch_num of them built by the plain
     versions."""
     import chip_smoke
+    from weasal_tpu_torch.config import VaihingenPLDeformConfig
     from weasal_tpu_torch.data.batching import calibrate_shape_plan
     from weasal_tpu_torch.data.demo import thin_payload
     from weasal_tpu_torch.data.level0 import assemble_level0
@@ -177,7 +178,7 @@ def deformable_batch(dev, n_calib: int = 8):
     from weasal_tpu_torch.ops.pyramid import batch_from_device_pyramid
     from weasal_tpu_torch.ops.subsample import grid_subsample
     from weasal_tpu_torch.utils.device import plain_ops
-    config = chip_smoke.deformable_pl_config()()
+    config = VaihingenPLDeformConfig()
     config.num_classes = 9
     pts, _, _ = synthetic_scene(np.random.default_rng(chip_smoke.SEED),
                                 extent=chip_smoke.LOOP_EXTENT,

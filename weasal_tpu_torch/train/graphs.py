@@ -26,6 +26,9 @@ The kernel wrappers count their launches in Python, which a replay does
 not run: each graph records the counts its capture added, takes them out
 again (the capture launched nothing), and adds them at each replay. The
 warm-up's launches ran on the card and stay counted (`warmup_steps`).
+The work counters of the span table (`WORK_COUNTERS`: the deformable
+chains' `deform.*`, ops/kpconv.chain_work) are kept the same way, apart
+from `launch_counts`; a graph whose capture counted none adds none.
 """
 
 from __future__ import annotations
@@ -42,10 +45,13 @@ from weasal_tpu_torch.ops.cuda.kpconv_bwd import kpconv_bwd
 from weasal_tpu_torch.ops.cuda.kpconv_fwd import kpconv_fwd
 from weasal_tpu_torch.ops.cuda.maxpool_bwd import maxpool_bwd
 from weasal_tpu_torch.ops.cuda.radius_search import radius_search
+from weasal_tpu_torch.utils.profiling import counter, counts
 
 # The kernel wrappers whose `launches` a replay adds to
 COUNTED = (radius_search, kpconv_fwd, kpconv_bwd, maxpool_bwd,
            build_inverse_lists, inverse_sum)
+# The prefix of the span table's work counters that a replay adds to
+WORK_COUNTERS = "deform."
 
 
 def launch_counts() -> Dict[str, int]:
@@ -81,6 +87,7 @@ class _Graphed:
             for i in range(steps)]
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.per_replay: Dict[str, int] = {}
+        self.work_per_replay: Dict[str, int] = {}
         self.runs = 0       # eager or replayed
         self.replays = 0
         self.warmup_steps = 0
@@ -118,9 +125,10 @@ class _Graphed:
         with record_function(self.program):
             self.graph.replay()
         self.replays += 1
-        counts = launch_counts()
-        _set_counts({k: counts[k] + self.per_replay.get(k, 0)
-                     for k in counts})
+        now = launch_counts()
+        _set_counts({k: now[k] + self.per_replay.get(k, 0) for k in now})
+        for name, n in self.work_per_replay.items():
+            counter(name, n)
 
     def _capture(self) -> None:
         self._before_warm_up()
@@ -132,6 +140,7 @@ class _Graphed:
         self._after_warm_up()
         self.warmup_steps += 1
         before = launch_counts()
+        work_before = counts(WORK_COUNTERS)
         graph = torch.cuda.CUDAGraph()
         try:
             # thread_local: the producer thread pins host memory while
@@ -146,6 +155,12 @@ class _Graphed:
         after = launch_counts()
         self.per_replay = {k: after[k] - before[k] for k in after}
         _set_counts(before)
+        work = counts(WORK_COUNTERS)
+        self.work_per_replay = {k: n - work_before.get(k, 0)
+                                for k, n in work.items()
+                                if n != work_before.get(k, 0)}
+        for name, n in self.work_per_replay.items():
+            counter(name, -n)
         self.graph = graph
 
 

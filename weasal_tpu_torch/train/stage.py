@@ -54,6 +54,8 @@ class Stage:
         shared overrides and resume, before the first iteration
     :param after_training: prints after each iteration's training, given
         (config, training dataset, iteration)
+    :param config_for: the configuration class that the stage's own
+        arguments select in place of `config_cls` (None: `config_cls`)
     """
     config_cls: type
     dataset_cls: type
@@ -63,6 +65,8 @@ class Stage:
     quick: Callable[[object], None]
     configure: Callable[[object, argparse.Namespace], None]
     after_training: Optional[Callable[[object, object, int], None]] = None
+    config_for: Optional[Callable[[argparse.Namespace], Optional[type]]] \
+        = None
 
 
 def parse_args(stage: Stage, argv=None) -> argparse.Namespace:
@@ -132,7 +136,8 @@ def run(stage: Stage, argv=None):
     iteration's training and validation datasets, its `testers` the
     acquisition passes' testers)."""
     args = parse_args(stage, argv)
-    config = stage.config_cls()
+    chosen = stage.config_for(args) if stage.config_for else None
+    config = (chosen or stage.config_cls)()
     if args.plan_percentile is not None:
         config.plan_point_percentile = args.plan_percentile
     if args.plan_buckets is not None:

@@ -98,7 +98,7 @@ from weasal_tpu_torch.data.resident import ResidentBatchSource, feature_spec
 from weasal_tpu_torch.infer import eval_body
 from weasal_tpu_torch.models.architectures import model_for_config
 from weasal_tpu_torch.parallel import ddp
-from weasal_tpu_torch.train.graphs import EvalGraph, StepGraph
+from weasal_tpu_torch.train.graphs import WORK_COUNTERS, EvalGraph, StepGraph
 from weasal_tpu_torch.train.optim import init_opt_state
 from weasal_tpu_torch.train.step import (class_weights, label_table,
                                          step_body, step_outputs)
@@ -143,8 +143,10 @@ def resolve_resident(value, device: torch.device) -> bool:
 def loop_stats_line(record: Dict) -> str:
     """The `[loop-stats]` line of an epoch_times entry: the epoch's wall
     a step, its loop.* spans, the epoch's start and end with the end's
-    parts and the audit's searches by path, and the batch producer's
-    spans."""
+    parts and the audit's searches by path, the batch producer's spans,
+    and where the network has deformable convs their chains' work
+    counters a step (`deform.*`; the validation's forwards among the
+    fwd ones)."""
     spans = record["spans"]
 
     def sec(name):
@@ -160,13 +162,16 @@ def loop_stats_line(record: Dict) -> str:
                         for p in ("native", "fallback"))
     producer = " ".join(f"{p}={sec('batch.' + p):.2f}s"
                         for p in ("sample", "pin", "put_wait"))
+    work = " ".join(f"{k[len(WORK_COUNTERS):]}={count(k) / n:.12g}"
+                    for k in sorted(spans) if k.startswith(WORK_COUNTERS))
     return (f"[loop-stats] epoch {record['epoch']}: {epoch_s:.2f}s / {n} "
             f"steps = {1e3 * epoch_s / n:.1f} ms/step | {loop} "
             f"other={sec('loop.other'):.2f}s | "
             f"epoch_start={sec('epoch_start'):.3f}s "
             f"epoch_end={sec('epoch_end'):.3f}s ({end}; audit searches "
             f"{searches}) | batches: {producer} "
-            f"skipped={count('batch.skipped')}")
+            f"skipped={count('batch.skipped')}"
+            + (f" | {WORK_COUNTERS}* a step: {work}" if work else ""))
 
 
 def _has_regions(metas) -> bool:

@@ -27,9 +27,18 @@ from weasal_tpu_torch.config import DALESPLConfig
 from weasal_tpu_torch.data.datasets import DALESPLDataset
 from weasal_tpu_torch.train import stage
 
+
+def config_for(args):
+    """DALES has no deformable configuration: `--deformable` raises."""
+    if args.deformable:
+        raise ValueError("--deformable: no deformable DALES configuration "
+                         "(config.VaihingenPLDeformConfig is Vaihingen3D's)")
+    return None
+
+
 STAGE = dataclasses.replace(
     vaihingen.STAGE, config_cls=DALESPLConfig, dataset_cls=DALESPLDataset,
-    description=__doc__.splitlines()[0])
+    description=__doc__.splitlines()[0], config_for=config_for)
 
 
 def run(argv=None):

@@ -25,7 +25,12 @@ train/stage.run; this module holds what the stage adds to it.
         [--added_labels N] [--al_acquisition entropy|random]
         [--resume Log_dir] [--preset quick] [--plan_percentile P]
         [--plan_buckets P] [--steps_per_dispatch K]
-        [--device cuda|cpu] [--seed S]
+        [--device cuda|cpu] [--seed S] [--deformable]
+
+`--deformable` trains the deformable KP-FCNN
+(config.VaihingenPLDeformConfig: layers 3 and 4 deformable) in place of
+the rigid one; `test_models` and the refinement read its logs as any PL
+log's.
 
 Runs on CUDA unless `--device cpu` is given; where CUDA is absent it
 raises instead. On CUDA the training and validation steps and the vote
@@ -39,7 +44,9 @@ from os.path import exists, join
 
 import numpy as np
 
-from weasal_tpu_torch.config import VaihingenPLConfig
+from weasal_tpu_torch.config import (VaihingenPLConfig,
+                                     VaihingenPLDeformConfig,
+                                     deformable_last_layers)
 from weasal_tpu_torch.data.datasets import Vaihingen3DPLDataset
 from weasal_tpu_torch.train import stage
 
@@ -48,9 +55,22 @@ def add_arguments(parser) -> None:
     parser.add_argument("--weak_label_log", default=None,
                         help="the weak-label log whose refined pseudo "
                              "labels to train on")
+    parser.add_argument("--deformable", action="store_true",
+                        help="train the deformable KP-FCNN "
+                             "(config.VaihingenPLDeformConfig: layers 3 "
+                             "and 4 deformable, KPConv's train_S3DIS.py)")
+
+
+def config_for(args):
+    """`VaihingenPLDeformConfig` with `--deformable`, else the stage's
+    own configuration class."""
+    return VaihingenPLDeformConfig if args.deformable else None
 
 
 def quick(config) -> None:
+    """Small spheres, widths and epochs; a deformable configuration keeps
+    its last two layers deformable."""
+    deformable = any("deformable" in b for b in config.architecture)
     config.in_radius = min(config.in_radius, 7.0)
     config.first_subsampling_dl = max(config.first_subsampling_dl, 0.45)
     config.first_features_dim = 16
@@ -58,6 +78,8 @@ def quick(config) -> None:
         "simple", "resnetb", "resnetb_strided", "resnetb",
         "resnetb_strided", "resnetb",
         "nearest_upsample", "unary", "nearest_upsample", "unary"]
+    if deformable:
+        config.architecture = deformable_last_layers(config.architecture)
     config.batch_num = 2
     config.max_epoch = 1
     config.epoch_steps = 3
@@ -84,7 +106,8 @@ def configure(config, args) -> None:
 STAGE = stage.Stage(
     config_cls=VaihingenPLConfig, dataset_cls=Vaihingen3DPLDataset,
     stage_dir="PseudoLabel", description=__doc__.splitlines()[0],
-    add_arguments=add_arguments, quick=quick, configure=configure)
+    add_arguments=add_arguments, quick=quick, configure=configure,
+    config_for=config_for)
 
 
 def run(argv=None):

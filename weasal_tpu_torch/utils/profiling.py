@@ -5,7 +5,8 @@
   per-thread table of seconds, self seconds and counts, and names it on
   the profiler's clock while a profiler is open; `add(name, seconds)`
   enters a block that the caller timed itself; `counter(name, n)`
-  counts; `span_totals(since)` sums the threads' tables since a `mark`.
+  counts (`counts(prefix)` reads them); `span_totals(since)` sums the
+  threads' tables since a `mark`.
   The training loop and its batch producer open the spans (PERF.md,
   section 3, has their table).
 
@@ -125,6 +126,13 @@ def counter(name: str, n: int = 1) -> None:
     """Add `n` to the count of `name` in this thread's table (its seconds
     stay 0)."""
     add(name, 0.0, n)
+
+
+def counts(prefix: str) -> Dict[str, int]:
+    """The counts of the names that start with `prefix`, summed over every
+    thread (names never counted left out)."""
+    return {k: n for k, (_, _, n) in _snapshot().items()
+            if k.startswith(prefix)}
 
 
 def open_range(name: str):
