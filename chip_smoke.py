@@ -159,8 +159,12 @@ Phases, in order; any failure exits non-zero:
    voted once by `test_models --on test --chkp` the exported file; one
    more epoch profiled; A-D, the lists and the sums against their plain
    versions and the kernel step against f64 at its shapes
-   (`check_stage_shapes`); the deformable convs' device ms and peak
-   memory;
+   (`check_stage_shapes`; the deform kernels' branches recorded from the
+   plain chain's distances); the deform kernels against the plain chain
+   at each deformable conv's shapes (`check_deform_kernels`: in-range
+   flags and minima bit-equal, the rest within DEFORM_TOL); the
+   deformable convs' device ms and peak memory on the deform kernels and
+   on the plain chain;
 12. the host-pyramid input path (`run_host_pyramid`, config.device_pyramid
    False, the JAX package's default): the WL entry point with
    `--host_pyramid` on phase 6's tile at full width (the config's input
@@ -290,6 +294,7 @@ import torch
 
 from tests._bf16_cases import (OUT_REL_L2_MAX, REF_RATIO, flips, flips_ok,
                                is_bf16_valued, within_plain)
+from tests._deform_cases import chain_errors
 from tests._inverse_cases import (CASES as INVERSE_CASES, graph_replay,
                                   index_case, ordered_row_sums,
                                   ordered_run_sums, run_case)
@@ -1392,7 +1397,10 @@ class Branches:
     `losses.positive_classes`) and pseudo-labels (`losses.top_class`),
     and in each deformable conv the linear influences' kinks, the
     neighbors in range (`ops.in_range`) and each kernel point's nearest
-    neighbor (`ops.nearest`, the fitting regularizer's minimum). Recorded
+    neighbor (`ops.nearest`, the fitting regularizer's minimum); where
+    the kernels of `ops.deform_pairs` take a conv's pair work, those three
+    are recorded from the plain chain's squared distances on the same
+    f32 inputs, which the kernels compute bit for bit. Recorded
     in the kernel step's forward and replayed, call by call, in the
     forwards of the steps it is held to, so that a value that lies within
     f32 rounding of a tie takes the same branch in every run: the f64
@@ -1435,7 +1443,7 @@ class Branches:
                 (self.losses, "above"), (self.losses, "positive_classes"),
                 (self.losses, "top_class"),
                 (self.ops, "influence_weights"), (self.ops, "in_range"),
-                (self.ops, "nearest"))
+                (self.ops, "nearest"), (self.ops, "deform_pairs"))
 
     def _swap(self, fns):
         return swapped([(mod, name, fns[name]) for mod, name in self._hooks()])
@@ -1481,6 +1489,24 @@ class Branches:
         with torch.no_grad():
             self._record("nearest", self._share(sq, out[:, :, None]))
         return out
+
+    def _record_pairs(self, q_pts, s_pts, neighb_inds, x, kernel_points,
+                      offsets, params, inverse=None):
+        """`ops.deform_pairs` (the kernels), its branches recorded first
+        as `kpconv_dense` records them: from the squared distances of
+        `pair_geometry` on the same inputs, in its order (the minima, the
+        influences' kinks, the neighbors in range)."""
+        from weasal_tpu_torch.ops.cuda.deform_kpconv import pair_geometry
+        with torch.no_grad():
+            _, sq = pair_geometry(q_pts, s_pts, neighb_inds, kernel_points,
+                                  offsets)
+            self._record_nearest(sq)
+            self._record_influence(sq, params.kp_extent, params.influence)
+            self._record("in_range",
+                         self.plain["in_range"](sq, params.kp_extent))
+        return self.plain["deform_pairs"](q_pts, s_pts, neighb_inds, x,
+                                          kernel_points, offsets, params,
+                                          inverse)
 
     def _next(self, kind, x):
         """The recorded branch of this call; in the plain replay, keeps x;
@@ -1582,7 +1608,7 @@ class Branches:
             top_class=out("top_class", "argmax"),
             influence_weights=self._record_influence,
             in_range=out("in_range", "in_range"),
-            nearest=self._record_nearest))
+            nearest=self._record_nearest, deform_pairs=self._record_pairs))
 
     @contextlib.contextmanager
     def replaying(self, run=None):
@@ -1596,7 +1622,8 @@ class Branches:
                 top_class=self._replay_top,
                 influence_weights=self._replay_influence,
                 in_range=self._replay_in_range,
-                nearest=self._replay_nearest)):
+                nearest=self._replay_nearest,
+                deform_pairs=self.plain["deform_pairs"])):
             yield
         made = {k: len(v) for k, v in self.recorded.items()}
         if self.calls != made:
@@ -3537,15 +3564,69 @@ def run_dales(work, counted, wl_per, card, log):
     return report, wl_total, pl_total
 
 
-def time_deformable_convs(model, pyr, card, log):
-    """Each deformable conv of `model` at its shapes on `pyr`: forward
-    and forward + backward (dX, dW, the offset conv's and the offsets'
-    gradients, with the edge's inverse lists built once) in CUDA-event ms
-    and in device busy ms (torch.profiler), the peak device memory of one
-    forward + backward above what was allocated before it, and the size
-    of its largest tensor, the differences [B, Nq, K, Kp, 3]."""
+# The deform kernels against the plain chain at a deformable conv's
+# shapes: largest error relative to the largest value (f32 sums in another
+# order; the offsets' gradient divides the dot products by sqrt(d2))
+DEFORM_TOL = {"out": 1e-5, "min_sq": 0.0, "dx": 1e-5, "doff": 1e-4,
+              "dw": 1e-5}
+
+
+def check_deform_kernels(model, pyr, log):
+    """Each deformable conv of `model` on `pyr` with its offset conv's
+    offsets (seeded features and gradients): the deform kernels' in-range
+    flags and minima bit-equal to the plain chain's `ops.in_range` and
+    `ops.nearest`, and `kpconv_fused` within DEFORM_TOL of `kpconv_dense`
+    (tests/_deform_cases.chain_errors), and the share of the real slots
+    in range. Returns the readings by conv."""
     from weasal_tpu_torch.models.blocks import (conv_inputs, conv_inverse,
                                                 kpconv_modules)
+    dev = pyr.features.device
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    report = {}
+    for name, conv in kpconv_modules(model):
+        if not conv.params.deformable:
+            continue
+        q, s, nb, _ = conv_inputs(conv.strided, conv.layer_ind, pyr)
+        inverse = conv_inverse(conv.strided, conv.layer_ind, pyr)
+        n_kp, cin, cout = conv.weights.shape
+        b, nq = q.shape[:2]
+        x = torch.randn((b, s.shape[1], cin), generator=gen, device=dev)
+        with torch.no_grad():
+            off, mods = conv.split_offsets(conv.offset_conv(q, s, nb, x,
+                                                            inverse))
+        c = dict(q=q, s=s, inds=nb, kpts=conv.kernel_points, off=off, x=x,
+                 w=conv.weights.detach(),
+                 mods=mods if mods is not None else torch.ones(
+                     (b, nq, n_kp), device=dev),
+                 g_out=torch.randn((b, nq, cout), generator=gen, device=dev),
+                 g_min=torch.randn((b, nq, n_kp), generator=gen, device=dev))
+        equal, errors, share = chain_errors(c, conv.params, inverse)
+        report[name] = dict(equal=equal, errors=errors, in_range=share)
+        expect(all(equal.values())
+               and all(errors[k] <= tol for k, tol in DEFORM_TOL.items()),
+               f"deform kernels at {name}: bit-equal {equal}, errors "
+               f"{errors} (limits {DEFORM_TOL})")
+        log(f"deform kernels vs the plain chain at {name} "
+            f"q{list(q.shape[:2])} K={nb.shape[2]} {cin}->{cout}: in-range "
+            f"and minima bit-equal {equal}; errors {errors}; real slots in "
+            f"range {share:.3f}")
+    model.zero_grad(set_to_none=True)
+    return report
+
+
+def time_deformable_convs(model, pyr, card, log):
+    """Each deformable conv of `model` at its shapes on `pyr`, on the
+    deform kernels (`kernels`, the main path) and on the plain chain
+    (`plain`, under `plain_ops()`): forward and forward + backward (dX,
+    dW, the offset conv's and the offsets' gradients, with the edge's
+    inverse lists built once) in CUDA-event ms and in device busy ms
+    (torch.profiler) and the peak device memory of one forward + backward
+    above what was allocated before it; the deform kernels' device ms a
+    call by name beside their bounds (`deform_bounds_ms`), and the plain
+    chain's largest tensor, the differences [B, Nq, K, Kp, 3]."""
+    from weasal_tpu_torch.models.blocks import (conv_inputs, conv_inverse,
+                                                kpconv_modules)
+    from weasal_tpu_torch.utils.device import plain_ops
     dev = pyr.features.device
     gen = torch.Generator(device=dev).manual_seed(SEED)
     model.eval()
@@ -3568,31 +3649,61 @@ def time_deformable_convs(model, pyr, card, log):
         def forward_backward():
             torch.autograd.backward(conv(q, s, nb, x, inverse), g)
 
-        forward_backward()
-        torch.cuda.synchronize()
-        before = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        forward_backward()
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated() - before
-        fwd_ms, fb_ms = cuda_ms(forward), cuda_ms(forward_backward)
-        _, _, fwd_busy = profiled_kernels(forward, reps=3)
-        _, _, fb_busy = profiled_kernels(forward_backward, reps=3)
         diffs = 4.0 * q.shape[0] * q.shape[1] * nb.shape[2] * n_kp * 3
         row = dict(conv=name, shape=[*q.shape[:2], s.shape[1], nb.shape[2],
-                                     cin, cout],
-                   fwd_ms=fwd_ms, fwd_bwd_ms=fb_ms,
-                   fwd_busy_ms=fwd_busy / 3, fwd_bwd_busy_ms=fb_busy / 3,
-                   peak_bytes=peak, diffs_bytes=diffs)
+                                     cin, cout], diffs_bytes=diffs,
+                   bounds_ms=deform_bounds_ms(q, s, nb, n_kp, cin))
+        for route in ("kernels", "plain"):
+            with plain_ops() if route == "plain" else contextlib.nullcontext():
+                forward_backward()
+                torch.cuda.synchronize()
+                before = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                forward_backward()
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated() - before
+                fwd_ms, fb_ms = cuda_ms(forward), cuda_ms(forward_backward)
+                _, _, fwd_busy = profiled_kernels(forward, reps=3)
+                kernels, _, fb_busy = profiled_kernels(forward_backward,
+                                                       reps=3)
+            row[route] = dict(fwd_ms=fwd_ms, fwd_bwd_ms=fb_ms,
+                              fwd_busy_ms=fwd_busy / 3,
+                              fwd_bwd_busy_ms=fb_busy / 3, peak_bytes=peak)
+            if route == "kernels":
+                row["kernel_ms"] = {k: ms / n for k, n, ms in kernels
+                                    if "deform_pairs_" in k}
+            log(f"[{card}] deformable {name} ({route}): q{list(q.shape[:2])} "
+                f"Ns={s.shape[1]} K={nb.shape[2]} {cin}->{cout}: forward "
+                f"{fwd_ms:.3f} ms (device busy {fwd_busy / 3:.3f}), forward "
+                f"+ backward {fb_ms:.3f} ms (busy {fb_busy / 3:.3f}); peak "
+                f"{peak / 2**20:.1f} MiB above the allocated")
+        log(f"[{card}] deformable {name}: deform kernels a call "
+            f"{row['kernel_ms']} ms, bounds {row['bounds_ms']} ms; the plain "
+            f"chain's differences {diffs / 2**20:.1f} MiB")
         rows.append(row)
-        log(f"[{card}] deformable {name}: q{list(q.shape[:2])} "
-            f"Ns={s.shape[1]} K={nb.shape[2]} {cin}->{cout}: forward "
-            f"{fwd_ms:.3f} ms (device busy {fwd_busy / 3:.3f}), forward + "
-            f"backward {fb_ms:.3f} ms (busy {fb_busy / 3:.3f}); peak "
-            f"{peak / 2**20:.1f} MiB above the allocated, the differences "
-            f"{diffs / 2**20:.1f} MiB")
     model.zero_grad(set_to_none=True)
     return rows
+
+
+def deform_bounds_ms(q, s, nb, n_kp, cin) -> dict:
+    """The least ms of each deform kernel at these shapes on one H100:
+    the forward's aggregate (2 rows K Kp Cin f32 operations on the CUDA
+    cores, plus ~12 a pair) or its bytes (points, indices, x, offsets in;
+    y and the minima out), the backward's slot sums and dot products
+    (twice that, ~20 a pair) or its bytes (the forward's and dY, the
+    minima's gradient in; the dX workspace [rows K, Cin] and the offsets'
+    gradient out), whichever is larger; rows and K padded."""
+    b, nq, k = nb.shape
+    ns = s.shape[1]
+    rows, pairs = b * nq, b * nq * k * n_kp
+    products = 2.0 * pairs * cin
+    inputs = 4.0 * (rows * 3 + b * ns * 3 + rows * k + b * ns * cin
+                    + n_kp * 3 + rows * n_kp * 3)
+    fwd_out = 4.0 * rows * n_kp * (cin + 1)
+    fwd = bound_ms(inputs + fwd_out, products + 12.0 * pairs)
+    bwd = bound_ms(inputs + fwd_out + 4.0 * rows * (k * cin + n_kp * 3),
+                   2 * products + 20.0 * pairs)
+    return dict(fwd=fwd, bwd=bwd)
 
 
 def run_deformable(root, work, counted, card, log):
@@ -3610,8 +3721,9 @@ def run_deformable(root, work, counted, card, log):
     `test_models --on test` with the exported file (1 vote). Then one
     more epoch profiled (`profile_epoch`: ms a graphed step, busy share),
     the kernels and the f64 step at the loop's shapes
-    (`check_stage_shapes`) and the deformable convs' times and memory
-    (`time_deformable_convs`).
+    (`check_stage_shapes`), the deform kernels against the plain chain
+    (`check_deform_kernels`) and the deformable convs' times and memory
+    on both (`time_deformable_convs`).
     Returns the report, the launches of its main-path runs and, for phase
     15, the trained model with its config, plan, per-eval-batch launches
     and the level-0 tensors of the validation batch."""
@@ -3760,6 +3872,7 @@ def run_deformable(root, work, counted, card, log):
                                 log, what="deformable PL loop")
         kernel_sums, at_plan, shapes_pyr, _ = check_stage_shapes(
             trainer, per_step, card, log, "phase 11 deformable PL")
+        deform_checks = check_deform_kernels(trainer.model, shapes_pyr, log)
         deform = time_deformable_convs(trainer.model, shapes_pyr, card, log)
         report.update(runs=runs, repeat=repeat, offset_losses=offsets,
                       offset_losses_logged=logged, peak_bytes=peak,
@@ -3769,6 +3882,7 @@ def run_deformable(root, work, counted, card, log):
                                   param_groups=groups, probs_equal=equal,
                                   momentum_zero=zero),
                       test_models=vote, deformable_convs=deform,
+                      deform_kernels=deform_checks,
                       profile=profile)
         handoff = dict(model=trainer.model, config=cfg2, plan=trainer.plan,
                        level0=t, per_val=per_val)

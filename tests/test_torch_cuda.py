@@ -50,9 +50,16 @@ three plain builds of one batch's pyramid are bit-equal (and equal the
 kernels' build); a deformable pseudo-label step (layers 3-4 deformable)
 repeats bit for bit, eager twice and replayed from a graph; its replay
 shows each deformable conv's four marks in the profiler's trace, the
-forward and backward brackets holding the chain's plain kernels, and
-adds the chains' work counters, while the rigid network's replay has no
-mark and no counter. The
+forward and backward brackets holding one launch each of the deform
+kernels and none of B's or C's, and adds the chains' work counters
+(`deform.fused.*` equal to the chains' calls), while the rigid
+network's replay has no mark and no counter. The deform kernels
+(csrc/deform_kpconv.cu) at the deformable cell's three chain shapes and
+on planted kinks (tests/_deform_cases.py): in-range flags and minima
+bit-equal to the plain chain's, the output, dX, the offsets' gradient
+and dW within 1e-5 (offsets at the cell's shapes 1e-4) of it; their
+shared-memory sizes are the library's, and a block past the card's
+shared memory is refused. The
 host-pyramid path (config.device_pyramid False): B, C and D on
 host-built neighbor lists and at KPCNN's shapes equal their plain
 versions (and KPCNN's forward its plain one); a host step replayed from
@@ -111,6 +118,7 @@ from weasal_tpu_torch.ops.cuda.radius_search import (
     radius_search, radius_search_plain, radius_search_warp_reference)
 from weasal_tpu_torch.utils.device import plain_ops
 from tests._bf16_cases import flips, flips_ok, is_bf16_valued, within_plain
+from tests._deform_cases import EXT, chain_errors, planted_case, run_chain
 from tests._cell_search_cases import (CASES as CELL_CASES, WARP_CASES,
                                       as_tensors, deformable_level3)
 from tests._inverse_cases import (CASES as INVERSE_CASES, graph_replay,
@@ -1395,8 +1403,8 @@ def test_plain_pyramid_builds_are_bit_equal(dev, synth_pl):
 
 def test_deformable_step_repeats_bit_for_bit(dev, synth_pl):
     """A pseudo-label step of the deformable network on the card (its
-    rigid convs and offset convs on kernels B and C, the deformable convs
-    in plain PyTorch with the neighbor gather's dX over inverse lists),
+    rigid convs and offset convs on kernels B and C, the deformable convs'
+    pair work on the deform kernels with its dX over inverse lists),
     eager twice and replayed from a captured graph, from one state and
     pyramid: loss, offset loss and every updated tensor bit-equal; the
     offset loss is finite and positive, and every offset parameter
@@ -1501,10 +1509,12 @@ def _replayed_step(dev, cfg, plan, model, opt, t):
 def test_deform_marks_bracket_the_chain_under_replay(dev, synth_pl):
     """A replayed deformable step shows each mark once a deformable conv
     (3 of each) in the profiler's device trace, begin and end alternating
-    in each direction; each forward and backward bracket holds the
-    chain's plain kernels and none of kernels B and C (the offset convs
-    run outside); the marks are not among `launch_counts`, and the
-    replay adds the chain's counters that its capture recorded."""
+    in each direction; each forward bracket holds one launch of the
+    deform kernels' forward and each backward bracket one of their
+    backward, and none of kernels B and C (the offset convs run outside);
+    the marks are not among `launch_counts`, and the replay adds the
+    chain's counters that its capture recorded, `deform.fused.fwd` and
+    `.bwd` equal to the chains' `calls`."""
     from weasal_tpu_torch.ops.cuda.marks import MARKS
     from weasal_tpu_torch.train.graphs import launch_counts
     cfg, plan, model, opt, t = _deform_pl(dev, synth_pl)
@@ -1515,6 +1525,8 @@ def test_deform_marks_bracket_the_chain_under_replay(dev, synth_pl):
     assert set(graph.per_replay) == set(launch_counts())
     assert graph.work_per_replay["deform.fwd.calls"] == 3
     assert graph.work_per_replay["deform.bwd.calls"] == 3
+    assert graph.work_per_replay["deform.fused.fwd"] == 3
+    assert graph.work_per_replay["deform.fused.bwd"] == 3
     assert added == graph.work_per_replay
     for d in ("fwd", "bwd"):
         seq = [n for n in names if f"deform_{d}_" in n]
@@ -1529,8 +1541,11 @@ def test_deform_marks_bracket_the_chain_under_replay(dev, synth_pl):
                 inside[-1].append(n)
         assert len(inside) == 3 and all(inside), d
         for held in inside:
+            assert sum(f"deform_pairs_{d}_kernel" in n for n in held) == 1, \
+                held
             assert not any(k in n for n in held for k in (
-                "aggregate_kernel", "tf32x3_gemm_kernel", "deform_")), held
+                "aggregate_kernel", "tf32x3_gemm_kernel", "dx_contrib_kernel",
+                "deform_fwd_", "deform_bwd_")), held
 
 
 def test_rigid_step_graph_has_no_marks(dev, synth_pl):
@@ -1549,6 +1564,131 @@ def test_rigid_step_graph_has_no_marks(dev, synth_pl):
     assert graph.work_per_replay == {} and added == {}
     assert set(graph.per_replay) == set(launch_counts())
     assert graph.per_replay["kpconv_fwd"] == 10
+
+
+# ------------------------------------- the deformable chain's pair kernels
+
+@pytest.fixture(scope="module")
+def deform_cell_convs():
+    """The deformable convs of `VaihingenPLDeformConfig` (blocks 7-9) at
+    the benchmark cell `v3d_pl_deform.train`'s shapes: a pyramid of 4
+    spheres of the loop's synthetic tile with a calibrated plan
+    (tools/kernel_variants.deformable_batch); (name, conv, q, s, nb,
+    inverse) each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from weasal_tpu_torch import KPFCNN
+    from weasal_tpu_torch.models.blocks import (conv_inputs, conv_inverse,
+                                                kpconv_modules)
+    from weasal_tpu_torch.tools.kernel_variants import deformable_batch
+    dev = torch.device("cuda")
+    config, _, batch = deformable_batch(dev)
+    net = KPFCNN(config, tuple(range(9)) + (10,), (10,),
+                 generator=torch.Generator().manual_seed(5)).to(dev)
+    out = []
+    for name, conv in kpconv_modules(net):
+        if conv.params.deformable:
+            q, s, nb, _ = conv_inputs(conv.strided, conv.layer_ind, batch)
+            out.append((name, conv, q, s, nb,
+                        conv_inverse(conv.strided, conv.layer_ind, batch)))
+    assert len(out) == 3
+    return out
+
+
+def _deform_case_on(dev, conv, q, s, nb, seed):
+    """Seeded x, offsets (0.3 extents), modulations and output gradients
+    for `conv` on its neighbor rows."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n_kp, cin, cout = conv.weights.shape
+    b, nq = q.shape[:2]
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    return dict(q=q, s=s, inds=nb, kpts=conv.kernel_points,
+                off=normal(b, nq, n_kp, 3) * (0.3 * conv.params.kp_extent),
+                x=normal(b, s.shape[1], cin), w=conv.weights.detach(),
+                mods=torch.rand((b, nq, n_kp), generator=gen,
+                                device=dev) * 1.8 + 0.1,
+                g_out=normal(b, nq, cout), g_min=normal(b, nq, n_kp),
+                ns=s.shape[1])
+
+
+@pytest.mark.parametrize("i", [0, 1, 2])
+def test_deform_kernels_equal_the_plain_chain_at_the_cells_shapes(
+        dev, deform_cell_convs, i):
+    """Each deformable conv of the cell at its shapes (K 200-300, 128 and
+    256 channels): the deform kernels' in-range flags and minima equal the
+    plain chain's `in_range` and `nearest` bit for bit, and the output,
+    dX, the offsets' gradient and dW of `kpconv_fused` lie within the f32
+    tolerances of B and C of `kpconv_dense`'s (offsets: the slope's
+    division by sqrt(d2) amplifies the dot products' rounding)."""
+    name, conv, q, s, nb, inverse = deform_cell_convs[i]
+    c = _deform_case_on(dev, conv, q, s, nb, seed=i)
+    equal, errors, share = chain_errors(c, conv.params, inverse)
+    print(name, list(q.shape[:2]), nb.shape[2], list(conv.weights.shape),
+          equal, errors, f"in range {share:.3f}")
+    assert equal == {"in_range": True, "nearest": True}
+    assert errors["min_sq"] == 0.0
+    for key in ("out", "dx", "dw"):
+        assert errors[key] < 1e-5, (key, errors)
+    assert errors["doff"] < 1e-4, errors
+
+
+DEFORM_SMALL = {
+    "planted kinks": dict(),
+    "Kp 20, Cin 5 (chunks, 1 channel a thread)": dict(kp=20, cin=5),
+    "gaussian, modulated": dict(influence="gaussian", modulated=True),
+    "constant, Cin 8": dict(influence="constant", cin=8),
+}
+
+
+@pytest.mark.parametrize("case", list(DEFORM_SMALL))
+def test_deform_kernels_on_planted_kinks(dev, case):
+    """tests/_deform_cases.planted_case in f32 on the card (a neighbor at
+    a deformed kernel point's extent inside another's range, tied minima,
+    shadow slots, an all-shadow row), with the kernel-point chunks and the
+    scalar channel path: the in-range flags and minima bit-equal to the
+    plain chain's, the rest within 1e-5 of it; a second run is
+    bit-equal."""
+    kw = dict(DEFORM_SMALL[case])
+    params = ops.KPConvParams(kp_extent=EXT, deformable=True,
+                              influence=kw.pop("influence", "linear"),
+                              modulated=kw.pop("modulated", False))
+    c = {k: v.to(dev) if torch.is_tensor(v) else v
+         for k, v in planted_case(torch.float32, **kw).items()}
+    inverse = LazyInverse(c["inds"], c["ns"])
+    equal, errors, _ = chain_errors(c, params, inverse)
+    assert equal == {"in_range": True, "nearest": True}, errors
+    assert errors["min_sq"] == 0.0
+    assert max(errors.values()) < 1e-5, errors
+    again = [run_chain(ops.kpconv_fused, c, params, inverse)
+             for _ in range(2)]
+    assert torch.equal(again[0][0], again[1][0])
+    for n in again[0][2]:
+        assert torch.equal(again[0][2][n], again[1][2][n]), n
+
+
+def test_deform_kernels_shared_memory_and_refusals(dev):
+    """The wrapper's shared-memory sizes are the library's; a launch past
+    the card's shared memory raises and names it."""
+    from weasal_tpu_torch.ops.cuda import deform_kpconv as dk
+    lib = load_library("deform_kpconv")
+    fn = lib.deform_kpconv_smem
+    fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_longlong
+    for n_kp, k, cin in ((15, 269, 128), (15, 223, 256), (20, 7, 5),
+                         (1, 1, 1), (40, 768, 512)):
+        for backward in (0, 1):
+            assert fn(n_kp, k, cin, backward) == dk.pair_smem_bytes(
+                n_kp, k, cin, bool(backward))
+    b, nq, ns, k = 1, 4, 6, 4000
+    q = torch.zeros((b, nq, 3), device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        dk.deform_pairs_fwd(
+            q, torch.zeros((b, ns, 3), device=dev),
+            torch.zeros((b, nq, k), dtype=torch.int32, device=dev),
+            torch.zeros((b, ns, 8), device=dev),
+            torch.zeros((15, 3), device=dev),
+            torch.zeros((b, nq, 15, 3), device=dev), 1.0)
 
 
 # ------------------------------------------------- the host-pyramid path

@@ -24,7 +24,7 @@ _PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR / "_build"
 SOURCES = ("radius_search", "kpconv_fwd", "kpconv_bwd", "maxpool_bwd",
-           "inverse_lists", "marks")
+           "inverse_lists", "marks", "deform_kpconv")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -29,11 +29,18 @@ backwards sum dX in a fixed order over inverse neighbor lists
 shared by every op on one pyramid edge (data/batch.PyramidBatch), and
 `closest_pool`'s gather has a backward of the same kind.
 
-`deformable_kpconv`, a deformable conv's chain, is `kpconv_dense`
-between two identity Functions that mark its span on the device's
-clock, forward and backward (ops/cuda/marks.py), and add its work to
-the span table's `deform.fwd.*` and `deform.bwd.*` counters
-(`chain_work`; utils/profiling).
+`deformable_kpconv`, a deformable conv's chain, runs between two
+identity Functions that mark its span on the device's clock, forward and
+backward (ops/cuda/marks.py), and add its work to the span table's
+`deform.fwd.*` and `deform.bwd.*` counters (`chain_work`;
+utils/profiling). On the card an f32 sum-aggregation chain
+(`deform_kernel_eligible`) runs `kpconv_fused`: its pair work (the
+neighbor gather, the differences to the deformed kernel points, the
+influences, the in-range mask, the minima and the aggregate) in the
+hand-written kernels of `DeformPairsFunction` (ops/cuda/deform_kpconv.py),
+counted in `deform.fused.fwd` / `deform.fused.bwd`, then the modulations'
+product and the GEMM in plain PyTorch. 'closest' aggregation, compute_dtype
+"bfloat16", the CPU and `plain_ops()` run `kpconv_dense`.
 
 `KPConvParams.compute_dtype` "bfloat16" rounds the two products' inputs
 to bf16 as the JAX package's XLA path does (:206-233): kernels B and C
@@ -52,6 +59,9 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 from torch.autograd.function import once_differentiable
 
+from weasal_tpu_torch.ops.cuda.deform_kpconv import (
+    deform_aggregate_reference, deform_aggregate_reference_bwd,
+    deform_pairs_bwd, deform_pairs_fwd, pair_geometry)
 from weasal_tpu_torch.ops.cuda.inverse_lists import LazyInverse, gather_rows
 from weasal_tpu_torch.ops.cuda.kpconv_bwd import kpconv_bwd, kpconv_bwd_plain
 from weasal_tpu_torch.ops.cuda.kpconv_fwd import (  # noqa: F401 (re-export)
@@ -61,7 +71,6 @@ from weasal_tpu_torch.ops.cuda.kpconv_fwd import (  # noqa: F401 (re-export)
 from weasal_tpu_torch.ops.cuda.marks import mark
 from weasal_tpu_torch.ops.cuda.maxpool_bwd import (maxpool_bwd,
                                                    maxpool_bwd_plain)
-from weasal_tpu_torch.ops.subsample import SHADOW_COORD
 from weasal_tpu_torch.utils.device import use_kernel
 from weasal_tpu_torch.utils.profiling import counter
 
@@ -210,17 +219,11 @@ def kpconv_dense(q_pts, s_pts, neighb_inds, x, kernel_points, weights,
     """
     kp = kernel_points.shape[0]
     mxu = bf if check_compute_dtype(params.compute_dtype) else (lambda t: t)
-    neighbors = gather_neighbors(s_pts, neighb_inds, SHADOW_COORD)
-    neighbors = neighbors - q_pts[:, :, None, :]              # [B,Nq,K,3]
-    if params.deformable:
-        if offsets is None:
-            raise ValueError("deformable KPConv requires offsets")
-        deformed = kernel_points[None, None] + offsets        # [B,Nq,Kp,3]
-        diffs = neighbors[:, :, :, None, :] - deformed[:, :, None, :, :]
-    else:
-        diffs = neighbors[:, :, :, None, :] - kernel_points[None, None, None]
-    sq = diffs * diffs
-    sq_distances = sq[..., 0] + sq[..., 1] + sq[..., 2]       # [B,Nq,K,Kp]
+    if params.deformable and offsets is None:
+        raise ValueError("deformable KPConv requires offsets")
+    _, sq_distances = pair_geometry(
+        q_pts, s_pts, neighb_inds, kernel_points,
+        offsets if params.deformable else None)               # [B,Nq,K,Kp]
     min_sq = nearest(sq_distances) if params.deformable else None
     all_weights = influence_weights(sq_distances, params.kp_extent,
                                     params.influence)        # [B,Nq,Kp,K]
@@ -284,6 +287,100 @@ def chain_work(q_pts, s_pts, neighb_inds, x, weights,
                 common, in_elems=inputs + outputs, out_elems=grads).items()})
 
 
+def deform_kernel_eligible(params: KPConvParams) -> bool:
+    """Whether a deformable conv's pair work runs the kernels of
+    `DeformPairsFunction` on the card: sum aggregation in f32 ('closest'
+    and compute_dtype "bfloat16" run `kpconv_dense`)."""
+    return (params.deformable and params.aggregation == "sum"
+            and params.compute_dtype == "float32")
+
+
+class DeformPairsFunction(torch.autograd.Function):
+    """A deformable conv's pair work: (y [B, Nq, Kp, Cin], min_sq
+    [B, Nq, Kp]) of x and the offsets (ops/cuda/deform_kpconv.py). On the
+    card the forward and the backward are the kernels `deform_pairs_fwd`
+    and `deform_pairs_bwd` (dX added over the edge's inverse lists, the
+    offsets' gradient in the kernel), each counted once in the span table
+    (`deform.fused.fwd`, `deform.fused.bwd`); elsewhere they are the
+    plain `deform_aggregate_reference` and its hand-derived backward.
+    Points, neighbor indices and kernel points get no gradient; a
+    min_sq whose gradient is None takes none."""
+
+    @staticmethod
+    def forward(ctx, q_pts, s_pts, neighb_inds, x, kernel_points, offsets,
+                kp_extent: float, influence: str, inverse=None):
+        ctx.set_materialize_grads(False)
+        ctx.kernel = use_kernel(x)
+        ctx.inverse = inverse
+        x, offsets = x.contiguous(), offsets.contiguous()
+        if ctx.kernel:
+            neighb_inds = neighb_inds.to(torch.int32).contiguous()
+            y, min_sq = deform_pairs_fwd(q_pts, s_pts, neighb_inds, x,
+                                         kernel_points, offsets, kp_extent,
+                                         influence)
+            counter("deform.fused.fwd")
+        else:
+            y, min_sq = deform_aggregate_reference(
+                q_pts, s_pts, neighb_inds, x, kernel_points, offsets,
+                kp_extent, influence)
+        ctx.save_for_backward(q_pts, s_pts, neighb_inds, x, kernel_points,
+                              offsets)
+        ctx.kp_extent, ctx.influence = kp_extent, influence
+        return y, min_sq
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy, dmin):
+        q_pts, s_pts, neighb_inds, x, kernel_points, offsets = \
+            ctx.saved_tensors
+        if dy is None:
+            b, nq = neighb_inds.shape[:2]
+            dy = x.new_zeros((b, nq, kernel_points.shape[0], x.shape[2]))
+        args = (q_pts, s_pts, neighb_inds, x, kernel_points, offsets,
+                dy.contiguous(), None if dmin is None else dmin.contiguous(),
+                ctx.kp_extent, ctx.influence)
+        flags = dict(need_dx=ctx.needs_input_grad[3],
+                     need_doff=ctx.needs_input_grad[5], inverse=ctx.inverse)
+        if ctx.kernel:
+            dx, doff = deform_pairs_bwd(*args, **flags)
+            counter("deform.fused.bwd")
+        else:
+            dx, doff = deform_aggregate_reference_bwd(*args, **flags)
+        return None, None, None, dx, None, doff, None, None, None
+
+
+def deform_pairs(q_pts, s_pts, neighb_inds, x, kernel_points, offsets,
+                 params: KPConvParams,
+                 inverse: Optional[LazyInverse] = None):
+    """`DeformPairsFunction` of a deformable conv (a module-level function,
+    so that a check can record the branches its kernels take:
+    chip_smoke.py's `Branches`)."""
+    return DeformPairsFunction.apply(q_pts, s_pts, neighb_inds, x,
+                                     kernel_points, offsets,
+                                     params.kp_extent, params.influence,
+                                     inverse)
+
+
+def kpconv_fused(q_pts, s_pts, neighb_inds, x, kernel_points, weights,
+                 params: KPConvParams, offsets: torch.Tensor,
+                 modulations: Optional[torch.Tensor] = None,
+                 inverse: Optional[LazyInverse] = None):
+    """`kpconv_dense` of a deformable sum-aggregation conv in f32 with its
+    pair work in `deform_pairs`; the modulations' product and the folded
+    GEMM are `kpconv_dense`'s. Returns (out [B, Nq, Cout], min_sq
+    [B, Nq, Kp])."""
+    y, min_sq = deform_pairs(q_pts, s_pts, neighb_inds, x, kernel_points,
+                             offsets, params, inverse)
+    if params.modulated:
+        if modulations is None:
+            raise ValueError("modulated KPConv requires modulations")
+        y = y * modulations[..., None]
+    b, nq, kp, cin = y.shape
+    cout = weights.shape[2]
+    out = y.reshape(b * nq, kp * cin) @ weights.reshape(kp * cin, cout)
+    return out.reshape(b, nq, cout), min_sq
+
+
 class _SpanEdge(torch.autograd.Function):
     """Identity on its tensors: the forward launches the mark `fwd` and
     adds `fwd_work` to the span table, the backward (once every output's
@@ -311,23 +408,28 @@ def deformable_kpconv(q_pts, s_pts, neighb_inds, x, kernel_points, weights,
                       params: KPConvParams, offsets: torch.Tensor,
                       modulations: Optional[torch.Tensor] = None,
                       inverse: Optional[LazyInverse] = None):
-    """`kpconv_dense` of a deformable conv inside its span: the marks
+    """A deformable conv's chain inside its span: the marks
     `deform_fwd_begin` before the chain and `deform_fwd_end` after it
     (on the chain's inputs x, offsets, modulations and weights, and on
     its outputs), whose backwards launch `deform_bwd_end` and
     `deform_bwd_begin`; the chain's forward work (`chain_work`) counted
-    at the first, its backward work at `deform_bwd_begin`. The same
-    values as `kpconv_dense`."""
+    at the first, its backward work at `deform_bwd_begin`. The chain is
+    `kpconv_fused` on the card for `deform_kernel_eligible` params,
+    `kpconv_dense` otherwise; the values are `kpconv_dense`'s (the fused
+    chain's up to f32 sums in another order, its in-range flags and
+    minima bit for bit)."""
     fwd_work, bwd_work = chain_work(q_pts, s_pts, neighb_inds, x, weights,
                                     modulations is not None)
     inputs = [x, offsets, weights] + ([modulations] if modulations
                                       is not None else [])
     x, offsets, weights, *mods = _SpanEdge.apply(
         "deform_fwd_begin", "deform_bwd_end", fwd_work, {}, *inputs)
-    out, min_sq = kpconv_dense(q_pts, s_pts, neighb_inds, x, kernel_points,
-                               weights, params, offsets=offsets,
-                               modulations=mods[0] if mods else None,
-                               inverse=inverse)
+    chain = (kpconv_fused if deform_kernel_eligible(params)
+             and use_kernel(x) else kpconv_dense)
+    out, min_sq = chain(q_pts, s_pts, neighb_inds, x, kernel_points,
+                        weights, params, offsets=offsets,
+                        modulations=mods[0] if mods else None,
+                        inverse=inverse)
     return _SpanEdge.apply("deform_fwd_end", "deform_bwd_begin", {},
                            bwd_work, out, min_sq)
 
